@@ -1,0 +1,41 @@
+"""ParameterTransform: model parameters → joint parameters
+(parameter_transform.h:34-62), stored dense as in
+momentum_tpu/character/parameter_transform.py:
+
+    joint_parameters = transform · model_parameters + offsets
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from momentum_tpu_torch.character.skeleton import PARAMS_PER_JOINT
+
+__all__ = ["ParameterTransform"]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ParameterTransform:
+    """transform: (nJointParams, nModelParams); offsets: (nJointParams,)."""
+
+    transform: torch.Tensor
+    offsets: torch.Tensor
+    names: tuple = ()
+
+    @property
+    def num_model_parameters(self) -> int:
+        return self.transform.shape[1]
+
+    @property
+    def num_joint_parameters(self) -> int:
+        return self.transform.shape[0]
+
+    @property
+    def num_joints(self) -> int:
+        return self.num_joint_parameters // PARAMS_PER_JOINT
+
+    def apply(self, model_params: torch.Tensor) -> torch.Tensor:
+        """(..., nP) → (..., nJ*7): one dense matmul (parameter_transform.cpp:110)."""
+        return model_params @ self.transform.T + self.offsets

@@ -1,0 +1,82 @@
+"""Error-function (residual module) protocol, after momentum_tpu/errors/base.py.
+
+Every error function is a frozen dataclass of padded constraint tensors with
+pure functions of an `EvalContext`:
+
+    raw(ctx)       -> (f, w)   raw residual vectors (..., C, D) + weights (C,)
+    residual(ctx)  -> (..., C*D) GN rows, scaled by sqrt(weight · w · ρ'(‖f‖²))
+    error(ctx)     -> (...,)   exact energy  weight · Σ_c w_c · ρ(‖f_c‖²)
+
+Unused rows have weight 0 and parent 0. No autograd runs through the rows
+(the Jacobians are analytic), so the robust row scale needs no
+stop-gradient here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
+
+__all__ = ["EvalContext", "ErrorFunction", "VectorErrorFunction"]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EvalContext:
+    """State shared by all error functions of one evaluation (one FK pass,
+    skeleton_solver_function.h:21-95)."""
+
+    model_params: torch.Tensor  # (..., P)
+    joint_params: torch.Tensor  # (..., nJ*7)
+    skel_states: torch.Tensor  # (..., nJ, 8) global skeleton states
+
+
+class ErrorFunction:
+    """Base for residual modules: subclasses hold a scalar `weight` tensor,
+    an optional `loss` and implement `raw(character, ctx) -> (f, w)`."""
+
+    has_analytic_jacobian: bool = False
+
+    def raw(self, character, ctx: EvalContext):
+        raise NotImplementedError
+
+    def _loss(self) -> GeneralizedLoss:
+        return getattr(self, "loss", GeneralizedLoss())
+
+    def error(self, character, ctx: EvalContext) -> torch.Tensor:
+        """weight · Σ w_c · ρ(‖f_c‖²) (joint_error_function-inl.h:35-54),
+        keeping leading batch dims."""
+        f, w = self.raw(character, ctx)
+        sq = torch.sum(f * f, dim=-1)
+        return self.weight * torch.sum(w * self._loss().value(sq), dim=-1)
+
+    def residual(self, character, ctx: EvalContext) -> torch.Tensor:
+        """Flattened GN rows sqrt(weight · w · ρ'(‖f‖²)) · f."""
+        f, w = self.raw(character, ctx)
+        scale = self._row_scale(w, torch.sum(f * f, dim=-1))
+        return (scale[..., None] * f).reshape(f.shape[:-2] + (-1,))
+
+    def num_rows(self) -> int:
+        raise NotImplementedError
+
+    def _row_scale(self, w, sq):
+        """sqrt(weight·w·ρ'): 1/c at α = 2, where ρ'·c² == 1."""
+        scale = torch.sqrt(torch.clamp(self.weight * w, min=0.0))
+        loss = self._loss()
+        if loss.alpha == 2.0:
+            return scale * (1.0 / loss.c)
+        return scale * torch.sqrt(torch.clamp(loss.deriv(sq), min=0.0))
+
+
+class VectorErrorFunction(ErrorFunction):
+    """Base for modules whose raw() is (C, D) with static C, D."""
+
+    D: int = 3
+
+    def num_rows(self) -> int:
+        return self.constraint_count() * self.D
+
+    def constraint_count(self) -> int:
+        raise NotImplementedError

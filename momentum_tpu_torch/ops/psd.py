@@ -1,0 +1,90 @@
+"""K2+K3: batched damped Cholesky solve — `damped_chol_solve_kernel`
+(csrc/psd.cu).
+
+One kernel replaces two TPU kernels of momentum_tpu/ops/psd_pallas.py:
+`_panel_kernel` (:53, K2: per-panel Cholesky and triangular inverse) and
+`_subst_kernel` (:120, K3: blocked forward and back substitution). On the
+H100 one (n, n) system fits in one block's shared memory, so the block
+factors and substitutes without writing the factor to device memory. The
+simple form is bound by its n barrier-separated pivot steps and the row
+imbalance of the trailing update, not by bytes or flops (the note at the top
+of csrc/psd.cu has the numbers).
+
+`damped_chol_solve_plain` is the plain PyTorch version:
+`torch.linalg.cholesky_ex` + `torch.cholesky_solve`. Both versions give an
+all-NaN x for a system whose factorization meets a pivot that is not > 0
+(ROADMAP F1: the JAX CPU path's behaviour, not the TPU kernels' clamp).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from momentum_tpu_torch.ops import build
+
+__all__ = ["damped_chol_solve", "damped_chol_solve_plain", "launches"]
+
+# times damped_chol_solve_kernel was launched in this process
+launches = 0
+
+
+def damped_chol_solve_plain(a: torch.Tensor, damp: torch.Tensor,
+                            b: torch.Tensor) -> torch.Tensor:
+    """x with (a + diag(damp)) x = b; a (B, n, n), damp (B, n), b (B, n)."""
+    l, info = torch.linalg.cholesky_ex(a + torch.diag_embed(damp))
+    x = torch.cholesky_solve(b.unsqueeze(-1), l).squeeze(-1)
+    return torch.where((info != 0).unsqueeze(-1),
+                       torch.full_like(x, float("nan")), x)
+
+
+def _lib():
+    lib = build.load("psd")
+    lib.damped_chol_solve_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.damped_chol_solve_launch.restype = ctypes.c_int
+    lib.damped_chol_solve_smem_bytes.argtypes = [ctypes.c_int]
+    lib.damped_chol_solve_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def damped_chol_solve(a: torch.Tensor, damp: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """x with (a + diag(damp)) x = b for B SPD systems: a (B, n, n),
+    damp (B, n), b (B, n) -> x (B, n).
+
+    CPU tensors take `damped_chol_solve_plain`. CUDA tensors launch
+    damped_chol_solve_kernel or raise: all three must be float32,
+    contiguous and on one device, with n small enough for the block's
+    shared memory (n ≤ 240)."""
+    global launches
+    if not a.is_cuda:
+        return damped_chol_solve_plain(a, damp, b)
+    if a.ndim != 3 or a.shape[1] != a.shape[2]:
+        raise ValueError(f"expected a of shape (B, n, n), got {tuple(a.shape)}")
+    batch, n = a.shape[0], a.shape[1]
+    for name, t in (("damp", damp), ("b", b)):
+        if t.shape != (batch, n):
+            raise ValueError(f"expected {name} of shape {(batch, n)}, got {tuple(t.shape)}")
+    for t in (a, damp, b):
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != a.device):
+            raise ValueError("damped_chol_solve_kernel takes contiguous float32 "
+                             "tensors on one CUDA device")
+    lib = _lib()
+    if lib.damped_chol_solve_smem_bytes(n) > build.SMEM_PER_BLOCK:
+        raise ValueError(f"damped_chol_solve_kernel: n = {n} does not fit in "
+                         f"one block's shared memory")
+    x = torch.empty_like(b)
+    if batch == 0 or n == 0:
+        return x
+    with torch.cuda.device(a.device):
+        rc = lib.damped_chol_solve_launch(
+            a.data_ptr(), damp.data_ptr(), b.data_ptr(), x.data_ptr(), batch, n,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"damped_chol_solve_kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return x

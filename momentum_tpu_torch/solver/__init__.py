@@ -1,0 +1,8 @@
+"""Solvers: skeleton solver function, LM, compacted tail refinement."""
+
+from momentum_tpu_torch.solver.compaction import (  # noqa: F401
+    gather_batch, scatter_batch, solve_compacted)
+from momentum_tpu_torch.solver.gauss_newton import (  # noqa: F401
+    SolverOptions, SolveResult, solve_levenberg_marquardt)
+from momentum_tpu_torch.solver.skeleton_solver_function import (  # noqa: F401
+    SkeletonSolverFunction)

@@ -1,0 +1,128 @@
+"""Batch-native Levenberg-Marquardt on analytic Jacobians, after
+momentum_tpu/solver/gauss_newton.py.
+
+Each iteration solves (JᵀJ + λ·diag(JᵀJ) + reg·I) δ = Jᵀr at x, tries
+x − δ, and accepts it only where the energy drops, shrinking λ on accept and
+growing it on reject (the TrustRegionQRT equivalent,
+trust_region_qr.cpp:82-230). An element stops once an accepted step changes
+its energy by at most threshold·FLT_EPS relative (solver.cpp:86-121).
+
+The loop runs eagerly: its test "any element still running" reads one bool
+from the device each iteration (a host sync; the JAX package's `cond` at
+gauss_newton.py:561-562 ran on the device). Gauss-Newton, QR, CG, line
+search, parameter masks and histories come later (ROADMAP M5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from momentum_tpu_torch.math.linalg import damped_psd_solve
+
+__all__ = ["SolverOptions", "SolveResult", "solve_levenberg_marquardt"]
+
+_FLT_EPS = float(torch.finfo(torch.float32).eps)
+_FLT_MIN = float(torch.finfo(torch.float32).tiny)
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverOptions:
+    """Solver configuration (solver.h:19-34, gauss_newton_solver.h:17-30)."""
+
+    min_iterations: int = 1
+    max_iterations: int = 50
+    threshold: float = 1.0
+    regularization: float = 0.05
+    lambda_init: float = 0.01
+    lambda_up: float = 10.0
+    lambda_down: float = 0.1
+    lambda_min: float = 1e-10
+    lambda_max: float = 1e8
+    # Use Σ rows² (the GN surrogate, exact for L2 losses) as the energy for
+    # convergence and acceptance instead of calling error_fn.
+    energy_from_residual: bool = False
+
+
+class SolveResult(NamedTuple):
+    params: torch.Tensor
+    error: torch.Tensor  # final energy (at the pre-step params of the last iteration)
+    iterations: int
+    converged: torch.Tensor
+    # per-element damping at exit; pass as `lambda0` to resume the solve
+    lambda_final: Optional[torch.Tensor] = None
+
+
+def _jacobian(x: torch.Tensor, jacobian_fn: Callable):
+    """(rows, Jᵀ) with Jᵀ (..., P, R) from the analytic provider."""
+    rows, j = jacobian_fn(x)
+    return rows, j.transpose(-1, -2)
+
+
+def _converged(last_err, err, threshold):
+    return torch.abs(last_err - err) / (torch.abs(err) + _FLT_MIN) <= threshold * _FLT_EPS
+
+
+def solve_levenberg_marquardt(
+    residual_fn: Callable,
+    error_fn: Callable,
+    x0: torch.Tensor,
+    options: SolverOptions = SolverOptions(),
+    jacobian_fn: Optional[Callable] = None,
+    lambda0: Optional[torch.Tensor] = None,
+) -> SolveResult:
+    """LM with multiplicative damping on x0 (..., P).
+
+    residual_fn: x -> rows (..., R); error_fn: x -> energy (...,);
+    jacobian_fn: x -> (rows (..., R), J (..., R, P)), required (the port has
+    only the analytic Jacobian path); lambda0: optional per-element initial
+    damping that overrides options.lambda_init, e.g. a previous solve's
+    `lambda_final`."""
+    if jacobian_fn is None:
+        raise NotImplementedError("the port solves with analytic Jacobians only: "
+                                  "pass jacobian_fn")
+    opts = options
+    err_shape = x0.shape[:-1]
+
+    def energy(x):
+        if opts.energy_from_residual:
+            r = residual_fn(x)
+            return torch.sum(r * r, dim=-1)
+        return error_fn(x)
+
+    def step(x, rows, jt, lam):
+        """One damped step from the linearization at x."""
+        diag = torch.sum(jt * jt, dim=-1)
+        damp_diag = lam[..., None] * torch.clamp(diag, min=1e-12) + opts.regularization
+        jtj = jt @ jt.transpose(-1, -2)
+        jtr = (jt @ rows[..., None])[..., 0]
+        return x - damped_psd_solve(jtj, damp_diag, jtr)
+
+    lam = torch.broadcast_to(
+        torch.as_tensor(opts.lambda_init if lambda0 is None else lambda0,
+                        dtype=x0.dtype, device=x0.device), err_shape).clone()
+    x = x0
+    err = torch.broadcast_to(energy(x0), err_shape)
+    done = torch.zeros(err_shape, dtype=torch.bool, device=x0.device)
+    it = 0
+    while it < opts.max_iterations and not bool(done.all()):
+        rows, jt = _jacobian(x, jacobian_fn)
+        x_trial = step(x, rows, jt, lam)
+        err_trial = energy(x_trial)
+        accept = err_trial < err
+        x_new = torch.where(accept[..., None], x_trial, x)
+        err_new = torch.where(accept, err_trial, err)
+        lam_new = torch.clamp(
+            torch.where(accept, lam * opts.lambda_down, lam * opts.lambda_up),
+            opts.lambda_min, opts.lambda_max)
+        conv = accept & _converged(err, err_trial, opts.threshold)
+        newly_done = (it + 1 >= opts.min_iterations) & conv
+        x = torch.where(done[..., None], x, x_new)
+        err = torch.where(done, err, err_new)
+        lam = torch.where(done, lam, lam_new)
+        it += 1
+        done = done | newly_done
+    return SolveResult(params=x, error=err, iterations=it, converged=done,
+                       lambda_final=lam)

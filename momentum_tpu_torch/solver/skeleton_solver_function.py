@@ -1,0 +1,59 @@
+"""SkeletonSolverFunction: a Character + error functions seen by the solver
+(skeleton_solver_function.h:21-95): one FK per evaluation shared by all
+error functions, rows concatenated in order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from momentum_tpu_torch.character import fk
+from momentum_tpu_torch.character.character import Character
+from momentum_tpu_torch.errors.base import EvalContext
+from momentum_tpu_torch.solver.analytic_jacobian import make_jacobian_context
+
+__all__ = ["SkeletonSolverFunction"]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SkeletonSolverFunction:
+    character: Character
+    error_functions: tuple
+
+    def context(self, model_params: torch.Tensor) -> EvalContext:
+        """One FK pass: parameter transform, passive limits, global states."""
+        char = self.character
+        jp = char.limits.apply_passive(char.parameter_transform.apply(model_params))
+        nj = char.skeleton.num_joints
+        states = fk.global_skel_states(char.skeleton, jp.reshape(jp.shape[:-1] + (nj, 7)))
+        return EvalContext(model_params=model_params, joint_params=jp,
+                           skel_states=states)
+
+    def residual(self, model_params: torch.Tensor) -> torch.Tensor:
+        ctx = self.context(model_params)
+        return torch.cat([ef.residual(self.character, ctx)
+                          for ef in self.error_functions], dim=-1)
+
+    def error(self, model_params: torch.Tensor) -> torch.Tensor:
+        """Exact robust energy Σ_ef weight·Σ w·ρ(‖f‖²)
+        (skeleton_solver_function.cpp getError:64-82)."""
+        ctx = self.context(model_params)
+        return sum(ef.error(self.character, ctx) for ef in self.error_functions)
+
+    def residual_and_jacobian(self, model_params: torch.Tensor):
+        """(rows (..., R), J (..., R, P)): every module's fused model-space
+        Jacobian (`jacobian_model`), stacked in module order."""
+        ctx = self.context(model_params)
+        jc = make_jacobian_context(self.character, ctx)
+        pt_mat = self.character.parameter_transform.transform
+        rows, jacs = [], []
+        for ef in self.error_functions:
+            if not hasattr(ef, "jacobian_model"):
+                raise NotImplementedError(
+                    f"{type(ef).__name__} has no model-space Jacobian in the port")
+            r, j = ef.jacobian_model(self.character, ctx, jc, pt_mat)
+            rows.append(r)
+            jacs.append(j)
+        return torch.cat(rows, dim=-1), torch.cat(jacs, dim=-2)
