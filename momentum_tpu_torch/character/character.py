@@ -1,5 +1,6 @@
-"""Character: skeleton + parameter transform + limits + locators
-(character.h:33-283). Mesh, skinning and blend shapes come with ROADMAP M4.
+"""Character: skeleton + parameter transform + limits + locators, and an
+optional skinned mesh with its inverse bind pose (character.h:33-283). Blend
+shapes come with ROADMAP M4.
 """
 
 from __future__ import annotations
@@ -13,9 +14,22 @@ from momentum_tpu_torch.character import fk
 from momentum_tpu_torch.character.limits import ParameterLimits
 from momentum_tpu_torch.character.parameter_transform import ParameterTransform
 from momentum_tpu_torch.character.skeleton import Skeleton
+from momentum_tpu_torch.character.skinning import SkinWeights
 from momentum_tpu_torch.math import skel_state as ss
 
-__all__ = ["Locators", "Character"]
+__all__ = ["Mesh", "Locators", "Character"]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """Triangle mesh (math/mesh.h): vertices (V, 3), faces (F, 3) int32."""
+
+    vertices: torch.Tensor
+    faces: torch.Tensor
+
+    @property
+    def num_vertices(self) -> int:
+        return self.vertices.shape[0]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -46,6 +60,9 @@ class Character:
     limits: ParameterLimits
     locators: Optional[Locators] = None
     name: str = ""
+    mesh: Optional[Mesh] = None
+    skin_weights: Optional[SkinWeights] = None
+    inverse_bind_pose: Optional[torch.Tensor] = None  # (nJ, 8) skel_states
 
     @property
     def num_joints(self) -> int:
@@ -63,3 +80,17 @@ class Character:
         """model params (..., P) → (..., nJ, 8) global skeleton states."""
         return fk.global_skel_states(self.skeleton,
                                      self.joint_parameters(model_params), method)
+
+    def bind_pose(self) -> torch.Tensor:
+        """Global states at zero joint parameters."""
+        off = self.skeleton.translation_offset
+        zeros = torch.zeros(self.skeleton.num_joint_parameters, dtype=off.dtype,
+                            device=off.device)
+        return fk.global_skel_states(self.skeleton, zeros)
+
+    def with_inverse_bind_pose(self) -> "Character":
+        """The character with its inverse bind pose computed from the rest
+        skeleton, if it has none (character.h inverseBindPose)."""
+        if self.inverse_bind_pose is not None:
+            return self
+        return dataclasses.replace(self, inverse_bind_pose=ss.inverse(self.bind_pose()))

@@ -10,8 +10,11 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["identity", "multiply", "rotate_vector", "euler_to_quaternion",
-           "to_rotation_matrix"]
+__all__ = ["identity", "multiply", "conjugate", "normalize", "rotate_vector",
+           "euler_to_quaternion", "to_rotation_matrix", "from_rotation_matrix",
+           "blend"]
+
+_EPS = 1e-12
 
 
 def identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
@@ -33,6 +36,14 @@ def multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     w = w1 * w2 - torch.sum(v1 * v2, dim=-1, keepdim=True)
     v = w1 * v2 + w2 * v1 + _cross(v1, v2)
     return torch.cat([v, w], dim=-1)
+
+
+def conjugate(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
+
+
+def normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
 
 
 def rotate_vector(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -75,3 +86,43 @@ def to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
     ], dim=-1)
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def from_rotation_matrix(m: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion from a (..., 3, 3) rotation matrix: Shepperd's method
+    on all four candidates, selected with `where` (branch-free)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root(v):
+        return torch.sqrt(torch.clamp(v, min=_EPS)) * 2.0
+
+    s0 = root(1.0 + tr)
+    q0 = torch.stack([(m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0, 0.25 * s0], -1)
+    s1 = root(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1, (m21 - m12) / s1], -1)
+    s2 = root(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([(m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2, (m02 - m20) / s2], -1)
+    s3 = root(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([(m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3, (m10 - m01) / s3], -1)
+
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    q = torch.where((tr > 0.0)[..., None], q0,
+                    torch.where(cond1, q1, torch.where((m11 > m22)[..., None], q2, q3)))
+    return normalize(q)
+
+
+def blend(quats: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Weighted blend over the second-to-last axis: the top eigenvector of
+    M = Σ w_i·q_i·q_iᵀ with the weights clamped ≥ 0 and normalized to sum 1
+    (Markley et al. 2007). Its sign is the eigensolver's: compare blends up
+    to sign, or through their rotation matrices."""
+    if weights is None:
+        weights = torch.ones(quats.shape[:-1], dtype=quats.dtype, device=quats.device)
+    weights = torch.clamp(weights, min=0.0)
+    weights = weights / torch.clamp(weights.sum(dim=-1, keepdim=True), min=_EPS)
+    m = torch.einsum("...ki,...kj,...k->...ij", quats, quats, weights)
+    _, vecs = torch.linalg.eigh(m)  # ascending eigenvalues
+    return vecs[..., :, 3]

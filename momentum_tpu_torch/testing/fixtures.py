@@ -1,7 +1,7 @@
 """The full-body synthetic rig of momentum_tpu/testing/fixtures.py::
 create_fullbody_character, rebuilt from the same numpy arithmetic so the
-skeleton, parameter transform, limits and locators are bit-equal to the JAX
-fixture's. Its mesh and skinning come with ROADMAP M4.
+skeleton, parameter transform, limits, locators, skinned tube mesh and
+inverse bind pose are bit-equal to the JAX fixture's.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from momentum_tpu_torch.character import (
-    Character, Locators, ParameterTransform, make_limits, make_skeleton)
+    Character, Locators, Mesh, ParameterTransform, SkinWeights, make_limits, make_skeleton)
 from momentum_tpu_torch.character.skeleton import PARAMS_PER_JOINT
 
 __all__ = ["create_fullbody_character"]
@@ -20,7 +20,8 @@ def create_fullbody_character(dtype=torch.float32, device=None) -> Character:
     """51 joints in a humanoid tree (spine/neck/head, clavicle/arm/hand and
     hip/leg/foot chains per side), root translation + rotation, global scale
     and 3 rotation parameters per non-root joint (157 parameters), 80
-    locators, MinMax limits on every rotation parameter and the scale."""
+    locators, MinMax limits on every rotation parameter and the scale, and a
+    skinned tube mesh (612 vertices, 612 faces) with its inverse bind pose."""
     names = ["root"]
     parents = [-1]
     offsets = [[0.0, 0.0, 0.0]]
@@ -75,7 +76,42 @@ def create_fullbody_character(dtype=torch.float32, device=None) -> Character:
         names=tuple(f"m{i}" for i in range(n_loc)),
     )
 
+    # skinned tube mesh: a ring of 6 vertices at each end of every bone,
+    # blended between the bone and its parent
+    ring = 6
+    verts, sidx, swgt = [], [], []
+    joint_pos = np.zeros((nj, 3))
+    for j in range(1, nj):
+        joint_pos[j] = joint_pos[parents[j]] + np.asarray(offsets[j])
+    for j in range(nj):
+        p_idx = parents[j] if parents[j] >= 0 else j
+        for end, (anchor, other, w) in enumerate([(j, p_idx, 1.0), (j, p_idx, 0.6)]):
+            center = joint_pos[j] if end == 0 else 0.5 * (joint_pos[j] + joint_pos[p_idx])
+            for r in range(ring):
+                a = 2 * np.pi * r / ring
+                verts.append(center + 0.04 * np.asarray([np.cos(a), 0.0, np.sin(a)]))
+                row_i = np.zeros(8, np.int32)
+                row_w = np.zeros(8, np.float32)
+                row_i[0], row_i[1] = anchor, other
+                row_w[0], row_w[1] = w, 1.0 - w
+                sidx.append(row_i)
+                swgt.append(row_w)
+    faces = []
+    for j in range(nj):
+        base = j * 2 * ring
+        for r in range(ring):
+            a, b = base + r, base + (r + 1) % ring
+            c, d = a + ring, b + ring
+            faces.append([a, b, c])
+            faces.append([b, d, c])
+    mesh = Mesh(vertices=torch.as_tensor(np.asarray(verts), dtype=dtype, device=device),
+                faces=torch.as_tensor(np.asarray(faces, np.int32), device=device))
+    skin = SkinWeights(index=torch.as_tensor(np.stack(sidx), device=device),
+                       weight=torch.as_tensor(np.stack(swgt), dtype=dtype, device=device))
+
     mm = [(6, -0.5, 0.5, 1.0)] + [(i, -1.2, 1.2, 1.0) for i in range(7, len(pnames))]
-    return Character(skeleton=skeleton, parameter_transform=pt,
+    char = Character(skeleton=skeleton, parameter_transform=pt,
                      limits=make_limits(minmax=mm, device=device),
-                     locators=locators, name="fullbody_synthetic")
+                     locators=locators, name="fullbody_synthetic",
+                     mesh=mesh, skin_weights=skin)
+    return char.with_inverse_bind_pose()

@@ -30,7 +30,23 @@ def character_to_numpy(char) -> dict:
         d.update(locator_parent=char.locators.parent,
                  locator_offset=char.locators.offset,
                  locator_weight=char.locators.weight)
+    if char.mesh is not None:
+        d.update(mesh_vertices=char.mesh.vertices, mesh_faces=char.mesh.faces)
+    if char.skin_weights is not None:
+        d.update(skin_index=char.skin_weights.index, skin_weight=char.skin_weights.weight)
+    if char.inverse_bind_pose is not None:
+        d.update(inverse_bind_pose=char.inverse_bind_pose)
     return {k: to_numpy(v) for k, v in d.items()}
+
+
+def camera_to_numpy(cam) -> dict:
+    """The arrays of a pinhole Camera (JAX or port) that
+    bridge.camera_from_numpy reads, as numpy."""
+    intr = cam.intrinsics
+    d = {k: to_numpy(getattr(intr, k)) for k in ("fx", "fy", "cx", "cy")}
+    d.update(image_width=np.int64(intr.image_width), image_height=np.int64(intr.image_height),
+             eye_from_world=to_numpy(cam.eye_from_world))
+    return d
 
 
 def position_error_to_numpy(ef) -> dict:

@@ -9,7 +9,7 @@ import sys
 import numpy as np
 import torch
 
-from momentum_tpu_torch.ops import fk as fk_ops, psd
+from momentum_tpu_torch.ops import fk as fk_ops, psd, raster
 from momentum_tpu_torch.testing import workloads
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -52,3 +52,15 @@ def test_cpu_path_launches_no_kernel():
     assert torch.isfinite(res.error).all()
     assert fk_ops.launches == 0
     assert psd.launches == 0
+
+
+def test_cpu_render_launches_no_kernel():
+    """A frame of the render clip on CPU tensors takes the plain rasterizer
+    and counts no K1, K4a or K4b launch."""
+    char, motion, cam = workloads.build_render_clip(frames=1, image_height=48,
+                                                    image_width=64)
+    before = dict(raster.launches)
+    imgs = workloads.make_render_clip(char, cam, width=32, height=24,
+                                      shadow_resolution=32)(motion)
+    assert imgs.shape == (1, 24, 32, 3) and bool((imgs > 0).any())
+    assert raster.launches == before and fk_ops.launches == 0
