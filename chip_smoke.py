@@ -8,7 +8,12 @@ then drives the port's paths through those kernels and checks their output:
     supersampled (benchmarks/bench_suite.py config 7): K1, and K4b (binned
     plane rasterizer) for the camera and shadow-map passes of every frame;
   * the shadowed render of a mesh under the bin capacity (the clip's first
-    120 faces): K4a (plane rasterizer, all faces per tile).
+    120 faces): K4a (plane rasterizer, all faces per tile);
+  * K5's entry points (ops/chol_pallas.py), fed the full residual stack's
+    normal equations at B = 2048 padded to n = 160: K5a (the rank-1 kernel
+    of K2+K3) and K5b (chol_blocked_solve_kernel, 32-wide panels);
+  * bench.py's full residual stack (position + orientation + limits + pose
+    prior) at B = 2048, Gauss-Newton 2 + 1 on the worst 1024: K1, K2+K3.
 
     python3 chip_smoke.py
 
@@ -39,6 +44,12 @@ RASTER_TOL = dict(depth=1e-5, bary=1e-5, attrs=1e-4)  # abs; face maps must be i
 # CPU (its "auto" = windowed path; config 7's recipe, seed 0); PERF.md §6
 CLIP_COVERAGE_JAX_CPU = 0.010333353678385417
 CLIP_COVERAGE_RTOL = 0.02
+# bench.py's full-stack recipe (GN 2 + 1 on the worst half) run by the JAX
+# package on the CPU at B = 256, seed 0: marker conv@1e-5 and median marker
+# energy (PERF.md §2)
+FULLSTACK_CONV_JAX_CPU = 1.0
+FULLSTACK_MEDIAN_JAX_CPU = 5.70412e-08
+FULLSTACK_CONV_SLACK = 0.01
 SMALL_MESH_FACES = 120  # ≤ bin_capacity 128: the render takes K4a
 
 
@@ -59,7 +70,7 @@ def phase_build():
 
     from momentum_tpu_torch.ops import build
 
-    names = ("fk", "psd", "raster")
+    names = ("fk", "psd", "raster", "chol")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
         list(pool.map(build.build, names))
@@ -197,6 +208,121 @@ def phase_small_reference():
           f"cpu plain conv@1e-5 {conv_c:.4f} median {med_c:.3e}")
     if not (fin_g and abs(conv_g - conv_c) <= 2 / 64 and abs(med_g / med_c - 1) <= 0.2):
         raise AssertionError("the card's B = 64 solve disagrees with the CPU's")
+
+
+def phase_chol(char, efs, targets, q, x0):
+    """K5a and K5b on the full stack's own normal equations at x0 (B = 2048,
+    n = 157), padded to n = 160 with identity rows and columns and zero
+    damping: the path's run (each entry point once, counted), then each
+    kernel against its plain version by relative residual, and against
+    damped_chol_solve on the unpadded system; times; ROADMAP F1 and F6."""
+    from momentum_tpu_torch.ops import chol, psd
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+    from momentum_tpu_torch.testing.profile_workload import event_ms
+
+    fn = SkeletonSolverFunction(char, (dataclasses.replace(efs[0], target=targets),
+                                       dataclasses.replace(efs[1], target=q), *efs[2:]))
+    jtj, jtr, _ = fn.normal_equations(x0)
+    damp = torch.full_like(jtr, 1e-5)  # the full stack's GN regularization
+    a, d, b = chol.pad_identity(jtj.contiguous(), damp, jtr.contiguous())
+    torch.cuda.synchronize()
+    psd.launches = chol.launches = 0
+    x_a = chol.chol_solve(a, d, b)
+    x_b = chol.chol_solve_blocked(a, d, b)
+    torch.cuda.synchronize()
+    counts = {"damped_chol_solve_kernel": psd.launches, "chol_blocked_solve_kernel": chol.launches}
+    if counts != {"damped_chol_solve_kernel": 1, "chol_blocked_solve_kernel": 1}:
+        raise AssertionError(f"K5's entry points did not launch their kernels: {counts}")
+
+    def relres(sol, a=a, d=d, b=b):
+        ad = (a + torch.diag_embed(d)).double()
+        r = (ad @ sol.double()[..., None])[..., 0] - b.double()
+        return float((torch.linalg.norm(r, dim=-1) / torch.linalg.norm(b.double(), dim=-1)).max())
+
+    x_unpadded = psd.damped_chol_solve(jtj.contiguous(), damp, jtr.contiguous())
+    numbers = {}
+    for name, x, plain in (("K5a chol_solve -> damped_chol_solve_kernel", x_a, chol.chol_solve_plain),
+                           ("K5b chol_blocked_solve_kernel", x_b, chol.chol_solve_blocked_plain)):
+        x_plain = plain(a, d, b)
+        res_k, res_p = relres(x), relres(x_plain)
+        err = float((x - x_plain).abs().max())
+        x_rel = err / float(x_plain.abs().max())
+        to_k23 = float((x[:, :157] - x_unpadded).abs().max() / x_unpadded.abs().max())
+        pad_max = float(x[:, 157:].abs().max())
+        kernel = chol.chol_solve if name.startswith("K5a") else chol.chol_solve_blocked
+        ms = event_ms(lambda: kernel(a, d, b))
+        plain_ms = event_ms(lambda: plain(a, d, b))
+        print(f"{name} (B={a.shape[0]}, n={a.shape[1]} padded from 157, full-stack normal "
+              f"equations): max rel. residual kernel {res_k:.3e} / plain {res_p:.3e} (tol "
+              f"{PSD_RELRES_TOL:.0e}); max|x - x_plain| = {err:.3e} ({x_rel:.3e} of max|x|, tol "
+              f"{PSD_X_TOL:.0e}); against damped_chol_solve unpadded {to_k23:.3e} of max|x|; "
+              f"padding rows max|x| {pad_max:.1e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not (res_k <= PSD_RELRES_TOL and x_rel <= PSD_X_TOL and to_k23 <= PSD_X_TOL
+                and pad_max == 0.0):
+            raise AssertionError(f"{name} disagrees with the plain solve")
+        numbers[name[:3]] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    # ROADMAP F1: an indefinite system (its pivot fails in the third panel)
+    # comes back all-NaN from every version, its neighbours finite
+    bad = a[:4].clone()
+    bad[2, 70, 70] = -1e3
+    for name, solve in (("K5a", chol.chol_solve), ("K5b", chol.chol_solve_blocked),
+                        ("plain", chol.chol_solve_blocked_plain)):
+        xb = solve(bad, d[:4].contiguous(), b[:4].contiguous())
+        nan_rows = torch.isnan(xb).all(dim=-1).tolist()
+        finite_rows = torch.isfinite(xb).all(dim=-1).tolist()
+        if nan_rows != [False, False, True, False] or finite_rows != [True, True, False, True]:
+            raise AssertionError(f"F1: {name} solve of an indefinite system gave "
+                                 f"nan rows {nan_rows}, finite rows {finite_rows}")
+    # ROADMAP F6: the blocked entry point refuses n % 32 != 0
+    try:
+        chol.chol_solve_blocked(jtj.contiguous(), damp, jtr.contiguous())
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("F6: chol_solve_blocked took n = 157")
+    print("K5 F1: the indefinite system is all-NaN in K5a, K5b and plain, its neighbours "
+          "finite; F6: chol_solve_blocked refuses n = 157")
+    return counts, numbers
+
+
+def phase_full_stack(char, efs, targets, q, x0, smi):
+    """bench.py's full residual stack at B = 2048: GN 2 full-batch + 1 on the
+    worst 1024 by marker energy, through K1 and K2+K3; 3 timed runs."""
+    from momentum_tpu_torch.ops import fk as fk_ops, psd
+    from momentum_tpu_torch.testing.workloads import make_fullstack_solve
+
+    solve = make_fullstack_solve(char, efs, BATCH)
+    solve(targets, q, x0)  # warm-up
+    torch.cuda.synchronize()
+    fk_ops.launches = psd.launches = 0
+    t0 = time.perf_counter()
+    params, energy = solve(targets, q, x0)
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    counts = {"fk_global_kernel": fk_ops.launches, "damped_chol_solve_kernel": psd.launches}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        solve(targets, q, x0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    e = energy.cpu().numpy()
+    conv = float(np.mean(e < 1e-5))
+    med = float(np.nanmedian(e))
+    div = float(np.mean(~np.isfinite(e)))
+    wall = statistics.median(walls)
+    print(f"full stack (B={BATCH}, pos + ori + limits + pose prior, GN 2 + 1 on the worst "
+          f"1024): marker conv@1e-5 {conv:.4f} (JAX CPU at B=256: {FULLSTACK_CONV_JAX_CPU:.4f}), "
+          f"median marker energy {med:.4e} (JAX CPU {FULLSTACK_MEDIAN_JAX_CPU:.4e}), divergent "
+          f"{div:.4f}, batch wall {wall * 1e3:.1f} ms (median of {len(walls)}), "
+          f"{BATCH / wall:.0f} solves/s on {smi}; kernel launches {counts}")
+    if any(n == 0 for n in counts.values()):
+        raise AssertionError(f"the full stack did not run through every kernel: {counts}")
+    if params.shape != x0.shape or not bool(torch.isfinite(params).all()):
+        raise AssertionError("full stack: parameters of the wrong shape or not finite")
+    if not (div == 0.0 and conv >= FULLSTACK_CONV_JAX_CPU - FULLSTACK_CONV_SLACK):
+        raise AssertionError(f"full stack accuracy: divergent {div}, conv@1e-5 {conv}")
+    return counts
 
 
 def _raster_inputs(char, cam, motion, frame=0):
@@ -411,6 +537,13 @@ def main():
     phase_small_reference()
     del char, ef0, targets, x0
 
+    from momentum_tpu_torch.testing.workloads import build_fullstack_problem
+
+    fs = build_fullstack_problem(BATCH, seed=SEED, device="cuda")
+    chol_counts, chol_numbers = phase_chol(*fs)
+    fs_counts = phase_full_stack(*fs, smi)
+    del fs
+
     from momentum_tpu_torch.testing.workloads import build_render_clip
 
     rchar, motion, cam = build_render_clip(32, seed=SEED, device="cuda")
@@ -421,12 +554,17 @@ def main():
     kernels = [
         dict(name="fk_global_kernel", route="cuda", source="momentum_tpu_torch/csrc/fk.cu",
              replaces="momentum_tpu/ops/fk_pallas.py:62",
-             launches=counts["fk_global_kernel"], **fk_numbers),
+             launches=counts["fk_global_kernel"], **fk_numbers,
+             full_stack_launches=fs_counts["fk_global_kernel"]),
         dict(name="damped_chol_solve_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/psd_pallas.py:53",
-             also_replaces="momentum_tpu/ops/psd_pallas.py:120",
-             launches=counts["damped_chol_solve_kernel"], **psd_numbers),
+             also_replaces=["momentum_tpu/ops/psd_pallas.py:120",
+                            "momentum_tpu/ops/chol_pallas.py:55"],
+             launches=counts["damped_chol_solve_kernel"], **psd_numbers,
+             full_stack_launches=fs_counts["damped_chol_solve_kernel"],
+             k5a_launches=chol_counts["damped_chol_solve_kernel"],
+             k5a_ms=chol_numbers["K5a"]["ms"], k5a_plain_ms=chol_numbers["K5a"]["plain_ms"]),
         dict(name="raster_planes_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/raster.cu",
              replaces="momentum_tpu/ops/raster_pallas.py:196",
@@ -439,6 +577,12 @@ def main():
              launches=clip_counts["raster_planes_binned_kernel"],
              path="shadowed render of the 32-frame clip",
              **raster_numbers["raster_planes_binned_kernel"]),
+        dict(name="chol_blocked_solve_kernel", route="cuda",
+             source="momentum_tpu_torch/csrc/chol.cu",
+             replaces="momentum_tpu/ops/chol_pallas.py:93",
+             launches=chol_counts["chol_blocked_solve_kernel"],
+             path="chol_solve_blocked on the full stack's normal equations (n = 160)",
+             **chol_numbers["K5b"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

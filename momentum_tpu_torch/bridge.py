@@ -12,6 +12,9 @@ character_from_numpy keys (shapes as in momentum_tpu):
     minmax_index (M,), minmax_bounds (M, 2), minmax_weight (M,),
     minmax_joint_index (MJ,), minmax_joint_bounds (MJ, 2),
     minmax_joint_weight (MJ,), minmax_joint_passive (MJ,),
+    optional linear_count, linear_joint_count, halfplane_count,
+    ellipsoid_count (): the character's records of the limit types the port
+    does not hold; any count above 0 raises NotImplementedError,
     optional locator_parent (L,), locator_offset (L, 3), locator_weight (L,);
     optional mesh_vertices (V, 3), mesh_faces (F, 3) int32, skin_index (V, 8),
     skin_weight (V, 8), inverse_bind_pose (nJ, 8)
@@ -20,6 +23,14 @@ camera_from_numpy keys (a pinhole Camera):
 position_error_from_numpy keys:
     parent (C,), offset (C, 3), target (..., C, 3), cweight (C,), weight (),
     optional loss_alpha, loss_c
+orientation_error_from_numpy keys:
+    parent (C,), offset (C, 4), target (..., C, 4), cweight (C,), weight (),
+    optional loss_alpha, loss_c
+limit_error_from_numpy keys:
+    weight (), optional loss_alpha, loss_c
+pose_prior_from_numpy keys:
+    mu (K, d), cinv (K, d, d), l (K, d, d), rpre (K,), param_index (d,) int
+    (−1: unmapped), weight (), optional sub_jtj (K, P, P)
 """
 
 from __future__ import annotations
@@ -30,20 +41,35 @@ import torch
 from momentum_tpu_torch.camera import Camera, PinholeIntrinsics
 from momentum_tpu_torch.character import (
     Character, Locators, Mesh, ParameterLimits, ParameterTransform, Skeleton, SkinWeights)
-from momentum_tpu_torch.errors import PositionErrorFunction
+from momentum_tpu_torch.errors import (
+    LimitErrorFunction, Mppca, OrientationErrorFunction, PosePriorErrorFunction,
+    PositionErrorFunction)
 from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
 
-__all__ = ["character_from_numpy", "camera_from_numpy", "position_error_from_numpy"]
+__all__ = ["character_from_numpy", "camera_from_numpy", "position_error_from_numpy",
+           "orientation_error_from_numpy", "limit_error_from_numpy",
+           "pose_prior_from_numpy"]
 
 _LIMIT_KEYS = ("minmax_index", "minmax_bounds", "minmax_weight", "minmax_joint_index",
                "minmax_joint_bounds", "minmax_joint_weight", "minmax_joint_passive")
+# limit record types the port's ParameterLimits does not hold (ROADMAP M3)
+_UNPORTED_LIMITS = ("linear", "linear_joint", "halfplane", "ellipsoid")
 
 
 def _t(d, key, device):
     return torch.as_tensor(np.array(d[key]), device=device)  # a writable copy
 
 
+def _loss(d) -> GeneralizedLoss:
+    return GeneralizedLoss(alpha=float(d.get("loss_alpha", 2.0)),
+                           c=float(d.get("loss_c", 1.0)))
+
+
 def character_from_numpy(d: dict, device=None) -> Character:
+    held = {k: int(d.get(f"{k}_count", 0)) for k in _UNPORTED_LIMITS}
+    if any(held.values()):
+        raise NotImplementedError(
+            f"the character holds limit records the port does not carry yet: {held}")
     skeleton = Skeleton(joint_parent=_t(d, "joint_parent", device).to(torch.int32),
                         pre_rotation=_t(d, "pre_rotation", device),
                         translation_offset=_t(d, "translation_offset", device))
@@ -77,9 +103,27 @@ def camera_from_numpy(d: dict, device=None) -> Camera:
 
 
 def position_error_from_numpy(d: dict, device=None) -> PositionErrorFunction:
-    loss = GeneralizedLoss(alpha=float(d.get("loss_alpha", 2.0)),
-                           c=float(d.get("loss_c", 1.0)))
     return PositionErrorFunction(
         parent=_t(d, "parent", device).to(torch.int32), offset=_t(d, "offset", device),
         target=_t(d, "target", device), cweight=_t(d, "cweight", device),
-        weight=_t(d, "weight", device), loss=loss)
+        weight=_t(d, "weight", device), loss=_loss(d))
+
+
+def orientation_error_from_numpy(d: dict, device=None) -> OrientationErrorFunction:
+    return OrientationErrorFunction(
+        parent=_t(d, "parent", device).to(torch.int32), offset=_t(d, "offset", device),
+        target=_t(d, "target", device), cweight=_t(d, "cweight", device),
+        weight=_t(d, "weight", device), loss=_loss(d))
+
+
+def limit_error_from_numpy(d: dict, device=None) -> LimitErrorFunction:
+    return LimitErrorFunction(weight=_t(d, "weight", device), loss=_loss(d))
+
+
+def pose_prior_from_numpy(d: dict, device=None) -> PosePriorErrorFunction:
+    prior = Mppca(mu=_t(d, "mu", device), cinv=_t(d, "cinv", device), l=_t(d, "l", device),
+                  rpre=_t(d, "rpre", device))
+    return PosePriorErrorFunction(
+        prior=prior, weight=_t(d, "weight", device),
+        param_index=tuple(int(i) for i in np.asarray(d["param_index"])),
+        sub_jtj=_t(d, "sub_jtj", device) if "sub_jtj" in d else None)

@@ -3,8 +3,9 @@
 Only the record types the marker-IK path reads are ported: MinMax over model
 parameters (carried with the character) and MinMaxJoint over joint parameters,
 whose passive records `apply_passive` clamps before FK. Linear, LinearJoint,
-HalfPlane and Ellipsoid records and the limit error function come with the
-full residual stack (ROADMAP M2).
+HalfPlane and Ellipsoid records come with the rest of the error catalog
+(ROADMAP M3); `bridge.character_from_numpy` refuses a character that holds
+any.
 """
 
 from __future__ import annotations
@@ -31,6 +32,11 @@ class ParameterLimits:
     minmax_joint_bounds: torch.Tensor
     minmax_joint_weight: torch.Tensor
     minmax_joint_passive: torch.Tensor
+
+    @property
+    def counts(self) -> dict:
+        return dict(minmax=self.minmax_index.shape[0],
+                    minmax_joint=self.minmax_joint_index.shape[0])
 
     def apply_passive(self, joint_params: torch.Tensor) -> torch.Tensor:
         """Clamp joint params for passive MinMaxJoint records

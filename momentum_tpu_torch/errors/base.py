@@ -10,6 +10,16 @@ pure functions of an `EvalContext`:
 Unused rows have weight 0 and parent 0. No autograd runs through the rows
 (the Jacobians are analytic), so the robust row scale needs no
 stop-gradient here.
+
+Modules with structured Jacobians may also add their JᵀJ, Jᵀr and Σ rows²
+straight into the normal equations without forming rows (the reference's
+per-module getSolverDerivatives rank updates, gauss_newton_solver.cpp:
+113-221):
+
+    accumulate_normal(character, ctx, jc, pt_mat, acc) -> acc
+    acc = (jtj (..., P, P), jtr (..., P), sq (...,))
+
+with the GN step solving (JᵀJ + D) δ = Jᵀr and x_new = x − δ.
 """
 
 from __future__ import annotations
@@ -38,6 +48,12 @@ class ErrorFunction:
     an optional `loss` and implement `raw(character, ctx) -> (f, w)`."""
 
     has_analytic_jacobian: bool = False
+    has_normal_contrib: bool = False
+
+    def supports_normal_contrib(self, character) -> bool:
+        """Whether accumulate_normal covers this module's records for this
+        character."""
+        return self.has_normal_contrib
 
     def raw(self, character, ctx: EvalContext):
         raise NotImplementedError

@@ -24,7 +24,7 @@ import torch
 
 from momentum_tpu_torch.ops import build
 
-__all__ = ["damped_chol_solve", "damped_chol_solve_plain", "launches"]
+__all__ = ["damped_chol_solve", "damped_chol_solve_plain", "check_system", "launches"]
 
 # times damped_chol_solve_kernel was launched in this process
 launches = 0
@@ -37,6 +37,24 @@ def damped_chol_solve_plain(a: torch.Tensor, damp: torch.Tensor,
     x = torch.cholesky_solve(b.unsqueeze(-1), l).squeeze(-1)
     return torch.where((info != 0).unsqueeze(-1),
                        torch.full_like(x, float("nan")), x)
+
+
+def check_system(a: torch.Tensor, damp: torch.Tensor, b: torch.Tensor,
+                 kernel: str) -> tuple:
+    """(B, n) of a batch of damped systems that `kernel` can take, or raise."""
+    if a.ndim != 3 or a.shape[1] != a.shape[2]:
+        raise ValueError(f"expected a of shape (B, n, n), got {tuple(a.shape)}")
+    batch, n = a.shape[0], a.shape[1]
+    for name, t in (("damp", damp), ("b", b)):
+        if t.shape != (batch, n):
+            raise ValueError(f"expected {name} of shape {(batch, n)}, got {tuple(t.shape)}")
+    for t in (a, damp, b):
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != a.device):
+            raise ValueError(f"{kernel} takes contiguous float32 tensors on one CUDA device")
+        if t.requires_grad:
+            raise RuntimeError(f"{kernel} has no backward: call it on tensors without grad")
+    return batch, n
 
 
 def _lib():
@@ -57,22 +75,12 @@ def damped_chol_solve(a: torch.Tensor, damp: torch.Tensor,
 
     CPU tensors take `damped_chol_solve_plain`. CUDA tensors launch
     damped_chol_solve_kernel or raise: all three must be float32,
-    contiguous and on one device, with n small enough for the block's
-    shared memory (n ≤ 240)."""
+    contiguous, on one device and without grad, with n small enough for the
+    block's shared memory (n ≤ 240)."""
     global launches
     if not a.is_cuda:
         return damped_chol_solve_plain(a, damp, b)
-    if a.ndim != 3 or a.shape[1] != a.shape[2]:
-        raise ValueError(f"expected a of shape (B, n, n), got {tuple(a.shape)}")
-    batch, n = a.shape[0], a.shape[1]
-    for name, t in (("damp", damp), ("b", b)):
-        if t.shape != (batch, n):
-            raise ValueError(f"expected {name} of shape {(batch, n)}, got {tuple(t.shape)}")
-    for t in (a, damp, b):
-        if (t.dtype != torch.float32 or not t.is_contiguous()
-                or t.device != a.device):
-            raise ValueError("damped_chol_solve_kernel takes contiguous float32 "
-                             "tensors on one CUDA device")
+    batch, n = check_system(a, damp, b, "damped_chol_solve_kernel")
     lib = _lib()
     if lib.damped_chol_solve_smem_bytes(n) > build.SMEM_PER_BLOCK:
         raise ValueError(f"damped_chol_solve_kernel: n = {n} does not fit in "

@@ -20,7 +20,8 @@ import torch
 from momentum_tpu_torch.character import fk
 
 __all__ = ["JacobianContext", "make_jacobian_context",
-           "fused_point_jacobian_model_merged"]
+           "fused_point_jacobian_model_merged", "fused_rotation_factor",
+           "fused_vector_jacobian_model"]
 
 _LN2 = 0.6931471805599453
 
@@ -76,3 +77,27 @@ def fused_point_jacobian_model_merged(jc: JacobianContext, points: torch.Tensor,
     h1 = torch.einsum("...cn,...nwp->...cwp", mask, d_r)
     term_r = _cross2(h1, points[..., :, :, None])
     return t1 + term_r + _LN2 * points[..., :, :, None] * m_pt6[..., :, None, :]
+
+
+def fused_rotation_factor(jc: JacobianContext, parents: torch.Tensor,
+                          pt_mat: torch.Tensor, scale=None) -> torch.Tensor:
+    """h1 = Σ_j mask·(rotAxis_j·PT_rot), (..., C, 3, P): every world
+    direction's model-space derivative is h1 × v. Optional row scale
+    (..., C) folded into the mask."""
+    nj = jc.anc_mask.shape[0]
+    ptj = pt_mat.reshape(nj, 7, pt_mat.shape[1])
+    mask = jc.anc_mask.index_select(1, parents).T  # (C, nJ)
+    if scale is not None:
+        mask = mask * scale[..., :, None]
+    d_r = torch.einsum("...nwk,nkp->...nwp", jc.rot_axis, ptj[:, 3:6])
+    return torch.einsum("...cn,...nwp->...cwp", mask, d_r)
+
+
+def fused_vector_jacobian_model(jc: JacobianContext, vectors: torch.Tensor,
+                                parents: torch.Tensor, pt_mat: torch.Tensor,
+                                scale=None) -> torch.Tensor:
+    """d(world direction)/d(MODEL parameters), (..., C, 3, P): only rotation
+    DOFs contribute, and axis_j × v reassociates to h1 × v with h1 the
+    fused rotation factor. vectors (..., C, 3)."""
+    h1 = fused_rotation_factor(jc, parents, pt_mat, scale=scale)
+    return _cross2(h1, vectors[..., :, :, None])

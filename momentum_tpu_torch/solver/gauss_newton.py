@@ -1,16 +1,20 @@
-"""Batch-native Levenberg-Marquardt on analytic Jacobians, after
-momentum_tpu/solver/gauss_newton.py.
+"""Batch-native Gauss-Newton and Levenberg-Marquardt on analytic Jacobians
+or direct normal equations, after momentum_tpu/solver/gauss_newton.py.
 
-Each iteration solves (JᵀJ + λ·diag(JᵀJ) + reg·I) δ = Jᵀr at x, tries
-x − δ, and accepts it only where the energy drops, shrinking λ on accept and
-growing it on reject (the TrustRegionQRT equivalent,
+Gauss-Newton (gauss_newton_solver.cpp:224-262): each iteration solves
+(JᵀJ + reg·I) δ = Jᵀr at x, from the normal equations' provider or from
+the analytic rows and Jacobian, and steps to x − δ unconditionally.
+
+Levenberg-Marquardt: each iteration solves (JᵀJ + λ·diag(JᵀJ) + reg·I) δ =
+Jᵀr at x, tries x − δ, and accepts it only where the energy drops, shrinking
+λ on accept and growing it on reject (the TrustRegionQRT equivalent,
 trust_region_qr.cpp:82-230). An element stops once an accepted step changes
 its energy by at most threshold·FLT_EPS relative (solver.cpp:86-121).
 
-The loop runs eagerly: its test "any element still running" reads one bool
-from the device each iteration (a host sync; the JAX package's `cond` at
-gauss_newton.py:561-562 ran on the device). Gauss-Newton, QR, CG, line
-search, parameter masks and histories come later (ROADMAP M5).
+Both loops run eagerly: the test "any element still running" reads one bool
+from the device each iteration (a host sync; the JAX package's `cond` ran on
+the device). QR, CG, line search, histories and LM on normal equations come
+later (ROADMAP M5) and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import torch
 
 from momentum_tpu_torch.math.linalg import damped_psd_solve
 
-__all__ = ["SolverOptions", "SolveResult", "solve_levenberg_marquardt"]
+__all__ = ["SolverOptions", "SolveResult", "solve_gauss_newton",
+           "solve_levenberg_marquardt"]
 
 _FLT_EPS = float(torch.finfo(torch.float32).eps)
 _FLT_MIN = float(torch.finfo(torch.float32).tiny)
@@ -44,6 +49,10 @@ class SolverOptions:
     # Use Σ rows² (the GN surrogate, exact for L2 losses) as the energy for
     # convergence and acceptance instead of calling error_fn.
     energy_from_residual: bool = False
+    # only "cholesky" is ported; "qr" and "cg" raise (ROADMAP M5)
+    linear_solver: str = "cholesky"
+    do_line_search: bool = False
+    store_history: bool = False
 
 
 class SolveResult(NamedTuple):
@@ -65,6 +74,63 @@ def _converged(last_err, err, threshold):
     return torch.abs(last_err - err) / (torch.abs(err) + _FLT_MIN) <= threshold * _FLT_EPS
 
 
+def _refuse_unported(opts: SolverOptions):
+    if opts.linear_solver != "cholesky" or opts.do_line_search or opts.store_history:
+        raise NotImplementedError("the port solves with Cholesky only, without line "
+                                  "search or histories (ROADMAP M5)")
+
+
+def solve_gauss_newton(
+    residual_fn: Callable,
+    error_fn: Callable,
+    x0: torch.Tensor,
+    enabled_mask: Optional[torch.Tensor] = None,
+    options: SolverOptions = SolverOptions(),
+    jacobian_fn: Optional[Callable] = None,
+    normal_fn: Optional[Callable] = None,
+) -> SolveResult:
+    """Damped Gauss-Newton on x0 (..., P).
+
+    normal_fn: x -> (JᵀJ, Jᵀr, Σ rows²), the direct provider
+    (SkeletonSolverFunction.normal_equations); else jacobian_fn: x -> (rows,
+    J (..., R, P)). One of the two is required (the port has no AD
+    Jacobian). enabled_mask (P,) 0/1 freezes the disabled parameters."""
+    if normal_fn is None and jacobian_fn is None:
+        raise NotImplementedError("the port solves with analytic Jacobians or normal "
+                                  "equations only: pass normal_fn or jacobian_fn")
+    opts = options
+    _refuse_unported(opts)
+    p = x0.shape[-1]
+    mask = (x0.new_ones(p) if enabled_mask is None else enabled_mask.to(x0.dtype))
+    damp = opts.regularization + (1.0 - mask)
+    err_shape = x0.shape[:-1]
+    x = x0
+    last_err = torch.full(err_shape, torch.finfo(torch.float32).max, dtype=x0.dtype,
+                          device=x0.device)
+    done = torch.zeros(err_shape, dtype=torch.bool, device=x0.device)
+    it = 0
+    while it < opts.max_iterations and not bool(done.all()):
+        if normal_fn is not None:
+            jtj, jtr, sq = normal_fn(x)
+            if enabled_mask is not None:
+                jtj = jtj * (mask[:, None] * mask[None, :])
+                jtr = jtr * mask
+            err = sq if opts.energy_from_residual else error_fn(x)
+        else:
+            rows, jt = _jacobian(x, jacobian_fn)
+            jt = jt * mask[:, None]
+            jtj = jt @ jt.transpose(-1, -2)
+            jtr = (jt @ rows[..., None])[..., 0]
+            err = torch.sum(rows * rows, dim=-1) if opts.energy_from_residual else error_fn(x)
+        x_new = x - damped_psd_solve(jtj, damp, jtr) * mask
+        newly_done = (it + 1 >= opts.min_iterations) & _converged(last_err, err, opts.threshold)
+        x = torch.where(done[..., None], x, x_new)
+        last_err = torch.where(done, last_err, err)
+        it += 1
+        done = done | newly_done
+    return SolveResult(params=x, error=last_err, iterations=it, converged=done)
+
+
 def solve_levenberg_marquardt(
     residual_fn: Callable,
     error_fn: Callable,
@@ -84,6 +150,7 @@ def solve_levenberg_marquardt(
         raise NotImplementedError("the port solves with analytic Jacobians only: "
                                   "pass jacobian_fn")
     opts = options
+    _refuse_unported(opts)
     err_shape = x0.shape[:-1]
 
     def energy(x):

@@ -1,13 +1,18 @@
 """Where the time of the port's workloads goes on one CUDA card.
 
-    python -m momentum_tpu_torch.testing.profile_workload [--workload ik|render|both]
-                                                          [--batch 2048] [--out DIR]
+    python -m momentum_tpu_torch.testing.profile_workload
+        [--workload ik|render|fullstack|both] [--batch 2048] [--out DIR]
 
 Prints, for the IK workload (build_fullbody_ik_problem + make_solve_batch,
 LM 5 + 6 compacted):
   * each layer of one full-batch LM iteration timed alone with CUDA events
     (FK context, residual + model Jacobian, JᵀJ/Jᵀr, damped solve, trial
     residual), at the batch and at the refinement capacity;
+for the full residual stack (build_fullstack_problem + make_fullstack_solve,
+GN 2 + 1 on the worst 1024):
+  * each layer of one full-batch GN iteration timed alone with CUDA events
+    (FK context, the Jacobian context, each module's accumulate_normal, the
+    damped solve), and the whole iteration;
 and for the render clip (build_render_clip + make_render_clip, 32 frames at
 640×480 @ 2×2 SS with a 256 × 256 shadow map):
   * FK and skinning of the clip, and each layer of frame 0's render (project
@@ -97,6 +102,38 @@ def layer_times(char, ef0, targets, x0, lam: float = 0.01) -> dict:
         "damped solve (K2+K3)": event_ms(lambda: damped_psd_solve(jtj, damp, jtr)),
         "trial residual": event_ms(lambda: fn.residual(x0)),
     }
+
+
+def fullstack_layer_times(char, efs, targets, q, x0) -> dict:
+    """ms per call of each layer of one full-batch GN iteration of the full
+    residual stack at x0's batch."""
+    from momentum_tpu_torch.math.linalg import damped_psd_solve
+    from momentum_tpu_torch.solver import SkeletonSolverFunction, SolverOptions, solve_ik
+    from momentum_tpu_torch.solver.analytic_jacobian import make_jacobian_context
+
+    mods = (dataclasses.replace(efs[0], target=targets), dataclasses.replace(efs[1], target=q),
+            *efs[2:])
+    fn = SkeletonSolverFunction(char, mods)
+    ctx = fn.context(x0)
+    jc = make_jacobian_context(char, ctx)
+    pt_mat = char.parameter_transform.transform
+    jtj, jtr, _ = fn.normal_equations(x0)
+    opts = SolverOptions(max_iterations=1, regularization=1e-5, energy_from_residual=True)
+
+    def accumulate(ef):
+        acc = (torch.zeros_like(jtj), torch.zeros_like(jtr), torch.zeros_like(jtr[..., 0]))
+        return lambda: ef.accumulate_normal(char, ctx, jc, pt_mat, acc)
+
+    times = {"fk context (PT + K1)": event_ms(lambda: fn.context(x0)),
+             "jacobian context (joint axes)": event_ms(lambda: make_jacobian_context(char, ctx))}
+    for ef in mods:
+        times[f"{type(ef).__name__}.accumulate_normal"] = event_ms(accumulate(ef))
+    times["normal_equations (all of the above)"] = event_ms(lambda: fn.normal_equations(x0))
+    damp = torch.full_like(jtr, 1e-5)
+    times["damped solve (K2+K3)"] = event_ms(lambda: damped_psd_solve(jtj, damp, jtr))
+    times["whole GN iteration (solve_ik, 1 iteration)"] = event_ms(
+        lambda: solve_ik(fn, x0, options=opts), reps=3)
+    return times
 
 
 def render_layer_times(char, cam, motion) -> dict:
@@ -207,7 +244,8 @@ def main():
         make_solve_batch)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--workload", choices=("ik", "render", "both"), default="both")
+    ap.add_argument("--workload", choices=("ik", "render", "fullstack", "both"),
+                    default="both", help="both = ik and render")
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="directory for the kernel tables and traces")
@@ -227,6 +265,24 @@ def main():
         solve = make_solve_batch(char, ef0, args.batch)
         _wall_and_profile(lambda: solve(targets, x0), card, f"solve B={args.batch}",
                           args.out, args.batch, "solves/s")
+
+    if args.workload == "fullstack":
+        from momentum_tpu_torch.solver import SkeletonSolverFunction, SolverOptions, solve_ik
+        from momentum_tpu_torch.testing.workloads import (
+            build_fullstack_problem, make_fullstack_solve)
+
+        char, efs, targets, q, x0 = build_fullstack_problem(args.batch, seed=args.seed,
+                                                            device="cuda")
+        for name, ms in fullstack_layer_times(char, efs, targets, q, x0).items():
+            print(f"full-stack layer B={args.batch}: {name}: {ms:.4f} ms [{card}]")
+        fn = SkeletonSolverFunction(char, (dataclasses.replace(efs[0], target=targets),
+                                           dataclasses.replace(efs[1], target=q), *efs[2:]))
+        one = SolverOptions(max_iterations=1, regularization=1e-5, energy_from_residual=True)
+        _wall_and_profile(lambda: solve_ik(fn, x0, options=one), card,
+                          f"fullstack-iteration B={args.batch}", args.out, 1, "iterations/s")
+        solve = make_fullstack_solve(char, efs, args.batch)
+        _wall_and_profile(lambda: solve(targets, q, x0), card,
+                          f"fullstack-solve B={args.batch}", args.out, args.batch, "solves/s")
 
     if args.workload in ("render", "both"):
         char, motion, cam = build_render_clip(32, seed=args.seed, device="cuda")

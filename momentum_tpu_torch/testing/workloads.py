@@ -1,6 +1,7 @@
 """The workloads of the port: the bench.py IK workload of
-momentum_tpu/testing/workloads.py, and the shadowed render of a posed clip
-of benchmarks/bench_suite.py::config7.
+momentum_tpu/testing/workloads.py, bench.py's full residual stack
+(bench.py:242-323), and the shadowed render of a posed clip of
+benchmarks/bench_suite.py::config7.
 
 Full-body marker IK (51-joint / 157-parameter rig, 80 position constraints),
 warm-started batch-native LM: `k_full` full-batch iterations, then `r_refine`
@@ -8,6 +9,13 @@ compacted iterations on the worst `capacity` elements
 (solver/compaction.py). The random numbers come from numpy exactly as the
 JAX workload draws them, so both packages solve the same problem from the
 same seed.
+
+The full residual stack is the same problem with the terms the reference's
+per-frame tracker always carries (marker_tracker.cpp:645-653): orientation
+targets on all 51 joints from the ground-truth rotations, the fixture's
+MinMax limits, and a two-component MPPCA pose prior; solved by Gauss-Newton
+on the normal equations, 2 full-batch iterations then 1 more on the worst
+half by marker energy.
 
 The render clip: the full-body character's skinned tube mesh (612 vertices,
 612 faces) posed by a 32-frame random walk in its 157 parameters, rendered
@@ -25,17 +33,22 @@ import numpy as np
 import torch
 
 __all__ = ["build_fullbody_ik_problem", "make_solve_stage", "make_solve_batch",
-           "DEFAULT_REFINE", "DEFAULT_BATCH", "build_render_clip", "make_render_clip"]
+           "DEFAULT_REFINE", "DEFAULT_BATCH", "build_fullstack_problem",
+           "make_fullstack_solve", "FULLSTACK_REFINE", "build_render_clip",
+           "make_render_clip"]
 
 # 5 full-batch LM iterations + 6 compacted iterations on the worst 128 of 2048
 DEFAULT_REFINE = (5, 6, 128)
 DEFAULT_BATCH = 2048
+# full stack: 2 full-batch GN iterations + 1 on the worst 1024 of 2048 (bench.py:277)
+FULLSTACK_REFINE = (2, 1, 1024)
 
 
 def build_fullbody_ik_problem(batch: int, seed: int = 0, noise: float = 0.05,
-                              device=None):
-    """(char, ef0, targets, x0): targets are exact locator positions of
-    uniform-random ground-truth poses; x0 is truth + `noise` gaussian."""
+                              device=None, return_states: bool = False):
+    """(char, ef0, targets, x0[, states]): targets are exact locator
+    positions of uniform-random ground-truth poses; x0 is truth + `noise`
+    gaussian; return_states adds the ground truth's global states."""
     from momentum_tpu_torch.errors import PositionErrorFunction
     from momentum_tpu_torch.testing.fixtures import create_fullbody_character
 
@@ -43,12 +56,15 @@ def build_fullbody_ik_problem(batch: int, seed: int = 0, noise: float = 0.05,
     rng = np.random.default_rng(seed)
     gt_np = rng.uniform(-0.3, 0.3, (batch, char.num_model_parameters)).astype(np.float32)
     gt = torch.as_tensor(gt_np, device=device)
-    targets = char.locators.world_positions(char.skeleton_states(gt))
+    states = char.skeleton_states(gt)
+    targets = char.locators.world_positions(states)
     ef0 = PositionErrorFunction.create(
         char.locators.parent.cpu().numpy(), char.locators.offset.cpu().numpy(),
         np.zeros((char.locators.num_locators, 3)), device=device)
     x0 = gt + torch.as_tensor(rng.normal(0, noise, gt_np.shape).astype(np.float32),
                               device=device)
+    if return_states:
+        return char, ef0, targets, x0, states
     return char, ef0, targets, x0
 
 
@@ -95,6 +111,69 @@ def make_solve_batch(char, ef0, batch: int, refine: Optional[tuple] = DEFAULT_RE
                                k_full=k_full, r_refine=r_refine)
 
     return solve_batch
+
+
+def build_fullstack_problem(batch: int, seed: int = 0, noise: float = 0.05, device=None):
+    """(char, efs, targets, q_targets, x0): the IK problem of
+    build_fullbody_ik_problem with bench.py's full-stack modules
+    efs = (position, orientation, limit, pose prior), the first two with
+    placeholder targets; q_targets (B, 51, 4) are the ground truth's global
+    rotations."""
+    from momentum_tpu_torch.errors import (
+        LimitErrorFunction, Mppca, OrientationErrorFunction, PosePriorErrorFunction)
+
+    char, ef_pos, targets, x0, states = build_fullbody_ik_problem(
+        batch, seed=seed, noise=noise, device=device, return_states=True)
+    nj, p = char.num_joints, char.num_model_parameters
+    ef_ori = OrientationErrorFunction.create(
+        np.arange(nj, dtype=np.int32), np.tile(np.asarray([0, 0, 0, 1], np.float32), (nj, 1)),
+        device=device)
+    names = char.parameter_transform.names
+    prior = Mppca.from_components(
+        pi=np.asarray([0.6, 0.4]), mu=np.zeros((2, p), np.float32),
+        w_list=[np.full((p, 4), 0.01, np.float32)] * 2, sigma2=np.asarray([1.0, 2.0]),
+        names=names, device=device)
+    efs = (ef_pos, ef_ori, LimitErrorFunction.create(device=device),
+           PosePriorErrorFunction.create(prior, names))
+    return char, efs, targets, states[..., 3:7], x0
+
+
+def make_fullstack_solve(char, efs, batch: int):
+    """bench.py's full-stack solve `(targets, q_targets, x0) -> (params,
+    marker energy (B,))`: GN (regularization 1e-5, Σ rows² as the energy)
+    through solve_ik for 2 iterations on the whole batch, then 1 more on
+    the 1024 elements of highest marker energy (NaN and inf first;
+    FULLSTACK_REFINE). GN keeps no state between iterations, so the refined
+    elements follow the (k_full + r_refine)-iteration solve exactly. The
+    capacity, quoted at B = 2048, scales with the batch."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction, SolverOptions, solve_ik
+
+    ef_pos, ef_ori, lim, prior = efs
+    k_full, r_refine, cap = FULLSTACK_REFINE
+    cap = min(batch, cap * batch // DEFAULT_BATCH if batch < DEFAULT_BATCH else cap)
+    opts = SolverOptions(regularization=1e-5, energy_from_residual=True)
+
+    def stage(targets, q_targets, x0, iters):
+        fn = SkeletonSolverFunction(char, (dataclasses.replace(ef_pos, target=targets),
+                                           dataclasses.replace(ef_ori, target=q_targets),
+                                           lim, prior))
+        return solve_ik(fn, x0, options=dataclasses.replace(opts, max_iterations=iters),
+                        method="gauss_newton").params
+
+    def marker_energy(targets, params):
+        fn = SkeletonSolverFunction(char, (dataclasses.replace(ef_pos, target=targets),))
+        return fn.error(params)
+
+    def solve(targets, q_targets, x0):
+        params = stage(targets, q_targets, x0, k_full)
+        energy = marker_energy(targets, params)
+        key = torch.nan_to_num(energy, nan=3.0e38, posinf=3.0e38)
+        _, idx = torch.topk(key, cap)
+        sub = stage(targets[idx], q_targets[idx], params[idx], r_refine)
+        return (params.index_copy(0, idx, sub),
+                energy.index_copy(0, idx, marker_energy(targets[idx], sub)))
+
+    return solve
 
 
 def build_render_clip(frames: int = 32, seed: int = 0, device=None, image_height: int = 960,

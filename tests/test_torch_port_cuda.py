@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from momentum_tpu_torch.character import fk
-from momentum_tpu_torch.ops import fk as fk_ops, psd, raster
+from momentum_tpu_torch.ops import chol, fk as fk_ops, psd, raster
 from momentum_tpu_torch.testing import workloads
 
 pytestmark = pytest.mark.cuda
@@ -107,6 +107,97 @@ def test_main_path_on_cuda_matches_cpu(cuda_problem):
     e, e_c = res.error.cpu().numpy(), res_c.error.numpy()
     assert np.all(np.isfinite(e))
     assert abs(np.mean(e < 1e-5) - np.mean(e_c < 1e-5)) <= 4 / 256
+    assert abs(np.median(e) / np.median(e_c) - 1) <= 0.2
+
+
+# ---- K5a / K5b: the entry points of ops/chol_pallas.py ----
+
+def _relres(a, damp, b, x):
+    ad = (a + torch.diag_embed(damp)).double()
+    res = torch.linalg.norm((ad @ x.double()[..., None])[..., 0] - b.double(), dim=-1)
+    return float((res / torch.linalg.norm(b.double(), dim=-1)).max())
+
+
+@pytest.mark.parametrize("n", [160, 64, 40])
+def test_chol_solve_reaches_the_rank1_kernel(cuda_problem, n):
+    """K5a's entry point launches damped_chol_solve_kernel (any n)."""
+    a, damp, b = _spd(n, 64, seed=10 + n)
+    before = psd.launches
+    x = chol.chol_solve(a, damp, b)
+    assert psd.launches == before + 1
+    assert _relres(a, damp, b, x) <= 1e-5
+    x_plain = chol.chol_solve_plain(a, damp, b)
+    assert float((x - x_plain).abs().max() / x_plain.abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("n,batch", [(160, 300), (224, 8), (32, 5), (64, 1)])
+def test_chol_blocked_kernel_matches_plain(cuda_problem, n, batch):
+    """K5b: relative residual as small as the plain solve's, x within 1e-3
+    of max|x| (FMA contraction and the panel order round differently;
+    ROADMAP F5)."""
+    a, damp, b = _spd(n, batch, seed=n)
+    before = chol.launches
+    x = chol.chol_solve_blocked(a, damp, b)
+    assert chol.launches == before + 1
+    x_plain = chol.chol_solve_blocked_plain(a, damp, b)
+    assert _relres(a, damp, b, x) <= max(1e-5, 10 * _relres(a, damp, b, x_plain))
+    assert float((x - x_plain).abs().max() / x_plain.abs().max()) <= 1e-3
+
+
+def test_chol_blocked_kernel_padded_system(cuda_problem):
+    """n = 157 padded to 160 with identity rows: the unpadded solution."""
+    a, damp, b = _spd(157, 32, seed=3)
+    x = chol.chol_solve_blocked(*chol.pad_identity(a, damp, b))
+    assert (x[:, 157:] == 0).all()
+    assert _relres(a, damp, b, x[:, :157].contiguous()) <= 1e-5
+
+
+def test_chol_kernels_nan_on_indefinite(cuda_problem):
+    """ROADMAP F1 in both K5 kernels: all-NaN x for a failed pivot, in the
+    first panel or a later one; the other systems are unaffected."""
+    a, damp, b = _spd(96, 4, seed=6)
+    a[1, 10, 10] = -1e5
+    a[3, 70, 70] = -1e5
+    for solve in (chol.chol_solve, chol.chol_solve_blocked, chol.chol_solve_blocked_plain):
+        x = solve(a, damp, b)
+        assert torch.isnan(x[1]).all() and torch.isnan(x[3]).all()
+        assert torch.isfinite(x[0]).all() and torch.isfinite(x[2]).all()
+
+
+def test_chol_blocked_kernel_refuses_what_it_cannot_take(cuda_problem):
+    a, damp, b = _spd(32, 2, seed=1)
+    before = chol.launches
+    with pytest.raises(ValueError, match="multiple of 32"):  # ROADMAP F6
+        chol.chol_solve_blocked(*_spd(157, 2, seed=1))
+    with pytest.raises(ValueError):
+        chol.chol_solve_blocked(a.double(), damp.double(), b.double())
+    with pytest.raises(ValueError):
+        chol.chol_solve_blocked(a.transpose(-1, -2), damp, b)
+    with pytest.raises(ValueError):
+        chol.chol_solve_blocked(a, damp.cpu(), b)
+    with pytest.raises(RuntimeError):
+        chol.chol_solve_blocked(a.clone().requires_grad_(), damp, b)
+    with pytest.raises(ValueError):  # 256 × 257 floats exceed a block's shared memory
+        chol.chol_solve_blocked(*_spd(256, 1, seed=1))
+    assert chol.launches == before
+
+
+def test_fullstack_on_cuda_matches_cpu(cuda_problem):
+    """bench.py's full-stack solve at B = 64 on the card (K1, K2+K3) against
+    the same solve on the CPU (plain versions)."""
+    stats = {}
+    for device in ("cuda", "cpu"):
+        char, efs, targets, q, x0 = workloads.build_fullstack_problem(64, seed=0,
+                                                                      device=device)
+        fk_ops.launches = psd.launches = 0
+        params, e = workloads.make_fullstack_solve(char, efs, 64)(targets, q, x0)
+        if device == "cuda":
+            assert fk_ops.launches > 0 and psd.launches > 0
+            assert bool(torch.isfinite(params).all())
+        stats[device] = e.cpu().numpy()
+    e, e_c = stats["cuda"], stats["cpu"]
+    assert np.all(np.isfinite(e))
+    assert abs(np.mean(e < 1e-5) - np.mean(e_c < 1e-5)) <= 2 / 64
     assert abs(np.median(e) / np.median(e_c) - 1) <= 0.2
 
 

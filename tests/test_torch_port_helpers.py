@@ -8,10 +8,16 @@ from __future__ import annotations
 import numpy as np
 
 
+# limit record types the port's ParameterLimits does not hold
+UNPORTED_LIMITS = ("linear", "linear_joint", "halfplane", "ellipsoid")
+
+
 def character_to_numpy(char) -> dict:
     """The arrays of a Character (JAX or port) that bridge.character_from_numpy
-    reads, as numpy."""
+    reads, as numpy, with the counts of the limit records the port does not
+    hold (0 for a port character)."""
     lim = char.limits
+    counts = lim.counts
     d = dict(
         joint_parent=char.skeleton.joint_parent,
         pre_rotation=char.skeleton.pre_rotation,
@@ -26,6 +32,7 @@ def character_to_numpy(char) -> dict:
         minmax_joint_weight=lim.minmax_joint_weight,
         minmax_joint_passive=lim.minmax_joint_passive,
     )
+    d.update({f"{k}_count": np.int64(counts.get(k, 0)) for k in UNPORTED_LIMITS})
     if char.locators is not None:
         d.update(locator_parent=char.locators.parent,
                  locator_offset=char.locators.offset,
@@ -54,6 +61,26 @@ def position_error_to_numpy(ef) -> dict:
     d = {k: to_numpy(getattr(ef, k))
          for k in ("parent", "offset", "target", "cweight", "weight")}
     d.update(loss_alpha=np.float64(ef.loss.alpha), loss_c=np.float64(ef.loss.c))
+    return d
+
+
+# an OrientationErrorFunction has the same fields (quaternion offset and target)
+orientation_error_to_numpy = position_error_to_numpy
+
+
+def limit_error_to_numpy(ef) -> dict:
+    """The arrays of a LimitErrorFunction (JAX or port) as numpy."""
+    return dict(weight=to_numpy(ef.weight), loss_alpha=np.float64(ef.loss.alpha),
+                loss_c=np.float64(ef.loss.c))
+
+
+def pose_prior_to_numpy(ef) -> dict:
+    """The arrays of a PosePriorErrorFunction (JAX or port) as numpy."""
+    d = {k: to_numpy(getattr(ef.prior, k)) for k in ("mu", "cinv", "l", "rpre")}
+    d.update(weight=to_numpy(ef.weight),
+             param_index=np.asarray(ef.param_index, np.int64))
+    if ef.sub_jtj is not None:
+        d.update(sub_jtj=to_numpy(ef.sub_jtj))
     return d
 
 

@@ -9,7 +9,7 @@ import sys
 import numpy as np
 import torch
 
-from momentum_tpu_torch.ops import fk as fk_ops, psd, raster
+from momentum_tpu_torch.ops import chol, fk as fk_ops, psd, raster
 from momentum_tpu_torch.testing import workloads
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -27,7 +27,10 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'momentum_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "new = {'momentum_tpu_torch.errors.limit', 'momentum_tpu_torch.errors.pose_prior',\n"
+        "       'momentum_tpu_torch.solver.ik', 'momentum_tpu_torch.ops.chol'}\n"
+        "assert new <= set(names), sorted(new - set(names))\n"
+        "assert len(names) >= 30, names\n"
         "print('ok', len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
@@ -64,3 +67,14 @@ def test_cpu_render_launches_no_kernel():
                                       shadow_resolution=32)(motion)
     assert imgs.shape == (1, 24, 32, 3) and bool((imgs > 0).any())
     assert raster.launches == before and fk_ops.launches == 0
+
+
+def test_cpu_fullstack_launches_no_kernel():
+    """The full-stack GN solve on CPU tensors takes the plain versions: no
+    K1, K2+K3 or K5b launch."""
+    char, efs, targets, q, x0 = workloads.build_fullstack_problem(8, seed=1)
+    before = (fk_ops.launches, psd.launches, chol.launches)
+    params, energy = workloads.make_fullstack_solve(char, efs, 8)(targets, q, x0)
+    assert params.shape == x0.shape and bool(torch.isfinite(energy).all())
+    assert float(energy.max()) < 1e-3
+    assert (fk_ops.launches, psd.launches, chol.launches) == before
