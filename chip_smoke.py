@@ -3,15 +3,18 @@ kernels, holds each against its plain PyTorch version at its path's shapes,
 then drives the port's paths through those kernels and checks their output:
 
   * full-body batched marker IK at B = 2048 (LM 5 + 6 compacted on the worst
-    128): kernels K1 (FK) and K2+K3 (damped Cholesky);
+    128): kernels K1 (FK) and K2+K3 (damped Cholesky in 32-wide panels), the
+    latter held against its plain version and timed against cholesky_ex +
+    cholesky_solve at the paths' batch sizes 2048, 128 and 1024;
   * the shadowed render of a posed 32-frame clip at 640×480, 2×2
     supersampled (benchmarks/bench_suite.py config 7): K1, and K4b (binned
     plane rasterizer) for the camera and shadow-map passes of every frame;
   * the shadowed render of a mesh under the bin capacity (the clip's first
     120 faces): K4a (plane rasterizer, all faces per tile);
   * K5's entry points (ops/chol_pallas.py), fed the full residual stack's
-    normal equations at B = 2048 padded to n = 160: K5a (the rank-1 kernel
-    of K2+K3) and K5b (chol_blocked_solve_kernel, 32-wide panels);
+    normal equations at B = 2048 padded to n = 160: K5a (its entry point
+    reaches K2+K3's kernel) and K5b (chol_blocked_solve_kernel, 32-wide
+    panels);
   * bench.py's full residual stack (position + orientation + limits + pose
     prior) at B = 2048, Gauss-Newton 2 + 1 on the worst 1024: K1, K2+K3.
 
@@ -19,7 +22,12 @@ then drives the port's paths through those kernels and checks their output:
 
 Needs one CUDA card and nvcc (the kernels build into build/momentum_tpu_torch/
 at first use). Imports nothing of JAX. Every failed check raises, so the exit
-code is non-zero; the last line of a passing run is
+code is non-zero. A passing run prints, before its last line, one JSON line
+with each kernel's launches on its path, its error against the plain version,
+its time, the plain version's, the library call's where one exists, and its
+bound: the larger of its bytes (each input read once, each output written
+once) at 3.35 TB/s and its f32 flops at 67 TFLOP/s, from this run's inputs.
+The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -51,6 +59,9 @@ FULLSTACK_CONV_JAX_CPU = 1.0
 FULLSTACK_MEDIAN_JAX_CPU = 5.70412e-08
 FULLSTACK_CONV_SLACK = 0.01
 SMALL_MESH_FACES = 120  # ≤ bin_capacity 128: the render takes K4a
+# the batch sizes the paths give K2+K3: IK 2048 and its compacted 128, the
+# full stack's refinement on 1024 (testing/workloads.py)
+PSD_BATCHES = (BATCH, 128, 1024)
 
 
 def phase_device():
@@ -87,7 +98,7 @@ def phase_build():
 def phase_fk(char, x0):
     from momentum_tpu_torch.character import fk
     from momentum_tpu_torch.ops import fk as fk_ops
-    from momentum_tpu_torch.testing.profile_workload import event_ms
+    from momentum_tpu_torch.testing.profile_workload import bound, event_ms
 
     local = fk.local_skel_states(char.skeleton,
                                  char.parameter_transform.apply(x0)).contiguous()
@@ -97,60 +108,93 @@ def phase_fk(char, x0):
     err = float((out - ref).abs().max())
     ms = event_ms(lambda: fk_ops.fk_global(char.skeleton, local))
     plain_ms = event_ms(lambda: fk_ops.fk_global_plain(char.skeleton, local))
+    # local states read, global states written, the parent table; one
+    # skel_state compose per joint: quaternion product 28 flops, rotated and
+    # scaled translation 36, scale 1
+    b_fk = bound(2 * local.numel() * 4 + char.skeleton.joint_parent.numel() * 4,
+                 local.shape[0] * local.shape[1] * 65)
     print(f"K1 fk_global_kernel (B={local.shape[0]}, nJ={local.shape[1]}): "
           f"max|kernel - plain lifted| = {err:.3e} (tol {FK_TOL:.0e}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_fk['bound_ms']:.4f} ms "
+          f"({b_fk['bound_by']})")
     if not err <= FK_TOL:
         raise AssertionError(f"fk_global_kernel disagrees with the plain FK: {err}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b_fk, library_ms=None)
 
 
 def phase_psd(char, ef0, targets, x0):
+    """K2+K3 on the IK path's own normal equations at x0 (LM damping), at the
+    batch sizes the paths give it: against the plain version by relative
+    residual and by x, timed in turns against the library's
+    cholesky_ex + cholesky_solve; then ROADMAP F1 with pivots that fail in
+    the first panel, the third, and the ragged last one."""
     from momentum_tpu_torch.ops import psd
     from momentum_tpu_torch.solver import SkeletonSolverFunction
-    from momentum_tpu_torch.testing.profile_workload import event_ms
+    from momentum_tpu_torch.testing.profile_workload import (
+        in_turns, kernel_device_ms, library_solve, solve_bound)
 
     fn = SkeletonSolverFunction(char, (dataclasses.replace(ef0, target=targets),))
     rows, j = fn.residual_and_jacobian(x0)
     jt = j.transpose(-1, -2)
-    a = (jt @ j).contiguous()
-    b = (jt @ rows[..., None])[..., 0].contiguous()
-    damp = (0.01 * torch.clamp(a.diagonal(dim1=-2, dim2=-1), min=1e-12) + 1e-5).contiguous()
-    x = psd.damped_chol_solve(a, damp, b)
-    x_plain = psd.damped_chol_solve_plain(a, damp, b)
+    a_all = (jt @ j).contiguous()
+    b_all = (jt @ rows[..., None])[..., 0].contiguous()
+    d_all = (0.01 * torch.clamp(a_all.diagonal(dim1=-2, dim2=-1), min=1e-12) + 1e-5).contiguous()
+    del rows, j, jt
 
-    def relres(sol):
+    def relres(a, damp, b, sol):
         ad = (a + torch.diag_embed(damp)).double()
         r = (ad @ sol.double()[..., None])[..., 0] - b.double()
         return float((torch.linalg.norm(r, dim=-1) / torch.linalg.norm(b.double(), dim=-1)).max())
 
-    res_k, res_p = relres(x), relres(x_plain)
-    err = float((x - x_plain).abs().max())
-    x_rel = err / float(x_plain.abs().max())
-    ms = event_ms(lambda: psd.damped_chol_solve(a, damp, b))
-    plain_ms = event_ms(lambda: psd.damped_chol_solve_plain(a, damp, b))
-    print(f"K2+K3 damped_chol_solve_kernel (B={a.shape[0]}, n={a.shape[1]}): "
-          f"max rel. residual kernel {res_k:.3e} / plain {res_p:.3e} (tol {PSD_RELRES_TOL:.0e}); "
-          f"max|x_kernel - x_plain| = {err:.3e} ({x_rel:.3e} of max|x|, tol {PSD_X_TOL:.0e}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    if not (res_k <= PSD_RELRES_TOL and x_rel <= PSD_X_TOL):
-        raise AssertionError("damped_chol_solve_kernel disagrees with the plain solve")
+    numbers = {}
+    for batch in PSD_BATCHES:
+        a, damp, b = (t[:batch].contiguous() for t in (a_all, d_all, b_all))
+        n = a.shape[1]
+        x = psd.damped_chol_solve(a, damp, b)
+        x_plain = psd.damped_chol_solve_plain(a, damp, b)
+        res_k, res_p = relres(a, damp, b, x), relres(a, damp, b, x_plain)
+        err = float((x - x_plain).abs().max())
+        x_rel = err / float(x_plain.abs().max())
+        t = in_turns({"kernel": lambda: psd.damped_chol_solve(a, damp, b),
+                      "library": library_solve(a, damp, b),
+                      "plain": lambda: psd.damped_chol_solve_plain(a, damp, b)})
+        dev_ms = kernel_device_ms(lambda: psd.damped_chol_solve(a, damp, b),
+                                  "damped_chol_solve_kernel")
+        lib_dev_ms = kernel_device_ms(library_solve(a, damp, b), "")
+        b_psd = solve_bound(batch, n)
+        print(f"K2+K3 damped_chol_solve_kernel (B={batch}, n={n}, IK normal equations): "
+              f"max rel. residual kernel {res_k:.3e} / plain {res_p:.3e} (tol "
+              f"{PSD_RELRES_TOL:.0e}); max|x_kernel - x_plain| = {err:.3e} ({x_rel:.3e} of "
+              f"max|x|, tol {PSD_X_TOL:.0e}); in turns: kernel {t['kernel']:.4f} ms, library "
+              f"cholesky_ex + cholesky_solve {t['library']:.4f} ms, plain {t['plain']:.4f} ms; "
+              f"device time kernel {dev_ms:.4f} ms, library {lib_dev_ms:.4f} ms; bound "
+              f"{b_psd['bound_ms']:.4f} ms ({b_psd['bound_by']}), "
+              f"{b_psd['bound_ms'] / t['kernel']:.1%} of it")
+        if not (res_k <= PSD_RELRES_TOL and x_rel <= PSD_X_TOL):
+            raise AssertionError(f"damped_chol_solve_kernel disagrees with the plain solve "
+                                 f"at B = {batch}")
+        numbers[batch] = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+                              **b_psd, library_ms=t["library"], device_ms=dev_ms,
+                              library_device_ms=lib_dev_ms)
 
-    # ROADMAP F1: an indefinite system comes back all-NaN from both versions,
-    # and its neighbours in the batch are unaffected
-    bad = a[:4].clone()
-    bad[2, 5, 5] = -1e3
+    # ROADMAP F1: a system whose pivot fails comes back all-NaN from both
+    # versions, in the first 32-wide panel, the third, the ragged last one
+    # (row 150 of 157) or through a NaN; its neighbours are unaffected
+    bad = a_all[:6].clone()
+    bad[1, 5, 5] = bad[2, 70, 70] = bad[3, 150, 150] = -1e6
+    bad[4, 100, 100] = float("nan")
+    want_nan = [False, True, True, True, True, False]
     for name, solve in (("kernel", psd.damped_chol_solve),
                         ("plain", psd.damped_chol_solve_plain)):
-        xb = solve(bad, damp[:4].contiguous(), b[:4].contiguous())
+        xb = solve(bad, d_all[:6].contiguous(), b_all[:6].contiguous())
         nan_rows = torch.isnan(xb).all(dim=-1).tolist()
         finite_rows = torch.isfinite(xb).all(dim=-1).tolist()
-        if nan_rows != [False, False, True, False] or finite_rows != [True, True, False, True]:
-            raise AssertionError(f"F1: {name} solve of an indefinite system gave "
+        if nan_rows != want_nan or finite_rows != [not w for w in want_nan]:
+            raise AssertionError(f"F1: {name} solve of indefinite systems gave "
                                  f"nan rows {nan_rows}, finite rows {finite_rows}")
-    print("K2+K3 F1: the indefinite system is all-NaN in kernel and plain, "
-          "its neighbours finite")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    print("K2+K3 F1: systems failing in panels 1, 3 and the ragged last one, and a NaN, "
+          "are all-NaN in kernel and plain, their neighbours finite")
+    return numbers[BATCH], numbers
 
 
 def phase_main_path(char, ef0, targets, x0, smi):
@@ -213,12 +257,16 @@ def phase_small_reference():
 def phase_chol(char, efs, targets, q, x0):
     """K5a and K5b on the full stack's own normal equations at x0 (B = 2048,
     n = 157), padded to n = 160 with identity rows and columns and zero
-    damping: the path's run (each entry point once, counted), then each
-    kernel against its plain version by relative residual, and against
-    damped_chol_solve on the unpadded system; times; ROADMAP F1 and F6."""
+    damping: the path's run (each entry point once, counted); K2+K3's kernel
+    on the unpadded n = 157 systems against the plain solve; then each
+    kernel against its plain version by relative residual, and against the
+    plain solve of the unpadded system; times in turns with the library's
+    cholesky_ex + cholesky_solve; ROADMAP F1 and F6. K5a's entry point
+    reaches K2+K3's kernel (32-wide panels, csrc/psd.cu), K5b its own
+    (csrc/chol.cu)."""
     from momentum_tpu_torch.ops import chol, psd
     from momentum_tpu_torch.solver import SkeletonSolverFunction
-    from momentum_tpu_torch.testing.profile_workload import event_ms
+    from momentum_tpu_torch.testing.profile_workload import in_turns, library_solve, solve_bound
 
     fn = SkeletonSolverFunction(char, (dataclasses.replace(efs[0], target=targets),
                                        dataclasses.replace(efs[1], target=q), *efs[2:]))
@@ -239,7 +287,19 @@ def phase_chol(char, efs, targets, q, x0):
         r = (ad @ sol.double()[..., None])[..., 0] - b.double()
         return float((torch.linalg.norm(r, dim=-1) / torch.linalg.norm(b.double(), dim=-1)).max())
 
-    x_unpadded = psd.damped_chol_solve(jtj.contiguous(), damp, jtr.contiguous())
+    # the kernel's own padding (157 -> 160 rows in shared memory) on the
+    # unpadded systems, held against the plain solve
+    ju, ru = jtj.contiguous(), jtr.contiguous()
+    x_unpadded = psd.damped_chol_solve_plain(ju, damp, ru)
+    x_k23 = psd.damped_chol_solve(ju, damp, ru)
+    res_u = relres(x_k23, ju, damp, ru)
+    x_rel_u = float((x_k23 - x_unpadded).abs().max() / x_unpadded.abs().max())
+    print(f"K2+K3 damped_chol_solve_kernel (B={ju.shape[0]}, n={ju.shape[1]} unpadded, "
+          f"full-stack normal equations): max rel. residual {res_u:.3e} (tol "
+          f"{PSD_RELRES_TOL:.0e}); max|x - x_plain| {x_rel_u:.3e} of max|x| (tol {PSD_X_TOL:.0e})")
+    if not (res_u <= PSD_RELRES_TOL and x_rel_u <= PSD_X_TOL):
+        raise AssertionError("damped_chol_solve_kernel disagrees with the plain solve on the "
+                             "full stack's unpadded systems")
     numbers = {}
     for name, x, plain in (("K5a chol_solve -> damped_chol_solve_kernel", x_a, chol.chol_solve_plain),
                            ("K5b chol_blocked_solve_kernel", x_b, chol.chol_solve_blocked_plain)):
@@ -247,20 +307,24 @@ def phase_chol(char, efs, targets, q, x0):
         res_k, res_p = relres(x), relres(x_plain)
         err = float((x - x_plain).abs().max())
         x_rel = err / float(x_plain.abs().max())
-        to_k23 = float((x[:, :157] - x_unpadded).abs().max() / x_unpadded.abs().max())
+        to_unpadded = float((x[:, :157] - x_unpadded).abs().max() / x_unpadded.abs().max())
         pad_max = float(x[:, 157:].abs().max())
         kernel = chol.chol_solve if name.startswith("K5a") else chol.chol_solve_blocked
-        ms = event_ms(lambda: kernel(a, d, b))
-        plain_ms = event_ms(lambda: plain(a, d, b))
+        t = in_turns({"kernel": lambda: kernel(a, d, b), "library": library_solve(a, d, b),
+                      "plain": lambda: plain(a, d, b)})
+        b_k5 = solve_bound(a.shape[0], a.shape[1])
         print(f"{name} (B={a.shape[0]}, n={a.shape[1]} padded from 157, full-stack normal "
               f"equations): max rel. residual kernel {res_k:.3e} / plain {res_p:.3e} (tol "
               f"{PSD_RELRES_TOL:.0e}); max|x - x_plain| = {err:.3e} ({x_rel:.3e} of max|x|, tol "
-              f"{PSD_X_TOL:.0e}); against damped_chol_solve unpadded {to_k23:.3e} of max|x|; "
-              f"padding rows max|x| {pad_max:.1e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if not (res_k <= PSD_RELRES_TOL and x_rel <= PSD_X_TOL and to_k23 <= PSD_X_TOL
+              f"{PSD_X_TOL:.0e}); against the plain solve unpadded {to_unpadded:.3e} of max|x|; "
+              f"padding rows max|x| {pad_max:.1e}; in turns: kernel {t['kernel']:.4f} ms, "
+              f"library {t['library']:.4f} ms, plain {t['plain']:.4f} ms; bound "
+              f"{b_k5['bound_ms']:.4f} ms ({b_k5['bound_by']})")
+        if not (res_k <= PSD_RELRES_TOL and x_rel <= PSD_X_TOL and to_unpadded <= PSD_X_TOL
                 and pad_max == 0.0):
             raise AssertionError(f"{name} disagrees with the plain solve")
-        numbers[name[:3]] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        numbers[name[:3]] = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"], **b_k5,
+                                 library_ms=t["library"])
 
     # ROADMAP F1: an indefinite system (its pivot fails in the third panel)
     # comes back all-NaN from every version, its neighbours finite
@@ -348,7 +412,7 @@ def phase_raster(char, cam, motion):
     shadow-map pass (256×256, binned), the camera pass unbinned (K4a) and
     with bin_capacity 8 (most tiles take the overflow full scan)."""
     from momentum_tpu_torch.ops import raster
-    from momentum_tpu_torch.testing.profile_workload import event_ms, kernel_device_ms
+    from momentum_tpu_torch.testing.profile_workload import bound, event_ms, kernel_device_ms
 
     verts, screen, colors, light_uvz = _raster_inputs(char, cam, motion)
     faces = char.mesh.faces
@@ -397,6 +461,27 @@ def phase_raster(char, cam, motion):
                                          kw.get("bin_capacity", 128))
             n_ovf = int(ovf.sum())
         args = (planes, tab, n_attr, fids, ovf, w, h, th)
+        # bytes: the tables and bins read, depth, face, bary and attributes
+        # written. Flops: each tile tests the live faces it needs (those in
+        # its bin, or every live face when it overflows or is unbinned; the
+        # padding rows and killed planes, a0 = b0 = 0, need no test) against
+        # its th·128 pixels. A face's 4 planes cost 4 products a·x per column
+        # and 4 products b·y per row of the tile, then 2 adds per plane and
+        # pixel; each covered pixel then evaluates its 3 barycentrics and
+        # attributes at 4 flops each
+        gi, gj = raster._grid(w, h, th)
+        live = (planes[:, 0] != 0) | (planes[:, 1] != 0)
+        n_live = int(live.sum())
+        if fids is None:
+            scanned = gi * gj * n_live
+        else:
+            in_bin = (fids != raster.NOFACE) & live[fids.long().clamp(max=planes.shape[0] - 1)]
+            scanned = int(torch.where(ovf.bool(), n_live, in_bin.sum(1)).sum())
+        covered = int(hit.sum())
+        b_raster = bound(sum(t.numel() * t.element_size() for t in (planes, tab, fids, ovf)
+                             if t is not None) + h * w * 4 * (2 + 3 + n_attr),
+                         scanned * (128 * 4 + th * 4 + th * 128 * 8)
+                         + covered * 4 * (3 + n_attr))
         ms = kernel_device_ms(lambda: raster._raster_kernel(*args, True), "raster_kernel")
         launch_ms = event_ms(lambda: raster._raster_kernel(*args, True))
         plain_ms = event_ms(lambda: raster._raster_plain(*args, 128, True))
@@ -407,10 +492,12 @@ def phase_raster(char, cam, motion):
               f"max|kernel - plain| " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
               + f"; kernel {ms:.4f} ms on the device ({launch_ms:.4f} ms per wrapper call, "
               f"CUDA events), plain {plain_ms:.4f} ms, whole rasterize_planes "
-              f"{call_ms:.4f} ms")
+              f"{call_ms:.4f} ms; bound {b_raster['bound_ms']:.4f} ms "
+              f"({b_raster['bound_by']}, {scanned} face-tile tests of {n_live} live faces, "
+              f"{covered} covered pixels)")
         if label in ("camera pass", "camera pass, cull=False"):
-            numbers[kernel] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   wrapper_call_ms=launch_ms)
+            numbers[kernel] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b_raster,
+                                   library_ms=None, wrapper_call_ms=launch_ms)
     return numbers
 
 
@@ -532,7 +619,7 @@ def main():
 
     char, ef0, targets, x0 = build_fullbody_ik_problem(BATCH, seed=SEED, device="cuda")
     fk_numbers = phase_fk(char, x0)
-    psd_numbers = phase_psd(char, ef0, targets, x0)
+    psd_numbers, psd_by_batch = phase_psd(char, ef0, targets, x0)
     counts = phase_main_path(char, ef0, targets, x0, smi)
     phase_small_reference()
     del char, ef0, targets, x0
@@ -559,12 +646,17 @@ def main():
         dict(name="damped_chol_solve_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/psd_pallas.py:53",
-             also_replaces=["momentum_tpu/ops/psd_pallas.py:120",
-                            "momentum_tpu/ops/chol_pallas.py:55"],
+             also_replaces=["momentum_tpu/ops/psd_pallas.py:120"],
              launches=counts["damped_chol_solve_kernel"], **psd_numbers,
              full_stack_launches=fs_counts["damped_chol_solve_kernel"],
-             k5a_launches=chol_counts["damped_chol_solve_kernel"],
-             k5a_ms=chol_numbers["K5a"]["ms"], k5a_plain_ms=chol_numbers["K5a"]["plain_ms"]),
+             by_batch={str(b): {k: v for k, v in nums.items() if k != "max_abs_err"}
+                       for b, nums in psd_by_batch.items()}),
+        dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
+             source="momentum_tpu_torch/csrc/psd.cu",
+             replaces="momentum_tpu/ops/chol_pallas.py:55",
+             launches=chol_counts["damped_chol_solve_kernel"],
+             path="chol_solve on the full stack's normal equations (n = 160)",
+             **chol_numbers["K5a"]),
         dict(name="raster_planes_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/raster.cu",
              replaces="momentum_tpu/ops/raster_pallas.py:196",

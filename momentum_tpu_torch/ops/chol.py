@@ -2,11 +2,12 @@
 solve (a + diag(damp)) x = b for B SPD systems in one pass each.
 
     chol_solve          K5a  chol_pallas.py::_kernel :55 via chol_solve_pallas
-                             :215 (rank-1 right-looking factor + fused
-                             substitutions) -> damped_chol_solve_kernel,
-                             csrc/psd.cu: that kernel has K5a's design, so
-                             K5a's entry point reaches it (ops/psd.py counts
-                             its launches)
+                             :215 (one system resident in fast memory,
+                             factor and substitutions fused) ->
+                             damped_chol_solve_kernel, csrc/psd.cu: K2+K3's
+                             kernel computes the same function in one pass,
+                             so K5a's entry point reaches it (ops/psd.py
+                             counts its launches)
     chol_solve_blocked  K5b  chol_pallas.py::_kernel_blocked :93 via
                              chol_solve_pallas_blocked :174 (32-wide panels,
                              trailing update per panel) ->
@@ -46,7 +47,7 @@ def chol_solve_plain(a: torch.Tensor, damp: torch.Tensor, b: torch.Tensor) -> to
 
 def chol_solve(a: torch.Tensor, damp: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x with (a + diag(damp)) x = b: a (B, n, n), damp (B, n), b (B, n)
-    float32, any n that fits in one block's shared memory (K5a)."""
+    float32, any n ≤ 224 (K5a)."""
     return psd.damped_chol_solve(a, damp, b)
 
 

@@ -2,13 +2,25 @@
 (csrc/psd.cu).
 
 One kernel replaces two TPU kernels of momentum_tpu/ops/psd_pallas.py:
-`_panel_kernel` (:53, K2: per-panel Cholesky and triangular inverse) and
-`_subst_kernel` (:120, K3: blocked forward and back substitution). On the
-H100 one (n, n) system fits in one block's shared memory, so the block
-factors and substitutes without writing the factor to device memory. The
-simple form is bound by its n barrier-separated pivot steps and the row
-imbalance of the trailing update, not by bytes or flops (the note at the top
-of csrc/psd.cu has the numbers).
+`_panel_kernel` (:53, K2: per-panel Cholesky and triangular inverse Linv)
+and `_subst_kernel` (:120, K3: blocked forward and back substitution with
+the Linv blocks). On the H100 one (n, n) system fits in one block's shared
+memory, so the block factors and substitutes without writing the factor to
+device memory.
+
+Its bound is bytes: B·n²·4 read once, 61 µs at B = 2048, n = 157 (3.35
+TB/s), above the 39 µs of its B·n³/3 flops. What holds it back is latency:
+one system per block, two blocks per SM. The kernel therefore runs K2's
+algorithm in 32-wide panels. Warp 0 factors each diagonal block in registers
+and forms its inverse Linv. All warps then compute L21 = A21·Linvᵀ and the
+trailing update as 4 × 4 register-tile products. The substitutions are
+32-wide matrix-vector products with Linv. The matrix comes in by float4
+loads, eight in flight per thread. The note at the top of csrc/psd.cu has
+the details.
+
+The kernel pads the system in shared memory to a multiple of 32 rows, so it
+takes n ≤ 224 (the full-body rig has n = 157); a larger n does not fit in
+one block's shared memory and raises ValueError.
 
 `damped_chol_solve_plain` is the plain PyTorch version:
 `torch.linalg.cholesky_ex` + `torch.cholesky_solve`. Both versions give an
@@ -76,7 +88,7 @@ def damped_chol_solve(a: torch.Tensor, damp: torch.Tensor,
     CPU tensors take `damped_chol_solve_plain`. CUDA tensors launch
     damped_chol_solve_kernel or raise: all three must be float32,
     contiguous, on one device and without grad, with n small enough for the
-    block's shared memory (n ≤ 240)."""
+    block's shared memory (n ≤ 224)."""
     global launches
     if not a.is_cuda:
         return damped_chol_solve_plain(a, damp, b)

@@ -38,6 +38,35 @@ import time
 import torch
 
 
+# an H100 SXM's published peaks, against which the on-card times are held
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for work that moves `nbytes`
+    (each input read once, each output written once) and does `flops` f32
+    operations: the longer of the two at the card's peak rates."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_flops = flops / F32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_flops),
+                bound_by="bytes" if by_bytes >= by_flops else "operations")
+
+
+def solve_bound(batch: int, n: int) -> dict:
+    """bound() of B damped (n, n) solves: a, damp and b read, x written;
+    n³/3 flops to factor and 2n² to substitute, per system."""
+    return bound(4 * batch * (n * n + 3 * n), batch * (n ** 3 / 3 + 2 * n * n))
+
+
+def library_solve(a, damp, b):
+    """The library's damped solve as a timed function: cholesky_ex +
+    cholesky_solve on a + diag(damp) formed beforehand. A yardstick: the
+    port never calls it."""
+    ad = a + torch.diag_embed(damp)
+    return lambda: torch.cholesky_solve(b[..., None], torch.linalg.cholesky_ex(ad)[0])[..., 0]
+
+
 def card_name_and_power_limit() -> str:
     """The card as `nvidia-smi --query-gpu=name,power.limit` names it."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -61,6 +90,16 @@ def event_ms(fn, reps: int = 10, samples: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def in_turns(fns: dict, rounds: int = 3) -> dict:
+    """Median over `rounds` of each function's event_ms, the functions timed
+    in turns (a, b, a, b, …) so that all see the same card state."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(event_ms(fn))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def kernel_device_ms(fn, match: str, reps: int = 10) -> float:

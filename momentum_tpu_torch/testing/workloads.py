@@ -44,14 +44,26 @@ DEFAULT_BATCH = 2048
 FULLSTACK_REFINE = (2, 1, 1024)
 
 
+def _device(device, entry: str) -> torch.device:
+    """The device a workload is built on: the card unless the caller asks for
+    the CPU; no silent fallback when there is no card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{entry} builds on the CUDA card by default and this machine "
+                           "has none: pass device='cpu' to build it on the CPU")
+    return device
+
+
 def build_fullbody_ik_problem(batch: int, seed: int = 0, noise: float = 0.05,
-                              device=None, return_states: bool = False):
-    """(char, ef0, targets, x0[, states]): targets are exact locator
-    positions of uniform-random ground-truth poses; x0 is truth + `noise`
-    gaussian; return_states adds the ground truth's global states."""
+                              device="cuda", return_states: bool = False):
+    """(char, ef0, targets, x0[, states]) on `device` (the card unless the
+    caller asks for the CPU): targets are exact locator positions of
+    uniform-random ground-truth poses; x0 is truth + `noise` gaussian;
+    return_states adds the ground truth's global states."""
     from momentum_tpu_torch.errors import PositionErrorFunction
     from momentum_tpu_torch.testing.fixtures import create_fullbody_character
 
+    device = _device(device, "build_fullbody_ik_problem")
     char = create_fullbody_character(device=device)
     rng = np.random.default_rng(seed)
     gt_np = rng.uniform(-0.3, 0.3, (batch, char.num_model_parameters)).astype(np.float32)
@@ -113,8 +125,10 @@ def make_solve_batch(char, ef0, batch: int, refine: Optional[tuple] = DEFAULT_RE
     return solve_batch
 
 
-def build_fullstack_problem(batch: int, seed: int = 0, noise: float = 0.05, device=None):
-    """(char, efs, targets, q_targets, x0): the IK problem of
+def build_fullstack_problem(batch: int, seed: int = 0, noise: float = 0.05,
+                            device="cuda"):
+    """(char, efs, targets, q_targets, x0) on `device` (the card unless the
+    caller asks for the CPU): the IK problem of
     build_fullbody_ik_problem with bench.py's full-stack modules
     efs = (position, orientation, limit, pose prior), the first two with
     placeholder targets; q_targets (B, 51, 4) are the ground truth's global
@@ -122,6 +136,7 @@ def build_fullstack_problem(batch: int, seed: int = 0, noise: float = 0.05, devi
     from momentum_tpu_torch.errors import (
         LimitErrorFunction, Mppca, OrientationErrorFunction, PosePriorErrorFunction)
 
+    device = _device(device, "build_fullstack_problem")
     char, ef_pos, targets, x0, states = build_fullbody_ik_problem(
         batch, seed=seed, noise=noise, device=device, return_states=True)
     nj, p = char.num_joints, char.num_model_parameters
@@ -176,15 +191,16 @@ def make_fullstack_solve(char, efs, batch: int):
     return solve
 
 
-def build_render_clip(frames: int = 32, seed: int = 0, device=None, image_height: int = 960,
-                      image_width: int = 1280):
-    """(char, motion (frames, 157), camera): config 7's character, its
-    random-walk clip (cumulative 0.02·N(0, 1) steps from numpy, as the JAX
-    recipe draws them) and the camera framing every frame at the render
-    size."""
+def build_render_clip(frames: int = 32, seed: int = 0, device="cuda",
+                      image_height: int = 960, image_width: int = 1280):
+    """(char, motion (frames, 157), camera) on `device` (the card unless the
+    caller asks for the CPU): config 7's character, its random-walk clip
+    (cumulative 0.02·N(0, 1) steps from numpy, as the JAX recipe draws them)
+    and the camera framing every frame at the render size."""
     from momentum_tpu_torch.rasterizer.utils import create_camera_for_body
     from momentum_tpu_torch.testing.fixtures import create_fullbody_character
 
+    device = _device(device, "build_render_clip")
     char = create_fullbody_character(device=device)
     rng = np.random.default_rng(seed)
     steps = 0.02 * rng.normal(0, 1, (frames, char.num_model_parameters)).astype(np.float32)

@@ -59,8 +59,12 @@ def test_fk_kernel_refuses_what_it_cannot_take(cuda_problem):
         fk_ops.fk_global(char.skeleton, local.clone().requires_grad_())
 
 
-@pytest.mark.parametrize("n", [157, 40, 1])
+@pytest.mark.parametrize("n", [157, 40, 33, 1, 64, 224])
 def test_damped_solve_kernel_matches_plain(cuda_problem, n):
+    """The rig's n = 157 (padded to 160 in shared memory), a ragged last panel
+    of one row (33), one unknown, whole panels (64), and the largest n that
+    fits (224). At n = 157 only every fourth system's span starts 16-byte
+    aligned, so the load's scalar head and tail run too."""
     a, damp, b = _spd(n, 64, seed=n)
     before = psd.launches
     x = psd.damped_chol_solve(a, damp, b)
@@ -83,16 +87,29 @@ def test_damped_solve_kernel_nan_on_indefinite(cuda_problem):
         assert torch.isfinite(x[0]).all() and torch.isfinite(x[2]).all()
 
 
+@pytest.mark.parametrize("pivot", [70, 150])
+def test_damped_solve_kernel_nan_in_later_panels(cuda_problem, pivot):
+    """ROADMAP F1 at n = 157: a pivot that fails in the third 32-wide panel
+    (row 70) or in the ragged last one (row 150) gives that system an all-NaN
+    x, in kernel and plain version alike; its neighbours stay finite."""
+    a, damp, b = _spd(157, 5, seed=pivot)
+    a[3, pivot, pivot] = -1e6
+    for x in (psd.damped_chol_solve(a, damp, b), psd.damped_chol_solve_plain(a, damp, b)):
+        assert torch.isnan(x[3]).all()
+        assert torch.isfinite(x[[0, 1, 2, 4]]).all()
+
+
 def test_damped_solve_kernel_refuses_what_it_cannot_take(cuda_problem):
     a, damp, b = _spd(16, 2, seed=1)
     with pytest.raises(ValueError):
         psd.damped_chol_solve(a.double(), damp.double(), b.double())
     with pytest.raises(ValueError):
         psd.damped_chol_solve(a.transpose(-1, -2).contiguous()[:, :, :8], damp, b)
-    with pytest.raises(ValueError):
-        big = torch.zeros(1, 300, 300, device="cuda")
-        psd.damped_chol_solve(big, torch.ones(1, 300, device="cuda"),
-                              torch.ones(1, 300, device="cuda"))
+    for n in (225, 300):  # 225 pads to 256 rows: over the block's shared memory
+        with pytest.raises(ValueError):
+            psd.damped_chol_solve(torch.zeros(1, n, n, device="cuda"),
+                                  torch.ones(1, n, device="cuda"),
+                                  torch.ones(1, n, device="cuda"))
 
 
 def test_main_path_on_cuda_matches_cpu(cuda_problem):
@@ -102,7 +119,8 @@ def test_main_path_on_cuda_matches_cpu(cuda_problem):
     fk_ops.launches = psd.launches = 0
     res = workloads.make_solve_batch(char, ef0, 256)(targets, x0)
     assert fk_ops.launches > 0 and psd.launches > 0
-    char_c, ef0_c, targets_c, x0_c = workloads.build_fullbody_ik_problem(256, seed=2)
+    char_c, ef0_c, targets_c, x0_c = workloads.build_fullbody_ik_problem(256, seed=2,
+                                                                           device="cpu")
     res_c = workloads.make_solve_batch(char_c, ef0_c, 256)(targets_c, x0_c)
     e, e_c = res.error.cpu().numpy(), res_c.error.numpy()
     assert np.all(np.isfinite(e))
@@ -120,7 +138,7 @@ def _relres(a, damp, b, x):
 
 @pytest.mark.parametrize("n", [160, 64, 40])
 def test_chol_solve_reaches_the_rank1_kernel(cuda_problem, n):
-    """K5a's entry point launches damped_chol_solve_kernel (any n)."""
+    """K5a's entry point launches damped_chol_solve_kernel (any n ≤ 224)."""
     a, damp, b = _spd(n, 64, seed=10 + n)
     before = psd.launches
     x = chol.chol_solve(a, damp, b)

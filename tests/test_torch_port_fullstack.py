@@ -360,7 +360,7 @@ def _jax_fullstack_solve(batch, seed=0):
 
 
 def test_fullstack_problem_matches_jax():
-    char, efs, targets, q, x0 = twork.build_fullstack_problem(8, seed=0)
+    char, efs, targets, q, x0 = twork.build_fullstack_problem(8, seed=0, device="cpu")
     _, _, targets_j, x0_j, states_j = jax_problem(8, seed=0, return_states=True)
     np.testing.assert_array_equal(x0.numpy(), np.asarray(x0_j))
     np.testing.assert_allclose(targets.numpy(), np.asarray(targets_j), rtol=0, atol=1e-5)
@@ -377,7 +377,7 @@ def test_fullstack_solve_matches_jax():
     on both packages: the same marker convergence statistics."""
     _, e_j = _jax_fullstack_solve(B)
     e_j = np.asarray(e_j)
-    char, efs, targets, q, x0 = twork.build_fullstack_problem(B, seed=0)
+    char, efs, targets, q, x0 = twork.build_fullstack_problem(B, seed=0, device="cpu")
     params, e_t = twork.make_fullstack_solve(char, efs, B)(targets, q, x0)
     e_t = e_t.numpy()
     assert params.shape == x0.shape and torch.isfinite(params).all()

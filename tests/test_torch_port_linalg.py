@@ -5,7 +5,11 @@ tests/test_psd_pallas.py runs them.
 
 Solves are compared by relative residual ‖(A + D)x − b‖/‖b‖ ≤ 1e-4, not by
 raw x: reassociation alone moves x of an ill-conditioned system (ROADMAP
-F5). An indefinite system gives NaN in both packages (ROADMAP F1)."""
+F5). An indefinite system gives NaN in both packages (ROADMAP F1).
+
+`_kernel_model` rehearses damped_chol_solve_kernel's blocked arithmetic
+(csrc/psd.cu) on the CPU, so that its index arithmetic is pinned before the
+card runs it: nothing on the port's path calls it."""
 
 import numpy as np
 import pytest
@@ -100,3 +104,82 @@ def test_cpu_wrapper_takes_the_plain_path(rng):
     x = psd.damped_chol_solve(a, damp, b)
     np.testing.assert_array_equal(x.numpy(), psd.damped_chol_solve_plain(a, damp, b).numpy())
     assert psd.launches == before == 0
+
+
+PANEL = 32  # csrc/psd.cu kPanel
+
+
+def _kernel_model(a, damp, b):
+    """damped_chol_solve_kernel's arithmetic in float32 torch, batched: the
+    system padded to m = ⌈n/32⌉·32 with identity rows, zero damping and zero
+    right-hand side; per 32-wide panel the diagonal block's factor (column by
+    column, pivots through rsqrt), its inverse Linv by forward substitution
+    row by row, L21 = A21·Linvᵀ and the trailing update; then the Linv
+    substitutions. A pivot that is not > 0 gives an all-NaN x (ROADMAP F1)."""
+    bsz, n = b.shape
+    m = -(-n // PANEL) * PANEL
+    A = torch.zeros(bsz, m, m)
+    A[:, :n, :n] = a + torch.diag_embed(damp)
+    A[:, range(n, m), range(n, m)] = 1.0
+    y = torch.zeros(bsz, m)
+    y[:, :n] = b
+    ok = torch.ones(bsz, dtype=torch.bool)
+    eye = torch.eye(PANEL)
+    for r0 in range(0, m, PANEL):
+        t0 = r0 + PANEL
+        blk = A[:, r0:t0, r0:t0].clone()
+        low = torch.zeros(bsz, PANEL, PANEL)
+        dinv = torch.zeros(bsz, PANEL)
+        for k in range(PANEL):
+            d = blk[:, k, k]
+            ok &= d > 0
+            dinv[:, k] = torch.rsqrt(d)
+            col = blk[:, k:, k] * dinv[:, k, None]
+            low[:, k:, k] = col
+            blk[:, k + 1:, k + 1:] -= col[:, 1:, None] * col[:, None, 1:]
+        linv = torch.zeros(bsz, PANEL, PANEL)
+        for r in range(PANEL):
+            s = eye[r] - (low[:, r, :r, None] * linv[:, :r, :]).sum(dim=1)
+            linv[:, r] = s * dinv[:, r, None]
+        A[:, r0:t0, r0:t0] = linv  # L11 is never read again
+        l21 = A[:, t0:, r0:t0] @ linv.transpose(-1, -2)
+        A[:, t0:, r0:t0] = l21
+        A[:, t0:, t0:] -= l21 @ l21.transpose(-1, -2)
+    for r0 in range(0, m, PANEL):  # y_k = Linv_k·(b_k − Σ_{j<k} L_kj y_j)
+        t0 = r0 + PANEL
+        y[:, r0:t0] = (A[:, r0:t0, r0:t0] @ y[:, r0:t0, None])[..., 0]
+        y[:, t0:] -= (A[:, t0:, r0:t0] @ y[:, r0:t0, None])[..., 0]
+    for r0 in range(m - PANEL, -1, -PANEL):  # x_k = Linv_kᵀ·(y_k − Σ_{j>k} L_jkᵀ x_j)
+        t0 = r0 + PANEL
+        y[:, r0:t0] = (A[:, r0:t0, r0:t0].transpose(-1, -2) @ y[:, r0:t0, None])[..., 0]
+        y[:, :r0] -= (A[:, r0:t0, :r0].transpose(-1, -2) @ y[:, r0:t0, None])[..., 0]
+    assert (y[:, n:][ok] == 0).all()  # the padded unknowns are exactly 0
+    return torch.where(ok[:, None], y[:, :n], torch.nan)
+
+
+@pytest.mark.parametrize("n", [157, 33, 1])
+def test_kernel_model_matches_pallas_and_plain(rng, n):
+    """At the rig's n, a ragged last panel of one row, and one unknown: the
+    blocked arithmetic solves as well as JAX's panel kernels (interpret mode)
+    and the plain version."""
+    a, damp, b = _system(rng, 32, n)
+    x_m = _kernel_model(*(torch.as_tensor(v) for v in (a, damp, b))).numpy()
+    x_p = np.asarray(psd_solve_pallas(jnp.asarray(a), jnp.asarray(b),
+                                      damp_diag=jnp.asarray(damp), interpret=True))
+    x_t = psd.damped_chol_solve_plain(*(torch.as_tensor(v) for v in (a, damp, b))).numpy()
+    for x in (x_m, x_p, x_t):
+        assert np.max(_relres(a, damp, b, x)) <= RELRES_TOL
+    scale = np.max(np.abs(x_t))
+    np.testing.assert_allclose(x_m / scale, x_t / scale, atol=1e-4)
+
+
+@pytest.mark.parametrize("pivot", [70, 150])
+def test_kernel_model_nan_on_failed_pivot(rng, pivot):
+    """ROADMAP F1 in the blocked order: a pivot that fails in the third panel
+    (row 70) or in the ragged last one (row 150 of 157) gives an all-NaN x
+    for that system alone, as in the plain version."""
+    a, damp, b = (torch.as_tensor(v) for v in _system(rng, 4, 157))
+    a[2, pivot, pivot] = -1e3
+    for x in (_kernel_model(a, damp, b), psd.damped_chol_solve_plain(a, damp, b)):
+        assert torch.isnan(x[2]).all()
+        assert torch.isfinite(x[[0, 1, 3]]).all()

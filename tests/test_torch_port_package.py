@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 from momentum_tpu_torch.ops import chol, fk as fk_ops, psd, raster
@@ -47,7 +48,7 @@ def test_import_sets_full_f32_matmul_precision():
 def test_cpu_path_launches_no_kernel():
     """On CPU tensors the wrappers take the plain versions and leave their
     launch counters at 0, through a whole small solve too."""
-    char, ef0, targets, x0 = workloads.build_fullbody_ik_problem(8, seed=1)
+    char, ef0, targets, x0 = workloads.build_fullbody_ik_problem(8, seed=1, device="cpu")
     local = torch.randn(8, char.num_joints, 8)
     np.testing.assert_array_equal(fk_ops.fk_global(char.skeleton, local).numpy(),
                                   fk_ops.fk_global_plain(char.skeleton, local).numpy())
@@ -61,7 +62,7 @@ def test_cpu_render_launches_no_kernel():
     """A frame of the render clip on CPU tensors takes the plain rasterizer
     and counts no K1, K4a or K4b launch."""
     char, motion, cam = workloads.build_render_clip(frames=1, image_height=48,
-                                                    image_width=64)
+                                                    image_width=64, device="cpu")
     before = dict(raster.launches)
     imgs = workloads.make_render_clip(char, cam, width=32, height=24,
                                       shadow_resolution=32)(motion)
@@ -72,9 +73,23 @@ def test_cpu_render_launches_no_kernel():
 def test_cpu_fullstack_launches_no_kernel():
     """The full-stack GN solve on CPU tensors takes the plain versions: no
     K1, K2+K3 or K5b launch."""
-    char, efs, targets, q, x0 = workloads.build_fullstack_problem(8, seed=1)
+    char, efs, targets, q, x0 = workloads.build_fullstack_problem(8, seed=1, device="cpu")
     before = (fk_ops.launches, psd.launches, chol.launches)
     params, energy = workloads.make_fullstack_solve(char, efs, 8)(targets, q, x0)
     assert params.shape == x0.shape and bool(torch.isfinite(energy).all())
     assert float(energy.max()) < 1e-3
     assert (fk_ops.launches, psd.launches, chol.launches) == before
+
+
+@pytest.mark.parametrize("entry,args", [
+    ("build_fullbody_ik_problem", (8,)),
+    ("build_fullstack_problem", (8,)),
+    ("build_render_clip", (1,)),
+])
+def test_workloads_default_to_the_card(monkeypatch, entry, args):
+    """The workload entry points build on the card unless the caller asks for
+    the CPU; with no card, the default raises and names the way out instead
+    of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(workloads, entry)(*args)

@@ -301,7 +301,8 @@ def test_render_clip_matches_jax_recipe():
     from momentum_tpu.rasterizer.utils import create_camera_for_body as j_camera
     from momentum_tpu_torch.testing.workloads import build_render_clip, make_render_clip
 
-    char_t, motion, cam_t = build_render_clip(frames=2, image_height=96, image_width=128)
+    char_t, motion, cam_t = build_render_clip(frames=2, image_height=96, image_width=128,
+                                              device="cpu")
     imgs = make_render_clip(char_t, cam_t, width=64, height=48, shadow_resolution=64)(motion)
     assert imgs.shape == (2, 48, 64, 3) and torch.isfinite(imgs).all()
 

@@ -39,7 +39,7 @@ B = 64
 @pytest.fixture(scope="module")
 def problems():
     jax_problem = jwork.build_fullbody_ik_problem(B, seed=0)
-    port_problem = twork.build_fullbody_ik_problem(B, seed=0)
+    port_problem = twork.build_fullbody_ik_problem(B, seed=0, device="cpu")
     return jax_problem, port_problem
 
 
@@ -100,7 +100,7 @@ def test_compacted_solve_matches_jax(problems):
 
 @pytest.fixture(scope="module")
 def port_stage():
-    char, ef0, targets, x0 = twork.build_fullbody_ik_problem(32, seed=3)
+    char, ef0, targets, x0 = twork.build_fullbody_ik_problem(32, seed=3, device="cpu")
     return twork.make_solve_stage(char, ef0), targets, x0
 
 
@@ -153,7 +153,7 @@ def test_energy_from_error_fn_matches_residual_energy(port_stage):
     """With an L2 loss the exact energy (error_fn) and Σ rows² coincide, so
     both acceptance energies give the same iterates."""
     _, targets, x0 = port_stage
-    char, ef0, _, _ = twork.build_fullbody_ik_problem(4, seed=3)
+    char, ef0, _, _ = twork.build_fullbody_ik_problem(4, seed=3, device="cpu")
     fn = SkeletonSolverFunction(char, (dataclasses.replace(ef0, target=targets[:4]),))
     runs = [solve_levenberg_marquardt(
         fn.residual, fn.error, x0[:4], jacobian_fn=fn.residual_and_jacobian,
