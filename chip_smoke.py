@@ -3,12 +3,17 @@ kernels, holds each against its plain PyTorch version at its path's shapes,
 then drives the port's paths through those kernels and checks their output:
 
   * full-body batched marker IK at B = 2048 (LM 5 + 6 compacted on the worst
-    128): kernels K1 (FK) and K2+K3 (damped Cholesky in 32-wide panels), the
-    latter held against its plain version and timed against cholesky_ex +
-    cholesky_solve at the paths' batch sizes 2048, 128 and 1024;
+    128): kernels K1 (FK by binary lifting, held against its plain version
+    at B = 2048 and at the clip's B = 32) and K2+K3 (damped Cholesky in
+    32-wide panels), the latter held against its plain version and timed
+    against cholesky_ex + cholesky_solve at the paths' batch sizes 2048, 128
+    and 1024;
   * the shadowed render of a posed 32-frame clip at 640×480, 2×2
     supersampled (benchmarks/bench_suite.py config 7): K1, and K4b (binned
-    plane rasterizer) for the camera and shadow-map passes of every frame;
+    plane rasterizer) for the camera and shadow-map passes of every frame,
+    held against its plain version on passes with and without overflow
+    tiles (frames 0, 5, 11), with each frame's overflow tiles and the
+    device time of the clip's 64 launches;
   * the shadowed render of a mesh under the bin capacity (the clip's first
     120 faces): K4a (plane rasterizer, all faces per tile);
   * K5's entry points (ops/chol_pallas.py), fed the full residual stack's
@@ -42,8 +47,9 @@ import numpy as np
 import torch
 
 BATCH = 2048
+CLIP_FRAMES = 32  # the render clip's frames: K1's batch on that path
 SEED = 0
-FK_TOL = 2e-5  # abs, f32: the kernel composes serially, the plain version by lifting
+FK_TOL = 2e-5  # abs, f32: kernel and plain version lift alike; PyTorch's kernels may fuse
 PSD_RELRES_TOL = 1e-5  # max ‖(A+D)x − b‖/‖b‖; plain cholesky_ex gives ~2e-7 here
 PSD_X_TOL = 1e-3  # max |x_kernel − x_plain| / max |x_plain|: κ reaches ~1e8 here
 CONV_MIN = 0.98  # JAX CPU runs of this workload give 0.99–1.0
@@ -96,30 +102,43 @@ def phase_build():
 
 
 def phase_fk(char, x0):
+    """K1 against the plain version at the IK path's B = 2048 and the
+    clip's B = 32 (one launch for all its frames): max error, the kernel's
+    time (CUDA events around launches queued behind a sleep kernel, and the
+    profiler's device time), the plain version's, the bound."""
     from momentum_tpu_torch.character import fk
     from momentum_tpu_torch.ops import fk as fk_ops
-    from momentum_tpu_torch.testing.profile_workload import bound, event_ms
+    from momentum_tpu_torch.testing.profile_workload import (
+        bound, event_ms, kernel_device_ms)
 
-    local = fk.local_skel_states(char.skeleton,
-                                 char.parameter_transform.apply(x0)).contiguous()
-    out = fk_ops.fk_global(char.skeleton, local)
-    ref = fk_ops.fk_global_plain(char.skeleton, local)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    ms = event_ms(lambda: fk_ops.fk_global(char.skeleton, local))
-    plain_ms = event_ms(lambda: fk_ops.fk_global_plain(char.skeleton, local))
-    # local states read, global states written, the parent table; one
-    # skel_state compose per joint: quaternion product 28 flops, rotated and
-    # scaled translation 36, scale 1
-    b_fk = bound(2 * local.numel() * 4 + char.skeleton.joint_parent.numel() * 4,
-                 local.shape[0] * local.shape[1] * 65)
-    print(f"K1 fk_global_kernel (B={local.shape[0]}, nJ={local.shape[1]}): "
-          f"max|kernel - plain lifted| = {err:.3e} (tol {FK_TOL:.0e}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_fk['bound_ms']:.4f} ms "
-          f"({b_fk['bound_by']})")
-    if not err <= FK_TOL:
-        raise AssertionError(f"fk_global_kernel disagrees with the plain FK: {err}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b_fk, library_ms=None)
+    skel = char.skeleton
+    local_all = fk.local_skel_states(skel, char.parameter_transform.apply(x0)).contiguous()
+    numbers = {}
+    for batch in (BATCH, CLIP_FRAMES):
+        local = local_all[:batch].contiguous()
+        out = fk_ops.fk_global(skel, local)
+        ref = fk_ops.fk_global_plain(skel, local)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        ms = event_ms(lambda: fk_ops.fk_global(skel, local), busy=True)
+        dev_ms = kernel_device_ms(lambda: fk_ops.fk_global(skel, local), "fk_global_kernel")
+        plain_ms = event_ms(lambda: fk_ops.fk_global_plain(skel, local))
+        # local states read, global states written, the lifting table; one
+        # skel_state compose per joint: quaternion product 28 flops, rotated
+        # and scaled translation 36, scale 1
+        b_fk = bound(2 * local.numel() * 4 + skel.prefix_table.numel() * 4,
+                     batch * local.shape[1] * 65)
+        print(f"K1 fk_global_kernel (B={batch}, nJ={local.shape[1]}, "
+              f"{skel.prefix_table.shape[0]} levels): max|kernel - plain| = {err:.3e} (tol "
+              f"{FK_TOL:.0e}); kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms, bound {b_fk['bound_ms']:.6f} ms ({b_fk['bound_by']}), "
+              f"{b_fk['bound_ms'] / ms:.1%} of it")
+        if not err <= FK_TOL:
+            raise AssertionError(f"fk_global_kernel disagrees with the plain FK at "
+                                 f"B = {batch}: {err}")
+        numbers[batch] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b_fk,
+                              library_ms=None, device_ms=dev_ms)
+    return numbers[BATCH], numbers
 
 
 def phase_psd(char, ef0, targets, x0):
@@ -406,27 +425,61 @@ def _raster_inputs(char, cam, motion, frame=0):
     return verts, screen, colors, light_uvz
 
 
+def _raster_bound(planes, tab, n_attr, fids, ovf, w, h, th, covered):
+    """bound() of one rasterizer pass, and its face-tile tests and live
+    faces. Bytes: the tables and bins read, depth, face, bary and attributes
+    written. Flops: each tile tests the live faces it needs (those in its
+    bin, or every live face when it overflows or is unbinned; the padding
+    rows and killed planes, a0 = b0 = 0, need no test) against its th·128
+    pixels. A face's 4 planes cost 4 products a·x per column and 4 products
+    b·y per row of the tile, then 2 adds per plane and pixel; each covered
+    pixel then evaluates its 3 barycentrics and attributes at 4 flops each."""
+    from momentum_tpu_torch.ops import raster
+    from momentum_tpu_torch.testing.profile_workload import bound
+
+    gi, gj = raster._grid(w, h, th)
+    live = (planes[:, 0] != 0) | (planes[:, 1] != 0)
+    n_live = int(live.sum())
+    if fids is None:
+        scanned = gi * gj * n_live
+    else:
+        in_bin = (fids != raster.NOFACE) & live[fids.long().clamp(max=planes.shape[0] - 1)]
+        scanned = int(torch.where(ovf.bool(), n_live, in_bin.sum(1)).sum())
+    b = bound(sum(t.numel() * t.element_size() for t in (planes, tab, fids, ovf)
+                  if t is not None) + h * w * 4 * (2 + 3 + n_attr),
+              scanned * (128 * 4 + th * 4 + th * 128 * 8) + covered * 4 * (3 + n_attr))
+    return b, scanned, n_live
+
+
 def phase_raster(char, cam, motion):
     """K4a and K4b against the plain version on the card, at config 7's
-    frame-0 shapes: the camera pass (1280×960, 6 attributes, binned), the
-    shadow-map pass (256×256, binned), the camera pass unbinned (K4a) and
-    with bin_capacity 8 (most tiles take the overflow full scan)."""
+    shapes: the camera pass (1280×960, 6 attributes, binned) of frame 0 (one
+    overflow tile) and frame 5 (none), the shadow-map pass (256×256, binned)
+    of frame 0 (none) and frame 11 (one), frame 0's camera pass unbinned
+    (K4a) and with bin_capacity 8 (every tile takes the overflow scan)."""
     from momentum_tpu_torch.ops import raster
-    from momentum_tpu_torch.testing.profile_workload import bound, event_ms, kernel_device_ms
+    from momentum_tpu_torch.testing.profile_workload import (
+        event_ms, kernel_device_ms)
 
-    verts, screen, colors, light_uvz = _raster_inputs(char, cam, motion)
     faces = char.mesh.faces
-    cases = [
-        ("camera pass", "raster_planes_binned_kernel", screen, 1280, 960,
-         dict(vertex_attrs=verts, face_attrs=colors)),
-        ("shadow pass", "raster_planes_binned_kernel", light_uvz, 256, 256, {}),
-        ("camera pass, cull=False", "raster_planes_kernel", screen, 1280, 960,
-         dict(vertex_attrs=verts, face_attrs=colors, cull=False)),
-        ("camera pass, bin_capacity=8", "raster_planes_binned_kernel", screen, 1280, 960,
-         dict(vertex_attrs=verts, face_attrs=colors, bin_capacity=8)),
-    ]
+    inputs = {}
+    for frame in (0, 5, 11):
+        verts, screen, colors, light_uvz = _raster_inputs(char, cam, motion, frame)
+        inputs[frame] = dict(camera=(screen, 1280, 960,
+                                     dict(vertex_attrs=verts, face_attrs=colors)),
+                             shadow=(light_uvz, 256, 256, {}))
+    binned, full = "raster_planes_binned_kernel", "raster_planes_kernel"
+    cases = [("camera pass, frame 0", binned, 0, "camera", {}),
+             ("camera pass, frame 5", binned, 5, "camera", {}),
+             ("shadow pass, frame 0", binned, 0, "shadow", {}),
+             ("shadow pass, frame 11", binned, 11, "shadow", {}),
+             ("camera pass, frame 0, cull=False", full, 0, "camera", dict(cull=False)),
+             ("camera pass, frame 0, bin_capacity=8", binned, 0, "camera",
+              dict(bin_capacity=8))]
     numbers = {}
-    for label, kernel, sv, w, h, kw in cases:
+    for label, kernel, frame, pass_, extra in cases:
+        sv, w, h, kw = inputs[frame][pass_]
+        kw = dict(kw, **extra)
         before = raster.launches[kernel]
         out = raster.rasterize_planes(sv, faces, w, h, **kw)
         ref = raster.rasterize_planes_plain(sv, faces, w, h, **kw)
@@ -461,50 +514,51 @@ def phase_raster(char, cam, motion):
                                          kw.get("bin_capacity", 128))
             n_ovf = int(ovf.sum())
         args = (planes, tab, n_attr, fids, ovf, w, h, th)
-        # bytes: the tables and bins read, depth, face, bary and attributes
-        # written. Flops: each tile tests the live faces it needs (those in
-        # its bin, or every live face when it overflows or is unbinned; the
-        # padding rows and killed planes, a0 = b0 = 0, need no test) against
-        # its th·128 pixels. A face's 4 planes cost 4 products a·x per column
-        # and 4 products b·y per row of the tile, then 2 adds per plane and
-        # pixel; each covered pixel then evaluates its 3 barycentrics and
-        # attributes at 4 flops each
-        gi, gj = raster._grid(w, h, th)
-        live = (planes[:, 0] != 0) | (planes[:, 1] != 0)
-        n_live = int(live.sum())
-        if fids is None:
-            scanned = gi * gj * n_live
-        else:
-            in_bin = (fids != raster.NOFACE) & live[fids.long().clamp(max=planes.shape[0] - 1)]
-            scanned = int(torch.where(ovf.bool(), n_live, in_bin.sum(1)).sum())
         covered = int(hit.sum())
-        b_raster = bound(sum(t.numel() * t.element_size() for t in (planes, tab, fids, ovf)
-                             if t is not None) + h * w * 4 * (2 + 3 + n_attr),
-                         scanned * (128 * 4 + th * 4 + th * 128 * 8)
-                         + covered * 4 * (3 + n_attr))
-        ms = kernel_device_ms(lambda: raster._raster_kernel(*args, True), "raster_kernel")
-        launch_ms = event_ms(lambda: raster._raster_kernel(*args, True))
+        b_raster, scanned, n_live = _raster_bound(*args, covered)
+        ms = kernel_device_ms(lambda: raster._raster_kernel(*args, True), kernel)
+        busy_ms = event_ms(lambda: raster._raster_kernel(*args, True), busy=True)
         plain_ms = event_ms(lambda: raster._raster_plain(*args, 128, True))
         call_ms = event_ms(lambda: raster.rasterize_planes(sv, faces, w, h, **kw))
         err = max(errs.values())
         print(f"{kernel} [{label}] ({w}x{h}, F={faces.shape[0]}, th={th}, "
               f"{n_ovf} of {ovf.numel() if cull else 0} tiles overflow): face maps identical, "
               f"max|kernel - plain| " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
-              + f"; kernel {ms:.4f} ms on the device ({launch_ms:.4f} ms per wrapper call, "
-              f"CUDA events), plain {plain_ms:.4f} ms, whole rasterize_planes "
+              + f"; kernel {ms:.4f} ms on the device ({busy_ms:.4f} ms in CUDA events "
+              f"behind a sleep), plain {plain_ms:.4f} ms, whole rasterize_planes "
               f"{call_ms:.4f} ms; bound {b_raster['bound_ms']:.4f} ms "
               f"({b_raster['bound_by']}, {scanned} face-tile tests of {n_live} live faces, "
               f"{covered} covered pixels)")
-        if label in ("camera pass", "camera pass, cull=False"):
-            numbers[kernel] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b_raster,
-                                   library_ms=None, wrapper_call_ms=launch_ms)
+        numbers[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b_raster,
+                              library_ms=None, events_ms=busy_ms, overflow_tiles=n_ovf)
     return numbers
+
+
+def phase_clip_passes(char, cam, motion):
+    """Every K4b pass of the clip (32 camera and 32 shadow passes): the
+    overflow tiles of each, and the sum of their bounds."""
+    from momentum_tpu_torch.ops import raster
+    from momentum_tpu_torch.testing.kernel_ab import clip_passes
+
+    counts = {"camera": [], "shadow": []}
+    bound_ms = 0.0
+    for frame in clip_passes(char, cam, motion):
+        for name, args in frame.items():
+            counts[name].append(int(args[4].sum()))
+            covered = int((raster._raster_kernel(*args, 8, False)["face"] >= 0).sum())
+            bound_ms += _raster_bound(*args, 8, covered)[0]["bound_ms"]
+    print(f"K4b overflow tiles per frame of the clip: camera {counts['camera']} (of 1200 "
+          f"tiles), shadow {counts['shadow']} (of 64); the 64 passes' bounds sum to "
+          f"{bound_ms:.4f} ms")
+    return dict(overflow_tiles=counts, bound_ms=bound_ms)
 
 
 def phase_render_clip(char, cam, motion, smi):
     """The render path: 32 frames, FK in one batch (K1), skinning, two
-    raster passes per frame (K4b) and a 2×2 box filter; 3 timed runs."""
+    raster passes per frame (K4b) and a 2×2 box filter; 3 timed runs, then
+    the device time of K4b's 64 launches and K1's one per clip (profiler)."""
     from momentum_tpu_torch.ops import fk as fk_ops, raster
+    from momentum_tpu_torch.testing.profile_workload import kernel_device_ms
     from momentum_tpu_torch.testing.workloads import make_render_clip
 
     render_clip = make_render_clip(char, cam)
@@ -522,6 +576,8 @@ def phase_render_clip(char, cam, motion, smi):
         render_clip(motion)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    device_ms = {name: kernel_device_ms(lambda: render_clip(motion), name, reps=2)
+                 for name in ("raster_planes_binned_kernel", "fk_global_kernel")}
     frames = motion.shape[0]
     wall = statistics.median(walls)
     cov = float((imgs > 0).float().mean())
@@ -531,7 +587,9 @@ def phase_render_clip(char, cam, motion, smi):
           f"{frames / wall:.2f} frames/s (median wall {wall * 1e3:.1f} ms of {len(walls)}) "
           f"on {smi}; mean coverage {cov:.6f} (JAX CPU {CLIP_COVERAGE_JAX_CPU:.6f}), "
           f"mean colour of covered pixels {[round(c, 6) for c in mean_color]}; "
-          f"kernel launches {counts}")
+          f"kernel launches {counts}; device ms per clip (profiler): K4b "
+          f"{device_ms['raster_planes_binned_kernel']:.4f} over its 64 launches, K1 "
+          f"{device_ms['fk_global_kernel']:.4f}")
     if imgs.shape != (frames, 480, 640, 3) or not bool(torch.isfinite(imgs).all()):
         raise AssertionError(f"render clip: images {tuple(imgs.shape)} of the wrong shape "
                              "or not finite")
@@ -541,7 +599,7 @@ def phase_render_clip(char, cam, motion, smi):
     if counts["raster_planes_binned_kernel"] != 2 * frames or counts["fk_global_kernel"] < 1:
         raise AssertionError(f"render clip: expected {2 * frames} K4b launches and ≥ 1 K1 "
                              f"launch, got {counts}")
-    return counts, imgs
+    return counts, imgs, device_ms
 
 
 def phase_small_mesh(char, cam, motion):
@@ -618,7 +676,7 @@ def main():
     from momentum_tpu_torch.testing.workloads import build_fullbody_ik_problem
 
     char, ef0, targets, x0 = build_fullbody_ik_problem(BATCH, seed=SEED, device="cuda")
-    fk_numbers = phase_fk(char, x0)
+    fk_numbers, fk_by_batch = phase_fk(char, x0)
     psd_numbers, psd_by_batch = phase_psd(char, ef0, targets, x0)
     counts = phase_main_path(char, ef0, targets, x0, smi)
     phase_small_reference()
@@ -635,14 +693,18 @@ def main():
 
     rchar, motion, cam = build_render_clip(32, seed=SEED, device="cuda")
     raster_numbers = phase_raster(rchar, cam, motion)
-    clip_counts, imgs = phase_render_clip(rchar, cam, motion, smi)
+    clip_passes = phase_clip_passes(rchar, cam, motion)
+    clip_counts, imgs, clip_device_ms = phase_render_clip(rchar, cam, motion, smi)
     small_counts = phase_small_mesh(rchar, cam, motion)
     phase_render_reference((rchar, motion, cam), imgs)
     kernels = [
         dict(name="fk_global_kernel", route="cuda", source="momentum_tpu_torch/csrc/fk.cu",
              replaces="momentum_tpu/ops/fk_pallas.py:62",
              launches=counts["fk_global_kernel"], **fk_numbers,
-             full_stack_launches=fs_counts["fk_global_kernel"]),
+             full_stack_launches=fs_counts["fk_global_kernel"],
+             clip_launches=clip_counts["fk_global_kernel"],
+             clip_device_ms=clip_device_ms["fk_global_kernel"],
+             by_batch={str(b): nums for b, nums in fk_by_batch.items()}),
         dict(name="damped_chol_solve_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/psd_pallas.py:53",
@@ -662,13 +724,17 @@ def main():
              replaces="momentum_tpu/ops/raster_pallas.py:196",
              launches=small_counts["raster_planes_kernel"],
              path="shadowed render of a mesh under the bin capacity",
-             **raster_numbers["raster_planes_kernel"]),
+             **raster_numbers["camera pass, frame 0, cull=False"]),
         dict(name="raster_planes_binned_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/raster.cu",
              replaces="momentum_tpu/ops/raster_pallas.py:220",
              launches=clip_counts["raster_planes_binned_kernel"],
              path="shadowed render of the 32-frame clip",
-             **raster_numbers["raster_planes_binned_kernel"]),
+             **raster_numbers["camera pass, frame 0"],
+             passes={label: nums for label, nums in raster_numbers.items()
+                     if "cull=False" not in label},
+             clip=dict(device_ms=clip_device_ms["raster_planes_binned_kernel"],
+                       **clip_passes)),
         dict(name="chol_blocked_solve_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/chol.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:93",

@@ -10,7 +10,7 @@ Semantics of momentum_tpu/character/fk.py (joint_state.cpp:22-66):
 `global_skel_states` sends CUDA tensors through kernel K1
 (ops/fk.py::fk_global, csrc/fk.cu) and CPU tensors through the binary-lifting
 prefix product with an index gather (`global_skel_states_lifted`).
-`global_skel_states_scan` is the serial joint walk, the kernel's own order.
+`global_skel_states_scan` is the serial joint walk (joint_state.cpp's order).
 
 The derivative axes (`joint_axes`) follow from the global states as in the
 JAX package:

@@ -7,8 +7,8 @@
 
 Each joint has 7 parameters (tx, ty, tz, rx, ry, rz, log2-scale). The
 hierarchy queries (`ancestor_matrix`, `prefix_levels`) are host numpy, as in
-momentum_tpu/character/skeleton.py; their device copies are cached on the
-skeleton.
+momentum_tpu/character/skeleton.py; their device copies (`ancestor_mask`,
+`prefix_table`) are cached on the skeleton.
 """
 
 from __future__ import annotations
@@ -81,10 +81,14 @@ class Skeleton:
         return levels
 
     @functools.cached_property
-    def prefix_index(self) -> list[torch.Tensor]:
-        """`prefix_levels` as int64 index tensors on the skeleton's device."""
-        return [torch.as_tensor(p, dtype=torch.int64, device=self.joint_parent.device)
-                for p in self.prefix_levels()]
+    def prefix_table(self) -> torch.Tensor:
+        """`prefix_levels` as one int32 (L, nJ + 1) table on the skeleton's
+        device, row k = p_k: the table kernel K1 reads, and the rows
+        `fk_global_plain` gathers with."""
+        levels = self.prefix_levels()
+        table = (np.stack(levels) if levels
+                 else np.zeros((0, self.num_joints + 1), dtype=np.int32))
+        return torch.as_tensor(table, dtype=torch.int32, device=self.joint_parent.device)
 
     @functools.cached_property
     def parent_index(self) -> torch.Tensor:

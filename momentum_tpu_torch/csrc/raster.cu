@@ -11,16 +11,17 @@
 // A face is a row of 12 plane coefficients (ops/raster.py face_planes): the
 // three barycentric edge functions and the depth, each w(x, y) = a·x + b·y +
 // c. A pixel keeps the least depth among the faces with w0, w1, w2 >= 0 and
-// z > 0, and the lowest face id among equal depths.
+// 0 < z < inf, and the lowest face id among equal depths.
 //
-// What bounds it on the H100: neither bytes nor FLOPs. At the config-7
-// camera pass (1280×960, 612 faces, th = 8) the binned scan does about
-// 1200 tiles × 1024 pixels × ≤128 faces × 4 planes × 3 flops ≈ 1.9 GFLOP of
-// f32 at most (~30 µs at 67 TFLOP/s) and writes 11 floats a pixel (~54 MB,
-// ~16 µs at 3.35 TB/s). Issue rate and the block's serial walk over its
-// faces are what is left: on an H100 (700 W) frame 0's camera pass takes
-// 0.11 ms, set by its one overflow tile, whose block walks all 640 face rows
-// for 8 pixel rows alone on one SM.
+// What bounds it on the H100: bytes. At the config-7 camera pass (1280×960,
+// 612 faces, th = 8) the binned scan does ~2300 face-tile tests (~0.3 µs of
+// f32 at 67 TFLOP/s) and writes 11 floats a pixel (54.8 MB, 16.3 µs at
+// 3.35 TB/s). On an H100 (700 W) a pass without an overflow tile takes
+// ~0.047 ms, 3× that bound; with one, the previous form took 0.116 ms: one
+// block scanned all 640 face rows for its 8 × 128 pixels alone on one SM.
+// Split across 5 chunk blocks, frame 0's camera pass takes 0.051 ms and the
+// shadow pass of frame 11 0.022 (0.086 before); the clip's 64 passes sum to
+// 2.07 ms, 2.81 before (testing/kernel_ab.py).
 //
 // Design: one block of 128 threads per (th × 128)-pixel tile; thread c owns
 // column c of the tile and its th pixels, keeping (best z, best id) for each
@@ -32,14 +33,25 @@
 // z < best: with ids ascending, the first face to reach the least depth is
 // the lowest id among those at that depth, JAX's rule (:176-182).
 //
+//   K4a: the whole plane table for every tile; ids are the row index.
 //   K4b: the tile's ≤ K binned face ids (ascending, then 1 << 30 in empty
 //        slots) come from the binning in ops/raster.py; the block gathers
 //        their plane rows itself, so the host never builds per-tile plane or
-//        attribute tables. An overflow tile (more than K faces overlap it)
-//        scans the whole plane table instead, 128 rows at a time, which with
-//        ascending ids and the strict < reproduces JAX's strict < across
-//        chunks (:274).
-//   K4a: the whole plane table for every tile; ids are the row index.
+//        attribute tables. A tile whose bin overflows (more than K faces
+//        overlap it) scans the whole plane table instead, split across
+//        blocks: S = ceil(Fp / 128) chunk blocks per group of `group`
+//        consecutive tiles, placed first in the grid so that they start at
+//        once. Chunk block (g, c) scans face rows [128c, 128c + 128) for each
+//        overflow tile of group g and merges each pixel's winner into a
+//        64-bit key (bits of z << 32 | id) with atomicMin: for z > 0 the
+//        bits of a float order as its value, and the low word breaks depth
+//        ties by the lowest id, so the minimum over chunks is JAX's strict <
+//        over ascending chunks (:273-276) and the face map stays identical to
+//        the plain version's. The last chunk block to arrive at a tile (a
+//        per-tile counter after __threadfence) reads the keys, writes the
+//        pixels, and resets keys and counter for the next launch. The tile's
+//        own block exits. The keys and counters are scratch owned by the
+//        wrapper, set once to all-ones and zero.
 //
 // After the scan, each thread re-evaluates the winner's planes at its pixels
 // (barycentrics, and attribute planes (a, b, c) per channel from the
@@ -63,62 +75,56 @@
 namespace {
 
 constexpr int kCols = 128;   // tile width in pixels = threads per block
-constexpr int kStage = 128;  // face rows staged in shared memory per pass
+constexpr int kStage = 128;  // face rows staged in shared memory per pass = chunk rows
 constexpr int kNoFace = 1 << 30;
+constexpr unsigned long long kNoKey = ~0ull;
 
 __device__ __forceinline__ float plane(float ax, float b, float y, float c) {
   return __fadd_rn(__fadd_rn(ax, __fmul_rn(b, y)), c);
 }
 
-template <int TH, bool BINNED>
-__global__ void __launch_bounds__(kCols) raster_kernel(
-    const float* __restrict__ planes, int fp, const int* __restrict__ tile_fids, int k,
-    const int* __restrict__ overflow, const float* __restrict__ attr_tab, int n_attr,
-    int want_bary, float* __restrict__ depth, int* __restrict__ face,
-    float* __restrict__ bary, float* __restrict__ attrs, int width, int height, int gj) {
-  __shared__ float s_pl[kStage * 12];
-  __shared__ int s_id[kStage];
-  __shared__ int s_n;
+struct Stage {
+  float pl[kStage * 12];
+  int id[kStage];
+  int n;
+};
 
-  const int tile = blockIdx.x;
-  const int ti = tile / gj;
-  const int col = (tile - ti * gj) * kCols + threadIdx.x;
-  const int row0 = ti * TH;
-  const float x = (float)col + 0.5f;
-  float ys[TH], best[TH];
-  int bid[TH];
-#pragma unroll
-  for (int r = 0; r < TH; ++r) {
-    ys[r] = (float)(row0 + r) + 0.5f;
-    best[r] = __int_as_float(0x7f800000);  // +inf
-    bid[r] = kNoFace;
-  }
+// The tables a pass reads and the images it writes. The kernels take them
+// as __restrict__ parameters and hand them on as such: without it nvcc must
+// assume that the epilogue's stores may alias its table loads.
+#define RASTER_IO_PARAMS                                                          \
+  const float* __restrict__ planes, const float* __restrict__ attr_tab, int n_attr, \
+      int want_bary, float* __restrict__ depth, int* __restrict__ face,             \
+      float* __restrict__ bary, float* __restrict__ attrs, int width, int height
+#define RASTER_IO_ARGS planes, attr_tab, n_attr, want_bary, depth, face, bary, attrs, width, height
 
-  const bool binned = BINNED && overflow[tile] == 0;
-  const int total = binned ? k : fp;
-  const int* ids = binned ? tile_fids + (long long)tile * k : nullptr;
-
+// Scans `total` face rows in ascending order, kStage at a time: row s is
+// face ids[s] (binned) or first + s, and updates each pixel's (best, bid).
+template <int TH>
+__device__ __forceinline__ void scan(Stage& st, const float* __restrict__ planes, int fp,
+                                     const int* __restrict__ ids, int first, int total,
+                                     float x, const float* ys, float* best, int* bid) {
   for (int base = 0; base < total; base += kStage) {
     const int n = min(kStage, total - base);
     __syncthreads();  // every thread is done with the previous stage
-    if (threadIdx.x == 0) s_n = 0;
+    if (threadIdx.x == 0) st.n = 0;
     __syncthreads();
     for (int s = threadIdx.x; s < n; s += blockDim.x) {
-      const int id = binned ? ids[base + s] : base + s;
+      const int id = ids ? ids[base + s] : first + base + s;
       const bool live = id >= 0 && id < fp;
       const float* src = planes + (long long)(live ? id : 0) * 12;
 #pragma unroll
-      for (int c = 0; c < 12; ++c) s_pl[s * 12 + c] = live ? src[c] : (c == 2 ? -1.f : 0.f);
-      s_id[s] = live ? id : kNoFace;
-      if (live) atomicMax(&s_n, s + 1);
+      for (int c = 0; c < 12; ++c) st.pl[s * 12 + c] = live ? src[c] : (c == 2 ? -1.f : 0.f);
+      st.id[s] = live ? id : kNoFace;
+      if (live) atomicMax(&st.n, s + 1);
     }
     __syncthreads();
-    const int m = s_n;  // rows past the last live one are all killed
+    const int m = st.n;  // rows past the last live one are all killed
     for (int s = 0; s < m; ++s) {
-      const float* p = s_pl + s * 12;
+      const float* p = st.pl + s * 12;
       const float a0x = __fmul_rn(p[0], x), a1x = __fmul_rn(p[3], x);
       const float a2x = __fmul_rn(p[6], x), azx = __fmul_rn(p[9], x);
-      const int id = s_id[s];
+      const int id = st.id[s];
 #pragma unroll
       for (int r = 0; r < TH; ++r) {
         const float y = ys[r];
@@ -133,7 +139,13 @@ __global__ void __launch_bounds__(kCols) raster_kernel(
       }
     }
   }
+}
 
+// Writes the th pixels of column `col` from row `row0` down.
+template <int TH>
+__device__ __forceinline__ void write_pixels(RASTER_IO_PARAMS, int col, int row0, float x,
+                                             const float* ys, const float* best,
+                                             const int* bid) {
   if (col >= width) return;
 #pragma unroll
   for (int r = 0; r < TH; ++r) {
@@ -161,29 +173,136 @@ __global__ void __launch_bounds__(kCols) raster_kernel(
   }
 }
 
-template <bool BINNED, int TH>
-int launch_th(const float* planes, int fp, const int* tile_fids, int k, const int* overflow,
-              const float* attr_tab, int n_attr, int want_bary, float* depth, int* face,
-              float* bary, float* attrs, int width, int height, cudaStream_t stream) {
+template <int TH>
+__device__ __forceinline__ void init_pixels(int row0, float* ys, float* best, int* bid) {
+#pragma unroll
+  for (int r = 0; r < TH; ++r) {
+    ys[r] = (float)(row0 + r) + 0.5f;
+    best[r] = __int_as_float(0x7f800000);  // +inf
+    bid[r] = kNoFace;
+  }
+}
+
+// K4a: every tile scans the whole plane table.
+template <int TH>
+__global__ void __launch_bounds__(kCols) raster_planes_kernel(RASTER_IO_PARAMS, int fp,
+                                                              int gj) {
+  __shared__ Stage st;
+  const int tile = blockIdx.x;
+  const int ti = tile / gj;
+  const int col = (tile - ti * gj) * kCols + threadIdx.x;
+  const float x = (float)col + 0.5f;
+  float ys[TH], best[TH];
+  int bid[TH];
+  init_pixels<TH>(ti * TH, ys, best, bid);
+  scan<TH>(st, planes, fp, nullptr, 0, fp, x, ys, best, bid);
+  write_pixels<TH>(RASTER_IO_ARGS, col, ti * TH, x, ys, best, bid);
+}
+
+// K4b: blocks [0, n_groups·S) are the chunk blocks of the overflow tiles,
+// the rest one block per tile.
+template <int TH>
+__global__ void __launch_bounds__(kCols) raster_planes_binned_kernel(
+    RASTER_IO_PARAMS, int fp, const int* __restrict__ tile_fids, int k,
+    const int* __restrict__ overflow, int n_tiles, int gj, int n_chunks, int group,
+    unsigned long long* __restrict__ keys, int* __restrict__ arrivals) {
+  __shared__ Stage st;
+  __shared__ unsigned s_mask;
+  __shared__ bool s_last;
+  float ys[TH], best[TH];
+  int bid[TH];
+  const int n_chunk_blocks = (n_tiles + group - 1) / group * n_chunks;
+  const int cb = blockIdx.x;  // chunk blocks first,
+  const int tb = (int)blockIdx.x - n_chunk_blocks;  // then one block per tile
+
+  if (tb >= 0) {
+    const int tile = tb;
+    if (overflow[tile] != 0) return;  // its chunk blocks scan it
+    const int ti = tile / gj;
+    const int col = (tile - ti * gj) * kCols + threadIdx.x;
+    const float x = (float)col + 0.5f;
+    init_pixels<TH>(ti * TH, ys, best, bid);
+    scan<TH>(st, planes, fp, tile_fids + (long long)tile * k, 0, k, x, ys, best, bid);
+    write_pixels<TH>(RASTER_IO_ARGS, col, ti * TH, x, ys, best, bid);
+    return;
+  }
+
+  const int g = cb / n_chunks;
+  const int chunk = cb - g * n_chunks;
+  const int first = chunk * kStage;
+  if (threadIdx.x < 32) {  // group ≤ 32: one bit per tile of the group
+    const int t = g * group + threadIdx.x;
+    const unsigned m =
+        __ballot_sync(0xffffffffu, threadIdx.x < group && t < n_tiles && overflow[t] != 0);
+    if (threadIdx.x == 0) s_mask = m;
+  }
+  __syncthreads();
+  for (unsigned mask = s_mask; mask != 0; mask &= mask - 1) {
+    const int tile = g * group + __ffs(mask) - 1;
+    const int ti = tile / gj;
+    const int col = (tile - ti * gj) * kCols + threadIdx.x;
+    const float x = (float)col + 0.5f;
+    init_pixels<TH>(ti * TH, ys, best, bid);
+    scan<TH>(st, planes, fp, nullptr, first, min(kStage, fp - first), x, ys, best, bid);
+    unsigned long long* key = keys + (long long)tile * TH * kCols + threadIdx.x;
+#pragma unroll
+    for (int r = 0; r < TH; ++r)
+      if (bid[r] != kNoFace)
+        atomicMin(key + r * kCols,
+                  ((unsigned long long)__float_as_uint(best[r]) << 32) | (unsigned)bid[r]);
+    __threadfence();  // the keys are visible before the arrival counts
+    __syncthreads();
+    if (threadIdx.x == 0) s_last = atomicAdd(arrivals + tile, 1) == n_chunks - 1;
+    __syncthreads();
+    if (s_last) {  // every chunk of the tile has merged its keys
+      __threadfence();
+#pragma unroll
+      for (int r = 0; r < TH; ++r) {
+        const unsigned long long kv = __ldcg(key + r * kCols);
+        key[r * kCols] = kNoKey;
+        if (kv != kNoKey) {
+          best[r] = __uint_as_float((unsigned)(kv >> 32));
+          bid[r] = (int)(kv & 0xffffffffu);
+        } else {
+          best[r] = __int_as_float(0x7f800000);
+          bid[r] = kNoFace;
+        }
+      }
+      if (threadIdx.x == 0) arrivals[tile] = 0;
+      write_pixels<TH>(RASTER_IO_ARGS, col, ti * TH, x, ys, best, bid);
+    }
+  }
+}
+
+template <int TH>
+int launch_th(RASTER_IO_PARAMS, int fp, const int* tile_fids, int k, const int* overflow,
+              int group, unsigned long long* keys, int* arrivals, cudaStream_t stream) {
   const int gi = (height + TH - 1) / TH;
   const int gj = (width + kCols - 1) / kCols;
-  raster_kernel<TH, BINNED><<<gi * gj, kCols, 0, stream>>>(
-      planes, fp, tile_fids, k, overflow, attr_tab, n_attr, want_bary, depth, face, bary,
-      attrs, width, height, gj);
+  const int n_tiles = gi * gj;
+  if (tile_fids == nullptr) {
+    raster_planes_kernel<TH><<<n_tiles, kCols, 0, stream>>>(RASTER_IO_ARGS, fp, gj);
+  } else {
+    const int n_chunks = (fp + kStage - 1) / kStage;
+    const int blocks = (n_tiles + group - 1) / group * n_chunks + n_tiles;
+    raster_planes_binned_kernel<TH><<<blocks, kCols, 0, stream>>>(
+        RASTER_IO_ARGS, fp, tile_fids, k, overflow, n_tiles, gj, n_chunks, group, keys,
+        arrivals);
+  }
   return (int)cudaGetLastError();
 }
 
-template <bool BINNED>
-int launch(const float* planes, int fp, const int* tile_fids, int k, const int* overflow,
-           const float* attr_tab, int n_attr, int want_bary, float* depth, int* face,
-           float* bary, float* attrs, int width, int height, int th, cudaStream_t stream) {
+int launch(RASTER_IO_PARAMS, int fp, const int* tile_fids, int k, const int* overflow,
+           int group, unsigned long long* keys, int* arrivals, int th, cudaStream_t stream) {
+  if (tile_fids != nullptr && (group < 1 || group > 32 || fp < 1))
+    return (int)cudaErrorInvalidValue;
   switch (th) {  // the tile heights rasterize_planes picks: 4 unbinned, 8 binned
     case 4:
-      return launch_th<BINNED, 4>(planes, fp, tile_fids, k, overflow, attr_tab, n_attr,
-                                  want_bary, depth, face, bary, attrs, width, height, stream);
+      return launch_th<4>(RASTER_IO_ARGS, fp, tile_fids, k, overflow, group, keys, arrivals,
+                          stream);
     case 8:
-      return launch_th<BINNED, 8>(planes, fp, tile_fids, k, overflow, attr_tab, n_attr,
-                                  want_bary, depth, face, bary, attrs, width, height, stream);
+      return launch_th<8>(RASTER_IO_ARGS, fp, tile_fids, k, overflow, group, keys, arrivals,
+                          stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -201,24 +320,27 @@ extern "C" {
 int raster_planes_launch(const void* planes, int fp, const void* attr_tab, int n_attr,
                          int want_bary, void* depth, void* face, void* bary, void* attrs,
                          int width, int height, int th, void* stream) {
-  return launch<false>((const float*)planes, fp, nullptr, 0, nullptr,
-                       (const float*)attr_tab, n_attr, want_bary, (float*)depth,
-                       (int*)face, (float*)bary, (float*)attrs, width, height, th,
-                       (cudaStream_t)stream);
+  return launch((const float*)planes, (const float*)attr_tab, n_attr, want_bary,
+                (float*)depth, (int*)face, (float*)bary, (float*)attrs, width, height, fp,
+                nullptr, 0, nullptr, 1, nullptr, nullptr, th, (cudaStream_t)stream);
 }
 
 // K4b. As K4a, plus tile_fids: (gi·gj, k) int32, each tile's binned face ids
 // ascending then 1 << 30; overflow: (gi·gj,) int32, nonzero where the tile
 // scans all fp faces instead; tiles in row-major order of
-// gi = ceil(height / th) rows by gj = ceil(width / 128) columns.
+// gi = ceil(height / th) rows by gj = ceil(width / 128) columns. group in
+// [1, 32]: consecutive tiles that share one set of chunk blocks. keys:
+// (gi·gj, th·128) uint64, all bits set; arrivals: (gi·gj,) int32, zero; the
+// kernel leaves both so.
 int raster_planes_binned_launch(const void* planes, int fp, const void* tile_fids, int k,
                                 const void* overflow, const void* attr_tab, int n_attr,
                                 int want_bary, void* depth, void* face, void* bary,
-                                void* attrs, int width, int height, int th, void* stream) {
-  return launch<true>((const float*)planes, fp, (const int*)tile_fids, k,
-                      (const int*)overflow, (const float*)attr_tab, n_attr, want_bary,
-                      (float*)depth, (int*)face, (float*)bary, (float*)attrs, width,
-                      height, th, (cudaStream_t)stream);
+                                void* attrs, int width, int height, int th, int group,
+                                void* keys, void* arrivals, void* stream) {
+  return launch((const float*)planes, (const float*)attr_tab, n_attr, want_bary,
+                (float*)depth, (int*)face, (float*)bary, (float*)attrs, width, height, fp,
+                (const int*)tile_fids, k, (const int*)overflow, group,
+                (unsigned long long*)keys, (int*)arrivals, th, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -14,9 +14,10 @@ winner's planes evaluated at the pixel centre.
 With more faces than `bin_capacity` (or `cull=True`), `bin_faces` bins the
 faces into (th × 128)-pixel tiles by bbox overlap, ids ascending, and K4b
 scans each tile's ≤ K faces; a tile with more than K overlapping faces
-scans all faces instead. Without binning, K4a scans all faces for every
-tile. Planes, attribute tables and the binning are plain torch (XLA outside
-the kernel in JAX); only the per-pixel scan is the kernel.
+scans all faces instead, in chunks of 128 rows whose winners merge as
+packed (depth, id) keys (`_pack`). Without binning, K4a scans all faces for
+every tile. Planes, attribute tables and the binning are plain torch (XLA
+outside the kernel in JAX); only the per-pixel scan is the kernel.
 
 `rasterize_planes` takes `rasterize_planes_plain` for CPU tensors and
 launches K4a or K4b for CUDA tensors (or raises). The plain version bins the
@@ -24,7 +25,9 @@ same way and evaluates each tile's (K, th·128) face-by-pixel block with
 broadcast torch ops (`_eval_chunk` :166), chunks of tiles at a time so its
 working set stays near 100 MB at 1280×960. The kernel evaluates each plane
 as (a·x + b·y) + c with every product and sum rounded, the plain version's
-order, so on the card the two give identical face maps.
+order, so on the card the two give identical face maps. K4b splits an
+overflow tile's chunks across blocks, which merge with atomicMin on the
+same keys in a per-tile scratch the wrapper keeps (`_merge_scratch`).
 
 One rule differs from the JAX binned kernel: a face whose depth overflows
 to +inf never wins a pixel (JAX's overflow scan drops it too, its binned
@@ -48,9 +51,14 @@ NOFACE = 1 << 30  # the face id of an empty bin slot
 _LIM = 1e7  # faces with a screen coordinate this large are dropped (ROADMAP F2)
 _TILE_BLOCK_ELEMS = 1 << 22  # tiles × faces × pixels per block of the plain scan
 _KERNEL_TH = (4, 8)  # tile heights csrc/raster.cu is built for
+_NOKEY = (1 << 63) - 1  # the packed key of a pixel no face covers (`_pack`)
+OVERFLOW_GROUP = 8  # consecutive tiles that share one set of K4b's chunk blocks
 
 # times each kernel was launched in this process (reset them to measure a run)
 launches = {"raster_planes_kernel": 0, "raster_planes_binned_kernel": 0}
+# K4b's merge scratch per (device, stream): (keys all bits set, arrival
+# counts 0) for every tile; each launch leaves them so
+_scratch: dict = {}
 
 
 def face_planes(verts_screen: torch.Tensor, faces: torch.Tensor,
@@ -209,6 +217,22 @@ def _eval_block(pl: torch.Tensor, ids: torch.Tensor, x: torch.Tensor, y: torch.T
     return zmin, fmin
 
 
+def _pack(z: torch.Tensor, fid: torch.Tensor) -> torch.Tensor:
+    """int64 keys (bits of z) << 32 | id of pixels' (depth, face id) pairs,
+    _NOKEY where the id is NOFACE: for 0 < z < inf the bits of a float32
+    order as its value, so keys order as (z, id) lexicographically."""
+    key = (z.contiguous().view(torch.int32).to(torch.int64) << 32) | fid.to(torch.int64)
+    return torch.where(fid == NOFACE, _NOKEY, key)
+
+
+def _unpack(key: torch.Tensor):
+    """(z, id) of `_pack`'s keys: (inf, NOFACE) for _NOKEY."""
+    empty = key == _NOKEY
+    z = (key >> 32).to(torch.int32).view(torch.float32)
+    return (torch.where(empty, torch.inf, z),
+            torch.where(empty, NOFACE, key & 0xFFFFFFFF).to(torch.int32))
+
+
 def _raster_plain(planes, tab, n_attr, tile_fids, overflow, width, height, th,
                   chunk, want_bary):
     """The kernels' semantics in plain torch (tile_fids None: no binning)."""
@@ -234,23 +258,21 @@ def _raster_plain(planes, tab, n_attr, tile_fids, overflow, width, height, th,
         full = tiles[overflow.bool()]
     else:
         full = tiles
-    # a full scan over all faces, `chunk` at a time, with a strict < across
-    # chunks: earlier chunks (lower ids) keep depth ties
+    # a full scan over all faces, `chunk` at a time, each chunk's winners
+    # merged as packed keys (the kernel's merge): the least key is the least
+    # depth and, at equal depths, the lowest id, in whatever order the
+    # chunks arrive — JAX's strict < across ascending chunks
     chunk = min(chunk, fp)
     step = max(1, _TILE_BLOCK_ELEMS // (chunk * npx))
     for t0 in range(0, full.shape[0], step):
         sel = full[t0:t0 + step]
         x, y = _pixel_xy(sel, gj, th)
-        depth = torch.full((sel.shape[0], npx), torch.inf, device=dev)
-        fid = torch.full((sel.shape[0], npx), NOFACE, dtype=torch.int32, device=dev)
+        key = torch.full((sel.shape[0], npx), _NOKEY, dtype=torch.int64, device=dev)
         for c0 in range(0, fp, chunk):
             ids = torch.arange(c0, min(c0 + chunk, fp), dtype=torch.int32, device=dev)
             pl = planes[c0:c0 + chunk].expand(sel.shape[0], -1, -1)
-            czmin, cfmin = _eval_block(pl, ids.expand(sel.shape[0], -1), x, y)
-            better = czmin < depth
-            depth = torch.where(better, czmin, depth)
-            fid = torch.where(better, cfmin, fid)
-        zbest[sel], fbest[sel] = depth, fid
+            key = torch.minimum(key, _pack(*_eval_block(pl, ids.expand(sel.shape[0], -1), x, y)))
+        zbest[sel], fbest[sel] = _unpack(key)
 
     def untile(a):  # (T, N) tile-flat → (H, W) image
         a = a.reshape(gi, gj, th, _LANES).transpose(1, 2)
@@ -280,14 +302,27 @@ def _lib():
     lib.raster_planes_launch.argtypes = [p, i, p, i, i, p, p, p, p, i, i, i, p]
     lib.raster_planes_launch.restype = i
     lib.raster_planes_binned_launch.argtypes = [p, i, p, i, p, p, i, i, p, p, p, p,
-                                                i, i, i, p]
+                                                i, i, i, i, p, p, p]
     lib.raster_planes_binned_launch.restype = i
     return lib
 
 
+def _merge_scratch(dev, stream: int, n_tiles: int, npx: int):
+    """K4b's (keys (n_tiles·npx,) int64 all bits set, arrivals (n_tiles,)
+    int32 zero) for launches on `stream`, grown when a pass needs more. The
+    kernel resets what it uses, so launches in stream order share them."""
+    keys, arrivals = _scratch.get((dev, stream), (None, None))
+    if keys is None or keys.numel() < n_tiles * npx or arrivals.numel() < n_tiles:
+        keys = torch.full((n_tiles * npx,), -1, dtype=torch.int64, device=dev)
+        arrivals = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+        _scratch[(dev, stream)] = (keys, arrivals)
+    return keys, arrivals
+
+
 def _raster_kernel(planes, tab, n_attr, tile_fids, overflow, width, height, th,
-                   want_bary):
-    """Launch K4b (tile_fids given) or K4a on the current stream."""
+                   want_bary, group=None):
+    """Launch K4b (tile_fids given) or K4a on the current stream; `group`
+    (default OVERFLOW_GROUP) is K4b's tiles per set of chunk blocks."""
     dev = planes.device
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     face = torch.empty((height, width), dtype=torch.int32, device=dev)
@@ -312,9 +347,11 @@ def _raster_kernel(planes, tab, n_attr, tile_fids, overflow, width, height, th,
             rc = lib.raster_planes_launch(planes.data_ptr(), planes.shape[0], *common, stream)
         else:
             name = "raster_planes_binned_kernel"
+            keys, arrivals = _merge_scratch(dev, stream, tile_fids.shape[0], th * _LANES)
             rc = lib.raster_planes_binned_launch(
                 planes.data_ptr(), planes.shape[0], tile_fids.data_ptr(), tile_fids.shape[1],
-                overflow.data_ptr(), *common, stream)
+                overflow.data_ptr(), *common, OVERFLOW_GROUP if group is None else group,
+                keys.data_ptr(), arrivals.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     launches[name] += 1

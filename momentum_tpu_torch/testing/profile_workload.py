@@ -74,15 +74,24 @@ def card_name_and_power_limit() -> str:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def event_ms(fn, reps: int = 10, samples: int = 5) -> float:
+# ~0.1 ms at an H100's clock: longer than one kernel wrapper call on the host
+_SLEEP_CYCLES_PER_CALL = 200_000
+
+
+def event_ms(fn, reps: int = 10, samples: int = 5, busy: bool = False) -> float:
     """Median over `samples` of the mean CUDA-event time of `reps` calls,
-    after two warm-up calls."""
+    after two warm-up calls. With `busy`, the calls are queued behind a
+    sleep kernel, so that the card never waits for the host between them:
+    the device time per call of work that takes less time on the card than
+    its launch on the host (fn must not synchronize)."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if busy:
+            torch.cuda._sleep(_SLEEP_CYCLES_PER_CALL * reps)
         start.record()
         for _ in range(reps):
             fn()
@@ -92,13 +101,13 @@ def event_ms(fn, reps: int = 10, samples: int = 5) -> float:
     return statistics.median(times)
 
 
-def in_turns(fns: dict, rounds: int = 3) -> dict:
+def in_turns(fns: dict, rounds: int = 3, busy: bool = False) -> dict:
     """Median over `rounds` of each function's event_ms, the functions timed
     in turns (a, b, a, b, …) so that all see the same card state."""
     times = {name: [] for name in fns}
     for _ in range(rounds):
         for name, fn in fns.items():
-            times[name].append(event_ms(fn))
+            times[name].append(event_ms(fn, busy=busy))
     return {name: statistics.median(t) for name, t in times.items()}
 
 

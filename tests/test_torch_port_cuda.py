@@ -48,7 +48,48 @@ def test_fk_kernel_matches_plain(cuda_problem):
                                    rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("batch", [1, 3, 4, 5, 32, 37, 2048])
+def test_fk_kernel_batch_sizes(cuda_problem, batch):
+    """Four elements of 64 joint slots per block: ragged last blocks (1, 3,
+    5, 37), whole ones (4, 32) and the IK path's 2048."""
+    char, _, _, x0 = cuda_problem
+    local = fk.local_skel_states(char.skeleton, char.parameter_transform.apply(x0))
+    local = local.repeat(8, 1, 1)[:batch].contiguous()
+    before = fk_ops.launches
+    out = fk_ops.fk_global(char.skeleton, local)
+    assert fk_ops.launches == before + 1
+    torch.testing.assert_close(out, fk_ops.fk_global_plain(char.skeleton, local),
+                               rtol=0, atol=2e-5)
+
+
+def _random_local(nj, batch, seed):
+    """Unit rotations, short offsets and scales near 1: a 1000-joint chain
+    stays in range."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.nn.functional.normalize(torch.randn(batch, nj, 4, generator=g), dim=-1)
+    t = 0.05 * torch.rand(batch, nj, 3, generator=g)
+    s = 0.98 + 0.04 * torch.rand(batch, nj, 1, generator=g)
+    return torch.cat([t, q, s], dim=-1).cuda()
+
+
+@pytest.mark.parametrize("parents", [
+    [-1] + list(range(225)),  # a 226-joint chain: 8 levels, one element per block
+    [-1] + list(range(299)),  # 300 slots: two per thread
+    [-1] + [j // 2 for j in range(1022)],  # 1023 joints, the most taken: four per thread
+    [-1, 0, 1, -1, 3, 3, 0],  # two roots, eight slots: 32 elements per block
+], ids=["chain226", "chain300", "tree1023", "two_roots"])
+def test_fk_kernel_on_other_skeletons(cuda_device, parents):
+    from momentum_tpu_torch.character import make_skeleton
+
+    skel = make_skeleton(parents, device="cuda")
+    local = _random_local(len(parents), 37, seed=len(parents))
+    torch.testing.assert_close(fk_ops.fk_global(skel, local),
+                               fk_ops.fk_global_plain(skel, local), rtol=0, atol=2e-5)
+
+
 def test_fk_kernel_refuses_what_it_cannot_take(cuda_problem):
+    from momentum_tpu_torch.character import make_skeleton
+
     char, _, _, x0 = cuda_problem
     local = fk.local_skel_states(char.skeleton, char.parameter_transform.apply(x0))
     with pytest.raises(ValueError):
@@ -57,6 +98,12 @@ def test_fk_kernel_refuses_what_it_cannot_take(cuda_problem):
         fk_ops.fk_global(char.skeleton, local.transpose(0, 1))
     with pytest.raises(RuntimeError):
         fk_ops.fk_global(char.skeleton, local.clone().requires_grad_())
+    flat = torch.zeros(local.numel() + 1, device="cuda")
+    with pytest.raises(ValueError):  # 4 bytes off a float4 boundary
+        fk_ops.fk_global(char.skeleton, flat[1:].view(local.shape))
+    big = make_skeleton([-1] + list(range(1023)), device="cuda")  # past the 1023-joint limit
+    with pytest.raises(ValueError):
+        fk_ops.fk_global(big, _random_local(1024, 2, seed=1))
 
 
 @pytest.mark.parametrize("n", [157, 40, 33, 1, 64, 224])
@@ -292,6 +339,73 @@ def test_raster_binned_kernel_overflow_tiles(cuda_device):
                                 chunk=16, bin_capacity=45)
     b = raster.rasterize_planes(*_on("cuda", verts, faces, kw)[:2], w, h, cull=False)
     assert torch.equal(a["face"], b["face"]) and torch.equal(a["depth"], b["depth"])
+
+
+@pytest.fixture(scope="module")
+def clip_frames(cuda_device):
+    """Config 7's clip on the card: per frame, the camera pass's screen
+    vertices and attributes and the shadow pass's light-space vertices."""
+    from momentum_tpu_torch.character.skinning import skin_points
+    from momentum_tpu_torch.rasterizer import render
+
+    char, motion, cam = workloads.build_render_clip(32, seed=0, device="cuda")
+    light = (0.3, -0.7, 0.6)
+    verts = skin_points(char.skin_weights, char.skeleton_states(motion),
+                        char.inverse_bind_pose, char.mesh.vertices)
+
+    def frame(i):
+        v = verts[i]
+        return dict(camera=(render.screen_vertices(cam, v), 1280, 960,
+                            dict(vertex_attrs=v, face_attrs=render.flat_face_colors(
+                                v, char.mesh.faces, light))),
+                    shadow=(render.light_projection(v, light, 256)(v), 256, 256, {}))
+
+    return char.mesh.faces, frame
+
+
+@pytest.mark.parametrize("frame,pass_,overflow", [
+    (0, "camera", 1), (5, "camera", 0), (10, "camera", 2), (11, "shadow", 1), (5, "shadow", 0)])
+def test_raster_binned_kernel_on_clip_frames(clip_frames, frame, pass_, overflow):
+    """K4b on the clip's passes with and without overflow tiles: the overflow
+    tile's chunk blocks merge to the plain version's face map exactly."""
+    faces, get = clip_frames
+    sv, w, h, kw = get(frame)[pass_]
+    _, ovf = raster.bin_faces(sv, faces, 640, w, h, 8, 128)
+    assert int(ovf.sum()) == overflow
+    _, name = _kernel_vs_plain(sv, faces, w, h, kw)
+    assert name == "raster_planes_binned_kernel"
+
+
+@pytest.mark.parametrize("group", [1, 8, 32])
+def test_raster_binned_kernel_many_overflow_tiles(clip_frames, monkeypatch, group):
+    """bin_capacity 8: 77 of the 1200 tiles of frame 0's camera pass
+    overflow, each scanned by five chunk blocks, `group` consecutive tiles
+    sharing one set of them."""
+    monkeypatch.setattr(raster, "OVERFLOW_GROUP", group)
+    faces, get = clip_frames
+    sv, w, h, kw = get(0)["camera"]
+    _kernel_vs_plain(sv, faces, w, h, kw, bin_capacity=8)
+
+
+@pytest.mark.parametrize("bin_capacity", [8, 384])
+def test_raster_binned_kernel_cross_chunk_ties(cuda_device, bin_capacity):
+    """tests/test_torch_port_render.py's scene of faces duplicated across the
+    128-row chunk boundaries: the lower id wins the tie on the card too."""
+    verts = np.zeros((126, 3), np.float32)
+    rng = np.random.default_rng(11)
+    verts[:120, 0] = rng.uniform(-10, 266, 120)
+    verts[:120, 1] = rng.uniform(-5, 45, 120)
+    verts[:120, 2] = rng.uniform(0.5, 5.0, 120)
+    faces = rng.integers(0, 120, (300, 3)).astype(np.int32)
+    verts[120:] = [[10, -5, 0.3], [120, -5, 0.3], [10, 60, 0.3],
+                   [140, 2, 0.4], [250, 2, 0.4], [200, 45, 0.4]]
+    faces[20] = faces[150] = [120, 121, 122]
+    faces[140] = faces[260] = [123, 124, 125]
+    out, _ = _kernel_vs_plain(verts, faces, 256, 40, {}, cull=True, th=8,
+                              bin_capacity=bin_capacity)
+    face = out["face"]
+    assert int((face == 20).sum()) > 1000 and int((face == 140).sum()) > 1000
+    assert not bool(torch.isin(face, torch.tensor([150, 260], device="cuda")).any())
 
 
 def test_raster_kernels_nonfinite_screen_vertices(cuda_device):

@@ -149,6 +149,55 @@ def test_hierarchy_tables_match_jax(chars):
         np.testing.assert_array_equal(a, b)
 
 
+def _skeleton_pair(name, chars):
+    """(JAX skeleton, port skeleton) of one hierarchy: the fixture rig, a
+    226-joint chain (8 lifting levels), a star and a skeleton of two roots."""
+    from momentum_tpu.character.skeleton import make_skeleton as jmake
+    from momentum_tpu_torch.character import make_skeleton as tmake
+
+    if name == "fixture":
+        return chars[0].skeleton, chars[1].skeleton
+    parents = {"chain226": [-1] + list(range(225)),
+               "star": [-1] + [0] * 20,
+               "two_roots": [-1, 0, 1, 1, -1, 4, 5, 6, 2, 8, 4]}[name]
+    return jmake(parents), tmake(parents)
+
+
+SKELETONS = ["fixture", "chain226", "star", "two_roots"]
+LEVELS = {"fixture": 5, "chain226": 8, "star": 1, "two_roots": 3}
+
+
+@pytest.mark.parametrize("name", SKELETONS)
+def test_prefix_table_matches_jax_schedule(chars, name):
+    """K1's int32 (L, nJ + 1) lifting table is JAX's prefix_levels() and its
+    static prefix_schedule, row for row."""
+    skel_j, skel_t = _skeleton_pair(name, chars)
+    table = skel_t.prefix_table
+    assert table.dtype == torch.int32
+    assert table.shape == (LEVELS[name], skel_t.num_joints + 1)
+    np.testing.assert_array_equal(table.numpy(), np.stack(skel_j.prefix_levels()))
+    np.testing.assert_array_equal(table.numpy(), np.asarray(skel_j.prefix_schedule))
+
+
+@pytest.mark.parametrize("name", SKELETONS)
+def test_plain_fk_by_table_matches_jax(chars, name, rng):
+    """fk_global_plain, driven by prefix_table, against JAX's lifted FK and
+    its Pallas kernel in interpret mode, on random local states (unit
+    rotations, short offsets, scales near 1 so that the 226-joint chain
+    stays in range)."""
+    from momentum_tpu.ops.fk_pallas import fk_pallas
+
+    skel_j, skel_t = _skeleton_pair(name, chars)
+    nj = skel_t.num_joints
+    s = _states(rng, 4 * nj).reshape(4, nj, 8)
+    s[..., :3] *= 0.05
+    s[..., 7] = rng.uniform(0.98, 1.02, (4, nj))
+    out = fk_ops.fk_global_plain(skel_t, torch.as_tensor(s)).numpy()
+    np.testing.assert_allclose(out, np.asarray(jfk.global_skel_states_lifted(skel_j, s)),
+                               **FK_TOL)
+    np.testing.assert_allclose(out, np.asarray(fk_pallas(skel_j, jnp.asarray(s))), **FK_TOL)
+
+
 def test_unsorted_skeleton_is_refused():
     from momentum_tpu_torch.character import make_skeleton
 

@@ -244,6 +244,40 @@ def test_rasterize_planes_matches_pallas_interpret(name):
         assert not np.isin(face[cov], bad).any()
 
 
+def _cross_chunk_tie_scene():
+    """300 random faces at 256 × 40 plus two near triangles, each drawn
+    twice: faces 20 and 150 (either side of the 128-row chunk boundary) and
+    140 and 260 (either side of the next) are identical, so wherever one
+    wins, the two tie in depth and the lower id must win."""
+    verts, faces, w, h = _random_scene(11, V=120, F=300, W=256, H=40)
+    near = np.array([[10, -5, 0.3], [120, -5, 0.3], [10, 60, 0.3],
+                     [140, 2, 0.4], [250, 2, 0.4], [200, 45, 0.4]], np.float32)
+    verts = np.concatenate([verts, near])
+    faces[20] = faces[150] = [120, 121, 122]
+    faces[140] = faces[260] = [123, 124, 125]
+    return verts, faces, w, h
+
+
+@pytest.mark.parametrize("bin_capacity", [8, 384])
+def test_overflow_chunks_break_depth_ties_by_lower_id(bin_capacity):
+    """The plain version's packed-key merge of an overflow tile's 128-row
+    chunks against JAX's strict < over ascending chunks (interpret mode):
+    with bin_capacity 8 every tile overflows, with 384 (all 384 rows) none
+    does and each bin spans three staged passes of the binned scan."""
+    verts, faces, w, h = _cross_chunk_tie_scene()
+    kw = dict(cull=True, chunk=128, th=8, bin_capacity=bin_capacity)
+    out_j = jax_rasterize_planes(jnp.asarray(verts), jnp.asarray(faces), w, h,
+                                 interpret=True, **kw)
+    out_t = raster.rasterize_planes(T(verts), T(faces), w, h, **kw)
+    _, overflow = raster.bin_faces(T(verts), T(faces), 384, w, h, 8, bin_capacity)
+    assert int(overflow.sum()) == (overflow.numel() if bin_capacity == 8 else 0)
+    _assert_raster_close(out_t, out_j)
+    face = out_t["face"].numpy()
+    np.testing.assert_array_equal(face, np.asarray(out_j["face"]))
+    assert (face == 20).sum() > 1000 and (face == 140).sum() > 1000
+    assert not np.isin(face, [150, 260]).any()
+
+
 def test_binned_and_full_scan_agree_exactly():
     """K4b's binning (overflow tiles included) and K4a's full scan evaluate
     the same planes in the same order, so the plain versions of the two give
