@@ -408,21 +408,11 @@ def phase_full_stack(char, efs, targets, q, x0, smi):
     return counts
 
 
-def _raster_inputs(char, cam, motion, frame=0):
-    """Frame `frame` of the clip: its skinned vertices and the inputs of its
-    camera pass (screen vertices, world positions + face colours as
-    attributes) and shadow-map pass (light-space vertices), as
-    render_mesh_shadowed builds them."""
-    from momentum_tpu_torch.character.skinning import skin_points
-    from momentum_tpu_torch.rasterizer import render
+def _frame_vertices(char, motion, frame=0):
+    """The skinned vertices of frame `frame` of the clip."""
+    from momentum_tpu_torch.testing.workloads import clip_vertices
 
-    light = (0.3, -0.7, 0.6)
-    verts = skin_points(char.skin_weights, char.skeleton_states(motion[frame]),
-                        char.inverse_bind_pose, char.mesh.vertices)
-    screen = render.screen_vertices(cam, verts)
-    colors = render.flat_face_colors(verts, char.mesh.faces, light)
-    light_uvz = render.light_projection(verts, light, 256)(verts)
-    return verts, screen, colors, light_uvz
+    return clip_vertices(char, motion[frame])
 
 
 def _raster_bound(planes, tab, n_attr, fids, ovf, w, h, th, covered):
@@ -458,16 +448,14 @@ def phase_raster(char, cam, motion):
     of frame 0 (none) and frame 11 (one), frame 0's camera pass unbinned
     (K4a) and with bin_capacity 8 (every tile takes the overflow scan)."""
     from momentum_tpu_torch.ops import raster
+    from momentum_tpu_torch.rasterizer import render
     from momentum_tpu_torch.testing.profile_workload import (
         event_ms, kernel_device_ms)
 
     faces = char.mesh.faces
-    inputs = {}
-    for frame in (0, 5, 11):
-        verts, screen, colors, light_uvz = _raster_inputs(char, cam, motion, frame)
-        inputs[frame] = dict(camera=(screen, 1280, 960,
-                                     dict(vertex_attrs=verts, face_attrs=colors)),
-                             shadow=(light_uvz, 256, 256, {}))
+    inputs = {frame: render.shadowed_passes(cam, _frame_vertices(char, motion, frame), faces,
+                                            1280, 960)
+              for frame in (0, 5, 11)}
     binned, full = "raster_planes_binned_kernel", "raster_planes_kernel"
     cases = [("camera pass, frame 0", binned, 0, "camera", {}),
              ("camera pass, frame 5", binned, 5, "camera", {}),
@@ -503,17 +491,10 @@ def phase_raster(char, cam, motion):
             raise AssertionError(f"{label}: {kernel} disagrees with the plain version: {bad}")
 
         # the kernel alone against the plain version's scan, on the same tables
-        cull = kw.get("cull", faces.shape[0] > kw.get("bin_capacity", 128))
-        th = 8 if cull else 4
-        planes, tab, n_attr = raster._tables(sv, faces, kw.get("vertex_attrs"),
-                                             kw.get("face_attrs"), None, 128)
-        fids = ovf = None
-        n_ovf = 0
-        if cull:
-            fids, ovf = raster.bin_faces(sv, faces, planes.shape[0], w, h, th,
-                                         kw.get("bin_capacity", 128))
-            n_ovf = int(ovf.sum())
-        args = (planes, tab, n_attr, fids, ovf, w, h, th)
+        args = raster._kernel_args(sv, faces, w, h, **kw)
+        ovf, th = args[4], args[7]
+        cull = ovf is not None
+        n_ovf = int(ovf.sum()) if cull else 0
         covered = int(hit.sum())
         b_raster, scanned, n_live = _raster_bound(*args, covered)
         ms = kernel_device_ms(lambda: raster._raster_kernel(*args, True), kernel)
@@ -538,15 +519,15 @@ def phase_clip_passes(char, cam, motion):
     """Every K4b pass of the clip (32 camera and 32 shadow passes): the
     overflow tiles of each, and the sum of their bounds."""
     from momentum_tpu_torch.ops import raster
-    from momentum_tpu_torch.testing.kernel_ab import clip_passes
+    from momentum_tpu_torch.testing.workloads import render_clip_passes
 
     counts = {"camera": [], "shadow": []}
     bound_ms = 0.0
-    for frame in clip_passes(char, cam, motion):
+    for frame in render_clip_passes(char, cam, motion):
         for name, args in frame.items():
             counts[name].append(int(args[4].sum()))
-            covered = int((raster._raster_kernel(*args, 8, False)["face"] >= 0).sum())
-            bound_ms += _raster_bound(*args, 8, covered)[0]["bound_ms"]
+            covered = int((raster._raster_kernel(*args, False)["face"] >= 0).sum())
+            bound_ms += _raster_bound(*args, covered)[0]["bound_ms"]
     print(f"K4b overflow tiles per frame of the clip: camera {counts['camera']} (of 1200 "
           f"tiles), shadow {counts['shadow']} (of 64); the 64 passes' bounds sum to "
           f"{bound_ms:.4f} ms")
@@ -607,7 +588,7 @@ def phase_small_mesh(char, cam, motion):
     from momentum_tpu_torch.ops import raster
     from momentum_tpu_torch.rasterizer import render
 
-    verts = _raster_inputs(char, cam, motion)[0]
+    verts = _frame_vertices(char, motion)
     faces = char.mesh.faces[:SMALL_MESH_FACES].contiguous()
     render.render_mesh_shadowed(cam, verts, faces, 1280, 960)  # warm-up
     torch.cuda.synchronize()
@@ -642,7 +623,7 @@ def phase_render_reference(card_clip, imgs_card):
     renders = {}
     for device, (char, motion, cam) in (("cuda", card_clip), ("cpu", cpu_clip)):
         renders[device] = [
-            render.render_mesh_shadowed(cam, _raster_inputs(char, cam, motion, i)[0],
+            render.render_mesh_shadowed(cam, _frame_vertices(char, motion, i),
                                         char.mesh.faces, 1280, 960) for i in (0, 1)]
     for i in (0, 1):
         g, c = renders["cuda"][i], renders["cpu"][i]

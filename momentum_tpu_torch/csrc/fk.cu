@@ -26,9 +26,9 @@
 // so that a warp's stores are conflict-free. Two float4 stores write the
 // result. At B = 2048 and nJ = 51: 512 blocks of 256 threads, 5 composes per
 // thread (the fixture rig's 5 levels) instead of 51. On an H100 (700 W) it
-// takes 0.0060 ms there (0.1043 before), at 33% of its 0.0020 ms bytes
-// bound, and 0.0035 ms at the render clip's B = 32 (0.0984 before): what is
-// left is mostly a launch's latency (testing/kernel_ab.py).
+// takes 0.0061 ms there (0.1034 before), at 33% of its 0.0020 ms bytes
+// bound, and 0.0037 ms at the render clip's B = 32 (0.0986 before): what is
+// left is mostly a launch's latency (tools/kernel_ab.py).
 //
 // Numerics: the compose is math/skel_state.py::multiply with its order of
 // operations, every product and sum rounded on its own (__fmul_rn and

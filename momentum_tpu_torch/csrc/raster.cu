@@ -21,7 +21,7 @@
 // block scanned all 640 face rows for its 8 × 128 pixels alone on one SM.
 // Split across 5 chunk blocks, frame 0's camera pass takes 0.051 ms and the
 // shadow pass of frame 11 0.022 (0.086 before); the clip's 64 passes sum to
-// 2.07 ms, 2.81 before (testing/kernel_ab.py).
+// 2.11 ms, 2.82 before (tools/kernel_ab.py).
 //
 // Design: one block of 128 threads per (th × 128)-pixel tile; thread c owns
 // column c of the tile and its th pixels, keeping (best z, best id) for each
@@ -39,7 +39,7 @@
 //        their plane rows itself, so the host never builds per-tile plane or
 //        attribute tables. A tile whose bin overflows (more than K faces
 //        overlap it) scans the whole plane table instead, split across
-//        blocks: S = ceil(Fp / 128) chunk blocks per group of `group`
+//        blocks: S = ceil(Fp / 128) chunk blocks per group of kGroup = 8
 //        consecutive tiles, placed first in the grid so that they start at
 //        once. Chunk block (g, c) scans face rows [128c, 128c + 128) for each
 //        overflow tile of group g and merges each pixel's winner into a
@@ -78,6 +78,11 @@ constexpr int kCols = 128;   // tile width in pixels = threads per block
 constexpr int kStage = 128;  // face rows staged in shared memory per pass = chunk rows
 constexpr int kNoFace = 1 << 30;
 constexpr unsigned long long kNoKey = ~0ull;
+// consecutive tiles that share one set of K4b's chunk blocks (≤ 32, one
+// ballot bit each). On an H100 (700 W), frame 0's camera pass of the clip
+// took 0.0538 ms with 1 (6000 chunk blocks), 0.0514 with 8, 0.0521 with 32.
+constexpr int kGroup = 8;
+static_assert(kGroup >= 1 && kGroup <= 32, "one ballot bit per tile of a group");
 
 __device__ __forceinline__ float plane(float ax, float b, float y, float c) {
   return __fadd_rn(__fadd_rn(ax, __fmul_rn(b, y)), c);
@@ -204,14 +209,14 @@ __global__ void __launch_bounds__(kCols) raster_planes_kernel(RASTER_IO_PARAMS, 
 template <int TH>
 __global__ void __launch_bounds__(kCols) raster_planes_binned_kernel(
     RASTER_IO_PARAMS, int fp, const int* __restrict__ tile_fids, int k,
-    const int* __restrict__ overflow, int n_tiles, int gj, int n_chunks, int group,
+    const int* __restrict__ overflow, int n_tiles, int gj, int n_chunks,
     unsigned long long* __restrict__ keys, int* __restrict__ arrivals) {
   __shared__ Stage st;
   __shared__ unsigned s_mask;
   __shared__ bool s_last;
   float ys[TH], best[TH];
   int bid[TH];
-  const int n_chunk_blocks = (n_tiles + group - 1) / group * n_chunks;
+  const int n_chunk_blocks = (n_tiles + kGroup - 1) / kGroup * n_chunks;
   const int cb = blockIdx.x;  // chunk blocks first,
   const int tb = (int)blockIdx.x - n_chunk_blocks;  // then one block per tile
 
@@ -230,15 +235,15 @@ __global__ void __launch_bounds__(kCols) raster_planes_binned_kernel(
   const int g = cb / n_chunks;
   const int chunk = cb - g * n_chunks;
   const int first = chunk * kStage;
-  if (threadIdx.x < 32) {  // group ≤ 32: one bit per tile of the group
-    const int t = g * group + threadIdx.x;
+  if (threadIdx.x < 32) {  // one bit per tile of the group
+    const int t = g * kGroup + threadIdx.x;
     const unsigned m =
-        __ballot_sync(0xffffffffu, threadIdx.x < group && t < n_tiles && overflow[t] != 0);
+        __ballot_sync(0xffffffffu, threadIdx.x < kGroup && t < n_tiles && overflow[t] != 0);
     if (threadIdx.x == 0) s_mask = m;
   }
   __syncthreads();
   for (unsigned mask = s_mask; mask != 0; mask &= mask - 1) {
-    const int tile = g * group + __ffs(mask) - 1;
+    const int tile = g * kGroup + __ffs(mask) - 1;
     const int ti = tile / gj;
     const int col = (tile - ti * gj) * kCols + threadIdx.x;
     const float x = (float)col + 0.5f;
@@ -276,7 +281,7 @@ __global__ void __launch_bounds__(kCols) raster_planes_binned_kernel(
 
 template <int TH>
 int launch_th(RASTER_IO_PARAMS, int fp, const int* tile_fids, int k, const int* overflow,
-              int group, unsigned long long* keys, int* arrivals, cudaStream_t stream) {
+              unsigned long long* keys, int* arrivals, cudaStream_t stream) {
   const int gi = (height + TH - 1) / TH;
   const int gj = (width + kCols - 1) / kCols;
   const int n_tiles = gi * gj;
@@ -284,25 +289,21 @@ int launch_th(RASTER_IO_PARAMS, int fp, const int* tile_fids, int k, const int* 
     raster_planes_kernel<TH><<<n_tiles, kCols, 0, stream>>>(RASTER_IO_ARGS, fp, gj);
   } else {
     const int n_chunks = (fp + kStage - 1) / kStage;
-    const int blocks = (n_tiles + group - 1) / group * n_chunks + n_tiles;
+    const int blocks = (n_tiles + kGroup - 1) / kGroup * n_chunks + n_tiles;
     raster_planes_binned_kernel<TH><<<blocks, kCols, 0, stream>>>(
-        RASTER_IO_ARGS, fp, tile_fids, k, overflow, n_tiles, gj, n_chunks, group, keys,
-        arrivals);
+        RASTER_IO_ARGS, fp, tile_fids, k, overflow, n_tiles, gj, n_chunks, keys, arrivals);
   }
   return (int)cudaGetLastError();
 }
 
 int launch(RASTER_IO_PARAMS, int fp, const int* tile_fids, int k, const int* overflow,
-           int group, unsigned long long* keys, int* arrivals, int th, cudaStream_t stream) {
-  if (tile_fids != nullptr && (group < 1 || group > 32 || fp < 1))
-    return (int)cudaErrorInvalidValue;
+           unsigned long long* keys, int* arrivals, int th, cudaStream_t stream) {
+  if (tile_fids != nullptr && fp < 1) return (int)cudaErrorInvalidValue;
   switch (th) {  // the tile heights rasterize_planes picks: 4 unbinned, 8 binned
     case 4:
-      return launch_th<4>(RASTER_IO_ARGS, fp, tile_fids, k, overflow, group, keys, arrivals,
-                          stream);
+      return launch_th<4>(RASTER_IO_ARGS, fp, tile_fids, k, overflow, keys, arrivals, stream);
     case 8:
-      return launch_th<8>(RASTER_IO_ARGS, fp, tile_fids, k, overflow, group, keys, arrivals,
-                          stream);
+      return launch_th<8>(RASTER_IO_ARGS, fp, tile_fids, k, overflow, keys, arrivals, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -322,25 +323,24 @@ int raster_planes_launch(const void* planes, int fp, const void* attr_tab, int n
                          int width, int height, int th, void* stream) {
   return launch((const float*)planes, (const float*)attr_tab, n_attr, want_bary,
                 (float*)depth, (int*)face, (float*)bary, (float*)attrs, width, height, fp,
-                nullptr, 0, nullptr, 1, nullptr, nullptr, th, (cudaStream_t)stream);
+                nullptr, 0, nullptr, nullptr, nullptr, th, (cudaStream_t)stream);
 }
 
 // K4b. As K4a, plus tile_fids: (gi·gj, k) int32, each tile's binned face ids
 // ascending then 1 << 30; overflow: (gi·gj,) int32, nonzero where the tile
 // scans all fp faces instead; tiles in row-major order of
-// gi = ceil(height / th) rows by gj = ceil(width / 128) columns. group in
-// [1, 32]: consecutive tiles that share one set of chunk blocks. keys:
+// gi = ceil(height / th) rows by gj = ceil(width / 128) columns. keys:
 // (gi·gj, th·128) uint64, all bits set; arrivals: (gi·gj,) int32, zero; the
-// kernel leaves both so.
+// kernel leaves both so, and launches that share them must run in order.
 int raster_planes_binned_launch(const void* planes, int fp, const void* tile_fids, int k,
                                 const void* overflow, const void* attr_tab, int n_attr,
                                 int want_bary, void* depth, void* face, void* bary,
-                                void* attrs, int width, int height, int th, int group,
-                                void* keys, void* arrivals, void* stream) {
+                                void* attrs, int width, int height, int th, void* keys,
+                                void* arrivals, void* stream) {
   return launch((const float*)planes, (const float*)attr_tab, n_attr, want_bary,
                 (float*)depth, (int*)face, (float*)bary, (float*)attrs, width, height, fp,
-                (const int*)tile_fids, k, (const int*)overflow, group,
-                (unsigned long long*)keys, (int*)arrivals, th, (cudaStream_t)stream);
+                (const int*)tile_fids, k, (const int*)overflow, (unsigned long long*)keys,
+                (int*)arrivals, th, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -28,6 +28,8 @@ as (a·x + b·y) + c with every product and sum rounded, the plain version's
 order, so on the card the two give identical face maps. K4b splits an
 overflow tile's chunks across blocks, which merge with atomicMin on the
 same keys in a per-tile scratch the wrapper keeps (`_merge_scratch`).
+`_kernel_args` builds a pass's tables and bins as `rasterize_planes` does,
+for callers that launch or time the kernel alone.
 
 One rule differs from the JAX binned kernel: a face whose depth overflows
 to +inf never wins a pixel (JAX's overflow scan drops it too, its binned
@@ -52,12 +54,12 @@ _LIM = 1e7  # faces with a screen coordinate this large are dropped (ROADMAP F2)
 _TILE_BLOCK_ELEMS = 1 << 22  # tiles × faces × pixels per block of the plain scan
 _KERNEL_TH = (4, 8)  # tile heights csrc/raster.cu is built for
 _NOKEY = (1 << 63) - 1  # the packed key of a pixel no face covers (`_pack`)
-OVERFLOW_GROUP = 8  # consecutive tiles that share one set of K4b's chunk blocks
 
 # times each kernel was launched in this process (reset them to measure a run)
 launches = {"raster_planes_kernel": 0, "raster_planes_binned_kernel": 0}
-# K4b's merge scratch per (device, stream): (keys all bits set, arrival
-# counts 0) for every tile; each launch leaves them so
+# K4b's merge scratch per device, for the life of the process: [keys all
+# bits set, arrival counts 0, the stream of its last launch]; each launch
+# leaves keys and counts so
 _scratch: dict = {}
 
 
@@ -302,27 +304,32 @@ def _lib():
     lib.raster_planes_launch.argtypes = [p, i, p, i, i, p, p, p, p, i, i, i, p]
     lib.raster_planes_launch.restype = i
     lib.raster_planes_binned_launch.argtypes = [p, i, p, i, p, p, i, i, p, p, p, p,
-                                                i, i, i, i, p, p, p]
+                                                i, i, i, p, p, p]
     lib.raster_planes_binned_launch.restype = i
     return lib
 
 
-def _merge_scratch(dev, stream: int, n_tiles: int, npx: int):
+def _merge_scratch(dev, n_tiles: int, npx: int):
     """K4b's (keys (n_tiles·npx,) int64 all bits set, arrivals (n_tiles,)
-    int32 zero) for launches on `stream`, grown when a pass needs more. The
-    kernel resets what it uses, so launches in stream order share them."""
-    keys, arrivals = _scratch.get((dev, stream), (None, None))
-    if keys is None or keys.numel() < n_tiles * npx or arrivals.numel() < n_tiles:
-        keys = torch.full((n_tiles * npx,), -1, dtype=torch.int64, device=dev)
-        arrivals = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-        _scratch[(dev, stream)] = (keys, arrivals)
-    return keys, arrivals
+    int32 zero) on `dev`, for a launch on the current stream; one pair per
+    device, grown when a pass needs more. The kernel resets what it uses, so
+    launches in order share them: a launch on another stream than the last
+    one first waits for that stream's work."""
+    stream = torch.cuda.current_stream(dev)
+    entry = _scratch.get(dev)
+    if entry is not None and entry[2] != stream:
+        stream.wait_stream(entry[2])
+    if entry is None or entry[0].numel() < n_tiles * npx or entry[1].numel() < n_tiles:
+        entry = [torch.full((n_tiles * npx,), -1, dtype=torch.int64, device=dev),
+                 torch.zeros(n_tiles, dtype=torch.int32, device=dev), stream]
+        _scratch[dev] = entry
+    entry[2] = stream
+    return entry[0], entry[1]
 
 
 def _raster_kernel(planes, tab, n_attr, tile_fids, overflow, width, height, th,
-                   want_bary, group=None):
-    """Launch K4b (tile_fids given) or K4a on the current stream; `group`
-    (default OVERFLOW_GROUP) is K4b's tiles per set of chunk blocks."""
+                   want_bary):
+    """Launch K4b (tile_fids given) or K4a on the current stream."""
     dev = planes.device
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     face = torch.empty((height, width), dtype=torch.int32, device=dev)
@@ -347,11 +354,10 @@ def _raster_kernel(planes, tab, n_attr, tile_fids, overflow, width, height, th,
             rc = lib.raster_planes_launch(planes.data_ptr(), planes.shape[0], *common, stream)
         else:
             name = "raster_planes_binned_kernel"
-            keys, arrivals = _merge_scratch(dev, stream, tile_fids.shape[0], th * _LANES)
+            keys, arrivals = _merge_scratch(dev, tile_fids.shape[0], th * _LANES)
             rc = lib.raster_planes_binned_launch(
                 planes.data_ptr(), planes.shape[0], tile_fids.data_ptr(), tile_fids.shape[1],
-                overflow.data_ptr(), *common, OVERFLOW_GROUP if group is None else group,
-                keys.data_ptr(), arrivals.data_ptr(), stream)
+                overflow.data_ptr(), *common, keys.data_ptr(), arrivals.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     launches[name] += 1
@@ -374,29 +380,39 @@ def _check_cuda_inputs(verts_screen, faces, vertex_attrs, face_attrs, valid, th)
     if any(t is not None and t.requires_grad for t in (verts_screen, vertex_attrs, face_attrs)):
         raise RuntimeError("the raster kernels have no backward: call them on tensors "
                            "that do not require grad (the face selection is constant)")
-    if th not in _KERNEL_TH:
+    if th is not None and th not in _KERNEL_TH:
         raise ValueError(f"the raster kernels are built for th in {_KERNEL_TH}, got {th}")
 
 
-def _rasterize(kernel, verts_screen, faces, width, height, vertex_attrs, face_attrs,
-               valid, want_bary, th, cull, chunk, bin_capacity):
+def _kernel_args(verts_screen, faces, width: int, height: int, vertex_attrs=None,
+                 face_attrs=None, valid=None, th: int | None = None,
+                 cull: bool | None = None, chunk: int = 128, bin_capacity: int = 128):
+    """(planes, tab, n_attr, tile_fids, overflow, width, height, th): the
+    tables and bins of one `rasterize_planes` call, its defaults resolved,
+    as `_raster_kernel` and `_raster_plain` take them (tile_fids and
+    overflow None unless it bins)."""
     if cull is None:
         cull = faces.shape[0] > bin_capacity
     if th is None:
         th = 8 if cull else 4
-    if kernel:
-        _check_cuda_inputs(verts_screen, faces, vertex_attrs, face_attrs, valid, th)
     planes, tab, n_attr = _tables(verts_screen, faces, vertex_attrs, face_attrs, valid,
                                   chunk if cull else _LANES)
     tile_fids = overflow = None
     if cull:
         tile_fids, overflow = bin_faces(verts_screen, faces, planes.shape[0], width,
                                         height, th, bin_capacity)
+    return planes, tab, n_attr, tile_fids, overflow, width, height, th
+
+
+def _rasterize(kernel, verts_screen, faces, width, height, vertex_attrs, face_attrs,
+               valid, want_bary, th, cull, chunk, bin_capacity):
     if kernel:
-        return _raster_kernel(planes, tab, n_attr, tile_fids, overflow, width, height,
-                              th, want_bary)
-    return _raster_plain(planes, tab, n_attr, tile_fids, overflow, width, height, th,
-                         chunk, want_bary)
+        _check_cuda_inputs(verts_screen, faces, vertex_attrs, face_attrs, valid, th)
+    args = _kernel_args(verts_screen, faces, width, height, vertex_attrs, face_attrs, valid,
+                        th, cull, chunk, bin_capacity)
+    if kernel:
+        return _raster_kernel(*args, want_bary)
+    return _raster_plain(*args, chunk, want_bary)
 
 
 def rasterize_planes_plain(verts_screen, faces, width: int, height: int,

@@ -19,7 +19,9 @@ from momentum_tpu_torch.character.skinning import update_normals
 from momentum_tpu_torch.ops.raster import rasterize_planes
 
 __all__ = ["shade_lambert", "render_mesh", "render_shadow_map", "shadow_factor",
-           "render_mesh_shadowed"]
+           "render_mesh_shadowed", "shadowed_passes", "LIGHT_DIR"]
+
+LIGHT_DIR = (0.3, -0.7, 0.6)  # the renders' default light direction
 
 
 def _rasterize_dispatch(verts_screen, faces, width: int, height: int,
@@ -64,7 +66,7 @@ def flat_face_colors(vertices: torch.Tensor, faces: torch.Tensor, light_dir,
 
 
 def render_mesh(camera, vertices: torch.Tensor, faces: torch.Tensor, width: int,
-                height: int, vertex_normals=None, light_dir=(0.3, -0.7, 0.6),
+                height: int, vertex_normals=None, light_dir=LIGHT_DIR,
                 method: str = "auto", extra_vertex_attrs=None) -> dict:
     """Project, rasterize and flat-Lambert-shade a mesh through a Camera.
     Returns dict(color (H, W, 3), mask, depth, face, bary), and "extra"
@@ -75,8 +77,14 @@ def render_mesh(camera, vertices: torch.Tensor, faces: torch.Tensor, width: int,
                               method, vertex_attrs=extra_vertex_attrs,
                               face_attrs=flat_face_colors(vertices, faces, light_dir,
                                                           vertex_normals))
-    attrs = buf.pop("attrs")
     ca = 0 if extra_vertex_attrs is None else extra_vertex_attrs.shape[-1]
+    return _shade(buf, ca)
+
+
+def _shade(buf: dict, ca: int) -> dict:
+    """A camera pass's buffers as render_mesh returns them: the face colour
+    is the 3 attribute channels after the first `ca`, which become "extra"."""
+    attrs = buf.pop("attrs")
     mask = buf["face"] >= 0
     out = dict(color=torch.where(mask[..., None], attrs[..., ca:ca + 3], 0.0), mask=mask,
                **buf)
@@ -134,19 +142,39 @@ def shadow_factor(shadow_depth: torch.Tensor, light_uvz: torch.Tensor,
     return torch.where(light_uvz[..., 2] <= occluder + bias, 1.0, 0.0)
 
 
+def shadowed_passes(camera, vertices: torch.Tensor, faces: torch.Tensor, width: int,
+                    height: int, light_dir=LIGHT_DIR, shadow_resolution: int = 256) -> dict:
+    """The two rasterizer passes of `render_mesh_shadowed`, each as
+    (verts_screen, width, height, keyword arguments) of `rasterize_planes`
+    with `faces`: "camera" (screen vertices; world positions as vertex
+    attributes, flat Lambert colours as face attributes) and "shadow"
+    (light-space vertices at shadow_resolution²); and "to_light", the map of
+    world points into the shadow map."""
+    to_light = light_projection(vertices, light_dir, shadow_resolution)
+    return dict(camera=(screen_vertices(camera, vertices), width, height,
+                        dict(vertex_attrs=vertices,
+                             face_attrs=flat_face_colors(vertices, faces, light_dir))),
+                shadow=(to_light(vertices), shadow_resolution, shadow_resolution, {}),
+                to_light=to_light)
+
+
 def render_mesh_shadowed(camera, vertices: torch.Tensor, faces: torch.Tensor, width: int,
-                         height: int, light_dir=(0.3, -0.7, 0.6),
+                         height: int, light_dir=LIGHT_DIR,
                          shadow_resolution: int = 256, shadow_bias: float = 5e-2,
                          method: str = "auto") -> dict:
     """Lambert render with a shadow map (rasterizer.h shadow maps): a depth
     pass from the light, then an occlusion test of each pixel's world
-    position, interpolated by the camera pass. Adds "shadow" (H, W)."""
-    out = render_mesh(camera, vertices, faces, width, height, light_dir=light_dir,
-                      method=method, extra_vertex_attrs=vertices)
-    sdepth, to_light = render_shadow_map(vertices, faces, light_dir, shadow_resolution,
-                                         method=method)
+    position, interpolated by the camera pass (`shadowed_passes`). Adds
+    "shadow" (H, W)."""
+    passes = shadowed_passes(camera, vertices, faces, width, height, light_dir,
+                             shadow_resolution)
+    sv, w, h, kw = passes["camera"]
+    out = _shade(_rasterize_dispatch(sv, faces, w, h, method, **kw), vertices.shape[-1])
+    sv, w, h, kw = passes["shadow"]
+    sdepth = _rasterize_dispatch(sv, faces, w, h, method, **kw)["depth"]
     world = out.pop("extra")  # (H, W, 3)
-    lit = torch.where(out["mask"], shadow_factor(sdepth, to_light(world), shadow_bias), 0.0)
+    lit = torch.where(out["mask"],
+                      shadow_factor(sdepth, passes["to_light"](world), shadow_bias), 0.0)
     ambient = 0.15
     # the shadow scales the diffuse part; the ambient part stays
     color = out["color"] * (ambient + (1 - ambient) * lit[..., None])

@@ -74,6 +74,7 @@ def card_name_and_power_limit() -> str:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+_PROFILE_ATTEMPTS = 3  # profiles kernel_device_ms takes before it fails
 # ~0.1 ms at an H100's clock: longer than one kernel wrapper call on the host
 _SLEEP_CYCLES_PER_CALL = 200_000
 
@@ -115,21 +116,27 @@ def kernel_device_ms(fn, match: str, reps: int = 10) -> float:
     """Device time per call of the kernels whose name contains `match`, from
     torch.profiler over `reps` calls of fn after two warm-up calls: the
     kernel's own time, without the host's launch overhead that CUDA events
-    around back-to-back calls include when the kernel is short."""
+    around back-to-back calls include when the kernel is short. A profile
+    that holds no such kernel is taken again, up to _PROFILE_ATTEMPTS in
+    all: on an H100 one profile of ten K4b launches once came back without
+    them."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key)
-    if us == 0:
-        raise RuntimeError(f"the profiler saw no device time for a kernel named {match!r}")
-    return us / 1e3 / reps
+    for _ in range(_PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in events if match in e.key)
+        if us > 0:
+            return us / 1e3 / reps
+    raise RuntimeError(f"{_PROFILE_ATTEMPTS} profiles saw no device time for a kernel named {match!r}; "
+                       f"the last saw {[(e.key, e.count) for e in events]}")
 
 
 def layer_times(char, ef0, targets, x0, lam: float = 0.01) -> dict:
@@ -191,7 +198,7 @@ def render_layer_times(char, cam, motion) -> dict:
     from momentum_tpu_torch.ops import raster
     from momentum_tpu_torch.rasterizer import render
 
-    light, faces = (0.3, -0.7, 0.6), char.mesh.faces
+    light, faces = render.LIGHT_DIR, char.mesh.faces
 
     def skin(states):
         return skin_points(char.skin_weights, states, char.inverse_bind_pose,
@@ -199,17 +206,14 @@ def render_layer_times(char, cam, motion) -> dict:
 
     states = char.skeleton_states(motion)
     verts = skin(states)[0]
-    screen = render.screen_vertices(cam, verts)
-    colors = render.flat_face_colors(verts, faces, light)
-    to_light = render.light_projection(verts, light, 256)
-    light_uvz = to_light(verts)
-    cam_tabs = raster._tables(screen, faces, verts, colors, None, 128)
-    cam_bins = raster.bin_faces(screen, faces, cam_tabs[0].shape[0], 1280, 960, 8, 128)
-    shadow_tabs = raster._tables(light_uvz, faces, None, None, None, 128)
-    fp = cam_tabs[0].shape[0]  # faces padded to 128: 640 rows, both passes
-    shadow_bins = raster.bin_faces(light_uvz, faces, fp, 256, 256, 8, 128)
-    cam_out = raster._raster_kernel(*cam_tabs, *cam_bins, 1280, 960, 8, True)
-    sdepth = raster._raster_kernel(*shadow_tabs, *shadow_bins, 256, 256, 8, True)["depth"]
+    passes = render.shadowed_passes(cam, verts, faces, 1280, 960)
+    screen, colors = passes["camera"][0], passes["camera"][3]["face_attrs"]
+    to_light, light_uvz = passes["to_light"], passes["shadow"][0]
+    cam_args = raster._kernel_args(screen, faces, 1280, 960, **passes["camera"][3])
+    shadow_args = raster._kernel_args(light_uvz, faces, 256, 256)
+    fp = cam_args[0].shape[0]  # faces padded to 128: 640 rows, both passes
+    cam_out = raster._raster_kernel(*cam_args, True)
+    sdepth = raster._raster_kernel(*shadow_args, True)["depth"]
 
     def shade():
         mask = cam_out["face"] >= 0
@@ -234,15 +238,13 @@ def render_layer_times(char, cam, motion) -> dict:
             lambda: raster._tables(screen, faces, verts, colors, None, 128)),
         "camera pass: binning": event_ms(
             lambda: raster.bin_faces(screen, faces, fp, 1280, 960, 8, 128)),
-        "camera pass: K4b": event_ms(
-            lambda: raster._raster_kernel(*cam_tabs, *cam_bins, 1280, 960, 8, True)),
+        "camera pass: K4b": event_ms(lambda: raster._raster_kernel(*cam_args, True)),
         "shadow pass: light projection + planes": event_ms(
             lambda: raster._tables(render.light_projection(verts, light, 256)(verts), faces,
                                    None, None, None, 128)),
         "shadow pass: binning": event_ms(
             lambda: raster.bin_faces(light_uvz, faces, fp, 256, 256, 8, 128)),
-        "shadow pass: K4b": event_ms(
-            lambda: raster._raster_kernel(*shadow_tabs, *shadow_bins, 256, 256, 8, True)),
+        "shadow pass: K4b": event_ms(lambda: raster._raster_kernel(*shadow_args, True)),
         "shading + shadow lookup + 2x2 box filter": event_ms(shade),
         "whole frame (render_mesh_shadowed + box filter)": event_ms(frame),
     }

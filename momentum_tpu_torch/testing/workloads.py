@@ -35,7 +35,7 @@ import torch
 __all__ = ["build_fullbody_ik_problem", "make_solve_stage", "make_solve_batch",
            "DEFAULT_REFINE", "DEFAULT_BATCH", "build_fullstack_problem",
            "make_fullstack_solve", "FULLSTACK_REFINE", "build_render_clip",
-           "make_render_clip"]
+           "make_render_clip", "clip_vertices", "render_clip_passes"]
 
 # 5 full-batch LM iterations + 6 compacted iterations on the worst 128 of 2048
 DEFAULT_REFINE = (5, 6, 128)
@@ -210,22 +210,27 @@ def build_render_clip(frames: int = 32, seed: int = 0, device="cuda",
     return char, motion, cam
 
 
+def clip_vertices(char, motion) -> torch.Tensor:
+    """(frames, V, 3) skinned mesh vertices of every frame of `motion`: FK
+    in one batch (kernel K1 on the card), then LBS skinning."""
+    from momentum_tpu_torch.character.skinning import skin_points
+
+    return skin_points(char.skin_weights, char.skeleton_states(motion),
+                       char.inverse_bind_pose, char.mesh.vertices)
+
+
 def make_render_clip(char, cam, width: int = 640, height: int = 480, supersample: int = 2,
                      shadow_resolution: int = 256):
     """`render_clip(motion) -> (frames, height, width, 3)` colour images:
-    FK of every frame in one batch (kernel K1 on the card), LBS skinning,
-    then per frame `render_mesh_shadowed` at (supersample·height,
-    supersample·width) (two rasterizer passes, kernel K4b on the card) and a
-    supersample × supersample box filter."""
-    from momentum_tpu_torch.character.skinning import skin_points
+    `clip_vertices`, then per frame `render_mesh_shadowed` at
+    (supersample·height, supersample·width) (two rasterizer passes, kernel
+    K4b on the card) and a supersample × supersample box filter."""
     from momentum_tpu_torch.rasterizer import render_mesh_shadowed
 
     ss = supersample
 
     def render_clip(motion):
-        states = char.skeleton_states(motion)
-        verts = skin_points(char.skin_weights, states, char.inverse_bind_pose,
-                            char.mesh.vertices)
+        verts = clip_vertices(char, motion)
         frames = []
         for v in verts:
             out = render_mesh_shadowed(cam, v, char.mesh.faces, width * ss, height * ss,
@@ -234,3 +239,25 @@ def make_render_clip(char, cam, width: int = 640, height: int = 480, supersample
         return torch.stack(frames)
 
     return render_clip
+
+
+def render_clip_passes(char, cam, motion, width: int = 640, height: int = 480,
+                       supersample: int = 2, shadow_resolution: int = 256) -> list:
+    """Per frame of `make_render_clip(char, cam, ...)(motion)`, its two
+    rasterizer passes as `ops/raster.py::_kernel_args` builds them (the
+    arguments of one K4b launch): [{"camera": args, "shadow": args}, ...]."""
+    from momentum_tpu_torch.ops import raster
+    from momentum_tpu_torch.rasterizer import render
+
+    faces = char.mesh.faces
+    frames = []
+    for v in clip_vertices(char, motion):
+        passes = render.shadowed_passes(cam, v, faces, width * supersample,
+                                        height * supersample,
+                                        shadow_resolution=shadow_resolution)
+        frame = {}
+        for name in ("camera", "shadow"):
+            sv, w, h, kw = passes[name]
+            frame[name] = raster._kernel_args(sv, faces, w, h, **kw)
+        frames.append(frame)
+    return frames

@@ -343,22 +343,15 @@ def test_raster_binned_kernel_overflow_tiles(cuda_device):
 
 @pytest.fixture(scope="module")
 def clip_frames(cuda_device):
-    """Config 7's clip on the card: per frame, the camera pass's screen
-    vertices and attributes and the shadow pass's light-space vertices."""
-    from momentum_tpu_torch.character.skinning import skin_points
+    """Config 7's clip on the card: per frame, the camera and shadow passes
+    of render_mesh_shadowed (`render.shadowed_passes`)."""
     from momentum_tpu_torch.rasterizer import render
 
     char, motion, cam = workloads.build_render_clip(32, seed=0, device="cuda")
-    light = (0.3, -0.7, 0.6)
-    verts = skin_points(char.skin_weights, char.skeleton_states(motion),
-                        char.inverse_bind_pose, char.mesh.vertices)
+    verts = workloads.clip_vertices(char, motion)
 
     def frame(i):
-        v = verts[i]
-        return dict(camera=(render.screen_vertices(cam, v), 1280, 960,
-                            dict(vertex_attrs=v, face_attrs=render.flat_face_colors(
-                                v, char.mesh.faces, light))),
-                    shadow=(render.light_projection(v, light, 256)(v), 256, 256, {}))
+        return render.shadowed_passes(cam, verts[i], char.mesh.faces, 1280, 960)
 
     return char.mesh.faces, frame
 
@@ -376,15 +369,33 @@ def test_raster_binned_kernel_on_clip_frames(clip_frames, frame, pass_, overflow
     assert name == "raster_planes_binned_kernel"
 
 
-@pytest.mark.parametrize("group", [1, 8, 32])
-def test_raster_binned_kernel_many_overflow_tiles(clip_frames, monkeypatch, group):
+def test_raster_binned_kernel_many_overflow_tiles(clip_frames):
     """bin_capacity 8: 77 of the 1200 tiles of frame 0's camera pass
-    overflow, each scanned by five chunk blocks, `group` consecutive tiles
+    overflow, each scanned by five chunk blocks, 8 consecutive tiles
     sharing one set of them."""
-    monkeypatch.setattr(raster, "OVERFLOW_GROUP", group)
     faces, get = clip_frames
     sv, w, h, kw = get(0)["camera"]
+    _, ovf = raster.bin_faces(sv, faces, 640, w, h, 8, 8)
+    assert int(ovf.sum()) == 77
     _kernel_vs_plain(sv, faces, w, h, kw, bin_capacity=8)
+
+
+def test_raster_binned_kernel_across_streams(clip_frames):
+    """K4b's merge scratch is one per device: overflow passes launched on
+    a side stream and then on the default stream, with no synchronization
+    between them, each give the plain version's face map."""
+    faces, get = clip_frames
+    sv, w, h, kw = get(0)["camera"]
+    ref = raster.rasterize_planes_plain(sv, faces, w, h, bin_capacity=8, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        a = raster.rasterize_planes(sv, faces, w, h, bin_capacity=8, **kw)
+    b = raster.rasterize_planes(sv, faces, w, h, bin_capacity=8, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(a["face"], ref["face"]) and torch.equal(b["face"], ref["face"])
+    assert list(raster._scratch) == [sv.device]
 
 
 @pytest.mark.parametrize("bin_capacity", [8, 384])

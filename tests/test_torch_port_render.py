@@ -359,6 +359,44 @@ def test_render_clip_matches_jax_recipe():
     assert np.mean(np.abs(got - ref) > 1e-3) <= 0.01
 
 
+def test_render_clip_passes_are_the_clips_passes():
+    """workloads.render_clip_passes gives, per frame, the tables and bins of
+    the two passes that make_render_clip's render_mesh_shadowed rasterizes:
+    their plain scans give its face map and depth, and its shadow map."""
+    from momentum_tpu_torch.testing import workloads
+
+    char, motion, cam = workloads.build_render_clip(frames=2, image_height=96,
+                                                    image_width=128, device="cpu")
+    faces = char.mesh.faces
+    passes = workloads.render_clip_passes(char, cam, motion, width=64, height=48,
+                                          shadow_resolution=64)
+    assert len(passes) == 2
+    for verts, frame in zip(workloads.clip_vertices(char, motion), passes):
+        assert frame["camera"][5:] == (128, 96, 8) and frame["shadow"][5:] == (64, 64, 8)
+        out = render.render_mesh_shadowed(cam, verts, faces, 128, 96, shadow_resolution=64)
+        cam_buf = raster._raster_plain(*frame["camera"], 128, True)
+        assert torch.equal(cam_buf["face"], out["face"])
+        assert torch.equal(cam_buf["depth"], out["depth"])
+        sdepth, _ = render.render_shadow_map(verts, faces, render.LIGHT_DIR, 64)
+        assert torch.equal(raster._raster_plain(*frame["shadow"], 128, False)["depth"], sdepth)
+
+
+def test_render_clip_overflow_tiles():
+    """The overflow tiles of config 7's 32-frame clip at its full size, as
+    PERF.md counts them: camera passes of frames 0-4 one and frame 10 two
+    (of 1200 tiles), shadow passes of frames 11, 12, 13, 25 and 27 one (of
+    64)."""
+    from momentum_tpu_torch.testing import workloads
+
+    char, motion, cam = workloads.build_render_clip(32, seed=0, device="cpu")
+    passes = workloads.render_clip_passes(char, cam, motion)
+    camera = [int(f["camera"][4].sum()) for f in passes]
+    shadow = [int(f["shadow"][4].sum()) for f in passes]
+    assert passes[0]["camera"][4].numel() == 1200 and passes[0]["shadow"][4].numel() == 64
+    assert camera == [1, 1, 1, 1, 1] + [0] * 5 + [2] + [0] * 21
+    assert shadow == [0] * 11 + [1, 1, 1] + [0] * 11 + [1, 0, 1] + [0] * 4
+
+
 def test_only_the_planes_path_is_ported(chars):
     _, char_t = chars
     cam = camera_from_numpy(dict(fx=50.0, fy=50.0, cx=16.0, cy=16.0, image_width=32,

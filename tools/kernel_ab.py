@@ -1,7 +1,7 @@
 """K1 and K4b against their previous forms on one CUDA card, in turns, at the
 shapes of the port's paths, and the probes that show what holds each back.
 
-    python -m momentum_tpu_torch.testing.kernel_ab --previous DIR
+    python tools/kernel_ab.py --previous DIR
 
 DIR holds the previous sources `fk.cu` and `raster.cu`: the
 `momentum_tpu_torch/csrc` of commit 211fac6, unpacked with
@@ -17,22 +17,25 @@ Their C interfaces are the ones of the forms they replace:
         n_attr, want_bary, depth, face, bary, attrs, width, height, th, stream)
         one block per tile, an overflow tile scans every face row alone.
 
-The probes build edited copies of the previous sources (the text edits are
-asserted to apply):
-  * K1 with its compose loop compiled out (loads and stores only), and with
-    its loads replaced by a constant (compose and stores only);
-  * K4b's frame-0 camera pass with every overflow flag zeroed: its face map
-    is wrong, it times the pass without its overflow tile.
-The current K4b is also timed with 1 and 32 tiles per set of chunk blocks
-beside its default (ops/raster.py OVERFLOW_GROUP), and built with the edits
-of _K4B_PROBES: a minimum of 9 resident blocks per SM (__launch_bounds__),
-without __restrict__ on its tables and images, and the tiles' blocks before
-the chunk blocks in the grid. Each build prints ptxas's register counts.
+The probes build edited copies of the sources; each text edit is asserted
+to apply, so a probe raises once its lines change rather than time
+something else:
+  * the previous K1 with its compose loop compiled out (loads and stores
+    only), and with its loads replaced by a constant (compose and stores
+    only);
+  * the previous K4b on frame 0's camera pass with every overflow flag
+    zeroed: its face map is wrong, it times the pass without its overflow
+    tile;
+  * the current K4b (csrc/raster.cu) with 1 and 32 tiles per set of chunk
+    blocks (kGroup, 8), with a minimum of 9 resident blocks per SM
+    (__launch_bounds__), without __restrict__ on its tables and images, and
+    with the tiles' blocks before the chunk blocks in the grid.
+Each build prints ptxas's register counts.
 
 Every time is the device time per launch: CUDA events around 20 launches
 queued behind a sleep kernel (profile_workload.event_ms, busy), the median of
 ROUNDS rounds with the forms in turns. The current forms are called
-through their wrappers, the previous ones through ctypes with their outputs
+through their wrappers, the others through ctypes with their outputs
 allocated once. Every line names the card and its power limit.
 """
 
@@ -42,19 +45,22 @@ import argparse
 import ctypes
 import pathlib
 import subprocess
+import sys
 
 import torch
 
-from momentum_tpu_torch.ops import build
-from momentum_tpu_torch.testing.profile_workload import (
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+from momentum_tpu_torch.ops import build, raster  # noqa: E402
+from momentum_tpu_torch.testing.profile_workload import (  # noqa: E402
     card_name_and_power_limit, in_turns)
 
-LIGHT = (0.3, -0.7, 0.6)
-GROUPS = (1, 32)  # K4b's tiles per set of chunk blocks, timed beside the default
 ROUNDS = 3
 
 # (name, text in the current csrc/raster.cu, replacement)
 _K4B_PROBES = (
+    ("group 1", "constexpr int kGroup = 8;", "constexpr int kGroup = 1;"),
+    ("group 32", "constexpr int kGroup = 8;", "constexpr int kGroup = 32;"),
     ("at least 9 blocks per SM", "__launch_bounds__(kCols) raster_planes_binned_kernel(",
      "__launch_bounds__(kCols, 9) raster_planes_binned_kernel("),
     ("no __restrict__ on tables and images",
@@ -70,7 +76,7 @@ _K4B_PROBES = (
      "  const int cb = (int)blockIdx.x - n_tiles;\n"),
 )
 
-# (name, text in the previous source, replacement)
+# (name, text in the previous fk.cu, replacement)
 _K1_PROBES = (
     ("loads + stores only", "if (p >= 0) compose(g + p * 8, g + j * 8);", "(void)p;"),
     ("compose + stores only", "sm[e * stride + (i - e * per)] = src[i];",
@@ -79,8 +85,8 @@ _K1_PROBES = (
 
 
 def _build_variant(src: pathlib.Path, tag: str, edit=None) -> ctypes.CDLL:
-    """nvcc `src` (its text edited by `edit` = (old, new)) into build/ with
-    the package's flags; the loaded library."""
+    """nvcc `src` (its text edited by `edit` = (old, new)) into build/ab/
+    with the package's flags; the loaded library."""
     text = src.read_text()
     if edit is not None:
         if edit[0] not in text:
@@ -119,17 +125,13 @@ def _previous_fk(lib, skeleton, local):
     return run
 
 
-def _raster_raw(lib, planes, tab, n_attr, fids, ovf, w, h, group=None, th=8):
-    """K4b through ctypes, outputs allocated once: the previous interface
-    (group None) or the current one, with the wrapper's merge scratch."""
-    from momentum_tpu_torch.ops import raster
-
+def _raster_raw(lib, planes, tab, n_attr, fids, ovf, w, h, th, current=False):
+    """K4b through ctypes, outputs allocated once: the previous interface or
+    (current) this tree's, with the wrapper's merge scratch."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.raster_planes_binned_launch.argtypes = (
-        [p, i, p, i, p, p, i, i, p, p, p, p, i, i, i] + ([] if group is None else [i, p, p])
-        + [p])
+        [p, i, p, i, p, p, i, i, p, p, p, p, i, i, i] + ([p, p] if current else []) + [p])
     dev = planes.device
-    stream = torch.cuda.current_stream().cuda_stream
     outs = [torch.empty((h, w), dtype=torch.float32, device=dev),
             torch.empty((h, w), dtype=torch.int32, device=dev),
             torch.empty((h, w, 3), dtype=torch.float32, device=dev),
@@ -137,43 +139,17 @@ def _raster_raw(lib, planes, tab, n_attr, fids, ovf, w, h, group=None, th=8):
     args = (planes.data_ptr(), planes.shape[0], fids.data_ptr(), fids.shape[1],
             ovf.data_ptr(), tab.data_ptr() if tab is not None else None, n_attr, 1,
             *(o.data_ptr() if o is not None else None for o in outs), w, h, th)
-    if group is not None:
-        keys, arrivals = raster._merge_scratch(dev, stream, fids.shape[0], th * 128)
-        args += (group, keys.data_ptr(), arrivals.data_ptr())
+    if current:
+        keys, arrivals = raster._merge_scratch(dev, fids.shape[0], th * 128)
+        args += (keys.data_ptr(), arrivals.data_ptr())
 
     def run():
-        rc = lib.raster_planes_binned_launch(*args, stream)
+        rc = lib.raster_planes_binned_launch(*args, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"raster_planes_binned_kernel: CUDA error {rc}")
         return outs
 
     return run
-
-
-def clip_passes(char, cam, motion):
-    """Per frame of the clip, the inputs of K4b's two passes as
-    render_mesh_shadowed builds them: {"camera": (planes, tab, n_attr, fids,
-    overflow, 1280, 960), "shadow": (..., 256, 256)}."""
-    from momentum_tpu_torch.character.skinning import skin_points
-    from momentum_tpu_torch.ops import raster
-    from momentum_tpu_torch.rasterizer import render
-
-    faces = char.mesh.faces
-    verts_all = skin_points(char.skin_weights, char.skeleton_states(motion),
-                            char.inverse_bind_pose, char.mesh.vertices)
-    passes = []
-    for verts in verts_all:
-        screen = render.screen_vertices(cam, verts)
-        colors = render.flat_face_colors(verts, faces, LIGHT)
-        light_uvz = render.light_projection(verts, LIGHT, 256)(verts)
-        frame = {}
-        for name, sv, kw, w, h in (("camera", screen, (verts, colors), 1280, 960),
-                                   ("shadow", light_uvz, (None, None), 256, 256)):
-            planes, tab, n_attr = raster._tables(sv, faces, *kw, None, 128)
-            fids, ovf = raster.bin_faces(sv, faces, planes.shape[0], w, h, 8, 128)
-            frame[name] = (planes, tab, n_attr, fids, ovf, w, h)
-        passes.append(frame)
-    return passes
 
 
 def k1_ab(previous: pathlib.Path, card: str):
@@ -203,11 +179,10 @@ def k1_ab(previous: pathlib.Path, card: str):
 
 
 def k4b_ab(previous: pathlib.Path, card: str):
-    from momentum_tpu_torch.ops import raster
-    from momentum_tpu_torch.testing.workloads import build_render_clip
+    from momentum_tpu_torch.testing.workloads import build_render_clip, render_clip_passes
 
     char, motion, cam = build_render_clip(32, seed=0, device="cuda")
-    passes = clip_passes(char, cam, motion)
+    passes = render_clip_passes(char, cam, motion)
     lib = _build_variant(previous / "raster.cu", "raster_previous")
     variants = {name: _build_variant(build.CSRC / "raster.cu",
                                      "raster_current_" + "_".join(name.split()[:2]), (old, new))
@@ -217,17 +192,15 @@ def k4b_ab(previous: pathlib.Path, card: str):
           f"{counts['shadow']} (of {passes[0]['camera'][4].numel()} and "
           f"{passes[0]['shadow'][4].numel()} tiles)")
 
-    def current(args, group=None):
-        return lambda: raster._raster_kernel(*args, 8, True, group)
+    def current(args):
+        return lambda: raster._raster_kernel(*args, True)
 
     cases = [("frame 0 camera", passes[0]["camera"]), ("frame 5 camera", passes[5]["camera"]),
              ("frame 11 shadow", passes[11]["shadow"])]
     for label, args in cases:
         forms = {"previous": _raster_raw(lib, *args), "current": current(args)}
-        for group in GROUPS:
-            forms[f"current, group {group}"] = current(args, group)
         for name, vlib in variants.items():
-            forms[f"current, {name}"] = _raster_raw(vlib, *args, group=raster.OVERFLOW_GROUP)
+            forms[f"current, {name}"] = _raster_raw(vlib, *args, current=True)
         if label == "frame 0 camera":
             zeroed = args[:4] + (torch.zeros_like(args[4]),) + args[5:]
             forms["previous, overflow zeroed"] = _raster_raw(lib, *zeroed)
