@@ -15,23 +15,31 @@ then drives the port's paths through those kernels and checks their output:
     tiles (frames 0, 5, 11), with each frame's overflow tiles and the
     device time of the clip's 64 launches;
   * the shadowed render of a mesh under the bin capacity (the clip's first
-    120 faces): K4a (plane rasterizer, all faces per tile);
+    120 faces): K4a (plane rasterizer, every face tested once per tile and
+    scanned only where it may cover the tile), held against its plain
+    version on that render's camera and shadow passes and on the clip's
+    612-face camera pass unbinned;
   * K5's entry points (ops/chol_pallas.py), fed the full residual stack's
-    normal equations at B = 2048 padded to n = 160: K5a (its entry point
-    reaches K2+K3's kernel) and K5b (chol_blocked_solve_kernel, 32-wide
-    panels);
+    normal equations at B = 2048 padded to n = 160: K5a and K5b (32-wide
+    panels, n % 32 == 0), both reaching K2+K3's kernel;
   * bench.py's full residual stack (position + orientation + limits + pose
-    prior) at B = 2048, Gauss-Newton 2 + 1 on the worst 1024: K1, K2+K3.
+    prior) at B = 2048, Gauss-Newton 2 + 1 on the worst 1024: K1, K2+K3;
+  * the repaired faults: the damped solve outside the kernel's domain
+    (ROADMAP F7), gradients through K1 (F8) and K4b's merge scratch grown
+    after a launch on another stream (F9).
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc (the kernels build into build/momentum_tpu_torch/
-at first use). Imports nothing of JAX. Every failed check raises, so the exit
-code is non-zero. A passing run prints, before its last line, one JSON line
+Runs from the root of a checkout of the repo (it imports momentum_tpu_torch
+from there). Needs one CUDA card and nvcc (the kernels build into
+build/momentum_tpu_torch/ at first use). Imports nothing of JAX. Every failed
+check raises, so the exit code is non-zero. A passing run prints, before its
+last line, one JSON line
 with each kernel's launches on its path, its error against the plain version,
 its time, the plain version's, the library call's where one exists, and its
 bound: the larger of its bytes (each input read once, each output written
-once) at 3.35 TB/s and its f32 flops at 67 TFLOP/s, from this run's inputs.
+once) at 3.35 TB/s and its f32 flops at 67 TFLOP/s, from this run's inputs
+(for K4a, the flops of the faces its per-tile test keeps).
 The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -50,6 +58,8 @@ BATCH = 2048
 CLIP_FRAMES = 32  # the render clip's frames: K1's batch on that path
 SEED = 0
 FK_TOL = 2e-5  # abs, f32: kernel and plain version lift alike; PyTorch's kernels may fuse
+# of max|grad|: K1's backward is the plain VJP; index_select's backward sums atomically
+FK_GRAD_TOL = 1e-5
 PSD_RELRES_TOL = 1e-5  # max ‖(A+D)x − b‖/‖b‖; plain cholesky_ex gives ~2e-7 here
 PSD_X_TOL = 1e-3  # max |x_kernel − x_plain| / max |x_plain|: κ reaches ~1e8 here
 CONV_MIN = 0.98  # JAX CPU runs of this workload give 0.99–1.0
@@ -73,7 +83,11 @@ PSD_BATCHES = (BATCH, 128, 1024)
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU only")
-    from momentum_tpu_torch.testing.profile_workload import card_name_and_power_limit
+    try:
+        from momentum_tpu_torch.testing.profile_workload import card_name_and_power_limit
+    except ModuleNotFoundError as e:
+        raise RuntimeError("chip_smoke.py runs from the root of a checkout of the repo: "
+                           "momentum_tpu_torch is not importable here") from e
 
     kind = torch.cuda.get_device_name(0)
     smi = card_name_and_power_limit()
@@ -87,7 +101,7 @@ def phase_build():
 
     from momentum_tpu_torch.ops import build
 
-    names = ("fk", "psd", "raster", "chol")
+    names = ("fk", "psd", "raster")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
         list(pool.map(build.build, names))
@@ -179,7 +193,7 @@ def phase_psd(char, ef0, targets, x0):
                       "plain": lambda: psd.damped_chol_solve_plain(a, damp, b)})
         dev_ms = kernel_device_ms(lambda: psd.damped_chol_solve(a, damp, b),
                                   "damped_chol_solve_kernel")
-        lib_dev_ms = kernel_device_ms(library_solve(a, damp, b), "")
+        lib_dev_ms = kernel_device_ms(library_solve(a, damp, b), "", per_call=None)
         b_psd = solve_bound(batch, n)
         print(f"K2+K3 damped_chol_solve_kernel (B={batch}, n={n}, IK normal equations): "
               f"max rel. residual kernel {res_k:.3e} / plain {res_p:.3e} (tol "
@@ -280,9 +294,8 @@ def phase_chol(char, efs, targets, q, x0):
     on the unpadded n = 157 systems against the plain solve; then each
     kernel against its plain version by relative residual, and against the
     plain solve of the unpadded system; times in turns with the library's
-    cholesky_ex + cholesky_solve; ROADMAP F1 and F6. K5a's entry point
-    reaches K2+K3's kernel (32-wide panels, csrc/psd.cu), K5b its own
-    (csrc/chol.cu)."""
+    cholesky_ex + cholesky_solve; ROADMAP F1 and F6. Both entry points reach
+    K2+K3's kernel (32-wide panels, csrc/psd.cu), which counts the launches."""
     from momentum_tpu_torch.ops import chol, psd
     from momentum_tpu_torch.solver import SkeletonSolverFunction
     from momentum_tpu_torch.testing.profile_workload import in_turns, library_solve, solve_bound
@@ -292,14 +305,16 @@ def phase_chol(char, efs, targets, q, x0):
     jtj, jtr, _ = fn.normal_equations(x0)
     damp = torch.full_like(jtr, 1e-5)  # the full stack's GN regularization
     a, d, b = chol.pad_identity(jtj.contiguous(), damp, jtr.contiguous())
-    torch.cuda.synchronize()
-    psd.launches = chol.launches = 0
-    x_a = chol.chol_solve(a, d, b)
-    x_b = chol.chol_solve_blocked(a, d, b)
-    torch.cuda.synchronize()
-    counts = {"damped_chol_solve_kernel": psd.launches, "chol_blocked_solve_kernel": chol.launches}
-    if counts != {"damped_chol_solve_kernel": 1, "chol_blocked_solve_kernel": 1}:
-        raise AssertionError(f"K5's entry points did not launch their kernels: {counts}")
+    xs, counts = {}, {}
+    for name, entry in (("K5a", chol.chol_solve), ("K5b", chol.chol_solve_blocked)):
+        torch.cuda.synchronize()
+        psd.launches = 0
+        xs[name] = entry(a, d, b)
+        torch.cuda.synchronize()
+        counts[name] = psd.launches
+    if counts != {"K5a": 1, "K5b": 1}:
+        raise AssertionError(f"K5's entry points did not launch damped_chol_solve_kernel: "
+                             f"{counts}")
 
     def relres(sol, a=a, d=d, b=b):
         ad = (a + torch.diag_embed(d)).double()
@@ -320,8 +335,10 @@ def phase_chol(char, efs, targets, q, x0):
         raise AssertionError("damped_chol_solve_kernel disagrees with the plain solve on the "
                              "full stack's unpadded systems")
     numbers = {}
-    for name, x, plain in (("K5a chol_solve -> damped_chol_solve_kernel", x_a, chol.chol_solve_plain),
-                           ("K5b chol_blocked_solve_kernel", x_b, chol.chol_solve_blocked_plain)):
+    for name, x, plain in (("K5a chol_solve -> damped_chol_solve_kernel", xs["K5a"],
+                            chol.chol_solve_plain),
+                           ("K5b chol_solve_blocked -> damped_chol_solve_kernel", xs["K5b"],
+                            chol.chol_solve_blocked_plain)):
         x_plain = plain(a, d, b)
         res_k, res_p = relres(x), relres(x_plain)
         err = float((x - x_plain).abs().max())
@@ -416,10 +433,13 @@ def _frame_vertices(char, motion, frame=0):
 
 
 def _raster_bound(planes, tab, n_attr, fids, ovf, w, h, th, covered):
-    """bound() of one rasterizer pass, and its face-tile tests and live
-    faces. Bytes: the tables and bins read, depth, face, bary and attributes
-    written. Flops: each tile tests the live faces it needs (those in its
-    bin, or every live face when it overflows or is unbinned; the padding
+    """bound() of one rasterizer pass, its face-tile pairs scanned and its
+    live faces, and (K4a) the unculled scan's time at the f32 peak, which
+    the per-tile test makes no floor. Bytes: the tables and bins read,
+    depth, face, bary and attributes written. Flops: each tile scans the
+    live faces it keeps (those in its bin, or every live face when it
+    overflows; K4a the faces its per-tile test keeps, `tile_face_may_cover`,
+    after that test's 4 planes × 9 flops for every live face; the padding
     rows and killed planes, a0 = b0 = 0, need no test) against its th·128
     pixels. A face's 4 planes cost 4 products a·x per column and 4 products
     b·y per row of the tile, then 2 adds per plane and pixel; each covered
@@ -430,43 +450,54 @@ def _raster_bound(planes, tab, n_attr, fids, ovf, w, h, th, covered):
     gi, gj = raster._grid(w, h, th)
     live = (planes[:, 0] != 0) | (planes[:, 1] != 0)
     n_live = int(live.sum())
+    per_pair = 128 * 4 + th * 4 + th * 128 * 8
+    tests = 0
+    extra = {}
     if fids is None:
-        scanned = gi * gj * n_live
+        scanned = int((raster.tile_face_may_cover(planes, w, h, th) & live).sum())
+        tests = gi * gj * n_live * 4 * 9
+        extra["unculled_scan_ms"] = bound(0, gi * gj * n_live * per_pair)["bound_ms"]
     else:
         in_bin = (fids != raster.NOFACE) & live[fids.long().clamp(max=planes.shape[0] - 1)]
         scanned = int(torch.where(ovf.bool(), n_live, in_bin.sum(1)).sum())
     b = bound(sum(t.numel() * t.element_size() for t in (planes, tab, fids, ovf)
                   if t is not None) + h * w * 4 * (2 + 3 + n_attr),
-              scanned * (128 * 4 + th * 4 + th * 128 * 8) + covered * 4 * (3 + n_attr))
-    return b, scanned, n_live
+              tests + scanned * per_pair + covered * 4 * (3 + n_attr))
+    return b, scanned, n_live, extra
 
 
 def phase_raster(char, cam, motion):
-    """K4a and K4b against the plain version on the card, at config 7's
+    """K4a and K4b against the plain version on the card. K4b at config 7's
     shapes: the camera pass (1280×960, 6 attributes, binned) of frame 0 (one
     overflow tile) and frame 5 (none), the shadow-map pass (256×256, binned)
-    of frame 0 (none) and frame 11 (one), frame 0's camera pass unbinned
-    (K4a) and with bin_capacity 8 (every tile takes the overflow scan)."""
+    of frame 0 (none) and frame 11 (one), and frame 0's camera pass with
+    bin_capacity 8 (77 tiles take the overflow scan). K4a on its path, the
+    small-mesh render (the first 120 faces, frame 0: camera and shadow
+    passes, unbinned at th = 4), and on frame 0's 612-face camera pass with
+    cull=False."""
     from momentum_tpu_torch.ops import raster
     from momentum_tpu_torch.rasterizer import render
     from momentum_tpu_torch.testing.profile_workload import (
         event_ms, kernel_device_ms)
 
-    faces = char.mesh.faces
-    inputs = {frame: render.shadowed_passes(cam, _frame_vertices(char, motion, frame), faces,
-                                            1280, 960)
-              for frame in (0, 5, 11)}
+    meshes = {"clip": char.mesh.faces, "small": char.mesh.faces[:SMALL_MESH_FACES].contiguous()}
+    inputs = {(mesh, frame): render.shadowed_passes(cam, _frame_vertices(char, motion, frame),
+                                                    meshes[mesh], 1280, 960)
+              for mesh, frame in (("clip", 0), ("clip", 5), ("clip", 11), ("small", 0))}
     binned, full = "raster_planes_binned_kernel", "raster_planes_kernel"
-    cases = [("camera pass, frame 0", binned, 0, "camera", {}),
-             ("camera pass, frame 5", binned, 5, "camera", {}),
-             ("shadow pass, frame 0", binned, 0, "shadow", {}),
-             ("shadow pass, frame 11", binned, 11, "shadow", {}),
-             ("camera pass, frame 0, cull=False", full, 0, "camera", dict(cull=False)),
-             ("camera pass, frame 0, bin_capacity=8", binned, 0, "camera",
+    cases = [("camera pass, frame 0", binned, "clip", 0, "camera", {}),
+             ("camera pass, frame 5", binned, "clip", 5, "camera", {}),
+             ("shadow pass, frame 0", binned, "clip", 0, "shadow", {}),
+             ("shadow pass, frame 11", binned, "clip", 11, "shadow", {}),
+             ("small mesh camera pass", full, "small", 0, "camera", {}),
+             ("small mesh shadow pass", full, "small", 0, "shadow", {}),
+             ("camera pass, frame 0, cull=False", full, "clip", 0, "camera", dict(cull=False)),
+             ("camera pass, frame 0, bin_capacity=8", binned, "clip", 0, "camera",
               dict(bin_capacity=8))]
     numbers = {}
-    for label, kernel, frame, pass_, extra in cases:
-        sv, w, h, kw = inputs[frame][pass_]
+    for label, kernel, mesh, frame, pass_, extra in cases:
+        faces = meshes[mesh]
+        sv, w, h, kw = inputs[mesh, frame][pass_]
         kw = dict(kw, **extra)
         before = raster.launches[kernel]
         out = raster.rasterize_planes(sv, faces, w, h, **kw)
@@ -496,7 +527,7 @@ def phase_raster(char, cam, motion):
         cull = ovf is not None
         n_ovf = int(ovf.sum()) if cull else 0
         covered = int(hit.sum())
-        b_raster, scanned, n_live = _raster_bound(*args, covered)
+        b_raster, scanned, n_live, unculled = _raster_bound(*args, covered)
         ms = kernel_device_ms(lambda: raster._raster_kernel(*args, True), kernel)
         busy_ms = event_ms(lambda: raster._raster_kernel(*args, True), busy=True)
         plain_ms = event_ms(lambda: raster._raster_plain(*args, 128, True))
@@ -508,10 +539,13 @@ def phase_raster(char, cam, motion):
               + f"; kernel {ms:.4f} ms on the device ({busy_ms:.4f} ms in CUDA events "
               f"behind a sleep), plain {plain_ms:.4f} ms, whole rasterize_planes "
               f"{call_ms:.4f} ms; bound {b_raster['bound_ms']:.4f} ms "
-              f"({b_raster['bound_by']}, {scanned} face-tile tests of {n_live} live faces, "
-              f"{covered} covered pixels)")
+              f"({b_raster['bound_by']}, {scanned} face-tile pairs scanned of {n_live} live "
+              f"faces, {covered} covered pixels)"
+              + (f"; the unculled scan alone {unculled['unculled_scan_ms']:.4f} ms at the f32 "
+                 "peak (no floor: the per-tile test drops faces)" if unculled else ""))
         numbers[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b_raster,
-                              library_ms=None, events_ms=busy_ms, overflow_tiles=n_ovf)
+                              library_ms=None, events_ms=busy_ms, overflow_tiles=n_ovf,
+                              faces=faces.shape[0], pairs_scanned=scanned, **unculled)
     return numbers
 
 
@@ -557,8 +591,10 @@ def phase_render_clip(char, cam, motion, smi):
         render_clip(motion)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    device_ms = {name: kernel_device_ms(lambda: render_clip(motion), name, reps=2)
-                 for name in ("raster_planes_binned_kernel", "fk_global_kernel")}
+    device_ms = {name: kernel_device_ms(lambda: render_clip(motion), name, reps=2,
+                                        per_call=per_call)
+                 for name, per_call in (("raster_planes_binned_kernel", 2 * motion.shape[0]),
+                                        ("fk_global_kernel", 1))}
     frames = motion.shape[0]
     wall = statistics.median(walls)
     cov = float((imgs > 0).float().mean())
@@ -651,6 +687,119 @@ def phase_render_reference(card_clip, imgs_card):
           f"{float((aa > 0).float().mean()):.6f}")
 
 
+def _relres_cols(a, damp, b, x):
+    """max over systems and right-hand-side columns of ‖(A+D)x − b‖/‖b‖."""
+    cols_b = b[..., None] if b.ndim == a.ndim - 1 else b
+    cols_x = x[..., None] if x.ndim == a.ndim - 1 else x
+    ad = (a + torch.diag_embed(damp)).double()
+    r = ad @ cols_x.double() - cols_b.double()
+    return float((torch.linalg.norm(r, dim=-2) / torch.linalg.norm(cols_b.double(), dim=-2)).max())
+
+
+def phase_f7():
+    """ROADMAP F7: systems outside damped_chol_solve_kernel's domain (n = 225
+    and 300, float64, a (B, n, 3) right-hand side) solve through
+    math/linalg.py's plain path on the card with no launch, as JAX solves
+    them with XLA's Cholesky; a system inside it still launches the kernel."""
+    from momentum_tpu_torch.math import linalg
+    from momentum_tpu_torch.ops import psd
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+
+    def spd(n, dtype=torch.float32):
+        j = torch.randn(64, n + 20, n, generator=g, dtype=torch.float64)
+        a = j.transpose(-1, -2) @ j
+        damp = 0.01 * a.diagonal(dim1=-2, dim2=-1) + 1e-5
+        b = torch.randn(64, n, generator=g, dtype=torch.float64)
+        return tuple(t.to(dtype).cuda() for t in (a, damp, b))
+
+    a, d, b = spd(157)
+    cases = {"n = 225": spd(225), "n = 300": spd(300), "float64": spd(157, torch.float64),
+             "(B, n, 3) right-hand side": (a, d, torch.stack([b, 2 * b + 1, -b], dim=-1))}
+    worst = {}
+    for label, (a, d, b) in cases.items():
+        psd.launches = 0
+        x = linalg.damped_psd_solve(a, d, b)
+        torch.cuda.synchronize()
+        worst[label] = _relres_cols(a, d, b, x)
+        if psd.launches != 0 or x.shape != b.shape or not worst[label] <= PSD_RELRES_TOL:
+            raise AssertionError(f"F7: {label}: {psd.launches} launches, x {tuple(x.shape)}, "
+                                 f"max rel. residual {worst[label]}")
+    psd.launches = 0
+    linalg.damped_psd_solve(*spd(157))
+    if psd.launches != 1:
+        raise AssertionError("F7: a float32 n = 157 system did not launch the kernel")
+    print("F7: the damped solve outside the kernel's domain takes the plain path, no launch, "
+          "max rel. residual " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f" (tol {PSD_RELRES_TOL:.0e}); n = 157 float32 launches the kernel")
+
+
+def phase_f8(char, x0):
+    """ROADMAP F8: gradients of a seeded loss through K1 (its backward is the
+    VJP of the plain lifted FK) against those through the plain FK, at
+    B = 256 of the IK problem."""
+    from momentum_tpu_torch.character import fk
+    from momentum_tpu_torch.ops import fk as fk_ops
+
+    skel = char.skeleton
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    weight = torch.randn(256, skel.num_joints, 8, generator=g).cuda()
+    grads, launched = {}, {}
+    for name, fk_fn in (("kernel", fk_ops.fk_global), ("plain", fk_ops.fk_global_plain)):
+        x = x0[:256].clone().requires_grad_()
+        fk_ops.launches = 0
+        out = fk_fn(skel, fk.local_skel_states(skel, char.parameter_transform.apply(x)))
+        (out * weight).sum().backward()
+        grads[name], launched[name] = x.grad, fk_ops.launches
+    rel = float((grads["kernel"] - grads["plain"]).abs().max() / grads["plain"].abs().max())
+    print(f"F8: gradients through K1 against the plain FK (B=256): max|Δ| {rel:.2e} of "
+          f"max|grad| (tol {FK_GRAD_TOL:.0e}); K1 launches {launched}")
+    if launched != {"kernel": 1, "plain": 0} or not rel <= FK_GRAD_TOL:
+        raise AssertionError(f"F8: gradients through K1 disagree: {rel}, launches {launched}")
+
+
+def phase_f9(char, cam, motion):
+    """ROADMAP F9: K4b's merge scratch grown by a pass on a side stream while
+    that stream's earlier launch with the smaller scratch still waits behind
+    a sleep; the default stream meanwhile allocates and zeroes memory of the
+    small keys' size. Both streams' face maps must be the plain version's."""
+    from momentum_tpu_torch.ops import raster
+    from momentum_tpu_torch.rasterizer import render
+
+    faces = char.mesh.faces
+    passes = render.shadowed_passes(cam, _frame_vertices(char, motion), faces, 1280, 960)
+    (sv, w, h, kw), (svl, wl, hl, kwl) = passes["shadow"], passes["camera"]
+    refs = [raster.rasterize_planes_plain(sv, faces, w, h, bin_capacity=8, **kw)["face"],
+            raster.rasterize_planes_plain(svl, faces, wl, hl, bin_capacity=8, **kwl)["face"]]
+    torch.cuda.synchronize()
+    raster._scratch.clear()
+    raster.rasterize_planes(sv, faces, w, h, bin_capacity=8, **kw)  # small pair, default stream
+    small = raster._scratch[sv.device][0]
+    n_keys, old_ptr = small.numel(), small.data_ptr()
+    del small
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s: the host queues all below first
+        a = raster.rasterize_planes(sv, faces, w, h, bin_capacity=8, **kw)
+        b = raster.rasterize_planes(svl, faces, wl, hl, bin_capacity=8, **kwl)  # grows it
+    reused = []
+    for _ in range(64):
+        reused.append(torch.zeros(n_keys, dtype=torch.int64, device=sv.device))
+        if reused[-1].data_ptr() == old_ptr:
+            break
+    c = raster.rasterize_planes(sv, faces, w, h, bin_capacity=8, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    same = [torch.equal(a["face"], refs[0]), torch.equal(b["face"], refs[1]),
+            torch.equal(c["face"], refs[0])]
+    print(f"F9: merge scratch grown on a side stream ({n_keys} -> "
+          f"{raster._scratch[sv.device][0].numel()} keys); face maps equal to the plain "
+          f"version's: side small {same[0]}, side large {same[1]}, default small {same[2]}")
+    if not all(same):
+        raise AssertionError(f"F9: a face map differs from the plain version's: {same}")
+
+
 def main():
     kind, smi = phase_device()
     phase_build()
@@ -661,6 +810,8 @@ def main():
     psd_numbers, psd_by_batch = phase_psd(char, ef0, targets, x0)
     counts = phase_main_path(char, ef0, targets, x0, smi)
     phase_small_reference()
+    phase_f7()
+    phase_f8(char, x0)
     del char, ef0, targets, x0
 
     from momentum_tpu_torch.testing.workloads import build_fullstack_problem
@@ -678,6 +829,8 @@ def main():
     clip_counts, imgs, clip_device_ms = phase_render_clip(rchar, cam, motion, smi)
     small_counts = phase_small_mesh(rchar, cam, motion)
     phase_render_reference((rchar, motion, cam), imgs)
+    phase_f9(rchar, cam, motion)
+    k4a = ("small mesh camera pass", "small mesh shadow pass", "camera pass, frame 0, cull=False")
     kernels = [
         dict(name="fk_global_kernel", route="cuda", source="momentum_tpu_torch/csrc/fk.cu",
              replaces="momentum_tpu/ops/fk_pallas.py:62",
@@ -697,7 +850,7 @@ def main():
         dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:55",
-             launches=chol_counts["damped_chol_solve_kernel"],
+             launches=chol_counts["K5a"],
              path="chol_solve on the full stack's normal equations (n = 160)",
              **chol_numbers["K5a"]),
         dict(name="raster_planes_kernel", route="cuda",
@@ -705,7 +858,8 @@ def main():
              replaces="momentum_tpu/ops/raster_pallas.py:196",
              launches=small_counts["raster_planes_kernel"],
              path="shadowed render of a mesh under the bin capacity",
-             **raster_numbers["camera pass, frame 0, cull=False"]),
+             **raster_numbers[k4a[0]],
+             passes={label: raster_numbers[label] for label in k4a[1:]}),
         dict(name="raster_planes_binned_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/raster.cu",
              replaces="momentum_tpu/ops/raster_pallas.py:220",
@@ -713,13 +867,13 @@ def main():
              path="shadowed render of the 32-frame clip",
              **raster_numbers["camera pass, frame 0"],
              passes={label: nums for label, nums in raster_numbers.items()
-                     if "cull=False" not in label},
+                     if label not in k4a},
              clip=dict(device_ms=clip_device_ms["raster_planes_binned_kernel"],
                        **clip_passes)),
-        dict(name="chol_blocked_solve_kernel", route="cuda",
-             source="momentum_tpu_torch/csrc/chol.cu",
+        dict(name="damped_chol_solve_kernel (K5b entry point chol_solve_blocked)",
+             route="cuda", source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:93",
-             launches=chol_counts["chol_blocked_solve_kernel"],
+             launches=chol_counts["K5b"],
              path="chol_solve_blocked on the full stack's normal equations (n = 160)",
              **chol_numbers["K5b"]),
     ]

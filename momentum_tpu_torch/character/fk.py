@@ -9,7 +9,9 @@ Semantics of momentum_tpu/character/fk.py (joint_state.cpp:22-66):
 
 `global_skel_states` sends CUDA tensors through kernel K1
 (ops/fk.py::fk_global, csrc/fk.cu) and CPU tensors through the binary-lifting
-prefix product with an index gather (`global_skel_states_lifted`).
+prefix product with an index gather (`global_skel_states_lifted`). Both are
+differentiable: K1's backward is the VJP of the lifted product, as JAX's
+custom_jvp around its Pallas FK (ops/fk.py::_FkGlobal).
 `global_skel_states_scan` is the serial joint walk (joint_state.cpp's order).
 
 The derivative axes (`joint_axes`) follow from the global states as in the
@@ -71,8 +73,9 @@ def global_skel_states_lifted(skeleton: Skeleton, local_states: torch.Tensor) ->
 def global_skel_states(skeleton: Skeleton, joint_params: torch.Tensor,
                        method: str = "lifted") -> torch.Tensor:
     """(..., nJ*7) joint params → (..., nJ, 8) global skeleton states.
-    method="lifted" takes kernel K1 for CUDA tensors and the lifted product
-    for CPU tensors; method="scan" takes the serial walk."""
+    method="lifted" takes kernel K1 for CUDA tensors (with the lifted
+    product's VJP as its backward) and the lifted product for CPU tensors;
+    method="scan" takes the serial walk."""
     local = local_skel_states(skeleton, joint_params)
     if method == "scan":
         return global_skel_states_scan(skeleton, local)

@@ -1,10 +1,13 @@
 """Small-matrix linear algebra: the damped SPD solve of the LM step.
 
-CUDA tensors go through `damped_chol_solve_kernel` (ops/psd.py, the port of
-the TPU kernels that momentum_tpu/math/linalg.py dispatches at :167-175);
-CPU tensors take its plain version, `torch.linalg.cholesky_ex` +
-`torch.cholesky_solve`. Either way a system whose factorization fails comes
-back as all-NaN x (ROADMAP F1).
+The solves dispatch as momentum_tpu/math/linalg.py does (:159-219): systems
+inside the kernel's domain (`ops/psd.py::kernel_takes`: CUDA, float32, one
+vector right-hand side, n ≤ 224) launch `damped_chol_solve_kernel`, the port
+of the TPU kernels JAX takes where `psd_solve_pallas_available` holds; every
+other system (the CPU, float64, n > 224, a (..., n, k) right-hand side)
+takes `damped_chol_solve_plain`, `torch.linalg.cholesky_ex` +
+`torch.cholesky_solve`, as JAX takes XLA's Cholesky. Either way a system
+whose factorization fails comes back as all-NaN x (ROADMAP F1).
 """
 
 from __future__ import annotations
@@ -18,21 +21,24 @@ __all__ = ["damped_psd_solve", "psd_solve"]
 
 def damped_psd_solve(a: torch.Tensor, damp_diag: torch.Tensor,
                      b: torch.Tensor) -> torch.Tensor:
-    """Solve (a + diag(damp_diag)) x = b for SPD a (..., n, n), b (..., n).
-    damp_diag broadcasts against (..., n). Leading dims (or none) are
-    flattened into the kernel's batch."""
+    """Solve (a + diag(damp_diag)) x = b for SPD a (..., n, n), b (..., n) or
+    (..., n, k). damp_diag broadcasts against (..., n). Leading dims (or
+    none) are flattened into one batch."""
     n = a.shape[-1]
-    if b.shape[-1:] != (n,) or b.ndim != a.ndim - 1:
-        raise ValueError(f"expected b of shape (..., {n}) against a "
-                         f"{tuple(a.shape)}; matrix right-hand sides are not ported")
     lead = a.shape[:-2]
-    x = psd.damped_chol_solve(
-        a.reshape(-1, n, n).contiguous(),
-        torch.broadcast_to(damp_diag, lead + (n,)).reshape(-1, n).contiguous(),
-        b.reshape(-1, n).contiguous())
-    return x.reshape(lead + (n,))
+    if b.ndim not in (a.ndim - 1, a.ndim) or b.shape[:a.ndim - 1] != lead + (n,):
+        raise ValueError(f"expected b of shape (..., {n}) or (..., {n}, k) against a "
+                         f"{tuple(a.shape)}, got {tuple(b.shape)}")
+    damp = torch.broadcast_to(damp_diag, lead + (n,)).reshape(-1, n)
+    a3 = a.reshape(-1, n, n)
+    b2 = b.reshape((-1,) + b.shape[a.ndim - 2:])
+    if psd.kernel_takes(a3, b2):
+        x = psd.damped_chol_solve(a3.contiguous(), damp.contiguous(), b2.contiguous())
+    else:
+        x = psd.damped_chol_solve_plain(a3, damp, b2)
+    return x.reshape(b.shape)
 
 
 def psd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve a x = b for SPD a (..., n, n), b (..., n)."""
+    """Solve a x = b for SPD a (..., n, n), b (..., n) or (..., n, k)."""
     return damped_psd_solve(a, a.new_zeros(()), b)

@@ -9,5 +9,5 @@ launches, so a run can show that it went through the kernel.
     raster.rasterize_planes  K4a raster_planes_kernel, K4b raster_planes_binned_kernel
                                                      csrc/raster.cu
     chol.chol_solve       K5a (psd's damped_chol_solve_kernel)  csrc/psd.cu
-    chol.chol_solve_blocked  K5b chol_blocked_solve_kernel   csrc/chol.cu
+    chol.chol_solve_blocked  K5b (psd's damped_chol_solve_kernel)  csrc/psd.cu
 """

@@ -1,17 +1,17 @@
 """K5a and K5b: the entry points of momentum_tpu/ops/chol_pallas.py, which
-solve (a + diag(damp)) x = b for B SPD systems in one pass each.
+solve (a + diag(damp)) x = b for B SPD systems in one pass each. Both reach
+K2+K3's kernel, damped_chol_solve_kernel (csrc/psd.cu), which computes the
+same function in one pass: one system per block, factored in 32-wide panels
+with the trailing update per panel, then substituted. ops/psd.py counts its
+launches.
 
     chol_solve          K5a  chol_pallas.py::_kernel :55 via chol_solve_pallas
                              :215 (one system resident in fast memory,
-                             factor and substitutions fused) ->
-                             damped_chol_solve_kernel, csrc/psd.cu: K2+K3's
-                             kernel computes the same function in one pass,
-                             so K5a's entry point reaches it (ops/psd.py
-                             counts its launches)
+                             factor and substitutions fused)
     chol_solve_blocked  K5b  chol_pallas.py::_kernel_blocked :93 via
                              chol_solve_pallas_blocked :174 (32-wide panels,
-                             trailing update per panel) ->
-                             chol_blocked_solve_kernel, csrc/chol.cu
+                             trailing update per panel: K2's algorithm, which
+                             the kernel runs)
 
 The TPU layout rules (n % 8 for K5a, batch padding to the tile) do not
 apply. K5b keeps its n % 32 == 0: JAX's blocked kernel factors only n // 32
@@ -21,23 +21,19 @@ all-NaN x in every version (ROADMAP F1), where the TPU kernels clamp it.
 
 The plain versions are `torch.linalg.cholesky_ex` + `torch.cholesky_solve`
 (ops/psd.py::damped_chol_solve_plain). CPU tensors take them; CUDA tensors
-launch the kernels or raise.
+launch the kernel or raise.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from momentum_tpu_torch.ops import build, psd
+from momentum_tpu_torch.ops import psd
 
 __all__ = ["chol_solve", "chol_solve_plain", "chol_solve_blocked",
-           "chol_solve_blocked_plain", "pad_identity", "PANEL", "launches"]
+           "chol_solve_blocked_plain", "pad_identity", "PANEL"]
 
 PANEL = 32  # panel width of K5b
-# times chol_blocked_solve_kernel was launched in this process
-launches = 0
 
 
 def chol_solve_plain(a: torch.Tensor, damp: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -64,48 +60,15 @@ def chol_solve_blocked_plain(a: torch.Tensor, damp: torch.Tensor,
     return psd.damped_chol_solve_plain(a, damp, b)
 
 
-def _lib():
-    lib = build.load("chol")
-    lib.chol_blocked_solve_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.chol_blocked_solve_launch.restype = ctypes.c_int
-    lib.chol_blocked_solve_smem_bytes.argtypes = [ctypes.c_int]
-    lib.chol_blocked_solve_smem_bytes.restype = ctypes.c_int
-    return lib
-
-
 def chol_solve_blocked(a: torch.Tensor, damp: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x with (a + diag(damp)) x = b in 32-wide panels (K5b): a (B, n, n),
     damp (B, n), b (B, n), n a multiple of 32 (else ValueError, ROADMAP F6).
 
     CPU tensors take `chol_solve_blocked_plain`. CUDA tensors launch
-    chol_blocked_solve_kernel or raise: all three must be float32,
-    contiguous, on one device and without grad, a 16-byte aligned, with
-    n ≤ 224."""
-    global launches
+    damped_chol_solve_kernel or raise: all three must be float32,
+    contiguous, on one device and without grad, with n ≤ 224."""
     _check_panels(a.shape[-1])
-    if not a.is_cuda:
-        return chol_solve_blocked_plain(a, damp, b)
-    batch, n = psd.check_system(a, damp, b, "chol_blocked_solve_kernel")
-    if a.data_ptr() % 16:
-        raise ValueError("chol_blocked_solve_kernel reads a as float4: its data must be "
-                         "16-byte aligned")
-    lib = _lib()
-    if lib.chol_blocked_solve_smem_bytes(n) > build.SMEM_PER_BLOCK:
-        raise ValueError(f"chol_blocked_solve_kernel: n = {n} does not fit in one "
-                         "block's shared memory")
-    x = torch.empty_like(b)
-    if batch == 0 or n == 0:
-        return x
-    with torch.cuda.device(a.device):
-        rc = lib.chol_blocked_solve_launch(
-            a.data_ptr(), damp.data_ptr(), b.data_ptr(), x.data_ptr(), batch, n,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"chol_blocked_solve_kernel launch failed: CUDA error {rc}")
-    launches += 1
-    return x
+    return psd.damped_chol_solve(a, damp, b)
 
 
 def pad_identity(a: torch.Tensor, damp: torch.Tensor, b: torch.Tensor,

@@ -10,6 +10,14 @@ the top of csrc/fk.cu has the design and the numbers).
 index gather per row of `Skeleton.prefix_table`, the table the kernel
 reads. Both compose in the same order with the same rounding, so on the
 card they agree to the last bits of PyTorch's own kernels.
+
+Gradients: for local states that require grad, `fk_global` goes through
+`_FkGlobal`, a `torch.autograd.Function` whose forward is the kernel (the
+plain version on the CPU) and whose backward is the VJP of
+`fk_global_plain`, recomputed from the saved local states. It is the form
+of JAX's `make_differentiable_fk` (momentum_tpu/ops/fk_pallas.py:127-142),
+a `custom_jvp` with tangents from the lifted XLA FK; there is no backward
+kernel.
 """
 
 from __future__ import annotations
@@ -50,17 +58,44 @@ def _lib():
     return lib
 
 
+class _FkGlobal(torch.autograd.Function):
+    """Global states by the kernel (or, on the CPU, the plain version); the
+    backward differentiates `fk_global_plain` at the saved local states."""
+
+    @staticmethod
+    def forward(ctx, local_states, skeleton):
+        ctx.skeleton = skeleton
+        ctx.save_for_backward(local_states)
+        return fk_global(skeleton, local_states)  # grad is off in here
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (local,) = ctx.saved_tensors
+        with torch.enable_grad():
+            local = local.detach().requires_grad_()
+            out = fk_global_plain(ctx.skeleton, local)
+        (grad,) = torch.autograd.grad(out, local, grad_out)
+        return grad, None
+
+
 def fk_global(skeleton, local_states: torch.Tensor) -> torch.Tensor:
     """(..., nJ, 8) local → (..., nJ, 8) global skeleton states.
 
     A CPU tensor takes `fk_global_plain`. A CUDA tensor launches
     fk_global_kernel or raises: it must be float32, contiguous and 16-byte
     aligned, on the device of `skeleton.prefix_table`, with at most
-    `fk_global_max_joints()` (1023) joints, and must not require grad (the
-    kernel has no backward yet; the slice's Jacobians are analytic)."""
-    global launches
+    `fk_global_max_joints()` (1023) joints. Local states that require grad
+    (with grad enabled) go through `_FkGlobal`, on either device."""
+    if local_states.requires_grad and torch.is_grad_enabled():
+        return _FkGlobal.apply(local_states, skeleton)
     if not local_states.is_cuda:
         return fk_global_plain(skeleton, local_states)
+    return _fk_global_kernel(skeleton, local_states)
+
+
+def _fk_global_kernel(skeleton, local_states: torch.Tensor) -> torch.Tensor:
+    """Launch fk_global_kernel on the current stream (checks as fk_global)."""
+    global launches
     nj = skeleton.num_joints
     if local_states.shape[-2:] != (nj, 8):
         raise ValueError(f"expected (..., {nj}, 8) local states, got "
@@ -69,9 +104,6 @@ def fk_global(skeleton, local_states: torch.Tensor) -> torch.Tensor:
         raise ValueError("fk_global_kernel takes contiguous float32 states")
     if local_states.data_ptr() % 16:
         raise ValueError("fk_global_kernel takes 16-byte aligned states")
-    if local_states.requires_grad:
-        raise RuntimeError("fk_global_kernel has no backward: call it on "
-                           "tensors that do not require grad")
     table = skeleton.prefix_table
     if table.device != local_states.device:
         raise ValueError("skeleton.prefix_table must lie on the states' device")

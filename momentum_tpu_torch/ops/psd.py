@@ -23,9 +23,14 @@ takes n ≤ 224 (the full-body rig has n = 157); a larger n does not fit in
 one block's shared memory and raises ValueError.
 
 `damped_chol_solve_plain` is the plain PyTorch version:
-`torch.linalg.cholesky_ex` + `torch.cholesky_solve`. Both versions give an
-all-NaN x for a system whose factorization meets a pivot that is not > 0
-(ROADMAP F1: the JAX CPU path's behaviour, not the TPU kernels' clamp).
+`torch.linalg.cholesky_ex` + `torch.cholesky_solve`, for any n, dtype and
+(B, n) or (B, n, k) right-hand side. Both versions give an all-NaN x for a
+system whose factorization meets a pivot that is not > 0 (ROADMAP F1: the
+JAX CPU path's behaviour, not the TPU kernels' clamp).
+
+`kernel_takes` is the rule by which math/linalg.py chooses between the two,
+as JAX's `psd_solve_pallas_available` chooses between its kernel and XLA's
+Cholesky.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ import torch
 
 from momentum_tpu_torch.ops import build
 
-__all__ = ["damped_chol_solve", "damped_chol_solve_plain", "check_system", "launches"]
+__all__ = ["damped_chol_solve", "damped_chol_solve_plain", "check_system", "kernel_takes",
+           "launches"]
 
 # times damped_chol_solve_kernel was launched in this process
 launches = 0
@@ -44,11 +50,13 @@ launches = 0
 
 def damped_chol_solve_plain(a: torch.Tensor, damp: torch.Tensor,
                             b: torch.Tensor) -> torch.Tensor:
-    """x with (a + diag(damp)) x = b; a (B, n, n), damp (B, n), b (B, n)."""
+    """x with (a + diag(damp)) x = b; a (B, n, n), damp (B, n), b (B, n) or
+    (B, n, k)."""
+    vec = b.ndim == a.ndim - 1
     l, info = torch.linalg.cholesky_ex(a + torch.diag_embed(damp))
-    x = torch.cholesky_solve(b.unsqueeze(-1), l).squeeze(-1)
-    return torch.where((info != 0).unsqueeze(-1),
-                       torch.full_like(x, float("nan")), x)
+    x = torch.cholesky_solve(b.unsqueeze(-1) if vec else b, l)
+    x = torch.where((info != 0)[..., None, None], torch.full_like(x, float("nan")), x)
+    return x.squeeze(-1) if vec else x
 
 
 def check_system(a: torch.Tensor, damp: torch.Tensor, b: torch.Tensor,
@@ -67,6 +75,20 @@ def check_system(a: torch.Tensor, damp: torch.Tensor, b: torch.Tensor,
         if t.requires_grad:
             raise RuntimeError(f"{kernel} has no backward: call it on tensors without grad")
     return batch, n
+
+
+def kernel_takes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether damped_chol_solve_kernel takes the systems a (..., n, n) with
+    right-hand sides b: a CUDA float32 a, one vector right-hand side per
+    system (b (..., n)), and n small enough that the padded system fits in
+    one block's shared memory (n ≤ 224). Decided from shapes and dtypes
+    before any launch; math/linalg.py sends the rest to
+    `damped_chol_solve_plain`. The port's counterpart of
+    momentum_tpu/ops/psd_pallas.py::psd_solve_pallas_available (:41), which
+    sends JAX's solve to XLA's Cholesky outside the TPU kernel's domain."""
+    if not (a.is_cuda and a.dtype == torch.float32 and b.ndim == a.ndim - 1):
+        return False
+    return _lib().damped_chol_solve_smem_bytes(a.shape[-1]) <= build.SMEM_PER_BLOCK
 
 
 def _lib():

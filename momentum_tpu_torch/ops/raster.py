@@ -15,9 +15,12 @@ With more faces than `bin_capacity` (or `cull=True`), `bin_faces` bins the
 faces into (th × 128)-pixel tiles by bbox overlap, ids ascending, and K4b
 scans each tile's ≤ K faces; a tile with more than K overlapping faces
 scans all faces instead, in chunks of 128 rows whose winners merge as
-packed (depth, id) keys (`_pack`). Without binning, K4a scans all faces for
-every tile. Planes, attribute tables and the binning are plain torch (XLA
-outside the kernel in JAX); only the per-pixel scan is the kernel.
+packed (depth, id) keys (`_pack`). Without binning, K4a tests every face
+against every tile once and scans, per pixel, only the faces that may cover
+a pixel centre of the tile (`tile_face_may_cover` is that test in plain
+torch, with the kernel's rounding margin). Planes, attribute tables and the
+binning are plain torch (XLA outside the kernel in JAX); only the per-pixel
+scan is the kernel.
 
 `rasterize_planes` takes `rasterize_planes_plain` for CPU tensors and
 launches K4a or K4b for CUDA tensors (or raises). The plain version bins the
@@ -45,8 +48,8 @@ import torch
 from momentum_tpu_torch.ops import build
 
 __all__ = ["face_planes", "attr_planes_from_vertex", "attr_planes_from_face_const",
-           "bin_faces", "rasterize_planes", "rasterize_planes_plain", "launches",
-           "NOFACE"]
+           "bin_faces", "tile_face_may_cover", "rasterize_planes", "rasterize_planes_plain",
+           "launches", "NOFACE"]
 
 _LANES = 128
 NOFACE = 1 << 30  # the face id of an empty bin slot
@@ -54,6 +57,7 @@ _LIM = 1e7  # faces with a screen coordinate this large are dropped (ROADMAP F2)
 _TILE_BLOCK_ELEMS = 1 << 22  # tiles × faces × pixels per block of the plain scan
 _KERNEL_TH = (4, 8)  # tile heights csrc/raster.cu is built for
 _NOKEY = (1 << 63) - 1  # the packed key of a pixel no face covers (`_pack`)
+_REJECT_MARGIN = 2.0 ** -20  # csrc/raster.cu kRejectMargin
 
 # times each kernel was launched in this process (reset them to measure a run)
 launches = {"raster_planes_kernel": 0, "raster_planes_binned_kernel": 0}
@@ -192,6 +196,27 @@ def bin_faces(verts_screen: torch.Tensor, faces: torch.Tensor, fp: int, width: i
     return tile_fids.contiguous(), overflow
 
 
+def tile_face_may_cover(planes: torch.Tensor, width: int, height: int,
+                        th: int) -> torch.Tensor:
+    """(T, Fp) bool: K4a's per-tile reject (csrc/raster.cu `may_cover`) in
+    plain torch, for tiles in row-major order. False where one of a face's
+    four planes w = a·x + b·y + c is negative at every pixel centre of the
+    tile by more than the rounding margin: its largest value over the tile,
+    w(centre) + |a|·hx + |b|·hy, is below −2^-20·(|a|·xmax + |b|·ymax + |c|).
+    There the per-pixel test rejects the face at every pixel too."""
+    gi, gj = _grid(width, height, th)
+    tiles = torch.arange(gi * gj, device=planes.device)
+    hx, hy = 0.5 * (_LANES - 1), 0.5 * (th - 1)
+    xc = ((tiles % gj) * _LANES).to(torch.float32) + 0.5 + hx
+    yc = ((tiles // gj) * th).to(torch.float32) + 0.5 + hy
+    p = planes.reshape(1, -1, 4, 3)
+    a, b, c = p[..., 0], p[..., 1], p[..., 2]
+    xc, yc = xc[:, None, None], yc[:, None, None]
+    hi = a * xc + b * yc + c + a.abs() * hx + b.abs() * hy
+    tol = _REJECT_MARGIN * (a.abs() * (xc + hx) + b.abs() * (yc + hy) + c.abs())
+    return (~(hi < -tol)).all(dim=-1)
+
+
 def _pixel_xy(tiles: torch.Tensor, gj: int, th: int):
     """Pixel-centre coordinates (len(tiles), 1, th·128) of the given tiles,
     pixel n of a tile at row n // 128 and column n % 128."""
@@ -314,7 +339,10 @@ def _merge_scratch(dev, n_tiles: int, npx: int):
     int32 zero) on `dev`, for a launch on the current stream; one pair per
     device, grown when a pass needs more. The kernel resets what it uses, so
     launches in order share them: a launch on another stream than the last
-    one first waits for that stream's work."""
+    one first waits for that stream's work. Each launch's stream is recorded
+    on the pair (`record_stream`), so that when a larger pass replaces it
+    the allocator hands its memory out again only after every stream that
+    launched with it has finished that work (ROADMAP F9)."""
     stream = torch.cuda.current_stream(dev)
     entry = _scratch.get(dev)
     if entry is not None and entry[2] != stream:
@@ -323,6 +351,8 @@ def _merge_scratch(dev, n_tiles: int, npx: int):
         entry = [torch.full((n_tiles * npx,), -1, dtype=torch.int64, device=dev),
                  torch.zeros(n_tiles, dtype=torch.int32, device=dev), stream]
         _scratch[dev] = entry
+    entry[0].record_stream(stream)
+    entry[1].record_stream(stream)
     entry[2] = stream
     return entry[0], entry[1]
 
@@ -344,6 +374,9 @@ def _raster_kernel(planes, tab, n_attr, tile_fids, overflow, width, height, th,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    if planes.data_ptr() % 16:
+        raise ValueError("the raster kernels read plane rows as float4: the table must be "
+                         "16-byte aligned")
     lib = _lib()
     outs = (depth.data_ptr(), face.data_ptr(), ptr(out.get("bary")), ptr(out.get("attrs")))
     common = (ptr(tab), n_attr, int(want_bary)) + outs + (width, height, th)

@@ -112,14 +112,16 @@ def in_turns(fns: dict, rounds: int = 3, busy: bool = False) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def kernel_device_ms(fn, match: str, reps: int = 10) -> float:
+def kernel_device_ms(fn, match: str, reps: int = 10, per_call: int | None = 1) -> float:
     """Device time per call of the kernels whose name contains `match`, from
     torch.profiler over `reps` calls of fn after two warm-up calls: the
     kernel's own time, without the host's launch overhead that CUDA events
-    around back-to-back calls include when the kernel is short. A profile
-    that holds no such kernel is taken again, up to _PROFILE_ATTEMPTS in
-    all: on an H100 one profile of ten K4b launches once came back without
-    them."""
+    around back-to-back calls include when the kernel is short. fn launches
+    `per_call` such kernels (None: an unknown number, and the total is
+    divided by reps). The time per call is the mean over the launches the
+    profile holds times per_call: on an H100 a profile of ten launches has
+    held nine, and once none (then it is taken again, up to
+    _PROFILE_ATTEMPTS in all)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -132,11 +134,13 @@ def kernel_device_ms(fn, match: str, reps: int = 10) -> float:
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        us = sum(e.self_device_time_total for e in events if match in e.key)
+        seen = [e for e in events if match in e.key]
+        us = sum(e.self_device_time_total for e in seen)
         if us > 0:
-            return us / 1e3 / reps
-    raise RuntimeError(f"{_PROFILE_ATTEMPTS} profiles saw no device time for a kernel named {match!r}; "
-                       f"the last saw {[(e.key, e.count) for e in events]}")
+            calls = reps if per_call is None else sum(e.count for e in seen) / per_call
+            return us / 1e3 / calls
+    raise RuntimeError(f"{_PROFILE_ATTEMPTS} profiles saw no device time for a kernel named "
+                       f"{match!r}; the last saw {[(e.key, e.count) for e in events]}")
 
 
 def layer_times(char, ef0, targets, x0, lam: float = 0.01) -> dict:

@@ -12,8 +12,11 @@ import pytest
 import torch
 
 from momentum_tpu_torch.character import fk
+from momentum_tpu_torch.math import linalg
 from momentum_tpu_torch.ops import chol, fk as fk_ops, psd, raster
 from momentum_tpu_torch.testing import workloads
+
+from test_torch_port_helpers import TILE_EDGE_SCENES, tile_edge_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -96,14 +99,37 @@ def test_fk_kernel_refuses_what_it_cannot_take(cuda_problem):
         fk_ops.fk_global(char.skeleton, local.double())
     with pytest.raises(ValueError):
         fk_ops.fk_global(char.skeleton, local.transpose(0, 1))
-    with pytest.raises(RuntimeError):
-        fk_ops.fk_global(char.skeleton, local.clone().requires_grad_())
     flat = torch.zeros(local.numel() + 1, device="cuda")
     with pytest.raises(ValueError):  # 4 bytes off a float4 boundary
         fk_ops.fk_global(char.skeleton, flat[1:].view(local.shape))
     big = make_skeleton([-1] + list(range(1023)), device="cuda")  # past the 1023-joint limit
     with pytest.raises(ValueError):
         fk_ops.fk_global(big, _random_local(1024, 2, seed=1))
+
+
+def test_fk_kernel_gradients_match_plain(cuda_problem):
+    """ROADMAP F8: FK through K1 is differentiable (its backward is the VJP
+    of the plain lifted product), and the gradients of a seeded loss equal
+    those of the plain path, up to the order of the index_select backward's
+    atomic sums."""
+    char, _, _, x0 = cuda_problem
+    skel = char.skeleton
+    g = torch.Generator(device="cpu").manual_seed(3)
+    weight = torch.randn(64, skel.num_joints, 8, generator=g).cuda()
+    grads = {}
+    for name, fk_fn in (("kernel", fk_ops.fk_global), ("plain", fk_ops.fk_global_plain)):
+        x = x0[:64].clone().requires_grad_()
+        local = fk.local_skel_states(skel, char.parameter_transform.apply(x))
+        before = fk_ops.launches
+        out = fk_fn(skel, local)
+        assert fk_ops.launches == before + (name == "kernel")
+        (out * weight).sum().backward()
+        grads[name] = x.grad
+    assert bool(torch.isfinite(grads["kernel"]).all())
+    torch.testing.assert_close(grads["kernel"], grads["plain"], rtol=1e-5, atol=1e-5)
+    x = x0[:4].clone().requires_grad_()
+    out = fk.global_skel_states(skel, char.parameter_transform.apply(x))
+    assert type(out.grad_fn).__name__ == "_FkGlobalBackward"
 
 
 @pytest.mark.parametrize("n", [157, 40, 33, 1, 64, 224])
@@ -159,6 +185,38 @@ def test_damped_solve_kernel_refuses_what_it_cannot_take(cuda_problem):
                                   torch.ones(1, n, device="cuda"))
 
 
+@pytest.mark.parametrize("case", ["n225", "n300", "float64", "matrix_rhs"])
+@pytest.mark.parametrize("solve", ["damped_psd_solve", "psd_solve"])
+def test_damped_solve_outside_the_kernel_domain(cuda_problem, case, solve):
+    """ROADMAP F7: systems outside damped_chol_solve_kernel's domain (n > 224,
+    float64, a (B, n, k) right-hand side) take the plain solve on the card,
+    as JAX takes XLA's Cholesky outside its kernel's, with no launch; inside
+    it the kernel still launches."""
+    n = {"n225": 225, "n300": 300}.get(case, 157)
+    a, damp, b = _spd(n, 16, seed=n)
+    if case == "float64":
+        a, damp, b = a.double(), damp.double(), b.double()
+    if case == "matrix_rhs":
+        b = torch.stack([b, 2 * b + 1, -b], dim=-1)
+    if solve == "psd_solve":
+        a = a + torch.diag_embed(damp)
+        damp = torch.zeros_like(damp)
+    before = psd.launches
+    x = (linalg.damped_psd_solve(a, damp, b) if solve == "damped_psd_solve"
+         else linalg.psd_solve(a, b))
+    assert psd.launches == before and not psd.kernel_takes(a, b)
+    assert x.shape == b.shape and x.dtype == a.dtype and x.is_cuda
+    torch.testing.assert_close(x, psd.damped_chol_solve_plain(a, damp, b), rtol=0, atol=0)
+    cols = b[..., None] if b.ndim == 2 else b
+    xs = x[..., None] if x.ndim == 2 else x
+    for c in range(cols.shape[-1]):
+        assert _relres(a, damp, cols[..., c], xs[..., c]) <= 1e-5
+    inside = _spd(157, 16, seed=1)
+    assert psd.kernel_takes(inside[0], inside[2])
+    linalg.damped_psd_solve(*inside)
+    assert psd.launches == before + 1
+
+
 def test_main_path_on_cuda_matches_cpu(cuda_problem):
     """The whole compacted solve at B = 256 on the card against the same
     solve on the CPU (plain versions): the same convergence statistics."""
@@ -197,13 +255,13 @@ def test_chol_solve_reaches_the_rank1_kernel(cuda_problem, n):
 
 @pytest.mark.parametrize("n,batch", [(160, 300), (224, 8), (32, 5), (64, 1)])
 def test_chol_blocked_kernel_matches_plain(cuda_problem, n, batch):
-    """K5b: relative residual as small as the plain solve's, x within 1e-3
-    of max|x| (FMA contraction and the panel order round differently;
-    ROADMAP F5)."""
+    """K5b's entry point launches damped_chol_solve_kernel: relative residual
+    as small as the plain solve's, x within 1e-3 of max|x| (FMA contraction
+    and the panel order round differently; ROADMAP F5)."""
     a, damp, b = _spd(n, batch, seed=n)
-    before = chol.launches
+    before = psd.launches
     x = chol.chol_solve_blocked(a, damp, b)
-    assert chol.launches == before + 1
+    assert psd.launches == before + 1
     x_plain = chol.chol_solve_blocked_plain(a, damp, b)
     assert _relres(a, damp, b, x) <= max(1e-5, 10 * _relres(a, damp, b, x_plain))
     assert float((x - x_plain).abs().max() / x_plain.abs().max()) <= 1e-3
@@ -231,7 +289,7 @@ def test_chol_kernels_nan_on_indefinite(cuda_problem):
 
 def test_chol_blocked_kernel_refuses_what_it_cannot_take(cuda_problem):
     a, damp, b = _spd(32, 2, seed=1)
-    before = chol.launches
+    before = psd.launches
     with pytest.raises(ValueError, match="multiple of 32"):  # ROADMAP F6
         chol.chol_solve_blocked(*_spd(157, 2, seed=1))
     with pytest.raises(ValueError):
@@ -244,7 +302,7 @@ def test_chol_blocked_kernel_refuses_what_it_cannot_take(cuda_problem):
         chol.chol_solve_blocked(a.clone().requires_grad_(), damp, b)
     with pytest.raises(ValueError):  # 256 × 257 floats exceed a block's shared memory
         chol.chol_solve_blocked(*_spd(256, 1, seed=1))
-    assert chol.launches == before
+    assert psd.launches == before
 
 
 def test_fullstack_on_cuda_matches_cpu(cuda_problem):
@@ -396,6 +454,65 @@ def test_raster_binned_kernel_across_streams(clip_frames):
     torch.cuda.synchronize()
     assert torch.equal(a["face"], ref["face"]) and torch.equal(b["face"], ref["face"])
     assert list(raster._scratch) == [sv.device]
+
+
+def test_raster_binned_scratch_grows_after_a_side_stream_launch(clip_frames):
+    """ROADMAP F9: a side stream launches K4b with the merge scratch of a
+    small pass (allocated on the default stream), then a larger pass on the
+    same stream grows the scratch and frees the small pair while the side
+    stream's launch still waits behind a sleep. The default stream then
+    allocates and zeroes memory of the small keys' size at once: were the
+    freed keys among it, the side stream's launch would merge into zeros.
+    Each stream's face maps must be the plain version's."""
+    faces, get = clip_frames
+    passes = get(0)
+    refs = {name: raster.rasterize_planes_plain(sv, faces, w, h, bin_capacity=8, **kw)["face"]
+            for name, (sv, w, h, kw) in ((k, passes[k]) for k in ("camera", "shadow"))}
+    sv, w, h, kw = passes["shadow"]
+    svl, wl, hl, kwl = passes["camera"]
+    assert int(raster.bin_faces(sv, faces, 640, w, h, 8, 8)[1].sum()) > 0  # keys are merged
+    torch.cuda.synchronize()
+    raster._scratch.clear()
+    raster.rasterize_planes(sv, faces, w, h, bin_capacity=8, **kw)  # small pair, default stream
+    small_keys = raster._scratch[sv.device][0]
+    n_keys, old_ptr = small_keys.numel(), small_keys.data_ptr()
+    del small_keys
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s: the host queues all below first
+        a = raster.rasterize_planes(sv, faces, w, h, bin_capacity=8, **kw)
+        b = raster.rasterize_planes(svl, faces, wl, hl, bin_capacity=8, **kwl)  # grows it
+    assert raster._scratch[sv.device][0].numel() > n_keys
+    reused = []
+    for _ in range(64):  # until the allocator hands out the freed keys, if it does
+        reused.append(torch.zeros(n_keys, dtype=torch.int64, device="cuda"))
+        if reused[-1].data_ptr() == old_ptr:
+            break
+    c = raster.rasterize_planes(sv, faces, w, h, bin_capacity=8, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(a["face"], refs["shadow"]) and torch.equal(b["face"], refs["camera"])
+    assert torch.equal(c["face"], refs["shadow"])
+
+
+@pytest.mark.parametrize("th", [4, 8])
+@pytest.mark.parametrize("name", TILE_EDGE_SCENES)
+def test_raster_kernel_tile_reject_on_edge_scenes(cuda_device, name, th):
+    """K4a's per-tile reject on faces whose edges pass exactly through
+    tile-corner pixel centres, faces across tile borders and depths crossing
+    0 inside a tile: the face maps are identical to the plain version's, and
+    the plain reject (`tile_face_may_cover`) drops most (tile, face) pairs
+    here, so the kernel's reject is exercised."""
+    verts, faces, w, h = tile_edge_scene(name)
+    rng = np.random.default_rng(th)
+    kw = dict(vertex_attrs=rng.normal(size=(verts.shape[0], 2)).astype(np.float32))
+    out, kernel = _kernel_vs_plain(verts, faces, w, h, kw, cull=False, th=th)
+    assert kernel == "raster_planes_kernel" and bool((out["face"] >= 0).any())
+    planes = raster._tables(torch.as_tensor(verts, device="cuda"),
+                            torch.as_tensor(faces, device="cuda"), None, None, None, 128)[0]
+    may = raster.tile_face_may_cover(planes, w, h, th)[:, :faces.shape[0]]
+    assert int((~may).sum()) > int(may.sum()) // 2
 
 
 @pytest.mark.parametrize("bin_capacity", [8, 384])

@@ -127,6 +127,24 @@ def test_fk_matches_pallas_kernel_in_interpret_mode(chars, rng):
                                out_pallas, **FK_TOL)
 
 
+def test_fk_vjp_matches_jax(chars, rng):
+    """ROADMAP F8: the port's FK is differentiable through `_FkGlobal` (K1's
+    autograd Function: its backward is the VJP of the lifted product), and
+    its VJP for one seeded cotangent equals jax.vjp of JAX's
+    global_skel_states (atol 1e-4, tests/test_pose_shape_misc.py:174)."""
+    char_j, char_t = chars
+    jp = _joint_params(rng, char_j, 8)
+    cot = rng.normal(size=(8, char_t.num_joints, 8)).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda x: jfk.global_skel_states(char_j.skeleton, x), jnp.asarray(jp))
+    (g_j,) = vjp(jnp.asarray(cot))
+    x = torch.as_tensor(jp).requires_grad_()
+    out_t = tfk.global_skel_states(char_t.skeleton, x)
+    assert type(out_t.grad_fn).__name__ == "_FkGlobalBackward"
+    out_t.backward(torch.as_tensor(cot))
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), **FK_TOL)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_j), rtol=0, atol=1e-4)
+
+
 def test_skeleton_states_and_locators_match_jax(chars, rng):
     char_j, char_t = chars
     x = rng.uniform(-0.3, 0.3, (8, char_j.num_model_parameters)).astype(np.float32)

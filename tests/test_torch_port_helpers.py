@@ -102,3 +102,52 @@ def port_fullbody_character():
     from momentum_tpu_torch.bridge import character_from_numpy
 
     return character_from_numpy(character_to_numpy(jax_fullbody_character()))
+
+
+TILE_EDGE_SCENES = ("corner_edges", "straddling", "z_crossing")
+
+
+def tile_edge_scene(name: str):
+    """(verts (V, 3), faces (F, 3) int32, width, height) of a 256 × 24 scene
+    that probes K4a's per-tile reject at tile heights 4 and 8 (tiles of
+    th × 128 pixels):
+      corner_edges: triangles whose vertices are tile-corner pixel centres,
+        so their edges pass exactly through them (w = 0 there), and thin
+        triangles that touch a tile at one corner pixel centre only;
+      straddling: small triangles across the tile borders x = 128 and
+        y = 4k;
+      z_crossing: triangles whose depth crosses 0 inside a tile, or is 0 at
+        a corner pixel centre."""
+    rng = np.random.default_rng(TILE_EDGE_SCENES.index(name) + 21)
+    w, h = 256, 24
+    xs = np.array([0.5, 127.5, 128.5, 255.5], np.float32)
+    ys = np.array([0.5, 3.5, 4.5, 7.5, 8.5, 11.5, 12.5, 15.5, 16.5, 23.5], np.float32)
+    tris = []
+    if name == "corner_edges":
+        corners = np.stack(np.meshgrid(xs, ys), -1).reshape(-1, 2)
+        for _ in range(60):
+            tris.append(corners[rng.choice(len(corners), 3, replace=False)])
+        for cx in xs:
+            for cy in ys:  # touches (cx, cy) and no other pixel centre of its tile
+                sx = 1.0 if cx % 128 > 64 else -1.0
+                sy = 1.0 if cy % 4 > 2 else -1.0
+                tris.append(np.array([[cx, cy], [cx + sx * 30, cy], [cx + sx * 30, cy + sy * 9]]))
+                tris.append(np.array([[cx, cy], [cx, cy + sy * 9], [cx + sx * 20, cy + sy * 9]]))
+    elif name == "straddling":
+        for _ in range(120):
+            cx = rng.choice([128.0, 0.0, 256.0]) + rng.uniform(-6, 6)
+            cy = 4.0 * rng.integers(0, 7) + rng.uniform(-2, 2)
+            tris.append(np.stack([cx + rng.uniform(-8, 8, 3), cy + rng.uniform(-3, 3, 3)], -1))
+    elif name == "z_crossing":
+        for _ in range(100):
+            tris.append(np.stack([rng.uniform(-10, w + 10, 3), rng.uniform(-4, h + 4, 3)], -1))
+    else:
+        raise KeyError(name)
+    tris = np.asarray(tris, np.float32)
+    z = rng.uniform(0.5, 5.0, tris.shape[:2]).astype(np.float32)
+    if name == "z_crossing":
+        z[::2, 0] = -rng.uniform(0.5, 5.0, len(z[::2]))  # crosses 0 inside the face
+        z[1::4, 1] = 0.0  # zero at a vertex
+    verts = np.concatenate([tris, z[..., None]], -1).reshape(-1, 3)
+    faces = np.arange(len(verts), dtype=np.int32).reshape(-1, 3)
+    return verts.astype(np.float32), faces, w, h

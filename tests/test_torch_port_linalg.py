@@ -93,9 +93,53 @@ def test_indefinite_system_gives_nan_in_both_packages(rng):
 
 
 def test_matrix_right_hand_side_is_refused(rng):
+    """A (..., n, k) right-hand side is solved (ROADMAP F7); one whose rows
+    do not match a's n, or with extra dimensions, is refused."""
     a, damp, b = _system(rng, 2, 8)
     with pytest.raises(ValueError):
-        tlinalg.psd_solve(torch.as_tensor(a), torch.as_tensor(b)[..., None].expand(2, 8, 3))
+        tlinalg.psd_solve(torch.as_tensor(a), torch.zeros(2, 9, 3))
+    with pytest.raises(ValueError):
+        tlinalg.psd_solve(torch.as_tensor(a), torch.zeros(2, 8, 3, 1))
+    x = tlinalg.psd_solve(torch.as_tensor(a), torch.as_tensor(b)[..., None].expand(2, 8, 3))
+    assert x.shape == (2, 8, 3)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [225, 40])
+@pytest.mark.parametrize("k", [None, 3], ids=["vector", "matrix"])
+@pytest.mark.parametrize("damped", [True, False], ids=["damped_psd_solve", "psd_solve"])
+def test_solves_outside_the_kernel_domain_match_jax(rng, dtype, n, k, damped):
+    """ROADMAP F7: n = 225 (past the kernel's n ≤ 224), float64 and (B, n, k)
+    right-hand sides solve as JAX's psd_solve solves them (XLA's Cholesky
+    outside its kernel's domain), by relative residual ≤ 1e-4 per column
+    (ROADMAP F5); x agrees to 1e-4 of max|x|. JAX runs in float32 here."""
+    a, damp, b = _system(rng, 4, n)
+    if k is not None:
+        b = np.stack([b, 2 * b + 1, -b], axis=-1)[..., :k]
+    if not damped:
+        a = a + np.einsum("bi,ij->bij", damp, np.eye(n)).astype(np.float32)
+        damp = np.zeros_like(damp)
+    a, damp, b = (v.astype(dtype) for v in (a, damp, b))
+    ta, td, tb = (torch.as_tensor(v) for v in (a, damp, b))
+    x_t = (tlinalg.damped_psd_solve(ta, td, tb) if damped else tlinalg.psd_solve(ta, tb)).numpy()
+    assert x_t.shape == b.shape and x_t.dtype == dtype
+    a_j = a + np.einsum("bi,ij->bij", damp, np.eye(n))
+    x_j = np.asarray(jlinalg.psd_solve(jnp.asarray(a_j, jnp.float32), jnp.asarray(b, jnp.float32)))
+    cols = (lambda v: v[..., None]) if k is None else (lambda v: v)
+    for x in (x_t, x_j):
+        for c in range(cols(b).shape[-1]):
+            assert np.max(_relres(a, damp, cols(b)[..., c], cols(x)[..., c])) <= RELRES_TOL
+    scale = np.max(np.abs(x_j))
+    np.testing.assert_allclose(x_t / scale, x_j / scale, atol=1e-4)
+
+
+def test_domain_rule_sends_cpu_f64_and_matrix_systems_to_the_plain_solve(rng):
+    """ROADMAP F7: `kernel_takes` is false for CPU tensors, float64 and
+    matrix right-hand sides, decided without building the kernel."""
+    a, _, b = (torch.as_tensor(v) for v in _system(rng, 2, 16))
+    assert not psd.kernel_takes(a, b)
+    assert not psd.kernel_takes(a.double(), b.double())
+    assert not psd.kernel_takes(a, b[..., None])
 
 
 def test_cpu_wrapper_takes_the_plain_path(rng):

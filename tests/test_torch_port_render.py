@@ -28,8 +28,8 @@ from momentum_tpu_torch.ops import raster
 from momentum_tpu_torch.rasterizer import render
 
 from test_torch_port_helpers import (
-    camera_to_numpy, character_to_numpy, jax_fullbody_character, port_fullbody_character,
-    to_numpy)
+    TILE_EDGE_SCENES, camera_to_numpy, character_to_numpy, jax_fullbody_character,
+    port_fullbody_character, tile_edge_scene, to_numpy)
 
 T = torch.as_tensor
 
@@ -292,6 +292,37 @@ def test_binned_and_full_scan_agree_exactly():
     assert int(overflow.sum()) == 6
     for key in ("depth", "face", "bary", "attrs"):
         assert torch.equal(binned[key], full[key]), key
+
+
+@pytest.mark.parametrize("th", [4, 8])
+@pytest.mark.parametrize("name", TILE_EDGE_SCENES)
+def test_tile_reject_is_conservative(name, th):
+    """K4a's per-tile reject (`tile_face_may_cover`, the kernel's `may_cover`
+    in plain torch) keeps every face that the per-pixel test accepts at some
+    pixel centre of the tile, on scenes of edges through tile-corner pixel
+    centres, faces across tile borders and depths crossing 0. It also keeps
+    every winner of JAX's unculled rasterize_planes (interpret mode), whose
+    edge pixels XLA's rounding may decide otherwise than the port's."""
+    verts, faces, w, h = tile_edge_scene(name)
+    out_j = jax_rasterize_planes(jnp.asarray(verts), jnp.asarray(faces), w, h, cull=False,
+                                 th=th, interpret=True)
+    v, f = T(verts), T(faces)
+    face_j = np.asarray(out_j["face"])
+    planes = raster._tables(v, f, None, None, None, 128)[0]
+    may = raster.tile_face_may_cover(planes, w, h, th).numpy()
+    gi, gj = raster._grid(w, h, th)
+    # every (tile, face) pair that the per-pixel test accepts at some pixel
+    x, y = raster._pixel_xy(torch.arange(gi * gj), gj, th)
+    pl = planes.expand(gi * gj, -1, -1)
+    w0, w1, w2, z = (raster._plane(pl, k, x, y) for k in (0, 3, 6, 9))
+    hits = ((w0 >= 0) & (w1 >= 0) & (w2 >= 0) & (z > 0)).sum(-1).numpy()
+    assert may[hits > 0].all()
+    rows, cols = np.nonzero(face_j >= 0)
+    assert may[(rows // th) * gj + cols // 128, face_j[rows, cols]].all()
+    # the reject drops most pairs, and the scenes reach its edge cases
+    assert (~may[:, :faces.shape[0]]).sum() > may[:, :faces.shape[0]].sum() // 2
+    if name == "corner_edges":
+        assert (hits == 1).sum() >= 20  # faces touching a tile at one pixel centre
 
 
 # ---- the shadowed render and the clip ----
