@@ -24,9 +24,10 @@ then drives the port's paths through those kernels and checks their output:
     panels, n % 32 == 0), both reaching K2+K3's kernel;
   * bench.py's full residual stack (position + orientation + limits + pose
     prior) at B = 2048, Gauss-Newton 2 + 1 on the worst 1024: K1, K2+K3;
-  * the repaired faults: the damped solve outside the kernel's domain
-    (ROADMAP F7), gradients through K1 (F8) and K4b's merge scratch grown
-    after a launch on another stream (F9).
+  * the repaired faults: the damped solve past the kernel's shared memory,
+    with matrix right-hand sides and in float64 (ROADMAP F7), gradients
+    through K1 (F8) and K4b's merge scratch grown after a launch on another
+    stream (F9).
 
     python3 chip_smoke.py
 
@@ -697,12 +698,15 @@ def _relres_cols(a, damp, b, x):
 
 
 def phase_f7():
-    """ROADMAP F7: systems outside damped_chol_solve_kernel's domain (n = 225
-    and 300, float64, a (B, n, 3) right-hand side) solve through
-    math/linalg.py's plain path on the card with no launch, as JAX solves
-    them with XLA's Cholesky; a system inside it still launches the kernel."""
+    """ROADMAP F7: float32 systems past the kernel's shared memory (n = 225
+    and 300) and (B, n, 3) right-hand sides go through math/linalg.py to
+    damped_chol_solve_kernel, one launch each, as JAX gives them its TPU
+    kernel, and are held against the plain solve; float64 takes the plain
+    solve on the card with no launch. The kernel's workspace form (n = 300)
+    is timed in turns with the plain solve."""
     from momentum_tpu_torch.math import linalg
     from momentum_tpu_torch.ops import psd
+    from momentum_tpu_torch.testing.profile_workload import in_turns
 
     g = torch.Generator(device="cpu").manual_seed(SEED)
 
@@ -713,31 +717,41 @@ def phase_f7():
         b = torch.randn(64, n, generator=g, dtype=torch.float64)
         return tuple(t.to(dtype).cuda() for t in (a, damp, b))
 
-    a, d, b = spd(157)
-    cases = {"n = 225": spd(225), "n = 300": spd(300), "float64": spd(157, torch.float64),
-             "(B, n, 3) right-hand side": (a, d, torch.stack([b, 2 * b + 1, -b], dim=-1))}
-    worst = {}
-    for label, (a, d, b) in cases.items():
+    def rhs3(system):
+        a, d, b = system
+        return a, d, torch.stack([b, 2 * b + 1, -b], dim=-1).contiguous()
+
+    cases = {"n = 225": (spd(225), 1), "n = 300": (spd(300), 1),
+             "(B, n, 3) right-hand side": (rhs3(spd(157)), 1),
+             "n = 300, (B, n, 3) right-hand side": (rhs3(spd(300)), 1),
+             "float64": (spd(157, torch.float64), 0)}
+    report = []
+    for label, ((a, d, b), want) in cases.items():
         psd.launches = 0
         x = linalg.damped_psd_solve(a, d, b)
+        launched = psd.launches
+        x_plain = psd.damped_chol_solve_plain(a, d, b)
         torch.cuda.synchronize()
-        worst[label] = _relres_cols(a, d, b, x)
-        if psd.launches != 0 or x.shape != b.shape or not worst[label] <= PSD_RELRES_TOL:
-            raise AssertionError(f"F7: {label}: {psd.launches} launches, x {tuple(x.shape)}, "
-                                 f"max rel. residual {worst[label]}")
-    psd.launches = 0
-    linalg.damped_psd_solve(*spd(157))
-    if psd.launches != 1:
-        raise AssertionError("F7: a float32 n = 157 system did not launch the kernel")
-    print("F7: the damped solve outside the kernel's domain takes the plain path, no launch, "
-          "max rel. residual " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-          + f" (tol {PSD_RELRES_TOL:.0e}); n = 157 float32 launches the kernel")
+        res = _relres_cols(a, d, b, x)
+        x_rel = float((x - x_plain).abs().max() / x_plain.abs().max())
+        report.append(f"{label}: {launched} launch(es), max rel. residual {res:.2e}, "
+                      f"max|x - x_plain| {x_rel:.2e} of max|x|")
+        if (launched != want or x.shape != b.shape or not res <= PSD_RELRES_TOL
+                or not x_rel <= PSD_X_TOL):
+            raise AssertionError("F7: " + report[-1])
+    a, d, b = cases["n = 300"][0]
+    t = in_turns({"kernel": lambda: psd.damped_chol_solve(a, d, b),
+                  "plain": lambda: psd.damped_chol_solve_plain(a, d, b)})
+    print("F7: " + "; ".join(report) + f" (tol {PSD_RELRES_TOL:.0e}, {PSD_X_TOL:.0e}); "
+          f"n = 300, B = 64 in turns: kernel (workspace form) {t['kernel']:.4f} ms, "
+          f"plain {t['plain']:.4f} ms")
 
 
 def phase_f8(char, x0):
     """ROADMAP F8: gradients of a seeded loss through K1 (its backward is the
     VJP of the plain lifted FK) against those through the plain FK, at
-    B = 256 of the IK problem."""
+    B = 256 of the IK problem. The loss is quadratic in the FK output, so
+    its cotangent, and the gradient, carry K1's forward."""
     from momentum_tpu_torch.character import fk
     from momentum_tpu_torch.ops import fk as fk_ops
 
@@ -749,7 +763,7 @@ def phase_f8(char, x0):
         x = x0[:256].clone().requires_grad_()
         fk_ops.launches = 0
         out = fk_fn(skel, fk.local_skel_states(skel, char.parameter_transform.apply(x)))
-        (out * weight).sum().backward()
+        (0.5 * (out * weight).square().sum()).backward()
         grads[name], launched[name] = x.grad, fk_ops.launches
     rel = float((grads["kernel"] - grads["plain"]).abs().max() / grads["plain"].abs().max())
     print(f"F8: gradients through K1 against the plain FK (B=256): max|Δ| {rel:.2e} of "

@@ -1,6 +1,6 @@
 // K2+K3 — damped_chol_solve_kernel: batched damped Cholesky solve for Hopper
 // (sm_90a). Solves (a + diag(damp)) x = b for B symmetric positive-definite
-// (n, n) systems, 1 ≤ n ≤ 224, one right-hand side each.
+// (n, n) systems, 1 ≤ n ≤ 4096, with k ≥ 1 right-hand sides each.
 //
 // One kernel replaces two TPU kernels of momentum_tpu/ops/psd_pallas.py:
 //   K2 _panel_kernel (:53, launched by _panel_cholinv_call :104): Cholesky and
@@ -59,6 +59,18 @@
 // takes 45 µs. Overlapping warp 0's next diagonal block with the trailing
 // update, larger register tiles, and wgmma are later work.
 //
+// Larger systems and more right-hand sides (ROADMAP F7). JAX's TPU kernel
+// takes every n ≥ 64 (psd_pallas.py:41) and factors a matrix right-hand
+// side's system with K2 too (:301-311), so this kernel takes them as well.
+// Past n = 224 the padded system does not fit in 227 KB of shared memory:
+// the same code then keeps the matrix in a device workspace of m·(m + 1)
+// floats a system, which the launch takes from the stream's memory pool and
+// gives back after the kernel; shared memory holds the right-hand side. The
+// block's own global loads and stores of its system stay in order across the
+// same barriers; at n = 300, B = 64 it takes 0.49 ms on an H100 (700 W),
+// cholesky_ex + cholesky_solve 0.94. With k right-hand sides the factor is
+// formed once and each column substituted in turn through the same buffer.
+//
 // Failure (ROADMAP F1): a pivot that is not > 0 (negative, zero or NaN) stops
 // the factorization and the system's x is all NaN — the behaviour of the JAX
 // CPU path (lax.linalg.cholesky) and of torch.linalg.cholesky_ex's `info`, not
@@ -74,34 +86,41 @@ namespace {
 constexpr int kPanel = 32;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxN = 224;      // m·(m + 1) + m floats must fit in 227 KB
+constexpr int kMaxSharedN = 224;  // m·(m + 1) + m floats must fit in 227 KB
+constexpr int kMaxN = 4096;       // one block a system: the time grows as n³
 constexpr int kLoadUnroll = 8;  // float4 loads a thread keeps in flight
 constexpr unsigned kAll = 0xffffffffu;
 
 __host__ __device__ inline int padded(int n) { return (n + kPanel - 1) / kPanel * kPanel; }
 
+// b and x are (batch, n, k); kInWorkspace: the matrix lives in `work`
+// (n > kMaxSharedN), else in shared memory.
+template <bool kInWorkspace>
 __global__ void __launch_bounds__(kThreads, 2)
 damped_chol_solve_kernel(const float* __restrict__ a, const float* __restrict__ damp,
-                         const float* __restrict__ b, float* __restrict__ x, int n) {
+                         const float* __restrict__ b, float* __restrict__ x, int n, int k,
+                         float* __restrict__ work) {
   extern __shared__ float sm[];
   __shared__ int ok;  // cleared by warp 0 when a pivot is not > 0
   const int m = padded(n);
   const int ld = m + 1;
-  float* A = sm;           // m rows of ld floats; L21 and Linv overwrite the lower triangle
-  float* y = sm + m * ld;  // rhs, then y, then x
+  const long long sys = blockIdx.x;
+  // m rows of ld floats; L21 and Linv overwrite the lower triangle
+  float* A = kInWorkspace ? work + sys * m * ld : sm;
+  float* y = kInWorkspace ? sm : sm + m * ld;  // a right-hand side, then y, then x
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const long long sys = blockIdx.x;
   const float* as = a + sys * n * n;
   const float* ds = damp + sys * n;
 
   // The load. Element f of the flat span is (i, j) = divmod(f, n); with
   // f < 2^16 and n ≤ 224, (f + 0.5)/n in f32 is within 3e-5 of the exact
-  // quotient, whose fraction stays ≥ 0.5/n from an integer.
+  // quotient, whose fraction stays ≥ 0.5/n from an integer. Larger systems
+  // divide exactly.
   const float inv_n = 1.f / (float)n;
   auto put = [&](int f, float v) {
-    const int i = __float2int_rz(((float)f + 0.5f) * inv_n);
+    const int i = kInWorkspace ? f / n : __float2int_rz(((float)f + 0.5f) * inv_n);
     const int j = f - i * n;
     A[i * ld + j] = i == j ? v + ds[i] : v;
   };
@@ -133,7 +152,8 @@ damped_chol_solve_kernel(const float* __restrict__ a, const float* __restrict__ 
     const int j = idx - (i - n) * m;
     A[i * ld + j] = i == j ? 1.f : 0.f;
   }
-  for (int i = tid; i < m; i += kThreads) y[i] = i < n ? b[sys * n + i] : 0.f;
+  // the first right-hand side; the others load after the factorization
+  for (int i = tid; i < m; i += kThreads) y[i] = i < n ? b[(sys * n + i) * k] : 0.f;
   if (tid == 0) ok = 1;
   __syncthreads();
 
@@ -248,85 +268,110 @@ damped_chol_solve_kernel(const float* __restrict__ a, const float* __restrict__ 
   }
 
   // The substitutions, a panel at a time: warp 0 multiplies by the panel's
-  // Linv (forward) or Linvᵀ (back), then the block updates the rest.
-  if (ok) {  // uniform: read after the barrier
-    for (int r0 = 0; r0 < m; r0 += kPanel) {  // L y = b
-      if (warp == 0) {
-        const float* lrow = A + (r0 + lane) * ld + r0;  // Linv row `lane`
-        float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-        for (int t = 0; t < kPanel; t += 2) {
-          s0 += lrow[t] * y[r0 + t];
-          s1 += lrow[t + 1] * y[r0 + t + 1];
-        }
-        __syncwarp();
-        y[r0 + lane] = s0 + s1;
-      }
-      __syncthreads();
-      for (int i = r0 + kPanel + tid; i < m; i += kThreads) {
-        const float* row = A + i * ld + r0;
-        float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-        for (int t = 0; t < kPanel; t += 2) {
-          s0 += row[t] * y[r0 + t];
-          s1 += row[t + 1] * y[r0 + t + 1];
-        }
-        y[i] -= s0 + s1;
-      }
+  // Linv (forward) or Linvᵀ (back), then the block updates the rest; one
+  // right-hand side after another. A thread loads and stores the same
+  // entries of y, so a column's load needs no barrier before it.
+  for (int c = 0; c < k; ++c) {
+    if (c > 0) {
+      for (int i = tid; i < m; i += kThreads) y[i] = i < n ? b[(sys * n + i) * k + c] : 0.f;
       __syncthreads();
     }
-    for (int r0 = m - kPanel; r0 >= 0; r0 -= kPanel) {  // Lᵀ x = y
-      if (warp == 0) {
-        const float* lcol = A + r0 * ld + r0 + lane;  // Linv column `lane`
-        float s0 = 0.f, s1 = 0.f;
+    if (ok) {  // uniform: read after a barrier
+      for (int r0 = 0; r0 < m; r0 += kPanel) {  // L y = b
+        if (warp == 0) {
+          const float* lrow = A + (r0 + lane) * ld + r0;  // Linv row `lane`
+          float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-        for (int t = 0; t < kPanel; t += 2) {
-          s0 += lcol[t * ld] * y[r0 + t];
-          s1 += lcol[(t + 1) * ld] * y[r0 + t + 1];
+          for (int t = 0; t < kPanel; t += 2) {
+            s0 += lrow[t] * y[r0 + t];
+            s1 += lrow[t + 1] * y[r0 + t + 1];
+          }
+          __syncwarp();
+          y[r0 + lane] = s0 + s1;
         }
-        __syncwarp();
-        y[r0 + lane] = s0 + s1;
-      }
-      __syncthreads();
-      for (int i = tid; i < r0; i += kThreads) {
-        float s0 = 0.f, s1 = 0.f;
+        __syncthreads();
+        for (int i = r0 + kPanel + tid; i < m; i += kThreads) {
+          const float* row = A + i * ld + r0;
+          float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-        for (int t = 0; t < kPanel; t += 2) {
-          s0 += A[(r0 + t) * ld + i] * y[r0 + t];
-          s1 += A[(r0 + t + 1) * ld + i] * y[r0 + t + 1];
+          for (int t = 0; t < kPanel; t += 2) {
+            s0 += row[t] * y[r0 + t];
+            s1 += row[t + 1] * y[r0 + t + 1];
+          }
+          y[i] -= s0 + s1;
         }
-        y[i] -= s0 + s1;
+        __syncthreads();
       }
-      __syncthreads();
+      for (int r0 = m - kPanel; r0 >= 0; r0 -= kPanel) {  // Lᵀ x = y
+        if (warp == 0) {
+          const float* lcol = A + r0 * ld + r0 + lane;  // Linv column `lane`
+          float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+          for (int t = 0; t < kPanel; t += 2) {
+            s0 += lcol[t * ld] * y[r0 + t];
+            s1 += lcol[(t + 1) * ld] * y[r0 + t + 1];
+          }
+          __syncwarp();
+          y[r0 + lane] = s0 + s1;
+        }
+        __syncthreads();
+        for (int i = tid; i < r0; i += kThreads) {
+          float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+          for (int t = 0; t < kPanel; t += 2) {
+            s0 += A[(r0 + t) * ld + i] * y[r0 + t];
+            s1 += A[(r0 + t + 1) * ld + i] * y[r0 + t + 1];
+          }
+          y[i] -= s0 + s1;
+        }
+        __syncthreads();
+      }
     }
+    __syncthreads();
+    for (int i = tid; i < n; i += kThreads) x[(sys * n + i) * k + c] = ok ? y[i] : nanf("");
   }
-  __syncthreads();
-  for (int i = tid; i < n; i += kThreads) x[sys * n + i] = ok ? y[i] : nanf("");
+}
+
+// Bytes of dynamic shared memory one block needs for an (n, n) system: the
+// padded system and a right-hand side up to n = 224, the right-hand side alone
+// past it.
+int smem_bytes(int n) {
+  const int m = padded(n);
+  return (n <= kMaxSharedN ? m * (m + 1) + m : m) * (int)sizeof(float);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs for an (n, n) system.
-int damped_chol_solve_smem_bytes(int n) {
+// a: (batch, n, n), damp: (batch, n), b and x: (batch, n, k); float32,
+// contiguous, on the device; 1 ≤ n ≤ 4096, k ≥ 1. Past n = 224 the launch
+// takes a workspace of batch·m·(m + 1) floats from the stream's memory pool
+// and frees it after the kernel, in stream order. Launches on `stream`;
+// returns the first CUDA error.
+int damped_chol_solve_launch(const void* a, const void* damp, const void* b, void* x,
+                             int batch, int n, int k, void* stream) {
+  if (n < 1 || n > kMaxN || k < 1 || batch < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int smem = smem_bytes(n);
+  if (n <= kMaxSharedN) {
+    cudaError_t err = cudaFuncSetAttribute(
+        damped_chol_solve_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    damped_chol_solve_kernel<false><<<batch, kThreads, smem, s>>>(
+        (const float*)a, (const float*)damp, (const float*)b, (float*)x, n, k, nullptr);
+    return (int)cudaGetLastError();
+  }
   const int m = padded(n);
-  return (m * (m + 1) + m) * (int)sizeof(float);
-}
-
-// a: (batch, n, n), damp: (batch, n), b: (batch, n), x: (batch, n); float32,
-// contiguous, on the device; 1 ≤ n ≤ 224. Launches on `stream`; returns
-// cudaGetLastError().
-int damped_chol_solve_launch(const void* a, const void* damp, const void* b,
-                             void* x, int batch, int n, void* stream) {
-  if (n < 1 || n > kMaxN) return (int)cudaErrorInvalidValue;
-  const int smem = damped_chol_solve_smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(
-      damped_chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  float* work = nullptr;
+  cudaError_t err = cudaMallocAsync(
+      (void**)&work, (size_t)batch * m * (m + 1) * sizeof(float), s);
   if (err != cudaSuccess) return (int)err;
-  damped_chol_solve_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)damp, (const float*)b, (float*)x, n);
-  return (int)cudaGetLastError();
+  damped_chol_solve_kernel<true><<<batch, kThreads, smem, s>>>(
+      (const float*)a, (const float*)damp, (const float*)b, (float*)x, n, k, work);
+  err = cudaGetLastError();
+  const cudaError_t freed = cudaFreeAsync(work, s);
+  return (int)(err != cudaSuccess ? err : freed);
 }
 
 }  // extern "C"

@@ -1,14 +1,13 @@
 """Small-matrix linear algebra: the damped SPD solve of the LM step.
 
-The solves dispatch as momentum_tpu/math/linalg.py does (:159-219): systems
-inside the kernel's domain (`ops/psd.py::kernel_takes`: CUDA, float32, one
-vector right-hand side, n ≤ 224) launch `damped_chol_solve_kernel`, the port
-of the TPU kernels JAX takes where `psd_solve_pallas_available` holds; every
-other system (the CPU, float64, n > 224, a (..., n, k) right-hand side)
-takes `damped_chol_solve_plain`, `torch.linalg.cholesky_ex` +
-`torch.cholesky_solve`, as JAX takes XLA's Cholesky. Either way a system
-whose factorization fails comes back as all-NaN x (ROADMAP F1).
-"""
+The solves dispatch as momentum_tpu/math/linalg.py does (:159-219), by one
+rule (`ops/psd.py::kernel_takes`, the counterpart of
+`psd_solve_pallas_available`): CUDA float32 systems launch
+`damped_chol_solve_kernel`, the port of the TPU kernels, at any n up to
+`psd.MAX_N` and with a vector or a (..., n, k) right-hand side; CPU tensors
+and float64 take `damped_chol_solve_plain`, `torch.linalg.cholesky_ex` +
+`torch.cholesky_solve`. Either way a system whose factorization fails comes
+back as all-NaN x (ROADMAP F1)."""
 
 from __future__ import annotations
 

@@ -23,16 +23,13 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["BUILD_DIR", "CSRC", "SMEM_PER_BLOCK", "build", "load", "nvcc_path"]
+__all__ = ["BUILD_DIR", "CSRC", "build", "load", "nvcc_path"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "momentum_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-
-# bytes of shared memory one block may use on an H100 (opt-in above 48 KB)
-SMEM_PER_BLOCK = 232448
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -43,7 +43,7 @@ def chol_solve_plain(a: torch.Tensor, damp: torch.Tensor, b: torch.Tensor) -> to
 
 def chol_solve(a: torch.Tensor, damp: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x with (a + diag(damp)) x = b: a (B, n, n), damp (B, n), b (B, n)
-    float32, any n ≤ 224 (K5a)."""
+    float32, any n ≤ psd.MAX_N (K5a)."""
     return psd.damped_chol_solve(a, damp, b)
 
 
@@ -66,7 +66,7 @@ def chol_solve_blocked(a: torch.Tensor, damp: torch.Tensor, b: torch.Tensor) -> 
 
     CPU tensors take `chol_solve_blocked_plain`. CUDA tensors launch
     damped_chol_solve_kernel or raise: all three must be float32,
-    contiguous, on one device and without grad, with n ≤ 224."""
+    contiguous, on one device and without grad, with n ≤ psd.MAX_N."""
     _check_panels(a.shape[-1])
     return psd.damped_chol_solve(a, damp, b)
 

@@ -18,9 +18,10 @@ trailing update as 4 × 4 register-tile products. The substitutions are
 loads, eight in flight per thread. The note at the top of csrc/psd.cu has
 the details.
 
-The kernel pads the system in shared memory to a multiple of 32 rows, so it
-takes n ≤ 224 (the full-body rig has n = 157); a larger n does not fit in
-one block's shared memory and raises ValueError.
+The kernel pads the system to a multiple of 32 rows in shared memory up to
+n = 224 (the full-body rig has n = 157); from n = 225 to MAX_N the same code
+keeps the matrix in a device workspace. A (B, n, k) right-hand side is
+factored once and substituted column by column (ROADMAP F7).
 
 `damped_chol_solve_plain` is the plain PyTorch version:
 `torch.linalg.cholesky_ex` + `torch.cholesky_solve`, for any n, dtype and
@@ -28,9 +29,7 @@ one block's shared memory and raises ValueError.
 system whose factorization meets a pivot that is not > 0 (ROADMAP F1: the
 JAX CPU path's behaviour, not the TPU kernels' clamp).
 
-`kernel_takes` is the rule by which math/linalg.py chooses between the two,
-as JAX's `psd_solve_pallas_available` chooses between its kernel and XLA's
-Cholesky.
+`kernel_takes` is the rule by which math/linalg.py chooses between the two.
 """
 
 from __future__ import annotations
@@ -47,6 +46,8 @@ __all__ = ["damped_chol_solve", "damped_chol_solve_plain", "check_system", "kern
 # times damped_chol_solve_kernel was launched in this process
 launches = 0
 
+MAX_N = 4096  # csrc/psd.cu kMaxN: one block a system, whose time grows as n³
+
 
 def damped_chol_solve_plain(a: torch.Tensor, damp: torch.Tensor,
                             b: torch.Tensor) -> torch.Tensor:
@@ -61,70 +62,72 @@ def damped_chol_solve_plain(a: torch.Tensor, damp: torch.Tensor,
 
 def check_system(a: torch.Tensor, damp: torch.Tensor, b: torch.Tensor,
                  kernel: str) -> tuple:
-    """(B, n) of a batch of damped systems that `kernel` can take, or raise."""
+    """(B, n, k) of a batch of damped systems that `kernel` can take, with k
+    right-hand sides (1 for b (B, n)), or raise."""
     if a.ndim != 3 or a.shape[1] != a.shape[2]:
         raise ValueError(f"expected a of shape (B, n, n), got {tuple(a.shape)}")
     batch, n = a.shape[0], a.shape[1]
-    for name, t in (("damp", damp), ("b", b)):
-        if t.shape != (batch, n):
-            raise ValueError(f"expected {name} of shape {(batch, n)}, got {tuple(t.shape)}")
+    if damp.shape != (batch, n):
+        raise ValueError(f"expected damp of shape {(batch, n)}, got {tuple(damp.shape)}")
+    if b.shape[:2] != (batch, n) or b.ndim not in (2, 3):
+        raise ValueError(f"expected b of shape {(batch, n)} or {(batch, n)} + (k,), "
+                         f"got {tuple(b.shape)}")
     for t in (a, damp, b):
         if (t.dtype != torch.float32 or not t.is_contiguous()
                 or t.device != a.device):
             raise ValueError(f"{kernel} takes contiguous float32 tensors on one CUDA device")
         if t.requires_grad:
             raise RuntimeError(f"{kernel} has no backward: call it on tensors without grad")
-    return batch, n
+    return batch, n, b.shape[2] if b.ndim == 3 else 1
 
 
 def kernel_takes(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Whether damped_chol_solve_kernel takes the systems a (..., n, n) with
-    right-hand sides b: a CUDA float32 a, one vector right-hand side per
-    system (b (..., n)), and n small enough that the padded system fits in
-    one block's shared memory (n ≤ 224). Decided from shapes and dtypes
-    before any launch; math/linalg.py sends the rest to
-    `damped_chol_solve_plain`. The port's counterpart of
-    momentum_tpu/ops/psd_pallas.py::psd_solve_pallas_available (:41), which
-    sends JAX's solve to XLA's Cholesky outside the TPU kernel's domain."""
-    if not (a.is_cuda and a.dtype == torch.float32 and b.ndim == a.ndim - 1):
-        return False
-    return _lib().damped_chol_solve_smem_bytes(a.shape[-1]) <= build.SMEM_PER_BLOCK
+    """Whether math/linalg.py sends the systems a (..., n, n) with right-hand
+    sides b to damped_chol_solve_kernel: a CUDA float32 a. The rest, CPU
+    tensors and float64 (which the kernel's f32 arithmetic would not honour),
+    take `damped_chol_solve_plain`. Decided from the device and dtype before
+    any launch; inside the domain the kernel launches or raises.
+
+    The counterpart of momentum_tpu/ops/psd_pallas.py::
+    psd_solve_pallas_available (:41), which gives JAX's TPU kernel every
+    batched n ≥ 64 with B a multiple of 32, a matrix right-hand side
+    included (its system is factored by K2, :301-311). This kernel has
+    neither the minimum n nor the lane layout that asks for whole groups of
+    32 systems, so it also takes what JAX leaves to XLA on the TPU; it
+    substitutes a matrix right-hand side itself."""
+    return a.is_cuda and a.dtype == torch.float32
 
 
 def _lib():
     lib = build.load("psd")
-    lib.damped_chol_solve_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.damped_chol_solve_launch.restype = ctypes.c_int
-    lib.damped_chol_solve_smem_bytes.argtypes = [ctypes.c_int]
-    lib.damped_chol_solve_smem_bytes.restype = ctypes.c_int
+    if lib.damped_chol_solve_launch.argtypes is None:
+        lib.damped_chol_solve_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.damped_chol_solve_launch.restype = ctypes.c_int
     return lib
 
 
 def damped_chol_solve(a: torch.Tensor, damp: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
     """x with (a + diag(damp)) x = b for B SPD systems: a (B, n, n),
-    damp (B, n), b (B, n) -> x (B, n).
+    damp (B, n), b (B, n) or (B, n, k) -> x of b's shape.
 
     CPU tensors take `damped_chol_solve_plain`. CUDA tensors launch
     damped_chol_solve_kernel or raise: all three must be float32,
-    contiguous, on one device and without grad, with n small enough for the
-    block's shared memory (n ≤ 224)."""
+    contiguous, on one device and without grad, with n ≤ MAX_N."""
     global launches
     if not a.is_cuda:
         return damped_chol_solve_plain(a, damp, b)
-    batch, n = check_system(a, damp, b, "damped_chol_solve_kernel")
-    lib = _lib()
-    if lib.damped_chol_solve_smem_bytes(n) > build.SMEM_PER_BLOCK:
-        raise ValueError(f"damped_chol_solve_kernel: n = {n} does not fit in "
-                         f"one block's shared memory")
+    batch, n, k = check_system(a, damp, b, "damped_chol_solve_kernel")
+    if n > MAX_N:
+        raise ValueError(f"damped_chol_solve_kernel takes n ≤ {MAX_N}, got n = {n}")
     x = torch.empty_like(b)
-    if batch == 0 or n == 0:
+    if batch == 0 or n == 0 or k == 0:
         return x
     with torch.cuda.device(a.device):
-        rc = lib.damped_chol_solve_launch(
-            a.data_ptr(), damp.data_ptr(), b.data_ptr(), x.data_ptr(), batch, n,
+        rc = _lib().damped_chol_solve_launch(
+            a.data_ptr(), damp.data_ptr(), b.data_ptr(), x.data_ptr(), batch, n, k,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"damped_chol_solve_kernel launch failed: CUDA error {rc}")

@@ -18,7 +18,7 @@ scans all faces instead, in chunks of 128 rows whose winners merge as
 packed (depth, id) keys (`_pack`). Without binning, K4a tests every face
 against every tile once and scans, per pixel, only the faces that may cover
 a pixel centre of the tile (`tile_face_may_cover` is that test in plain
-torch, with the kernel's rounding margin). Planes, attribute tables and the
+torch, dropping wherever the kernel's rounding may let it drop). Planes, attribute tables and the
 binning are plain torch (XLA outside the kernel in JAX); only the per-pixel
 scan is the kernel.
 
@@ -199,22 +199,26 @@ def bin_faces(verts_screen: torch.Tensor, faces: torch.Tensor, fp: int, width: i
 def tile_face_may_cover(planes: torch.Tensor, width: int, height: int,
                         th: int) -> torch.Tensor:
     """(T, Fp) bool: K4a's per-tile reject (csrc/raster.cu `may_cover`) in
-    plain torch, for tiles in row-major order. False where one of a face's
-    four planes w = a·x + b·y + c is negative at every pixel centre of the
-    tile by more than the rounding margin: its largest value over the tile,
-    w(centre) + |a|·hx + |b|·hy, is below −2^-20·(|a|·xmax + |b|·ymax + |c|).
-    There the per-pixel test rejects the face at every pixel too."""
+    plain torch, for tiles in row-major order, at least as eager to drop as
+    the kernel's. The kernel drops a face where one of its four planes
+    w = a·x + b·y + c has its largest value over the tile's pixel centres,
+    w(centre) + |a|·hx + |b|·hy, below −2^-20·S, S = |a|·xmax + |b|·ymax +
+    |c|, both sides rounded in f32 by at most 8·2^-24·S together. Here that
+    value is taken in float64 and the face dropped where it is below
+    −(2^-20 − 8·2^-24)·S: wherever the kernel may drop it. A test that finds
+    this form conservative (never dropping a face that the per-pixel test
+    accepts) so bounds the kernel's reject too."""
     gi, gj = _grid(width, height, th)
     tiles = torch.arange(gi * gj, device=planes.device)
     hx, hy = 0.5 * (_LANES - 1), 0.5 * (th - 1)
-    xc = ((tiles % gj) * _LANES).to(torch.float32) + 0.5 + hx
-    yc = ((tiles // gj) * th).to(torch.float32) + 0.5 + hy
-    p = planes.reshape(1, -1, 4, 3)
+    xc = ((tiles % gj) * _LANES).to(torch.float64) + 0.5 + hx
+    yc = ((tiles // gj) * th).to(torch.float64) + 0.5 + hy
+    p = planes.to(torch.float64).reshape(1, -1, 4, 3)
     a, b, c = p[..., 0], p[..., 1], p[..., 2]
     xc, yc = xc[:, None, None], yc[:, None, None]
     hi = a * xc + b * yc + c + a.abs() * hx + b.abs() * hy
-    tol = _REJECT_MARGIN * (a.abs() * (xc + hx) + b.abs() * (yc + hy) + c.abs())
-    return (~(hi < -tol)).all(dim=-1)
+    s = a.abs() * (xc + hx) + b.abs() * (yc + hy) + c.abs()
+    return (~(hi < -(_REJECT_MARGIN - 8 * 2.0 ** -24) * s)).all(dim=-1)
 
 
 def _pixel_xy(tiles: torch.Tensor, gj: int, th: int):

@@ -108,11 +108,11 @@ def test_matrix_right_hand_side_is_refused(rng):
 @pytest.mark.parametrize("n", [225, 40])
 @pytest.mark.parametrize("k", [None, 3], ids=["vector", "matrix"])
 @pytest.mark.parametrize("damped", [True, False], ids=["damped_psd_solve", "psd_solve"])
-def test_solves_outside_the_kernel_domain_match_jax(rng, dtype, n, k, damped):
-    """ROADMAP F7: n = 225 (past the kernel's n ≤ 224), float64 and (B, n, k)
-    right-hand sides solve as JAX's psd_solve solves them (XLA's Cholesky
-    outside its kernel's domain), by relative residual ≤ 1e-4 per column
-    (ROADMAP F5); x agrees to 1e-4 of max|x|. JAX runs in float32 here."""
+def test_large_f64_and_matrix_solves_match_jax(rng, dtype, n, k, damped):
+    """ROADMAP F7: n = 225 (past the kernel's shared memory), float64 and
+    (B, n, k) right-hand sides solve as JAX's psd_solve solves them, by
+    relative residual ≤ 1e-4 per column (ROADMAP F5); x agrees to 1e-4 of
+    max|x|. JAX runs in float32 here."""
     a, damp, b = _system(rng, 4, n)
     if k is not None:
         b = np.stack([b, 2 * b + 1, -b], axis=-1)[..., :k]
@@ -133,13 +133,17 @@ def test_solves_outside_the_kernel_domain_match_jax(rng, dtype, n, k, damped):
     np.testing.assert_allclose(x_t / scale, x_j / scale, atol=1e-4)
 
 
-def test_domain_rule_sends_cpu_f64_and_matrix_systems_to_the_plain_solve(rng):
-    """ROADMAP F7: `kernel_takes` is false for CPU tensors, float64 and
-    matrix right-hand sides, decided without building the kernel."""
-    a, _, b = (torch.as_tensor(v) for v in _system(rng, 2, 16))
-    assert not psd.kernel_takes(a, b)
-    assert not psd.kernel_takes(a.double(), b.double())
-    assert not psd.kernel_takes(a, b[..., None])
+def test_domain_rule_sends_cpu_systems_to_the_plain_solve(rng):
+    """ROADMAP F7: `kernel_takes` is false for CPU tensors, whatever their
+    dtype, n or right-hand side, decided without building the kernel; a
+    matrix right-hand side solves there through the plain version."""
+    a, damp, b = (torch.as_tensor(v) for v in _system(rng, 2, 16))
+    for aa, bb in ((a, b), (a.double(), b.double()), (a, b[..., None])):
+        assert not psd.kernel_takes(aa, bb)
+    bm = torch.stack([b, -b], dim=-1)
+    x = psd.damped_chol_solve(a, damp, bm)
+    assert x.shape == bm.shape and psd.launches == 0
+    np.testing.assert_array_equal(x[..., 1].numpy(), -x[..., 0].numpy())
 
 
 def test_cpu_wrapper_takes_the_plain_path(rng):

@@ -1,9 +1,9 @@
-"""K4a, K4b and K5b against their previous forms on one CUDA card, in turns,
-at the shapes of the port's paths.
+"""K4a, K4b, K2+K3 and K5b against their previous forms on one CUDA card, in
+turns, at the shapes of the port's paths.
 
     python tools/kernel_ab.py --previous DIR
 
-DIR holds the previous sources `raster.cu` and `chol.cu`: the
+DIR holds the previous sources `raster.cu`, `psd.cu` and `chol.cu`: the
 `momentum_tpu_torch/csrc` of commit b61b2af, unpacked with
 
     mkdir -p build/parent
@@ -15,18 +15,23 @@ so DIR = build/parent/momentum_tpu_torch/csrc. Their C interfaces:
         today: K4a scanned every face row at every pixel of every tile;
     chol_blocked_solve_launch(a, damp, b, x, batch, n, stream): K5b's own
         kernel, which its entry point ops/chol.py::chol_solve_blocked now
-        replaces by K2+K3's damped_chol_solve_kernel.
+        replaces by K2+K3's damped_chol_solve_kernel;
+    damped_chol_solve_launch(a, damp, b, x, batch, n, stream): K2+K3 before
+        it took k right-hand sides and n past 224.
 
 What is timed:
   * K4a on the small-mesh render's passes (the clip's first 120 faces, frame
     0: camera 1280×960 and shadow 256×256, th = 4) and on frame 0's 612-face
-    camera pass with cull=False;
+    camera pass with cull=False, beside two probes built from today's
+    csrc/raster.cu (PROBES): its stages brought into shared memory by
+    cp.async, double-buffered, in place of the register prefetch; and its
+    walk of the kept rows compiled out (wrong images: time only);
   * K4b on frame 0's camera pass (one overflow tile), frame 5's (none),
     frame 11's shadow pass (one), and all 64 passes of the clip summed: the
     two forms share the staging of face rows;
   * K5b's previous kernel against its entry point now, with K5a's entry
-    point beside them, on the full stack's normal equations at B = 2048
-    padded to n = 160.
+    point and K2+K3's previous kernel beside them, on the full stack's
+    normal equations at B = 2048 padded to n = 160.
 Every time is the device time per launch: CUDA events around 10 launches
 queued behind a sleep kernel (profile_workload.event_ms, busy), the median of
 ROUNDS rounds with the forms in turns. The current forms are called through
@@ -54,6 +59,50 @@ from momentum_tpu_torch.testing.profile_workload import (  # noqa: E402
 ROUNDS = 3
 SMALL_MESH_FACES = 120  # the small-mesh render of chip_smoke.py
 
+# K4a probes: (old, new) edits of csrc/raster.cu, each old found once
+_CP_ASYNC_HELPERS = r"""
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// Scans `total` face rows"""
+_CP_ASYNC_STAGE = r"""  Row row;
+  // K4a: thread s brings row s of the next stage into its own ring slots
+  __shared__ float4 ring[2][kStage * 3];
+  auto issue = [&](int base, int slot) {
+    const int s = base + threadIdx.x;
+    if (s < total) {
+      const float4* src = reinterpret_cast<const float4*>(planes) + (long long)(first + s) * 3;
+      for (int q = 0; q < 3; ++q) cp_async16(&ring[slot][threadIdx.x * 3 + q], src + q);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  if (REJECT) issue(0, 0);
+  else row = load_row(planes, fp, ids, first, threadIdx.x, total);
+  for (int base = 0, it = 0; base < total; base += kStage, ++it) {
+    if (REJECT) {
+      issue(base + kStage, (it + 1) & 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+      row.id = first + base + threadIdx.x;
+      row.live = base + threadIdx.x < total;
+      if (row.live) {
+        row.p0 = ring[it & 1][threadIdx.x * 3];
+        row.p1 = ring[it & 1][threadIdx.x * 3 + 1];
+        row.p2 = ring[it & 1][threadIdx.x * 3 + 2];
+      }
+    }"""
+PROBES = {
+    "cp.async stages": [
+        ("\n// Scans `total` face rows", _CP_ASYNC_HELPERS),
+        ("  Row row = load_row(planes, fp, ids, first, threadIdx.x, total);\n"
+         "  for (int base = 0; base < total; base += kStage) {", _CP_ASYNC_STAGE),
+        ("    if (REJECT) row = load_row(planes, fp, ids, first, base + kStage + threadIdx.x, "
+         "total);\n", ""),
+    ],
+    "walk compiled out": [("for (int s = 0; s < m; ++s) {", "for (int s = 0; s < m * 0; ++s) {")],
+}
+
 
 def _build_previous(src: pathlib.Path, tag: str) -> ctypes.CDLL:
     """nvcc `src` into build/ab/ with the package's flags; the loaded library."""
@@ -68,6 +117,20 @@ def _build_previous(src: pathlib.Path, tag: str) -> ctypes.CDLL:
             if "registers" in ln]
     print(f"built {tag}: " + " | ".join(regs))
     return ctypes.CDLL(str(lib))
+
+
+def _build_probe(tag: str, edits) -> ctypes.CDLL:
+    """csrc/raster.cu with `edits` applied, built by _build_previous."""
+    src = (build.CSRC / "raster.cu").read_text()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"probe {tag}: {old!r} is not found once in csrc/raster.cu")
+        src = src.replace(old, new)
+    out_dir = build.BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"{tag}.cu"
+    path.write_text(src)
+    return _build_previous(path, tag)
 
 
 def _outputs(planes, n_attr, w, h):
@@ -116,6 +179,8 @@ def raster_ab(previous: pathlib.Path, card: str):
 
     char, motion, cam = build_render_clip(32, seed=0, device="cuda")
     lib = _build_previous(previous / "raster.cu", "raster_previous")
+    probes = {name: _build_probe("raster_probe_" + name.split()[0].replace(".", "_"), edits)
+              for name, edits in PROBES.items()}
     faces = char.mesh.faces
     small_faces = faces[:SMALL_MESH_FACES].contiguous()
     verts0 = clip_vertices(char, motion[0])
@@ -128,10 +193,12 @@ def raster_ab(previous: pathlib.Path, card: str):
         args = raster._kernel_args(sv, f, w, h, **kw, **extra)
         forms = {"previous": _raster_raw(lib, *args), "current": _current(args)}
         same = torch.equal(forms["previous"]()[1], forms["current"]()["face"])
+        forms.update({f"probe {name}": _raster_raw(plib, *args) for name, plib in probes.items()})
+        same_async = torch.equal(forms["probe cp.async stages"]()[1], forms["current"]()["face"])
         t = in_turns(forms, ROUNDS, busy=True)
         print(f"K4a {label} ({w}x{h}, F={f.shape[0]}, th={args[7]}): " + ", ".join(
             f"{name} {ms:.4f} ms" for name, ms in t.items())
-            + f"; face maps identical: {same} [{card}]")
+            + f"; face maps identical: {same} (cp.async probe: {same_async}) [{card}]")
 
     passes = render_clip_passes(char, cam, motion)
     cases = [("frame 0 camera", passes[0]["camera"]), ("frame 5 camera", passes[5]["camera"]),
@@ -171,9 +238,20 @@ def chol_ab(previous: pathlib.Path, card: str):
     jtj, jtr, _ = fn.normal_equations(x0)
     a, d, b = chol.pad_identity(jtj.contiguous(), torch.full_like(jtr, 1e-5), jtr.contiguous())
     lib = _build_previous(previous / "chol.cu", "chol_previous")
+    psd_lib = _build_previous(previous / "psd.cu", "psd_previous")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.chol_blocked_solve_launch.argtypes = [p, p, p, p, i, i, p]
+    psd_lib.damped_chol_solve_launch.argtypes = [p, p, p, p, i, i, p]
     x_prev = torch.empty_like(b)
+    x_psd = torch.empty_like(b)
+
+    def previous_k23():
+        rc = psd_lib.damped_chol_solve_launch(a.data_ptr(), d.data_ptr(), b.data_ptr(),
+                                              x_psd.data_ptr(), a.shape[0], a.shape[1],
+                                              torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"previous damped_chol_solve_kernel: CUDA error {rc}")
+        return x_psd
 
     def previous_k5b():
         rc = lib.chol_blocked_solve_launch(a.data_ptr(), d.data_ptr(), b.data_ptr(),
@@ -186,19 +264,22 @@ def chol_ab(previous: pathlib.Path, card: str):
     forms = {"K5b previous (csrc/chol.cu)": previous_k5b,
              "K5b now (chol_solve_blocked -> csrc/psd.cu)":
                  lambda: chol.chol_solve_blocked(a, d, b),
-             "K5a (chol_solve -> csrc/psd.cu)": lambda: chol.chol_solve(a, d, b)}
+             "K5a (chol_solve -> csrc/psd.cu)": lambda: chol.chol_solve(a, d, b),
+             "K2+K3 previous (csrc/psd.cu of DIR)": previous_k23}
     diff = float((previous_k5b() - chol.chol_solve_blocked(a, d, b)).abs().max()
                  / x_prev.abs().max())
+    same_k23 = torch.equal(previous_k23(), chol.chol_solve(a, d, b))
     t = in_turns(forms, ROUNDS, busy=True)
     print(f"K5 (B={a.shape[0]}, n={a.shape[1]}, full-stack normal equations): " + ", ".join(
         f"{name} {ms:.4f} ms" for name, ms in t.items())
-        + f"; max|x_previous - x_now| {diff:.2e} of max|x| [{card}]")
+        + f"; max|x_previous - x_now| {diff:.2e} of max|x|; K2+K3 previous and now "
+        f"bit-identical: {same_k23} [{card}]")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--previous", required=True, type=pathlib.Path,
-                    help="directory holding the previous raster.cu and chol.cu")
+                    help="directory holding the previous raster.cu, psd.cu and chol.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA device")
