@@ -27,7 +27,16 @@ then drives the port's paths through those kernels and checks their output:
   * the repaired faults: the damped solve past the kernel's shared memory,
     with matrix right-hand sides and in float64 (ROADMAP F7), gradients
     through K1 (F8) and K4b's merge scratch grown after a launch on another
-    stream (F9).
+    stream (F9);
+  * benchmarks/bench_suite.py config 2 on the full stack by Levenberg-
+    Marquardt on the normal equations: the single frame (one system, K2+K3
+    at B = 1), and 2b, the GN 2 + 1 solve at B = 2048 scored against each
+    element's 40-iteration LM optimum (conv_at_1e5), at B = 256 too: K1,
+    K2+K3;
+  * config 4, the skinned-mesh fit of pose and 8 blend-shape coefficients
+    to 306 vertices (P = 165): 4b at B = 256 (GN 4 + 2 on the worst 64) and
+    the single frame by LM: K1, and K2+K3 at n = 165 (held against its
+    plain version and timed at B = 256).
 
     python3 chip_smoke.py
 
@@ -63,6 +72,9 @@ FK_TOL = 2e-5  # abs, f32: kernel and plain version lift alike; PyTorch's kernel
 FK_GRAD_TOL = 1e-5
 PSD_RELRES_TOL = 1e-5  # max ‖(A+D)x − b‖/‖b‖; plain cholesky_ex gives ~2e-7 here
 PSD_X_TOL = 1e-3  # max |x_kernel − x_plain| / max |x_plain|: κ reaches ~1e8 here
+# where κ is larger (config 4b's blend-shape columns): the kernel's forward
+# error against float64 within this factor of the plain float32 solve's
+X_FWD_FACTOR = 10.0
 CONV_MIN = 0.98  # JAX CPU runs of this workload give 0.99–1.0
 RASTER_TOL = dict(depth=1e-5, bary=1e-5, attrs=1e-4)  # abs; face maps must be identical
 # mean(imgs > 0) of config 7's 32-frame clip rendered by the JAX package on the
@@ -75,6 +87,21 @@ CLIP_COVERAGE_RTOL = 0.02
 FULLSTACK_CONV_JAX_CPU = 1.0
 FULLSTACK_MEDIAN_JAX_CPU = 5.70412e-08
 FULLSTACK_CONV_SLACK = 0.01
+# benchmarks/bench_suite.py configs 2 and 4 run by the JAX package on the CPU
+# (tools/jax_reference.py, the recipes of testing/workloads.py): config 2's
+# single-frame LM energy; 2b's conv_at_1e5 (GN 2 + 1 within 1e-5 of each
+# element's 40-iteration LM optimum) at B = 2048 and 256, seed 0; config 4's
+# single-frame LM energy; 4b's median_param_sq_err at B = 256, seed 1
+CONFIG2_FRAME_ENERGY_JAX_CPU = 0.002596117788925767
+CONFIG2B_CONV_JAX_CPU = {2048: 0.029296875, 256: 0.078125}
+CONFIG2B_CONV_SLACK = 0.01
+CONFIG4_FRAME_ENERGY_JAX_CPU = 0.00023250572849065065
+CONFIG4B_PARAM_SQ_ERR_JAX_CPU = 4.2157122237540534e-10
+# the frame energies on the card against JAX on the CPU (the port on the CPU
+# matches to 7e-7 and 1.1e-5: tests/test_torch_port_{lm_normal,vertex}.py)
+FRAME_ENERGY_RTOL = 1e-2
+# 4b's median_param_sq_err: the port on the CPU is within 1.015 of JAX at B = 16
+CONFIG4B_FACTOR = 2.0
 SMALL_MESH_FACES = 120  # ≤ bin_capacity 128: the render takes K4a
 # the batch sizes the paths give K2+K3: IK 2048 and its compacted 128, the
 # full stack's refinement on 1024 (testing/workloads.py)
@@ -398,7 +425,7 @@ def phase_full_stack(char, efs, targets, q, x0, smi):
     torch.cuda.synchronize()
     fk_ops.launches = psd.launches = 0
     t0 = time.perf_counter()
-    params, energy = solve(targets, q, x0)
+    params, energy, _ = solve(targets, q, x0)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     counts = {"fk_global_kernel": fk_ops.launches, "damped_chol_solve_kernel": psd.launches}
@@ -424,6 +451,166 @@ def phase_full_stack(char, efs, targets, q, x0, smi):
     if not (div == 0.0 and conv >= FULLSTACK_CONV_JAX_CPU - FULLSTACK_CONV_SLACK):
         raise AssertionError(f"full stack accuracy: divergent {div}, conv@1e-5 {conv}")
     return counts
+
+
+def _counts():
+    from momentum_tpu_torch.ops import fk as fk_ops, psd
+
+    return {"fk_global_kernel": fk_ops.launches, "damped_chol_solve_kernel": psd.launches}
+
+
+def _reset_counts():
+    from momentum_tpu_torch.ops import fk as fk_ops, psd
+
+    torch.cuda.synchronize()
+    fk_ops.launches = psd.launches = 0
+
+
+def phase_config2_lm(smi):
+    """bench_suite.py config 2: the full stack's single frame by LM (x0 of
+    shape (P,): K2+K3 on one system an iteration), then 2b at B = 2048: the
+    GN 2 + 1 solve's energy against each element's 40-iteration LM optimum on
+    the normal equations (conv_at_1e5, median_excess_vs_40it); both counted.
+    2b again at B = 256 (not counted), the batch of the second JAX figure."""
+    from momentum_tpu_torch.testing.workloads import (
+        build_fullstack_frame, build_fullstack_problem, fullstack_lm_optimum,
+        make_fullstack_solve, solve_fullstack_frame)
+
+    char, efs, x0 = build_fullstack_frame(seed=SEED, device="cuda")
+    solve_fullstack_frame(char, efs, x0)  # warm-up
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = solve_fullstack_frame(char, efs, x0)
+    energy = float(res.error)
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    frame_counts = counts = _counts()
+    if res.params.shape != x0.shape or not bool(torch.isfinite(res.params).all()):
+        raise AssertionError("config 2 frame: parameters of the wrong shape or not finite")
+    print(f"config 2 frame (full stack, LM {res.iterations} iterations, one system of n = "
+          f"{x0.shape[0]}): energy {energy:.6e} (JAX CPU {CONFIG2_FRAME_ENERGY_JAX_CPU:.6e}), "
+          f"wall {frame_ms:.1f} ms on {smi}; kernel launches {frame_counts}")
+    if not abs(energy / CONFIG2_FRAME_ENERGY_JAX_CPU - 1) <= FRAME_ENERGY_RTOL:
+        raise AssertionError(f"config 2 frame: energy {energy} is not within "
+                             f"{FRAME_ENERGY_RTOL} of the JAX CPU figure")
+    numbers = dict(frame_energy=energy)
+    for batch in (BATCH, 256):
+        char, efs, targets, q, x0 = build_fullstack_problem(batch, seed=SEED, device="cuda")
+        _reset_counts()
+        _, marker, err = make_fullstack_solve(char, efs, batch)(targets, q, x0)
+        t0 = time.perf_counter()
+        ref = fullstack_lm_optimum(char, efs, targets, q, x0)
+        excess = (err - ref.error).cpu().numpy()
+        lm_ms = (time.perf_counter() - t0) * 1e3
+        if batch == BATCH:
+            counts = {k: n + frame_counts[k] for k, n in _counts().items()}
+        conv, med = float(np.mean(excess < 1e-5)), float(np.median(excess))
+        want = CONFIG2B_CONV_JAX_CPU[batch]
+        print(f"config 2b (B={batch}, full stack GN 2 + 1 against the {ref.iterations}-iteration "
+              f"LM optimum on the normal equations): conv_at_1e5 {conv:.6f} (JAX CPU {want:.6f}), "
+              f"median_excess_vs_40it {med:.6e}, marker conv@1e-5 "
+              f"{float((marker < 1e-5).float().mean()):.4f}; the LM optimum took {lm_ms:.1f} ms")
+        if not (np.isfinite(excess).all() and abs(conv - want) <= CONFIG2B_CONV_SLACK):
+            raise AssertionError(f"config 2b at B = {batch}: conv_at_1e5 {conv} is not within "
+                                 f"{CONFIG2B_CONV_SLACK} of the JAX CPU figure {want}")
+        numbers[f"conv_at_1e5_B{batch}"] = conv
+        numbers[f"median_excess_vs_40it_B{batch}"] = med
+    print(f"config 2 path (frame LM + 2b at B={BATCH}) kernel launches {counts}")
+    if any(n == 0 for n in counts.values()):
+        raise AssertionError(f"config 2 did not run through every kernel: {counts}")
+    return counts, numbers
+
+
+def phase_vertex_fit(smi):
+    """bench_suite.py config 4: 4b at B = 256 (3 timed runs, the first
+    counted) and the single frame by LM (counted with it); then K2+K3 at
+    config 4b's n = 165 on its own normal equations at x0, held against the
+    plain version and timed in turns with the library call."""
+    from momentum_tpu_torch.ops import psd
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+    from momentum_tpu_torch.testing.profile_workload import in_turns, library_solve, solve_bound
+    from momentum_tpu_torch.testing.workloads import (
+        VERTEX_FIT_BATCH, build_vertex_fit_problem, make_vertex_fit_solve,
+        solve_vertex_fit_frame)
+
+    prob = build_vertex_fit_problem(VERTEX_FIT_BATCH, device="cuda")
+    batch = prob.x0.shape[0]
+    solve = make_vertex_fit_solve(prob.char, prob.ef0, batch)
+    solve(prob.targets, prob.x0)  # warm-up
+    _reset_counts()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = solve(prob.targets, prob.x0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if len(walls) == 1:
+            counts_4b = _counts()
+    _reset_counts()
+    frame = solve_vertex_fit_frame(prob.char, prob.ef0, prob.targets_frame,
+                                   torch.zeros_like(prob.gt_frame))
+    frame_energy = float(frame.error)
+    counts_frame = _counts()
+    counts = {k: counts_4b[k] + counts_frame[k] for k in counts_4b}
+    sq = ((res.params - prob.gt) ** 2).sum(-1).cpu().numpy()
+    divergent = int((~np.isfinite(sq)).sum())
+    med = float(np.median(sq))
+    wall = statistics.median(walls)
+    print(f"config 4b (B={batch}, P={prob.char.num_model_parameters}, {prob.ef0.num_rows()} "
+          f"vertex rows, GN 4 + 2 on the worst 64): {batch / wall:.0f} solves/s (median wall "
+          f"{wall * 1e3:.1f} ms of {len(walls)}) on {smi}; median_param_sq_err {med:.6e} (JAX "
+          f"CPU {CONFIG4B_PARAM_SQ_ERR_JAX_CPU:.6e}), divergent {divergent}; kernel launches "
+          f"{counts_4b}")
+    print(f"config 4 frame (LM {frame.iterations} iterations from zero, one system of n = "
+          f"{prob.gt_frame.shape[0]}): energy {frame_energy:.6e} (JAX CPU "
+          f"{CONFIG4_FRAME_ENERGY_JAX_CPU:.6e}); kernel launches {counts_frame}")
+    if divergent or not 1 / CONFIG4B_FACTOR <= med / CONFIG4B_PARAM_SQ_ERR_JAX_CPU <= CONFIG4B_FACTOR:
+        raise AssertionError(f"config 4b: median_param_sq_err {med} not within a factor "
+                             f"{CONFIG4B_FACTOR} of the JAX CPU figure, or {divergent} divergent")
+    if not abs(frame_energy / CONFIG4_FRAME_ENERGY_JAX_CPU - 1) <= FRAME_ENERGY_RTOL:
+        raise AssertionError(f"config 4 frame: energy {frame_energy} is not within "
+                             f"{FRAME_ENERGY_RTOL} of the JAX CPU figure")
+    if any(n == 0 for n in counts.values()):
+        raise AssertionError(f"config 4 did not run through every kernel: {counts}")
+
+    fn = SkeletonSolverFunction(prob.char, (dataclasses.replace(prob.ef0, target=prob.targets),))
+    rows, j = fn.residual_and_jacobian(prob.x0)
+    jt = j.transpose(-1, -2)
+    a = (jt @ j).contiguous()
+    b = (jt @ rows[..., None])[..., 0].contiguous()
+    d = torch.full_like(b, 1e-5)  # 4b's GN regularization
+    x = psd.damped_chol_solve(a, d, b)
+    x_plain = psd.damped_chol_solve_plain(a, d, b)
+    ad = (a + torch.diag_embed(d)).double()
+    r = (ad @ x.double()[..., None])[..., 0] - b.double()
+    relres = float((torch.linalg.norm(r, dim=-1) / torch.linalg.norm(b.double(), dim=-1)).max())
+    err = float((x - x_plain).abs().max())
+    # the blend-shape columns are ~1e-2 of the pose columns and the damping
+    # 1e-5: x is held by its forward error against the float64 solve, next
+    # to the plain float32 solve's own, not by PSD_X_TOL
+    x64 = psd.damped_chol_solve_plain(a.double(), d.double(), b.double())
+    fwd = {name: float((sol.double() - x64).abs().max() / x64.abs().max())
+           for name, sol in (("kernel", x), ("plain", x_plain))}
+    t = in_turns({"kernel": lambda: psd.damped_chol_solve(a, d, b),
+                  "library": library_solve(a, d, b),
+                  "plain": lambda: psd.damped_chol_solve_plain(a, d, b)})
+    b_psd = solve_bound(*a.shape[:2])
+    print(f"K2+K3 damped_chol_solve_kernel (B={a.shape[0]}, n={a.shape[1]}, config 4b's normal "
+          f"equations at x0): max rel. residual {relres:.3e} (tol {PSD_RELRES_TOL:.0e}); "
+          f"max|x - x_plain| {err / float(x_plain.abs().max()):.3e} of max|x|; forward error "
+          f"against float64 kernel {fwd['kernel']:.3e} / plain {fwd['plain']:.3e} (kernel's "
+          f"tol: {X_FWD_FACTOR:.0f}x the plain's, at least {PSD_X_TOL:.0e}); in turns: kernel "
+          f"{t['kernel']:.4f} ms, library {t['library']:.4f} ms, plain {t['plain']:.4f} ms; "
+          f"bound {b_psd['bound_ms']:.4f} ms ({b_psd['bound_by']}), "
+          f"{b_psd['bound_ms'] / t['kernel']:.1%} of it")
+    if not (relres <= PSD_RELRES_TOL
+            and fwd["kernel"] <= max(PSD_X_TOL, X_FWD_FACTOR * fwd["plain"])):
+        raise AssertionError("damped_chol_solve_kernel disagrees with the plain solve on "
+                             "config 4b's normal equations")
+    numbers = dict(solves_per_s=batch / wall, median_param_sq_err=med, divergent=divergent,
+                   frame_energy=frame_energy,
+                   psd_256x165=dict(max_abs_err=err, forward_error=fwd, ms=t["kernel"],
+                                    plain_ms=t["plain"], **b_psd, library_ms=t["library"]))
+    return counts, numbers
 
 
 def _frame_vertices(char, motion, frame=0):
@@ -834,6 +1021,8 @@ def main():
     chol_counts, chol_numbers = phase_chol(*fs)
     fs_counts = phase_full_stack(*fs, smi)
     del fs
+    config2_counts, config2_numbers = phase_config2_lm(smi)
+    vertex_counts, vertex_numbers = phase_vertex_fit(smi)
 
     from momentum_tpu_torch.testing.workloads import build_render_clip
 
@@ -850,6 +1039,8 @@ def main():
              replaces="momentum_tpu/ops/fk_pallas.py:62",
              launches=counts["fk_global_kernel"], **fk_numbers,
              full_stack_launches=fs_counts["fk_global_kernel"],
+             config2_lm_launches=config2_counts["fk_global_kernel"],
+             vertex_fit_launches=vertex_counts["fk_global_kernel"],
              clip_launches=clip_counts["fk_global_kernel"],
              clip_device_ms=clip_device_ms["fk_global_kernel"],
              by_batch={str(b): nums for b, nums in fk_by_batch.items()}),
@@ -859,8 +1050,11 @@ def main():
              also_replaces=["momentum_tpu/ops/psd_pallas.py:120"],
              launches=counts["damped_chol_solve_kernel"], **psd_numbers,
              full_stack_launches=fs_counts["damped_chol_solve_kernel"],
+             config2_lm_launches=config2_counts["damped_chol_solve_kernel"],
+             vertex_fit_launches=vertex_counts["damped_chol_solve_kernel"],
              by_batch={str(b): {k: v for k, v in nums.items() if k != "max_abs_err"}
-                       for b, nums in psd_by_batch.items()}),
+                       for b, nums in psd_by_batch.items()},
+             vertex_fit_256x165=vertex_numbers.pop("psd_256x165")),
         dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:55",
@@ -891,6 +1085,7 @@ def main():
              path="chol_solve_blocked on the full stack's normal equations (n = 160)",
              **chol_numbers["K5b"]),
     ]
+    print(json.dumps({"config2": config2_numbers, "config4": vertex_numbers}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
-"""Character model: skeleton, parameter transform, limits, locators, FK, mesh
-and skinning."""
+"""Character model: skeleton, parameter transform, limits, locators, FK, mesh,
+skinning and blend shapes."""
 
+from momentum_tpu_torch.character.blend_shape import BlendShape  # noqa: F401
 from momentum_tpu_torch.character.character import Character, Locators, Mesh  # noqa: F401
 from momentum_tpu_torch.character.limits import (  # noqa: F401
     ParameterLimits, make_limits)

@@ -1,16 +1,18 @@
 """Character: skeleton + parameter transform + limits + locators, and an
-optional skinned mesh with its inverse bind pose (character.h:33-283). Blend
-shapes come with ROADMAP M4.
+optional skinned mesh with its inverse bind pose, body blend shapes and
+face-expression blend shapes (character.h:33-283).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from momentum_tpu_torch.character import fk
+from momentum_tpu_torch.character.blend_shape import BlendShape
 from momentum_tpu_torch.character.limits import ParameterLimits
 from momentum_tpu_torch.character.parameter_transform import ParameterTransform
 from momentum_tpu_torch.character.skeleton import Skeleton
@@ -22,14 +24,29 @@ __all__ = ["Mesh", "Locators", "Character"]
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """Triangle mesh (math/mesh.h): vertices (V, 3), faces (F, 3) int32."""
+    """Triangle mesh (math/mesh.h): vertices (V, 3), faces (F, 3) int32,
+    and the optional per-vertex normals, texcoords (with per-face texcoord
+    indices, or None when `faces` indexes them), colours, and polylines (a
+    tuple of index tensors)."""
 
     vertices: torch.Tensor
     faces: torch.Tensor
+    normals: Optional[torch.Tensor] = None
+    texcoords: Optional[torch.Tensor] = None
+    texcoord_faces: Optional[torch.Tensor] = None
+    colors: Optional[torch.Tensor] = None
+    lines: tuple = ()
 
     @property
     def num_vertices(self) -> int:
         return self.vertices.shape[0]
+
+    def with_updated_normals(self) -> "Mesh":
+        """The mesh with area-weighted vertex normals recomputed (mesh.h
+        updateNormals)."""
+        from momentum_tpu_torch.character.skinning import update_normals
+
+        return dataclasses.replace(self, normals=update_normals(self.vertices, self.faces))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -63,6 +80,14 @@ class Character:
     mesh: Optional[Mesh] = None
     skin_weights: Optional[SkinWeights] = None
     inverse_bind_pose: Optional[torch.Tensor] = None  # (nJ, 8) skel_states
+    blend_shape: Optional[BlendShape] = None
+    # model-parameter indices of the blend-shape coefficients, in basis order
+    # (ParameterTransform::blendShapeParameters, parameter_transform.h:189-227)
+    blend_shape_param_index: Optional[tuple] = None
+    # the separate face-expression basis and its coefficients' indices
+    # (character.h faceExpressionBlendShape, parameter_transform.h:212-215)
+    face_expression_blend_shape: Optional[BlendShape] = None
+    face_expression_param_index: Optional[tuple] = None
 
     @property
     def num_joints(self) -> int:
@@ -94,3 +119,40 @@ class Character:
         if self.inverse_bind_pose is not None:
             return self
         return dataclasses.replace(self, inverse_bind_pose=ss.inverse(self.bind_pose()))
+
+    def with_blend_shape(self, blend_shape: BlendShape, num_shapes=None) -> "Character":
+        """Attach a blend-shape basis and extend the rig with its coefficient
+        parameters (character.h withBlendShape)."""
+        from momentum_tpu_torch.character.utility import add_blend_shape_parameters
+
+        return add_blend_shape_parameters(self, blend_shape, num_shapes)
+
+    def with_face_expression_blend_shape(self, blend_shape: BlendShape,
+                                         num_shapes=None) -> "Character":
+        """Attach a face-expression basis and extend the rig with its
+        coefficient parameters (character.h withFaceExpressionBlendShape)."""
+        from momentum_tpu_torch.character.utility import add_face_expression_parameters
+
+        return add_face_expression_parameters(self, blend_shape, num_shapes)
+
+    @functools.cached_property
+    def shape_bases(self) -> tuple:
+        """((basis, index (K,) int64, sel (K, P) one-hot), ...) for the body
+        and face-expression bases the rig drives: the coefficients' gather
+        index and their scatter into model-parameter columns, built once on
+        the character's device (the JAX package's trace-time numpy `sel`,
+        errors/vertex.py:63-66)."""
+        out = []
+        p = self.num_model_parameters
+        device = self.parameter_transform.transform.device
+        for basis, pidx in ((self.blend_shape, self.blend_shape_param_index),
+                            (self.face_expression_blend_shape,
+                             self.face_expression_param_index)):
+            if basis is None or not pidx:
+                out.append(None)
+                continue
+            index = torch.as_tensor(pidx, dtype=torch.int64, device=device)
+            sel = torch.zeros(len(pidx), p, dtype=basis.shape_vectors.dtype, device=device)
+            sel[torch.arange(len(pidx), device=device), index] = 1.0
+            out.append((basis, index, sel))
+        return tuple(out)

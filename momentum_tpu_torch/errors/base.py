@@ -25,6 +25,7 @@ with the GN step solving (JᵀJ + D) δ = Jᵀr and x_new = x − δ.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -36,17 +37,29 @@ __all__ = ["EvalContext", "ErrorFunction", "VectorErrorFunction"]
 @dataclasses.dataclass(frozen=True, eq=False)
 class EvalContext:
     """State shared by all error functions of one evaluation (one FK pass,
+    and one skinning pass when a module needs the mesh;
     skeleton_solver_function.h:21-95)."""
 
     model_params: torch.Tensor  # (..., P)
     joint_params: torch.Tensor  # (..., nJ*7)
     skel_states: torch.Tensor  # (..., nJ, 8) global skeleton states
+    mesh_vertices: Optional[torch.Tensor] = None  # (..., V, 3) posed
+    mesh_normals: Optional[torch.Tensor] = None  # (..., V, 3)
+    rest_vertices: Optional[torch.Tensor] = None  # (..., V, 3) after the blend shapes
 
 
 class ErrorFunction:
     """Base for residual modules: subclasses hold a scalar `weight` tensor,
-    an optional `loss` and implement `raw(character, ctx) -> (f, w)`."""
+    an optional `loss` and implement `raw(character, ctx) -> (f, w)`.
+    `needs_mesh` marks modules that read ctx.mesh_vertices.
 
+    A module with an analytic Jacobian (`has_analytic_jacobian`) implements
+    `jacobian_model(character, ctx, jc, pt_mat) -> (rows, J (..., R, P))`,
+    straight to model space, or `jacobian(character, ctx, jc) -> (rows,
+    J_joint (..., R, nJ*7), J_model (..., R, P) or None)`, whose joint-space
+    rows the solver function chains through the parameter transform."""
+
+    needs_mesh: bool = False
     has_analytic_jacobian: bool = False
     has_normal_contrib: bool = False
 

@@ -11,10 +11,14 @@ Jᵀr at x, tries x − δ, and accepts it only where the energy drops, shrinkin
 trust_region_qr.cpp:82-230). An element stops once an accepted step changes
 its energy by at most threshold·FLT_EPS relative (solver.cpp:86-121).
 
+Both take their linearization from the analytic rows and Jacobian or from
+the normal equations' provider (structured modules add JᵀJ without rows),
+and both freeze the parameters an enabled_mask disables.
+
 Both loops run eagerly: the test "any element still running" reads one bool
 from the device each iteration (a host sync; the JAX package's `cond` ran on
-the device). QR, CG, line search, histories and LM on normal equations come
-later (ROADMAP M5) and raise NotImplementedError.
+the device). QR, CG, line search, histories and LM's carried Jacobian come
+later (ROADMAP M5) and raise NotImplementedError or are not offered.
 """
 
 from __future__ import annotations
@@ -135,37 +139,59 @@ def solve_levenberg_marquardt(
     residual_fn: Callable,
     error_fn: Callable,
     x0: torch.Tensor,
+    enabled_mask: Optional[torch.Tensor] = None,
     options: SolverOptions = SolverOptions(),
     jacobian_fn: Optional[Callable] = None,
+    normal_fn: Optional[Callable] = None,
     lambda0: Optional[torch.Tensor] = None,
 ) -> SolveResult:
-    """LM with multiplicative damping on x0 (..., P).
+    """LM with multiplicative damping on x0 (..., P), JAX's signature.
 
     residual_fn: x -> rows (..., R); error_fn: x -> energy (...,);
-    jacobian_fn: x -> (rows (..., R), J (..., R, P)), required (the port has
-    only the analytic Jacobian path); lambda0: optional per-element initial
-    damping that overrides options.lambda_init, e.g. a previous solve's
+    normal_fn: x -> (JᵀJ, Jᵀr, Σ rows²), the direct provider
+    (SkeletonSolverFunction.normal_equations), called at every iteration's
+    x, after a reject too; the energy is then error_fn's (with
+    energy_from_residual the caller passes a Σ rows² evaluator, residual_sq);
+    else jacobian_fn: x -> (rows (..., R), J (..., R, P)). One of the two is
+    required (the port has no AD Jacobian). enabled_mask (P,) 0/1 freezes
+    the disabled parameters. lambda0: optional per-element initial damping
+    that overrides options.lambda_init, e.g. a previous solve's
     `lambda_final`."""
-    if jacobian_fn is None:
-        raise NotImplementedError("the port solves with analytic Jacobians only: "
-                                  "pass jacobian_fn")
+    if normal_fn is None and jacobian_fn is None:
+        raise NotImplementedError("the port solves with analytic Jacobians or normal "
+                                  "equations only: pass normal_fn or jacobian_fn")
     opts = options
     _refuse_unported(opts)
+    p = x0.shape[-1]
+    mask = x0.new_ones(p) if enabled_mask is None else enabled_mask.to(x0.dtype)
     err_shape = x0.shape[:-1]
 
     def energy(x):
-        if opts.energy_from_residual:
+        if opts.energy_from_residual and normal_fn is None:
             r = residual_fn(x)
             return torch.sum(r * r, dim=-1)
         return error_fn(x)
 
-    def step(x, rows, jt, lam):
-        """One damped step from the linearization at x."""
-        diag = torch.sum(jt * jt, dim=-1)
-        damp_diag = lam[..., None] * torch.clamp(diag, min=1e-12) + opts.regularization
+    def solve_normal(jtj, jtr, diag, lam):
+        """δ of (JᵀJ + λ·max(diag, 1e-12) + reg + (1 − mask)) δ = Jᵀr, masked."""
+        damp_diag = (lam[..., None] * torch.clamp(diag, min=1e-12) + opts.regularization
+                     + (1.0 - mask))
+        return damped_psd_solve(jtj, damp_diag, jtr) * mask
+
+    def step(x, lam):
+        """x minus one damped step from the linearization at x."""
+        if normal_fn is not None:
+            jtj, jtr, _ = normal_fn(x)
+            if enabled_mask is not None:
+                jtj = jtj * (mask[:, None] * mask[None, :])
+                jtr = jtr * mask
+            return x - solve_normal(jtj, jtr, jtj.diagonal(dim1=-2, dim2=-1), lam)
+        rows, jt = _jacobian(x, jacobian_fn)
+        if enabled_mask is not None:
+            jt = jt * mask[:, None]
         jtj = jt @ jt.transpose(-1, -2)
         jtr = (jt @ rows[..., None])[..., 0]
-        return x - damped_psd_solve(jtj, damp_diag, jtr)
+        return x - solve_normal(jtj, jtr, torch.sum(jt * jt, dim=-1), lam)
 
     lam = torch.broadcast_to(
         torch.as_tensor(opts.lambda_init if lambda0 is None else lambda0,
@@ -175,8 +201,7 @@ def solve_levenberg_marquardt(
     done = torch.zeros(err_shape, dtype=torch.bool, device=x0.device)
     it = 0
     while it < opts.max_iterations and not bool(done.all()):
-        rows, jt = _jacobian(x, jacobian_fn)
-        x_trial = step(x, rows, jt, lam)
+        x_trial = step(x, lam)
         err_trial = energy(x_trial)
         accept = err_trial < err
         x_new = torch.where(accept[..., None], x_trial, x)

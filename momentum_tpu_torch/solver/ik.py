@@ -38,10 +38,11 @@ def solve_ik(
     options: SolverOptions = SolverOptions(),
     method: str = "gauss_newton",
 ) -> SolveResult:
-    """Solve the IK problems of x0 (..., P). "gauss_newton" takes the normal
-    equations whenever a module adds its own (limits, pose prior);
-    "levenberg_marquardt" / "trust_region" need every module's fused
-    Jacobian. Elements whose result is not finite are reverted to x0."""
+    """Solve the IK problems of x0 (..., P) by "gauss_newton" or
+    "levenberg_marquardt" / "trust_region". Both take the normal equations
+    whenever a module adds its own (limits, pose prior), else every
+    module's analytic Jacobian. Elements whose result is not finite are
+    reverted to x0."""
     batch = math.prod(x0.shape[:-1])
     _counters["n_total_solve_ik"] += batch
     _counters["n_total_solve_ik_iter"] += batch * options.max_iterations
@@ -56,14 +57,8 @@ def solve_ik(
         normal_fn = solver_fn.normal_equations
         if options.energy_from_residual:
             error_fn = solver_fn.residual_sq
-    if method == "gauss_newton":
-        result = solve_gauss_newton(solver_fn.residual, error_fn, x0, enabled_mask, options,
-                                    jacobian_fn=jac_fn, normal_fn=normal_fn)
-    else:
-        if normal_fn is not None or enabled_mask is not None:
-            raise NotImplementedError("LM on normal equations or with a parameter mask "
-                                      "comes with ROADMAP M5")
-        result = solve_levenberg_marquardt(solver_fn.residual, error_fn, x0, options,
-                                           jacobian_fn=jac_fn)
+    solve = solve_gauss_newton if method == "gauss_newton" else solve_levenberg_marquardt
+    result = solve(solver_fn.residual, error_fn, x0, enabled_mask, options,
+                   jacobian_fn=jac_fn, normal_fn=normal_fn)
     bad = ~torch.isfinite(result.params).all(dim=-1, keepdim=True)
     return result._replace(params=torch.where(bad, x0, result.params))

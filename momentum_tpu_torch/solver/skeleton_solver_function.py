@@ -1,6 +1,7 @@
 """SkeletonSolverFunction: a Character + error functions seen by the solver
-(skeleton_solver_function.h:21-95): one FK per evaluation shared by all
-error functions, rows concatenated in order.
+(skeleton_solver_function.h:21-95): one FK per evaluation, and one skinning
+pass when a module needs the posed mesh, shared by all error functions; rows
+concatenated in order.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import torch
 
 from momentum_tpu_torch.character import fk
 from momentum_tpu_torch.character.character import Character
+from momentum_tpu_torch.character.skinning import skin_points, update_normals
 from momentum_tpu_torch.errors.base import EvalContext
 from momentum_tpu_torch.solver.analytic_jacobian import make_jacobian_context
 
@@ -23,13 +25,28 @@ class SkeletonSolverFunction:
     error_functions: tuple
 
     def context(self, model_params: torch.Tensor) -> EvalContext:
-        """One FK pass: parameter transform, passive limits, global states."""
+        """One FK pass (parameter transform, passive limits, global states),
+        then, if a module needs the mesh, the rest mesh (blend shapes, then
+        face-expression deltas), LBS skinning and the posed normals."""
         char = self.character
         jp = char.limits.apply_passive(char.parameter_transform.apply(model_params))
         nj = char.skeleton.num_joints
         states = fk.global_skel_states(char.skeleton, jp.reshape(jp.shape[:-1] + (nj, 7)))
+        mesh = {}
+        if any(ef.needs_mesh for ef in self.error_functions):
+            rest = char.mesh.vertices
+            body, face = char.shape_bases
+            if body is not None:
+                basis, index, _ = body
+                rest = basis.apply(model_params.index_select(-1, index))
+            if face is not None:
+                basis, index, _ = face
+                rest = rest + basis.compute_deltas(model_params.index_select(-1, index))
+            verts = skin_points(char.skin_weights, states, char.inverse_bind_pose, rest)
+            mesh = dict(mesh_vertices=verts, mesh_normals=update_normals(verts, char.mesh.faces),
+                        rest_vertices=rest)
         return EvalContext(model_params=model_params, joint_params=jp,
-                           skel_states=states)
+                           skel_states=states, **mesh)
 
     def residual(self, model_params: torch.Tensor) -> torch.Tensor:
         ctx = self.context(model_params)
@@ -44,25 +61,42 @@ class SkeletonSolverFunction:
 
     @property
     def fully_analytic(self) -> bool:
-        """Whether every module has a fused model-space Jacobian."""
-        return all(hasattr(ef, "jacobian_model") for ef in self.error_functions)
+        """Whether every module has an analytic Jacobian."""
+        return all(ef.has_analytic_jacobian for ef in self.error_functions)
 
     def residual_and_jacobian(self, model_params: torch.Tensor):
-        """(rows (..., R), J (..., R, P)): every module's fused model-space
-        Jacobian (`jacobian_model`), stacked in module order."""
+        """(rows (..., R), J (..., R, P)): the modules with a fused
+        model-space Jacobian (`jacobian_model`) first, then the others'
+        joint-space rows chained through the parameter transform."""
         return self._rows_and_jacobian(self.context(model_params), self.error_functions)
 
     def _rows_and_jacobian(self, ctx: EvalContext, error_functions):
+        """The fused modules' rows and J, then the blockwise ones': their
+        joint-space rows J (..., R, nJ·7) times the parameter transform (a
+        plain GEMM, outside any kernel in JAX too) plus their model-space
+        blocks (the blend-shape columns)."""
+        missing = [type(ef).__name__ for ef in error_functions if not ef.has_analytic_jacobian]
+        if missing:
+            raise NotImplementedError(f"{missing} have no analytic Jacobian in the port; "
+                                      "the AD branch comes with ROADMAP M5")
         jc = make_jacobian_context(self.character, ctx)
         pt_mat = self.character.parameter_transform.transform
+        fused = [ef for ef in error_functions if hasattr(ef, "jacobian_model")]
+        blockwise = [ef for ef in error_functions if not hasattr(ef, "jacobian_model")]
         rows, jacs = [], []
-        for ef in error_functions:
-            if not hasattr(ef, "jacobian_model"):
-                raise NotImplementedError(
-                    f"{type(ef).__name__} has no model-space Jacobian in the port")
+        for ef in fused:
             r, j = ef.jacobian_model(self.character, ctx, jc, pt_mat)
             rows.append(r)
             jacs.append(j)
+        if blockwise:
+            jp_blocks, model_blocks = [], []
+            for ef in blockwise:
+                r, j_jp, j_model = ef.jacobian(self.character, ctx, jc)
+                rows.append(r)
+                jp_blocks.append(j_jp)
+                model_blocks.append(r.new_zeros(r.shape + pt_mat.shape[1:]) if j_model is None
+                                    else j_model)
+            jacs.append(torch.cat(jp_blocks, dim=-2) @ pt_mat + torch.cat(model_blocks, dim=-2))
         return torch.cat(rows, dim=-1), torch.cat(jacs, dim=-2)
 
     @property

@@ -12,16 +12,19 @@ import torch
 from momentum_tpu_torch.character import (
     Character, Locators, Mesh, ParameterTransform, SkinWeights, make_limits, make_skeleton)
 from momentum_tpu_torch.character.skeleton import PARAMS_PER_JOINT
+from momentum_tpu_torch.device import resolve
 
 __all__ = ["create_fullbody_character"]
 
 
-def create_fullbody_character(dtype=torch.float32, device=None) -> Character:
+def create_fullbody_character(dtype=torch.float32, device="cuda") -> Character:
     """51 joints in a humanoid tree (spine/neck/head, clavicle/arm/hand and
     hip/leg/foot chains per side), root translation + rotation, global scale
     and 3 rotation parameters per non-root joint (157 parameters), 80
     locators, MinMax limits on every rotation parameter and the scale, and a
-    skinned tube mesh (612 vertices, 612 faces) with its inverse bind pose."""
+    skinned tube mesh (612 vertices, 612 faces) with its inverse bind pose,
+    on `device` (the card unless the caller asks for the CPU)."""
+    device = resolve(device, "create_fullbody_character")
     names = ["root"]
     parents = [-1]
     offsets = [[0.0, 0.0, 0.0]]

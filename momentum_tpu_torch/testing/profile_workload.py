@@ -1,7 +1,7 @@
 """Where the time of the port's workloads goes on one CUDA card.
 
     python -m momentum_tpu_torch.testing.profile_workload
-        [--workload ik|render|fullstack|both] [--batch 2048] [--out DIR]
+        [--workload ik|render|fullstack|vertex|both] [--batch 2048] [--out DIR]
 
 Prints, for the IK workload (build_fullbody_ik_problem + make_solve_batch,
 LM 5 + 6 compacted):
@@ -13,6 +13,13 @@ GN 2 + 1 on the worst 1024):
   * each layer of one full-batch GN iteration timed alone with CUDA events
     (FK context, the Jacobian context, each module's accumulate_normal, the
     damped solve), and the whole iteration;
+for the vertex fit (bench_suite.py config 4b: build_vertex_fit_problem +
+make_vertex_fit_solve at B = 256, GN 4 + 2 on the worst 64):
+  * each layer of one full-batch GN iteration timed alone with CUDA events
+    (the mesh context: FK, blend shapes, skinning and normals; the vertex
+    rows and Jacobian from that context: joint axes, skinning walk and the
+    parameter-transform chain; JᵀJ/Jᵀr; the damped solve), and the whole
+    iteration;
 and for the render clip (build_render_clip + make_render_clip, 32 frames at
 640×480 @ 2×2 SS with a 256 × 256 shadow map):
   * FK and skinning of the clip, and each layer of frame 0's render (project
@@ -195,6 +202,33 @@ def fullstack_layer_times(char, efs, targets, q, x0) -> dict:
     return times
 
 
+def vertex_layer_times(prob) -> dict:
+    """ms per call of each layer of one full-batch GN iteration of config 4b
+    (a testing.workloads.VertexFitProblem) at its batch."""
+    from momentum_tpu_torch.math.linalg import damped_psd_solve
+    from momentum_tpu_torch.solver import SkeletonSolverFunction, SolverOptions, solve_ik
+
+    fn = SkeletonSolverFunction(prob.char,
+                                (dataclasses.replace(prob.ef0, target=prob.targets),))
+    x0 = prob.x0
+    ctx = fn.context(x0)
+    rows, j = fn.residual_and_jacobian(x0)
+    jt = j.transpose(-1, -2)
+    jtj, jtr = jt @ j, (jt @ rows[..., None])[..., 0]
+    damp = torch.full_like(jtr, 1e-5)
+    opts = SolverOptions(max_iterations=1, regularization=1e-5, energy_from_residual=True)
+    return {
+        "mesh context (PT + K1 + blend shapes + skinning + normals)": event_ms(
+            lambda: fn.context(x0)),
+        "vertex rows + Jacobian (joint axes + skinning walk + PT chain)": event_ms(
+            lambda: fn._rows_and_jacobian(ctx, fn.error_functions), reps=3),
+        "JtJ + Jtr": event_ms(lambda: (jt @ j, jt @ rows[..., None])),
+        "damped solve (K2+K3)": event_ms(lambda: damped_psd_solve(jtj, damp, jtr)),
+        "whole GN iteration (solve_ik, 1 iteration)": event_ms(
+            lambda: solve_ik(fn, x0, options=opts), reps=3),
+    }
+
+
 def render_layer_times(char, cam, motion) -> dict:
     """ms per call of each layer of the render clip: FK and skinning of all
     frames, then each layer of frame 0's shadowed render."""
@@ -298,7 +332,7 @@ def main():
         make_solve_batch)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--workload", choices=("ik", "render", "fullstack", "both"),
+    ap.add_argument("--workload", choices=("ik", "render", "fullstack", "vertex", "both"),
                     default="both", help="both = ik and render")
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
@@ -337,6 +371,18 @@ def main():
         solve = make_fullstack_solve(char, efs, args.batch)
         _wall_and_profile(lambda: solve(targets, q, x0), card,
                           f"fullstack-solve B={args.batch}", args.out, args.batch, "solves/s")
+
+    if args.workload == "vertex":
+        from momentum_tpu_torch.testing.workloads import (
+            build_vertex_fit_problem, make_vertex_fit_solve)
+
+        prob = build_vertex_fit_problem(device="cuda")
+        batch = prob.x0.shape[0]
+        for name, ms in vertex_layer_times(prob).items():
+            print(f"vertex-fit layer B={batch}: {name}: {ms:.4f} ms [{card}]")
+        solve = make_vertex_fit_solve(prob.char, prob.ef0, batch)
+        _wall_and_profile(lambda: solve(prob.targets, prob.x0), card,
+                          f"vertex-fit B={batch}", args.out, batch, "solves/s")
 
     if args.workload in ("render", "both"):
         char, motion, cam = build_render_clip(32, seed=args.seed, device="cuda")

@@ -7,6 +7,8 @@ conftest, which imports jax:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -335,7 +337,7 @@ def test_fullstack_on_cuda_matches_cpu(cuda_problem):
         char, efs, targets, q, x0 = workloads.build_fullstack_problem(64, seed=0,
                                                                       device=device)
         fk_ops.launches = psd.launches = 0
-        params, e = workloads.make_fullstack_solve(char, efs, 64)(targets, q, x0)
+        params, e, _ = workloads.make_fullstack_solve(char, efs, 64)(targets, q, x0)
         if device == "cuda":
             assert fk_ops.launches > 0 and psd.launches > 0
             assert bool(torch.isfinite(params).all())
@@ -344,6 +346,102 @@ def test_fullstack_on_cuda_matches_cpu(cuda_problem):
     assert np.all(np.isfinite(e))
     assert abs(np.mean(e < 1e-5) - np.mean(e_c < 1e-5)) <= 2 / 64
     assert abs(np.median(e) / np.median(e_c) - 1) <= 0.2
+
+
+# ---- configs 2 and 4: LM on the normal equations, the skinned-vertex fit ----
+
+@pytest.mark.parametrize("batch,n", [(256, 165), (64, 165), (1, 165), (1, 157)])
+def test_damped_solve_kernel_at_the_configs_shapes(cuda_problem, batch, n):
+    """K2+K3 at config 4b's n = 165 (padded to 192 in shared memory) at its
+    batch 256 and compacted 64, and on the single systems (B = 1) of
+    config 4's and config 2's frame solves, which math/linalg.py passes
+    unbatched: against the plain version, one launch each."""
+    a, damp, b = _spd(n, batch, seed=batch + n)
+    if batch == 1:
+        a, damp, b = a[0], damp[0], b[0]  # (n, n): linalg flattens it to B = 1
+    before = psd.launches
+    x = linalg.damped_psd_solve(a, damp, b)
+    assert psd.launches == before + 1 and x.shape == b.shape
+    assert _relres(a.reshape(-1, n, n), damp.reshape(-1, n), b.reshape(-1, n),
+                   x.reshape(-1, n)) <= 1e-5
+    x_plain = psd.damped_chol_solve_plain(a.reshape(-1, n, n), damp.reshape(-1, n),
+                                          b.reshape(-1, n)).reshape(b.shape)
+    assert float((x - x_plain).abs().max() / x_plain.abs().max()) <= 1e-3
+
+
+@pytest.fixture(scope="module")
+def vertex_problems():
+    """Config 4 at B = 16 on the card and on the CPU, from the same seeds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return {d: workloads.build_vertex_fit_problem(16, device=d) for d in ("cuda", "cpu")}
+
+
+def test_vertex_context_and_jacobian_on_cuda_match_cpu(vertex_problems):
+    """The mesh context and the vertex rows and model-space Jacobian on the
+    card (K1, skinning, normals by atomics) against the same code on the
+    CPU: 1e-5 abs (plus 1e-5 of the largest entry) on vertices, rows and
+    Jacobian, 5e-4 on the normals (an H100 gave 1.7e-4 at 1e-4, where this
+    test failed: the vertices' last-bit differences between the devices
+    grow through cross products of 0.04-long edges and the normalization)."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    out = {}
+    for device, prob in vertex_problems.items():
+        fn = SkeletonSolverFunction(prob.char,
+                                    (dataclasses.replace(prob.ef0, target=prob.targets),))
+        before = fk_ops.launches
+        ctx = fn.context(prob.x0)
+        assert fk_ops.launches == before + (device == "cuda")
+        rows, j = fn.residual_and_jacobian(prob.x0)
+        out[device] = [t.cpu() for t in (ctx.rest_vertices, ctx.mesh_vertices,
+                                         ctx.mesh_normals, rows, j)]
+    for name, g, c in zip(("rest", "vertices", "normals", "rows", "jacobian"),
+                          out["cuda"], out["cpu"]):
+        diff = float((g - c).abs().max())
+        assert diff <= (5e-4 if name == "normals" else 1e-5) + 1e-5 * float(c.abs().max()), \
+            f"{name}: max|card - cpu| {diff:.3e}"
+
+
+def test_vertex_fit_on_cuda_launches_and_matches_cpu(vertex_problems):
+    """Config 4b's path at B = 16 (GN 4 + 2 on the worst 4) runs through K1
+    and K2+K3 on the card, and ends with the CPU's statistics:
+    median_param_sq_err within a factor 1.5, nothing divergent; the single
+    frame's LM energy within 1e-2."""
+    sq, frame = {}, {}
+    for device, prob in vertex_problems.items():
+        fk_ops.launches = psd.launches = 0
+        res = workloads.make_vertex_fit_solve(prob.char, prob.ef0, 16)(prob.targets, prob.x0)
+        if device == "cuda":
+            assert fk_ops.launches > 0 and psd.launches == res.iterations == 6
+        sq[device] = ((res.params - prob.gt) ** 2).sum(-1).cpu().numpy()
+        psd.launches = 0
+        fr = workloads.solve_vertex_fit_frame(prob.char, prob.ef0, prob.targets_frame,
+                                              torch.zeros_like(prob.gt_frame))
+        assert psd.launches == (fr.iterations if device == "cuda" else 0)
+        frame[device] = float(fr.error)
+    assert np.isfinite(sq["cuda"]).all()
+    assert 1 / 1.5 <= np.median(sq["cuda"]) / np.median(sq["cpu"]) <= 1.5
+    assert abs(frame["cuda"] / frame["cpu"] - 1) <= 1e-2
+
+
+def test_config2_lm_on_cuda_launches_and_matches_cpu(cuda_problem):
+    """Config 2's single frame by LM on the normal equations (one system an
+    iteration through K2+K3), and the 40-iteration optimum at B = 16, on the
+    card against the CPU: energies within 1e-2 and 1e-3."""
+    energies = {}
+    for device in ("cuda", "cpu"):
+        char, efs, x0 = workloads.build_fullstack_frame(device=device)
+        fk_ops.launches = psd.launches = 0
+        res = workloads.solve_fullstack_frame(char, efs, x0)
+        if device == "cuda":
+            assert psd.launches == res.iterations and fk_ops.launches > res.iterations
+        char, efs, targets, q, x0 = workloads.build_fullstack_problem(16, device=device)
+        ref = workloads.fullstack_lm_optimum(char, efs, targets, q, x0)
+        energies[device] = (float(res.error), ref.error.cpu().numpy())
+    (fg, rg), (fc, rc) = energies["cuda"], energies["cpu"]
+    assert abs(fg / fc - 1) <= 1e-2
+    np.testing.assert_allclose(rg, rc, rtol=1e-3)
 
 
 # ---- K4a / K4b: the plane rasterizer ----

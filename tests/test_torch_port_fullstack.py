@@ -45,9 +45,9 @@ from momentum_tpu_torch.solver import ik as port_ik
 from momentum_tpu_torch.testing import workloads as twork
 
 from test_torch_port_helpers import (
-    character_to_numpy, jax_fullbody_character, limit_error_to_numpy,
-    orientation_error_to_numpy, port_fullbody_character, pose_prior_to_numpy,
-    position_error_to_numpy)
+    character_to_numpy, jax_fullbody_character, jax_fullstack_modules,
+    orientation_error_to_numpy, port_fullbody_character,
+    port_fullstack_modules as _port_modules)
 
 ROW_ATOL = 1e-5
 ENERGY_RTOL = 1e-5
@@ -56,28 +56,9 @@ NE_TOL = 1e-5  # of the largest entry (tests/test_solver.py:298)
 
 def _jax_modules(char, targets, q):
     """bench.py's four full-stack modules, targets set."""
-    p, nj = char.num_model_parameters, char.skeleton.num_joints
-    pos = jerr.PositionErrorFunction.create(
-        np.asarray(char.locators.parent), np.asarray(char.locators.offset),
-        np.zeros((char.locators.num_locators, 3)))
-    ori = jerr.OrientationErrorFunction.create(
-        np.arange(nj, dtype=np.int32), np.tile(np.asarray([0, 0, 0, 1], np.float32), (nj, 1)))
-    prior = JaxMppca.from_components(
-        pi=np.asarray([0.6, 0.4]), mu=np.zeros((2, p), np.float32),
-        w_list=[np.full((p, 4), 0.01, np.float32)] * 2, sigma2=np.asarray([1.0, 2.0]),
-        names=char.parameter_transform.names)
+    pos, ori, lim, pp = jax_fullstack_modules(char)
     return (dataclasses.replace(pos, target=targets), dataclasses.replace(ori, target=q),
-            jerr.LimitErrorFunction.create(),
-            jerr.PosePriorErrorFunction.create(prior, char.parameter_transform.names))
-
-
-def _port_modules(jax_modules):
-    """The same modules carried into the port through bridge.py."""
-    pos, ori, lim, pp = jax_modules
-    return (bridge.position_error_from_numpy(position_error_to_numpy(pos)),
-            bridge.orientation_error_from_numpy(orientation_error_to_numpy(ori)),
-            bridge.limit_error_from_numpy(limit_error_to_numpy(lim)),
-            bridge.pose_prior_from_numpy(pose_prior_to_numpy(pp)))
+            lim, pp)
 
 
 @pytest.fixture(scope="module")
@@ -230,7 +211,7 @@ def test_bridge_refuses_limits_the_port_lacks():
     for extra in (create_linear(7, 8, 1.0, 0.0), create_halfplane(7, 8, (1.0, 0.0))):
         bad = dataclasses.replace(jchar, limits=concat_limits(jchar.limits, extra))
         with pytest.raises(NotImplementedError):
-            bridge.character_from_numpy(character_to_numpy(bad))
+            bridge.character_from_numpy(character_to_numpy(bad), device="cpu")
 
 
 def test_gauss_newton_jacobian_and_normal_paths_agree(stack):
@@ -317,8 +298,9 @@ def test_unported_solver_options_raise(stack):
                                normal_fn=fn.normal_equations)
     with pytest.raises(NotImplementedError):
         solve_ik(fn, xt, method="gradient_descent")
-    with pytest.raises(NotImplementedError):  # LM needs every module's fused Jacobian
-        solve_ik(fn, xt, method="levenberg_marquardt")
+    with pytest.raises(NotImplementedError):  # LM on the normal equations: no histories
+        solve_ik(fn, xt, options=SolverOptions(store_history=True),
+                 method="levenberg_marquardt")
     with pytest.raises(NotImplementedError):  # limits and priors have no fused Jacobian
         fn.residual_and_jacobian(xt)
     with pytest.raises(NotImplementedError):
@@ -378,7 +360,7 @@ def test_fullstack_solve_matches_jax():
     _, e_j = _jax_fullstack_solve(B)
     e_j = np.asarray(e_j)
     char, efs, targets, q, x0 = twork.build_fullstack_problem(B, seed=0, device="cpu")
-    params, e_t = twork.make_fullstack_solve(char, efs, B)(targets, q, x0)
+    params, e_t, _ = twork.make_fullstack_solve(char, efs, B)(targets, q, x0)
     e_t = e_t.numpy()
     assert params.shape == x0.shape and torch.isfinite(params).all()
     assert np.all(np.isfinite(e_t)) and np.all(np.isfinite(e_j))

@@ -39,11 +39,24 @@ def character_to_numpy(char) -> dict:
                  locator_weight=char.locators.weight)
     if char.mesh is not None:
         d.update(mesh_vertices=char.mesh.vertices, mesh_faces=char.mesh.faces)
+        for k in ("normals", "texcoords", "texcoord_faces", "colors"):
+            if getattr(char.mesh, k) is not None:
+                d[f"mesh_{k}"] = getattr(char.mesh, k)
     if char.skin_weights is not None:
         d.update(skin_index=char.skin_weights.index, skin_weight=char.skin_weights.weight)
     if char.inverse_bind_pose is not None:
         d.update(inverse_bind_pose=char.inverse_bind_pose)
-    return {k: to_numpy(v) for k, v in d.items()}
+    for prefix, basis, index in (
+            ("blend_shape", char.blend_shape, char.blend_shape_param_index),
+            ("face_expression", char.face_expression_blend_shape,
+             char.face_expression_param_index)):
+        if basis is not None:
+            d.update({f"{prefix}_base": basis.base_shape, f"{prefix}_vectors": basis.shape_vectors,
+                      f"{prefix}_param_index": np.asarray(index, np.int64)})
+    out = {k: to_numpy(v) for k, v in d.items()}
+    if char.mesh is not None and char.mesh.lines:
+        out["mesh_lines"] = [to_numpy(line) for line in char.mesh.lines]
+    return out
 
 
 def camera_to_numpy(cam) -> dict:
@@ -84,6 +97,26 @@ def pose_prior_to_numpy(ef) -> dict:
     return d
 
 
+# the tables of each vertex module, and its scalar settings
+VERTEX_FIELDS = {
+    "VertexPositionErrorFunction": (("target",), ()),
+    "VertexPlaneErrorFunction": (("point", "normal"), ("above",)),
+    "VertexNormalErrorFunction": (("target_position", "target_normal"),
+                                  ("source_normal_weight", "target_normal_weight")),
+    "VertexProjectionErrorFunction": (("projection", "target"), ("near_clip",)),
+}
+
+
+def vertex_error_to_numpy(ef) -> dict:
+    """The arrays and settings of a vertex module (JAX or port) that
+    bridge.vertex_*_error_from_numpy reads, as numpy."""
+    tables, statics = VERTEX_FIELDS[type(ef).__name__]
+    d = {k: to_numpy(getattr(ef, k)) for k in ("vertex_index", "cweight", "weight") + tables}
+    d.update({k: np.asarray(getattr(ef, k)) for k in statics})
+    d.update(loss_alpha=np.float64(ef.loss.alpha), loss_c=np.float64(ef.loss.c))
+    return d
+
+
 def to_numpy(x) -> np.ndarray:
     """numpy copy of a jax array, torch tensor or array-like."""
     if hasattr(x, "detach"):
@@ -97,11 +130,44 @@ def jax_fullbody_character():
     return create_fullbody_character()
 
 
+def jax_fullstack_modules(char):
+    """bench.py's four full-stack modules on a JAX character, placeholder
+    targets: the recipe of momentum_tpu_torch.testing.workloads.
+    fullstack_modules."""
+    from momentum_tpu import errors as jerr
+    from momentum_tpu.errors.pose_prior import Mppca
+
+    p, nj = char.num_model_parameters, char.skeleton.num_joints
+    pos = jerr.PositionErrorFunction.create(
+        np.asarray(char.locators.parent), np.asarray(char.locators.offset),
+        np.zeros((char.locators.num_locators, 3)))
+    ori = jerr.OrientationErrorFunction.create(
+        np.arange(nj, dtype=np.int32), np.tile(np.asarray([0, 0, 0, 1], np.float32), (nj, 1)))
+    prior = Mppca.from_components(
+        pi=np.asarray([0.6, 0.4]), mu=np.zeros((2, p), np.float32),
+        w_list=[np.full((p, 4), 0.01, np.float32)] * 2, sigma2=np.asarray([1.0, 2.0]),
+        names=char.parameter_transform.names)
+    return (pos, ori, jerr.LimitErrorFunction.create(),
+            jerr.PosePriorErrorFunction.create(prior, char.parameter_transform.names))
+
+
+def port_fullstack_modules(jax_modules):
+    """The four full-stack modules carried into the port through bridge.py,
+    on the CPU."""
+    from momentum_tpu_torch import bridge
+
+    pos, ori, lim, pp = jax_modules
+    return (bridge.position_error_from_numpy(position_error_to_numpy(pos), device="cpu"),
+            bridge.orientation_error_from_numpy(orientation_error_to_numpy(ori), device="cpu"),
+            bridge.limit_error_from_numpy(limit_error_to_numpy(lim), device="cpu"),
+            bridge.pose_prior_from_numpy(pose_prior_to_numpy(pp), device="cpu"))
+
+
 def port_fullbody_character():
     """The JAX full-body rig carried into the port through bridge.py."""
     from momentum_tpu_torch.bridge import character_from_numpy
 
-    return character_from_numpy(character_to_numpy(jax_fullbody_character()))
+    return character_from_numpy(character_to_numpy(jax_fullbody_character()), device="cpu")
 
 
 TILE_EDGE_SCENES = ("corner_edges", "straddling", "z_crossing")

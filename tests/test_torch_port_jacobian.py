@@ -50,7 +50,7 @@ def _error_functions(problem, loss_j=None, capacity=None):
     tgt = np.zeros((B, ef_j.parent.shape[0], 3), np.float32)
     tgt[:, :targets.shape[1]] = targets
     ef_j = dataclasses.replace(ef_j, target=jnp.asarray(tgt))
-    return ef_j, position_error_from_numpy(position_error_to_numpy(ef_j))
+    return ef_j, position_error_from_numpy(position_error_to_numpy(ef_j), device="cpu")
 
 
 @pytest.mark.parametrize("loss", [None, (0.0, 0.5), (1.0, 2.0), (-0.5, 1.0)],

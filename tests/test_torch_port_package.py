@@ -2,6 +2,7 @@
 tensors its kernel wrappers take their plain PyTorch versions without
 counting a launch."""
 
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -10,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from momentum_tpu_torch import bridge
 from momentum_tpu_torch.ops import fk as fk_ops, psd, raster
-from momentum_tpu_torch.testing import workloads
+from momentum_tpu_torch.testing import fixtures, workloads
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -29,7 +31,9 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'momentum_tpu'))\n"
         "assert not bad, bad\n"
         "new = {'momentum_tpu_torch.errors.limit', 'momentum_tpu_torch.errors.pose_prior',\n"
-        "       'momentum_tpu_torch.solver.ik', 'momentum_tpu_torch.ops.chol'}\n"
+        "       'momentum_tpu_torch.solver.ik', 'momentum_tpu_torch.ops.chol',\n"
+        "       'momentum_tpu_torch.errors.vertex', 'momentum_tpu_torch.character.blend_shape',\n"
+        "       'momentum_tpu_torch.character.pose_shape', 'momentum_tpu_torch.character.utility'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "assert len(names) >= 30, names\n"
         "print('ok', len(names))\n")
@@ -75,7 +79,7 @@ def test_cpu_fullstack_launches_no_kernel():
     K1 or K2+K3 launch (K5a and K5b reach K2+K3's kernel)."""
     char, efs, targets, q, x0 = workloads.build_fullstack_problem(8, seed=1, device="cpu")
     before = (fk_ops.launches, psd.launches)
-    params, energy = workloads.make_fullstack_solve(char, efs, 8)(targets, q, x0)
+    params, energy, _ = workloads.make_fullstack_solve(char, efs, 8)(targets, q, x0)
     assert params.shape == x0.shape and bool(torch.isfinite(energy).all())
     assert float(energy.max()) < 1e-3
     assert (fk_ops.launches, psd.launches) == before
@@ -85,6 +89,8 @@ def test_cpu_fullstack_launches_no_kernel():
     ("build_fullbody_ik_problem", (8,)),
     ("build_fullstack_problem", (8,)),
     ("build_render_clip", (1,)),
+    ("build_fullstack_frame", ()),
+    ("build_vertex_fit_problem", (4,)),
 ])
 def test_workloads_default_to_the_card(monkeypatch, entry, args):
     """The workload entry points build on the card unless the caller asks for
@@ -93,3 +99,74 @@ def test_workloads_default_to_the_card(monkeypatch, entry, args):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         getattr(workloads, entry)(*args)
+
+
+def _tensors(obj) -> list:
+    """The tensors held by a port object and the dataclasses in it."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if not dataclasses.is_dataclass(obj):
+        return []
+    return [t for f in dataclasses.fields(obj) for t in _tensors(getattr(obj, f.name))]
+
+
+def _bridge_inputs():
+    """A small numpy dict for each bridge entry point: the fixture rig's
+    arrays (taken from a CPU build) and one constraint of each module."""
+    char = fixtures.create_fullbody_character(device="cpu")
+    rig = {"joint_parent": char.skeleton.joint_parent, "pre_rotation": char.skeleton.pre_rotation,
+           "translation_offset": char.skeleton.translation_offset,
+           "transform": char.parameter_transform.transform,
+           "offsets": char.parameter_transform.offsets}
+    rig.update({k: getattr(char.limits, k) for k in bridge._LIMIT_KEYS})
+    rig = {k: v.numpy() for k, v in rig.items()}
+    one = dict(cweight=np.ones(1, np.float32), weight=np.float32(1.0))
+    return {
+        "character_from_numpy": rig,
+        "camera_from_numpy": dict(fx=50.0, fy=50.0, cx=16.0, cy=16.0, image_width=32,
+                                  image_height=32,
+                                  eye_from_world=np.asarray([0, 0, 5, 0, 0, 0, 1, 1], np.float32)),
+        "position_error_from_numpy": dict(parent=np.zeros(1, np.int32),
+                                          offset=np.zeros((1, 3), np.float32),
+                                          target=np.zeros((1, 3), np.float32), **one),
+        "orientation_error_from_numpy": dict(parent=np.zeros(1, np.int32),
+                                             offset=np.asarray([[0, 0, 0, 1]], np.float32),
+                                             target=np.asarray([[0, 0, 0, 1]], np.float32), **one),
+        "limit_error_from_numpy": dict(weight=np.float32(1.0)),
+        "pose_prior_from_numpy": dict(mu=np.zeros((1, 2), np.float32),
+                                      cinv=np.eye(2, dtype=np.float32)[None],
+                                      l=np.eye(2, dtype=np.float32)[None],
+                                      rpre=np.zeros(1, np.float32),
+                                      param_index=np.arange(2), weight=np.float32(1.0)),
+        "vertex_position_error_from_numpy": dict(vertex_index=np.zeros(1, np.int32),
+                                                 target=np.zeros((1, 3), np.float32), **one),
+        "vertex_plane_error_from_numpy": dict(vertex_index=np.zeros(1, np.int32),
+                                              point=np.zeros((1, 3), np.float32),
+                                              normal=np.asarray([[0, 0, 1]], np.float32),
+                                              above=np.asarray(True), **one),
+        "vertex_normal_error_from_numpy": dict(vertex_index=np.zeros(1, np.int32),
+                                               target_position=np.zeros((1, 3), np.float32),
+                                               target_normal=np.asarray([[0, 0, 1]], np.float32),
+                                               source_normal_weight=np.asarray(0.25), **one),
+        "vertex_projection_error_from_numpy": dict(vertex_index=np.zeros(1, np.int32),
+                                                   projection=np.zeros((1, 3, 4), np.float32),
+                                                   target=np.zeros((1, 2), np.float32),
+                                                   near_clip=np.asarray(0.5), **one),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_bridge_inputs()) + ["create_fullbody_character"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """F10: the bridge and the fixture build on the card unless the caller
+    asks for the CPU; with no card the default raises and names the way
+    out, and device='cpu' builds there."""
+    if entry == "create_fullbody_character":
+        make = fixtures.create_fullbody_character
+    else:
+        inputs = _bridge_inputs()[entry]
+        make = lambda **kw: getattr(bridge, entry)(inputs, **kw)  # noqa: E731
+    leaves = _tensors(make(device="cpu"))
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()

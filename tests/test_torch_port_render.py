@@ -83,7 +83,7 @@ def test_fixture_mesh_skin_and_inverse_bind_pose_are_bit_equal():
     from momentum_tpu_torch.testing.fixtures import create_fullbody_character
 
     j = character_to_numpy(jax_fullbody_character())
-    t = character_to_numpy(create_fullbody_character())
+    t = character_to_numpy(create_fullbody_character(device="cpu"))
     keys = ("mesh_vertices", "mesh_faces", "skin_index", "skin_weight", "inverse_bind_pose")
     for k in keys:
         assert t[k].dtype == j[k].dtype, k
@@ -142,7 +142,7 @@ def test_camera_for_body_matches_jax(chars, rng):
     np.testing.assert_allclose(ct["eye_from_world"], cj["eye_from_world"], rtol=1e-5,
                                atol=1e-5)
     # the bridge carries the JAX camera across unchanged, and both project alike
-    cam = camera_from_numpy(cj)
+    cam = camera_from_numpy(cj, device="cpu")
     np.testing.assert_array_equal(camera_to_numpy(cam)["eye_from_world"], cj["eye_from_world"])
     p = rng.uniform(-1, 1, (64, 3)).astype(np.float32)
     uvz_j, ok_j = j_camera(char_j, states, 960, 1280).project(jnp.asarray(p))
@@ -337,7 +337,7 @@ def test_render_mesh_shadowed_matches_jax(chars, rng):
                        axis=0).astype(np.float32)
     states = _jax_states(char_j, motion)
     cam_j = j_camera(char_j, states, 96, 128)
-    cam_t = camera_from_numpy(camera_to_numpy(cam_j))
+    cam_t = camera_from_numpy(camera_to_numpy(cam_j), device="cpu")
     faces = np.asarray(char_j.mesh.faces)
     for st in states:
         verts = np.asarray(j_skin(char_j.skin_weights, st, char_j.inverse_bind_pose,
@@ -433,7 +433,7 @@ def test_only_the_planes_path_is_ported(chars):
     cam = camera_from_numpy(dict(fx=50.0, fy=50.0, cx=16.0, cy=16.0, image_width=32,
                                  image_height=32,
                                  eye_from_world=np.asarray([0, 0, 5, 0, 0, 0, 1, 1],
-                                                           np.float32)))
+                                                           np.float32)), device="cpu")
     for method in ("windowed", "dense"):
         with pytest.raises(NotImplementedError, match="M8"):
             render.render_mesh(cam, char_t.mesh.vertices, char_t.mesh.faces, 32, 32,

@@ -45,13 +45,13 @@ def problems():
 
 def test_fixture_is_bit_equal_to_jax():
     d_j = character_to_numpy(jax_fullbody_character())
-    d_t = character_to_numpy(create_fullbody_character())
+    d_t = character_to_numpy(create_fullbody_character(device="cpu"))
     assert d_j.keys() == d_t.keys()
     for k in d_j:
         assert d_t[k].dtype == d_j[k].dtype, k
         np.testing.assert_array_equal(d_t[k], d_j[k], err_msg=k)
     # and the bridge carries them over unchanged
-    d_b = character_to_numpy(character_from_numpy(d_j))
+    d_b = character_to_numpy(character_from_numpy(d_j, device="cpu"))
     for k in d_j:
         np.testing.assert_array_equal(d_b[k], d_j[k], err_msg=k)
 
