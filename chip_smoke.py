@@ -36,7 +36,16 @@ then drives the port's paths through those kernels and checks their output:
   * config 4, the skinned-mesh fit of pose and 8 blend-shape coefficients
     to 306 vertices (P = 165): 4b at B = 256 (GN 4 + 2 on the worst 64) and
     the single frame by LM: K1, and K2+K3 at n = 165 (held against its
-    plain version and timed at B = 256).
+    plain version and timed at B = 256);
+  * config 5 and 5f, the sequence solve of F = 1024 frames on the 16-joint
+    test rig and on the full-body rig (GN 8 on the block-banded normal
+    equations, SPIKE with 32 parts): K1 (the frame contexts, held at
+    B = 1024) and K2+K3 (the SPIKE locals' batched Thomas steps, held at
+    (32, 23) with 70 right-hand sides and (32, 156) with 470 on systems of
+    the path), each config's final error against JAX CPU's; and the
+    full-body sequence at F = 256 with an acceleration term, whose
+    forward-mode Jacobians run through K1's jvp and vmap rules, held
+    against the plain FK's.
 
     python3 chip_smoke.py
 
@@ -106,6 +115,18 @@ SMALL_MESH_FACES = 120  # ≤ bin_capacity 128: the render takes K4a
 # the batch sizes the paths give K2+K3: IK 2048 and its compacted 128, the
 # full stack's refinement on 1024 (testing/workloads.py)
 PSD_BATCHES = (BATCH, 128, 1024)
+# benchmarks/bench_suite.py config 5 (the 16-joint test rig) and 5f (the
+# full-body rig) at F = 1024, GN 8, run by the JAX package on the CPU
+# (python tools/jax_reference.py --configs 5,5f): the final error; both run
+# their 8 iterations without converging
+SEQUENCE_FRAMES = 1024
+SEQUENCE_ERROR_JAX_CPU = {"5": 5.676108360290527, "5f": 414.1357116699219}
+SEQUENCE_ITERATIONS_JAX_CPU = 8
+SEQUENCE_RTOL = 1e-2  # the port on the CPU matches JAX to 1e-5 at F = 130
+# the normal equations with an acceleration term through K1 against the same
+# with FK on the plain version: max|Δ| / max|block| per block
+SEQUENCE_NE_RTOL = 1e-4
+ACCEL_FRAMES = 256
 
 
 def phase_device():
@@ -143,43 +164,48 @@ def phase_build():
                 ln.strip() for ln in f if "registers" in ln or "spill" in ln))
 
 
-def phase_fk(char, x0):
-    """K1 against the plain version at the IK path's B = 2048 and the
-    clip's B = 32 (one launch for all its frames): max error, the kernel's
-    time (CUDA events around launches queued behind a sleep kernel, and the
-    profiler's device time), the plain version's, the bound."""
-    from momentum_tpu_torch.character import fk
+def _hold_fk(skel, local, label):
+    """K1 against the plain version on local states (B, nJ, 8): max error,
+    the kernel's time (CUDA events around launches queued behind a sleep
+    kernel, and the profiler's device time), the plain version's, the bound."""
     from momentum_tpu_torch.ops import fk as fk_ops
     from momentum_tpu_torch.testing.profile_workload import (
         bound, event_ms, kernel_device_ms)
 
+    batch = local.shape[0]
+    out = fk_ops.fk_global(skel, local)
+    ref = fk_ops.fk_global_plain(skel, local)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    ms = event_ms(lambda: fk_ops.fk_global(skel, local), busy=True)
+    dev_ms = kernel_device_ms(lambda: fk_ops.fk_global(skel, local), "fk_global_kernel")
+    plain_ms = event_ms(lambda: fk_ops.fk_global_plain(skel, local))
+    # local states read, global states written, the lifting table; one
+    # skel_state compose per joint: quaternion product 28 flops, rotated
+    # and scaled translation 36, scale 1
+    b_fk = bound(2 * local.numel() * 4 + skel.prefix_table.numel() * 4,
+                 batch * local.shape[1] * 65)
+    print(f"K1 fk_global_kernel (B={batch}, nJ={local.shape[1]}, "
+          f"{skel.prefix_table.shape[0]} levels, {label}): max|kernel - plain| = {err:.3e} "
+          f"(tol {FK_TOL:.0e}); kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+          f"{plain_ms:.4f} ms, bound {b_fk['bound_ms']:.6f} ms ({b_fk['bound_by']}), "
+          f"{b_fk['bound_ms'] / ms:.1%} of it")
+    if not err <= FK_TOL:
+        raise AssertionError(f"fk_global_kernel disagrees with the plain FK at "
+                             f"B = {batch} ({label}): {err}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b_fk, library_ms=None,
+                device_ms=dev_ms)
+
+
+def phase_fk(char, x0):
+    """K1 against the plain version at the IK path's B = 2048 and the
+    clip's B = 32 (one launch for all its frames)."""
+    from momentum_tpu_torch.character import fk
+
     skel = char.skeleton
     local_all = fk.local_skel_states(skel, char.parameter_transform.apply(x0)).contiguous()
-    numbers = {}
-    for batch in (BATCH, CLIP_FRAMES):
-        local = local_all[:batch].contiguous()
-        out = fk_ops.fk_global(skel, local)
-        ref = fk_ops.fk_global_plain(skel, local)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        ms = event_ms(lambda: fk_ops.fk_global(skel, local), busy=True)
-        dev_ms = kernel_device_ms(lambda: fk_ops.fk_global(skel, local), "fk_global_kernel")
-        plain_ms = event_ms(lambda: fk_ops.fk_global_plain(skel, local))
-        # local states read, global states written, the lifting table; one
-        # skel_state compose per joint: quaternion product 28 flops, rotated
-        # and scaled translation 36, scale 1
-        b_fk = bound(2 * local.numel() * 4 + skel.prefix_table.numel() * 4,
-                     batch * local.shape[1] * 65)
-        print(f"K1 fk_global_kernel (B={batch}, nJ={local.shape[1]}, "
-              f"{skel.prefix_table.shape[0]} levels): max|kernel - plain| = {err:.3e} (tol "
-              f"{FK_TOL:.0e}); kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
-              f"{plain_ms:.4f} ms, bound {b_fk['bound_ms']:.6f} ms ({b_fk['bound_by']}), "
-              f"{b_fk['bound_ms'] / ms:.1%} of it")
-        if not err <= FK_TOL:
-            raise AssertionError(f"fk_global_kernel disagrees with the plain FK at "
-                                 f"B = {batch}: {err}")
-        numbers[batch] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b_fk,
-                              library_ms=None, device_ms=dev_ms)
+    numbers = {batch: _hold_fk(skel, local_all[:batch].contiguous(), label)
+               for batch, label in ((BATCH, "IK path"), (CLIP_FRAMES, "the clip's frames"))}
     return numbers[BATCH], numbers
 
 
@@ -613,6 +639,208 @@ def phase_vertex_fit(smi):
     return counts, numbers
 
 
+def _hold_psd_matrix(a, d, b, label):
+    """K2+K3 on (B, n, n) systems with (B, n, k) right-hand sides, held
+    against the plain version by the rule for ill-conditioned systems:
+    its relative residual and its forward error against the float64 solve
+    each within X_FWD_FACTOR of the plain float32 solve's (at least
+    PSD_RELRES_TOL and PSD_X_TOL). A SPIKE step's Schur complement, its
+    spike columns ~1e-3 of the rest, leaves the plain solve itself a
+    residual of ~2e-3 in some columns (config 5, measured on one H100). The kernel,
+    the library's cholesky_ex + cholesky_solve and the plain version timed
+    in turns; the bound."""
+    from momentum_tpu_torch.ops import psd
+    from momentum_tpu_torch.testing.profile_workload import (
+        in_turns, kernel_device_ms, library_solve, solve_bound)
+
+    batch, n, k = b.shape
+    x = psd.damped_chol_solve(a, d, b)
+    x_plain = psd.damped_chol_solve_plain(a, d, b)
+    res_k, res_p = _relres_cols(a, d, b, x), _relres_cols(a, d, b, x_plain)
+    err = float((x - x_plain).abs().max())
+    x64 = psd.damped_chol_solve_plain(a.double(), d.double(), b.double())
+    fwd = {name: float((sol.double() - x64).abs().max() / x64.abs().max())
+           for name, sol in (("kernel", x), ("plain", x_plain))}
+    t = in_turns({"kernel": lambda: psd.damped_chol_solve(a, d, b),
+                  "library": library_solve(a, d, b),
+                  "plain": lambda: psd.damped_chol_solve_plain(a, d, b)})
+    dev_ms = kernel_device_ms(lambda: psd.damped_chol_solve(a, d, b), "damped_chol_solve_kernel")
+    b_psd = solve_bound(batch, n, k)
+    print(f"K2+K3 damped_chol_solve_kernel (B={batch}, n={n}, k={k}, {label}): max rel. "
+          f"residual kernel {res_k:.3e} / plain {res_p:.3e} (kernel's tol: {X_FWD_FACTOR:.0f}x "
+          f"the plain's, at least {PSD_RELRES_TOL:.0e}); max|x - x_plain| "
+          f"{err / float(x_plain.abs().max()):.3e} of max|x|; forward error "
+          f"against float64 kernel {fwd['kernel']:.3e} / plain {fwd['plain']:.3e} (kernel's "
+          f"tol: {X_FWD_FACTOR:.0f}x the plain's, at least {PSD_X_TOL:.0e}); in turns: kernel "
+          f"{t['kernel']:.4f} ms, library {t['library']:.4f} ms, plain {t['plain']:.4f} ms; "
+          f"device time kernel {dev_ms:.4f} ms; bound {b_psd['bound_ms']:.4f} ms "
+          f"({b_psd['bound_by']}), {b_psd['bound_ms'] / t['kernel']:.1%} of it")
+    if not (res_k <= max(PSD_RELRES_TOL, X_FWD_FACTOR * res_p)
+            and fwd["kernel"] <= max(PSD_X_TOL, X_FWD_FACTOR * fwd["plain"])):
+        raise AssertionError(f"damped_chol_solve_kernel disagrees with the plain solve on "
+                             f"{label}")
+    return dict(max_abs_err=err, forward_error=fwd, ms=t["kernel"], plain_ms=t["plain"],
+                **b_psd, library_ms=t["library"], device_ms=dev_ms, batch_n_k=[batch, n, k])
+
+
+def _sequence_systems(fn, pf, u, k):
+    """The (a, damp, b) of the last K2+K3 call with k right-hand sides in one
+    GN iteration of solve_sequence: a SPIKE forward step's Schur complement
+    as the sequence path assembles it."""
+    from momentum_tpu_torch.ops import psd
+    from momentum_tpu_torch.sequence import solve_sequence
+    from momentum_tpu_torch.solver import SolverOptions
+
+    seen = []
+    real = psd.damped_chol_solve
+
+    def record(a, damp, b):
+        if b.ndim == 3 and b.shape[-1] == k:
+            seen[:] = [(a.clone(), damp.clone(), b.clone())]
+        return real(a, damp, b)
+
+    psd.damped_chol_solve = record
+    try:
+        solve_sequence(fn, pf, u, SolverOptions(max_iterations=1))
+    finally:
+        psd.damped_chol_solve = real
+    if not seen:
+        raise AssertionError(f"the sequence solve gave K2+K3 no system with {k} right-hand sides")
+    return seen[0]
+
+
+def phase_sequence(smi):
+    """bench_suite.py config 5 (16-joint test rig) and 5f (full-body rig) at
+    F = 1024: GN 8 on the block-banded normal equations, SPIKE with 32 parts
+    whose batched Thomas steps run K2+K3 on (32, p, p) systems; the frame
+    contexts through K1. For each: frames/s (F over the median wall of 3
+    warm solves, the first counted), the final error against JAX CPU's, the
+    wall of one GN iteration, the device idle share of a profiled solve, the
+    peak device memory; K1 held at B = 1024 on the rig; K2+K3 held at the
+    SPIKE forward step's shape on a system of the path."""
+    from momentum_tpu_torch.character import fk
+    from momentum_tpu_torch.solver import SolverOptions
+    from momentum_tpu_torch.testing.profile_workload import device_busy
+    from momentum_tpu_torch.testing.workloads import build_sequence_problem, make_sequence_solve
+
+    counts, numbers = {}, {}
+    for name, fullbody in (("5", False), ("5f", True)):
+        prob = build_sequence_problem(SEQUENCE_FRAMES, fullbody=fullbody, device="cuda")
+        fn, frames = prob.fn, SEQUENCE_FRAMES
+        solve = make_sequence_solve(fn)
+        solve(prob.pf0, prob.u0)  # warm-up
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = solve(prob.pf0, prob.u0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if len(walls) == 1:
+                counts[name] = _counts()
+                peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall = statistics.median(walls)
+        one = make_sequence_solve(fn, SolverOptions(max_iterations=1))
+        it_walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            one(prob.pf0, prob.u0)
+            torch.cuda.synchronize()
+            it_walls.append(time.perf_counter() - t0)
+        prof_wall, busy_ms, _ = device_busy(lambda: solve(prob.pf0, prob.u0))
+        idle = 1 - busy_ms / (prof_wall * 1e3)
+        err, want = float(res.error), SEQUENCE_ERROR_JAX_CPU[name]
+        p, nu = fn.num_per_frame, fn.num_universal
+        print(f"config {name} (F={frames}, P={fn.character.num_model_parameters}, per-frame "
+              f"{p}, universal {nu}, GN {res.iterations}): {frames / wall:.1f} frames/s "
+              f"(median wall {wall * 1e3:.1f} ms of {len(walls)}) on {smi}; final error "
+              f"{err:.6e} (JAX CPU {want:.6e}), iterations {res.iterations} (JAX CPU "
+              f"{SEQUENCE_ITERATIONS_JAX_CPU}), converged {bool(res.converged)}; one GN "
+              f"iteration {statistics.median(it_walls) * 1e3:.1f} ms; device busy "
+              f"{busy_ms:.1f} of {prof_wall * 1e3:.1f} ms profiled, idle share {idle:.3f}; "
+              f"peak memory {peak_gb:.3f} GiB; kernel launches {counts[name]}")
+        if res.per_frame.shape != prob.pf0.shape or not bool(torch.isfinite(res.per_frame).all()):
+            raise AssertionError(f"config {name}: parameters of the wrong shape or not finite")
+        if not (abs(err / want - 1) <= SEQUENCE_RTOL
+                and res.iterations == SEQUENCE_ITERATIONS_JAX_CPU):
+            raise AssertionError(f"config {name}: final error {err} not within {SEQUENCE_RTOL} "
+                                 f"of the JAX CPU figure {want}, or {res.iterations} iterations")
+        if any(n == 0 for n in counts[name].values()):
+            raise AssertionError(f"config {name} did not run through every kernel: "
+                                 f"{counts[name]}")
+        skel = fn.character.skeleton
+        local = fk.local_skel_states(
+            skel, fn.character.parameter_transform.apply(prob.gt)).contiguous()
+        k = nu + 1 + 3 * p  # [b_prev | rhs | left spike | right spike] of a forward step
+        numbers[name] = dict(
+            frames_per_s=frames / wall, error=err, iterations=res.iterations,
+            converged=bool(res.converged), gn_iteration_ms=statistics.median(it_walls) * 1e3,
+            device_busy_ms=busy_ms, profiled_wall_ms=prof_wall * 1e3, idle_share=idle,
+            peak_memory_gib=peak_gb,
+            fk=_hold_fk(skel, local, f"config {name}'s frames"),
+            psd=_hold_psd_matrix(*_sequence_systems(fn, prob.pf0, prob.u0, k),
+                                 f"config {name}'s SPIKE forward step"))
+        del prob, fn, solve, one, res
+    return counts, numbers
+
+
+def phase_sequence_accel():
+    """K1 under forward mode on the card: the full-body sequence at F = 256
+    with an acceleration term (window 3, so q = 2 and banded_to_tridiag
+    runs) on the position targets and motion smoothness. Its normal
+    equations at the truth, whose window Jacobians push 3·156 + 1 tangents
+    through FK by K1's jvp and vmap rules, held against the same with FK on
+    fk_global_plain; then one GN step of the whole solve."""
+    from momentum_tpu_torch.ops import fk as fk_ops
+    from momentum_tpu_torch.sequence import AccelerationSequenceErrorFunction, solve_sequence
+    from momentum_tpu_torch.sequence.solver import _normal_equations
+    from momentum_tpu_torch.solver import SolverOptions
+    from momentum_tpu_torch.testing.workloads import build_sequence_problem
+
+    prob = build_sequence_problem(ACCEL_FRAMES, fullbody=True, device="cuda")
+    nj = prob.fn.character.skeleton.num_joints
+    fn = dataclasses.replace(prob.fn, sequence_errors=prob.fn.sequence_errors + (
+        AccelerationSequenceErrorFunction.create(nj, weight=0.5, device="cuda"),))
+    pf, u = fn.split(prob.gt)
+    systems, launches, peak_gb = {}, {}, {}
+    for name in ("kernel", "plain"):
+        if name == "plain":
+            real, fk_ops.fk_global = fk_ops.fk_global, fk_ops.fk_global_plain
+        try:
+            _reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            systems[name] = _normal_equations(fn, pf, u)
+            torch.cuda.synchronize()
+            launches[name] = _counts()["fk_global_kernel"]
+            peak_gb[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            if name == "plain":
+                fk_ops.fk_global = real
+    (dk, ok, uck, ubk, rfk, ruk, q), (dp, op, ucp, ubp, rfp, rup, _) = (
+        systems["kernel"], systems["plain"])
+    pairs = {"diag": (dk, dp), "u_coupling": (uck, ucp), "u_block": (ubk, ubp),
+             "rhs_f": (rfk, rfp), "rhs_u": (ruk, rup),
+             **{f"offs[{d}]": (a, b) for d, (a, b) in enumerate(zip(ok, op), 1)}}
+    rel = {k: float((a - b).abs().max() / b.abs().max()) for k, (a, b) in pairs.items()}
+    res = solve_sequence(fn, *fn.split(torch.zeros_like(prob.gt)), SolverOptions(max_iterations=1))
+    print(f"sequence with acceleration (5f rig, F={ACCEL_FRAMES}, windows 2 and 3, q={q}): "
+          f"normal equations through K1 ({launches['kernel']} launches) against FK on "
+          f"fk_global_plain ({launches['plain']}): max|Δ| / max|block| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (tol {SEQUENCE_NE_RTOL:.0e}); peak memory {peak_gb['kernel']:.3f} GiB through "
+          f"K1, {peak_gb['plain']:.3f} plain; "
+          f"one GN step from zero: error {float(res.error):.6e}")
+    if q != 2 or launches["kernel"] == 0 or launches["plain"] != 0:
+        raise AssertionError(f"acceleration sequence: q = {q}, K1 launches {launches}")
+    if not all(v <= SEQUENCE_NE_RTOL for v in rel.values()):
+        raise AssertionError(f"acceleration sequence: the normal equations through K1 "
+                             f"disagree with the plain FK's: {rel}")
+    if not bool(torch.isfinite(res.per_frame).all()):
+        raise AssertionError("acceleration sequence: the GN step is not finite")
+    return dict(max_rel_err=rel, fk_launches=launches["kernel"], peak_memory_gib=peak_gb)
+
+
 def _frame_vertices(char, motion, frame=0):
     """The skinned vertices of frame `frame` of the clip."""
     from momentum_tpu_torch.testing.workloads import clip_vertices
@@ -876,12 +1104,15 @@ def phase_render_reference(card_clip, imgs_card):
 
 
 def _relres_cols(a, damp, b, x):
-    """max over systems and right-hand-side columns of ‖(A+D)x − b‖/‖b‖."""
+    """max over systems and right-hand-side columns of ‖(A+D)x − b‖/‖b‖, and
+    ‖(A+D)x‖ for a column b = 0 (the SPIKE spikes' columns are zero in
+    most rows)."""
     cols_b = b[..., None] if b.ndim == a.ndim - 1 else b
     cols_x = x[..., None] if x.ndim == a.ndim - 1 else x
     ad = (a + torch.diag_embed(damp)).double()
-    r = ad @ cols_x.double() - cols_b.double()
-    return float((torch.linalg.norm(r, dim=-2) / torch.linalg.norm(cols_b.double(), dim=-2)).max())
+    nr = torch.linalg.norm(ad @ cols_x.double() - cols_b.double(), dim=-2)
+    nb = torch.linalg.norm(cols_b.double(), dim=-2)
+    return float(torch.where(nb > 0, nr / torch.where(nb > 0, nb, 1.0), nr).max())
 
 
 def phase_f7():
@@ -1023,6 +1254,8 @@ def main():
     del fs
     config2_counts, config2_numbers = phase_config2_lm(smi)
     vertex_counts, vertex_numbers = phase_vertex_fit(smi)
+    seq_counts, seq_numbers = phase_sequence(smi)
+    seq_numbers["acceleration"] = phase_sequence_accel()
 
     from momentum_tpu_torch.testing.workloads import build_render_clip
 
@@ -1043,7 +1276,9 @@ def main():
              vertex_fit_launches=vertex_counts["fk_global_kernel"],
              clip_launches=clip_counts["fk_global_kernel"],
              clip_device_ms=clip_device_ms["fk_global_kernel"],
-             by_batch={str(b): nums for b, nums in fk_by_batch.items()}),
+             sequence_launches={c: n["fk_global_kernel"] for c, n in seq_counts.items()},
+             by_batch={str(b): nums for b, nums in fk_by_batch.items()},
+             sequence_B1024={c: seq_numbers[c].pop("fk") for c in seq_counts}),
         dict(name="damped_chol_solve_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/psd_pallas.py:53",
@@ -1054,7 +1289,10 @@ def main():
              vertex_fit_launches=vertex_counts["damped_chol_solve_kernel"],
              by_batch={str(b): {k: v for k, v in nums.items() if k != "max_abs_err"}
                        for b, nums in psd_by_batch.items()},
-             vertex_fit_256x165=vertex_numbers.pop("psd_256x165")),
+             vertex_fit_256x165=vertex_numbers.pop("psd_256x165"),
+             sequence_launches={c: n["damped_chol_solve_kernel"] for c, n in seq_counts.items()},
+             **{"sequence_{}x{}_k{}".format(*nums["batch_n_k"]): nums
+                for nums in (seq_numbers[c].pop("psd") for c in seq_counts)}),
         dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:55",
@@ -1085,7 +1323,8 @@ def main():
              path="chol_solve_blocked on the full stack's normal equations (n = 160)",
              **chol_numbers["K5b"]),
     ]
-    print(json.dumps({"config2": config2_numbers, "config4": vertex_numbers}))
+    print(json.dumps({"config2": config2_numbers, "config4": vertex_numbers,
+                      "config5": seq_numbers}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -8,7 +8,8 @@ jax.
 
 character_from_numpy keys (shapes as in momentum_tpu):
     joint_parent (nJ,) int32, pre_rotation (nJ, 4), translation_offset (nJ, 3),
-    transform (nJ*7, P), offsets (nJ*7,),
+    transform (nJ*7, P), offsets (nJ*7,), optional parameter_names (P,) str,
+    optional parameter_sets (a dict of name -> index array),
     minmax_index (M,), minmax_bounds (M, 2), minmax_weight (M,),
     minmax_joint_index (MJ,), minmax_joint_bounds (MJ, 2),
     minmax_joint_weight (MJ,), minmax_joint_passive (MJ,),
@@ -108,8 +109,11 @@ def character_from_numpy(d: dict, device="cuda") -> Character:
     skeleton = Skeleton(joint_parent=_t(d, "joint_parent", device).to(torch.int32),
                         pre_rotation=_t(d, "pre_rotation", device),
                         translation_offset=_t(d, "translation_offset", device))
-    pt = ParameterTransform(transform=_t(d, "transform", device),
-                            offsets=_t(d, "offsets", device))
+    pt = ParameterTransform(
+        transform=_t(d, "transform", device), offsets=_t(d, "offsets", device),
+        names=tuple(str(n) for n in d.get("parameter_names", ())),
+        parameter_sets={k: tuple(int(i) for i in np.asarray(v))
+                        for k, v in d.get("parameter_sets", {}).items()})
     limits = ParameterLimits(**{k: _t(d, k, device) for k in _LIMIT_KEYS})
     locators = None
     if "locator_parent" in d:

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from momentum_tpu_torch.device import resolve
 from momentum_tpu_torch.math import skel_state as ss
 
 __all__ = ["PinholeIntrinsics", "Camera"]
@@ -30,7 +31,8 @@ class PinholeIntrinsics:
     image_height: int = 0
 
     @classmethod
-    def create(cls, fx, fy, cx, cy, image_size=(0, 0), device=None) -> "PinholeIntrinsics":
+    def create(cls, fx, fy, cx, cy, image_size=(0, 0), device="cuda") -> "PinholeIntrinsics":
+        device = resolve(device, "PinholeIntrinsics.create")
         def f(v):
             return torch.as_tensor(v, dtype=torch.float32, device=device)
 

@@ -15,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from momentum_tpu_torch.device import resolve
+
 __all__ = ["ParameterLimits", "make_limits"]
 
 
@@ -55,9 +57,10 @@ class ParameterLimits:
         return out
 
 
-def make_limits(minmax=None, minmax_joint=None, device=None) -> ParameterLimits:
+def make_limits(minmax=None, minmax_joint=None, device="cuda") -> ParameterLimits:
     """minmax: list of (param_index, lo, hi, weight); minmax_joint: list of
     (joint_index, joint_param, lo, hi, weight, passive)."""
+    device = resolve(device, "make_limits")
     mm = np.asarray(minmax or [], np.float32).reshape(-1, 4)
     mj = np.asarray(minmax_joint or [], np.float32).reshape(-1, 6)
     mj_index = np.asarray([int(r[0]) * 7 + int(r[1]) for r in (minmax_joint or [])],

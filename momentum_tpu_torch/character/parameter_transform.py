@@ -18,11 +18,14 @@ __all__ = ["ParameterTransform"]
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ParameterTransform:
-    """transform: (nJointParams, nModelParams); offsets: (nJointParams,)."""
+    """transform: (nJointParams, nModelParams); offsets: (nJointParams,);
+    parameter_sets: named parameter sets (the reference's ParameterSets) as
+    name -> tuple of model-parameter indices."""
 
     transform: torch.Tensor
     offsets: torch.Tensor
     names: tuple = ()
+    parameter_sets: dict = dataclasses.field(default_factory=dict)
 
     @property
     def num_model_parameters(self) -> int:

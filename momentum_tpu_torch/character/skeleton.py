@@ -20,6 +20,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from momentum_tpu_torch.device import resolve
+
 __all__ = ["PARAMS_PER_JOINT", "INVALID_INDEX", "Skeleton", "make_skeleton"]
 
 PARAMS_PER_JOINT = 7
@@ -107,7 +109,8 @@ class Skeleton:
 
 def make_skeleton(parents: Sequence[int], pre_rotations=None,
                   translation_offsets=None, names: Sequence[str] | None = None,
-                  dtype=torch.float32, device=None) -> Skeleton:
+                  dtype=torch.float32, device="cuda") -> Skeleton:
+    device = resolve(device, "make_skeleton")
     n = len(parents)
     if pre_rotations is None:
         pre_rotations = np.tile([0.0, 0.0, 0.0, 1.0], (n, 1))

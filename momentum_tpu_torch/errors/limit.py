@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from momentum_tpu_torch.device import resolve
 from momentum_tpu_torch.errors.base import ErrorFunction, EvalContext
 from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
 
@@ -103,6 +104,7 @@ class LimitErrorFunction(ErrorFunction):
         return c["minmax"] + c["minmax_joint"]
 
     @classmethod
-    def create(cls, weight=1.0, loss=None, device=None):
+    def create(cls, weight=1.0, loss=None, device="cuda"):
+        device = resolve(device, "LimitErrorFunction.create")
         return cls(weight=torch.tensor(weight, dtype=torch.float32, device=device),
                    loss=loss or GeneralizedLoss())

@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from momentum_tpu_torch.device import resolve
 from momentum_tpu_torch.errors.base import ErrorFunction, EvalContext
 
 __all__ = ["Mppca", "PosePriorErrorFunction", "K_POSE_PRIOR_WEIGHT"]
@@ -51,9 +52,10 @@ class Mppca:
         return self.mu.shape[1]
 
     @classmethod
-    def from_components(cls, pi, mu, w_list, sigma2, names=(), device=None):
+    def from_components(cls, pi, mu, w_list, sigma2, names=(), device="cuda"):
         """Build from raw mixture parameters (mppca.h set(), mppca.cpp), in
         numpy float64, stored as float32."""
+        device = resolve(device, "Mppca.from_components")
         pi = np.asarray(pi, np.float64)
         mu = np.asarray(mu, np.float64)
         sigma2 = np.asarray(sigma2, np.float64)

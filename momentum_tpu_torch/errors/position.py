@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from momentum_tpu_torch.device import resolve
 from momentum_tpu_torch.errors.base import EvalContext, VectorErrorFunction
 from momentum_tpu_torch.math import quaternion as quat, skel_state as ss
 from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
@@ -118,7 +119,8 @@ class PositionErrorFunction(VectorErrorFunction):
 
     @classmethod
     def create(cls, parent, offset, target, cweight=None, weight=1.0, loss=None,
-               capacity=None, device=None):
+               capacity=None, device="cuda"):
+        device = resolve(device, "PositionErrorFunction.create")
         parent = np.asarray(parent, np.int32)
         n = parent.shape[0]
         offset = np.asarray(offset, np.float32).reshape(n, 3)
@@ -211,7 +213,8 @@ class OrientationErrorFunction(VectorErrorFunction):
 
     @classmethod
     def create(cls, parent, target, offset=None, cweight=None, weight=1.0, loss=None,
-               capacity=None, device=None):
+               capacity=None, device="cuda"):
+        device = resolve(device, "OrientationErrorFunction.create")
         parent = np.asarray(parent, np.int32)
         n = parent.shape[0]
         target = np.asarray(target, np.float32).reshape(n, 4)

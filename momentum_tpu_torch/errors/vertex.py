@@ -30,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from momentum_tpu_torch.device import resolve
 from momentum_tpu_torch.errors.base import EvalContext, VectorErrorFunction
 from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
 from momentum_tpu_torch.solver.analytic_jacobian import (
@@ -112,7 +113,8 @@ class VertexPositionErrorFunction(_VertexErrorFunction):
 
     @classmethod
     def create(cls, vertex_index, target, cweight=None, weight=1.0, loss=None,
-               capacity=None, device=None):
+               capacity=None, device="cuda"):
+        device = resolve(device, "VertexPositionErrorFunction.create")
         n = len(vertex_index)
         t = _tables(device, capacity, vertex_index, cweight,
                     target=np.asarray(target, np.float32).reshape(n, 3))
@@ -163,7 +165,8 @@ class VertexPlaneErrorFunction(_VertexErrorFunction):
 
     @classmethod
     def create(cls, vertex_index, point, normal, cweight=None, weight=1.0, above=False,
-               loss=None, capacity=None, device=None):
+               loss=None, capacity=None, device="cuda"):
+        device = resolve(device, "VertexPlaneErrorFunction.create")
         n = len(vertex_index)
         t = _tables(device, capacity, vertex_index, cweight,
                     point=np.asarray(point, np.float32).reshape(n, 3),
@@ -220,7 +223,8 @@ class VertexNormalErrorFunction(_VertexErrorFunction):
     @classmethod
     def create(cls, vertex_index, target_position, target_normal, cweight=None, weight=1.0,
                source_normal_weight=0.5, target_normal_weight=0.5, loss=None,
-               capacity=None, device=None):
+               capacity=None, device="cuda"):
+        device = resolve(device, "VertexNormalErrorFunction.create")
         n = len(vertex_index)
         t = _tables(device, capacity, vertex_index, cweight,
                     target_position=np.asarray(target_position, np.float32).reshape(n, 3),
@@ -278,7 +282,8 @@ class VertexProjectionErrorFunction(_VertexErrorFunction):
 
     @classmethod
     def create(cls, vertex_index, projection, target, cweight=None, weight=1.0,
-               near_clip=1.0, loss=None, capacity=None, device=None):
+               near_clip=1.0, loss=None, capacity=None, device="cuda"):
+        device = resolve(device, "VertexProjectionErrorFunction.create")
         n = len(vertex_index)
         t = _tables(device, capacity, vertex_index, cweight,
                     projection=np.asarray(projection, np.float32).reshape(n, 3, 4),

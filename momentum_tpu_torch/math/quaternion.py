@@ -12,7 +12,7 @@ import torch
 
 __all__ = ["identity", "multiply", "conjugate", "normalize", "rotate_vector",
            "euler_to_quaternion", "to_rotation_matrix", "from_rotation_matrix",
-           "blend"]
+           "to_axis_angle", "blend"]
 
 _EPS = 1e-12
 
@@ -52,6 +52,17 @@ def rotate_vector(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     qv, qw = q[..., :3], q[..., 3:]
     t = 2.0 * _cross(qv, v)
     return v + qw * t + _cross(qv, t)
+
+
+def to_axis_angle(q: torch.Tensor) -> torch.Tensor:
+    """Rotation vector (axis · angle) of a unit quaternion, angle in [0, π]."""
+    qv, qw = q[..., :3], q[..., 3:]
+    sin_half = torch.linalg.norm(qv, dim=-1, keepdim=True)
+    angle = 2.0 * torch.atan2(sin_half, torch.abs(qw))
+    sign = torch.where(qw < 0, -1.0, 1.0)
+    k = torch.where(sin_half < 1e-9, 2.0 * sign,
+                    sign * angle / torch.clamp(sin_half, min=_EPS))
+    return qv * k
 
 
 def _axis_quat(angle: torch.Tensor, axis: int) -> torch.Tensor:

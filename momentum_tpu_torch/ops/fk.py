@@ -11,13 +11,15 @@ index gather per row of `Skeleton.prefix_table`, the table the kernel
 reads. Both compose in the same order with the same rounding, so on the
 card they agree to the last bits of PyTorch's own kernels.
 
-Gradients: for local states that require grad, `fk_global` goes through
-`_FkGlobal`, a `torch.autograd.Function` whose forward is the kernel (the
-plain version on the CPU) and whose backward is the VJP of
-`fk_global_plain`, recomputed from the saved local states. It is the form
-of JAX's `make_differentiable_fk` (momentum_tpu/ops/fk_pallas.py:127-142),
-a `custom_jvp` with tangents from the lifted XLA FK; there is no backward
-kernel.
+Derivatives: `fk_global` goes through `_FkGlobal`, a
+`torch.autograd.Function` whose forward is the kernel (the plain version on
+the CPU) and whose derivatives are those of `fk_global_plain` at the saved
+local states: `backward` its VJP, `jvp` its JVP (forward mode, for
+`torch.func.jacfwd` and `torch.func.jvp`), and `vmap` folds a vmapped
+dimension into the kernel's leading batch, so `torch.func.vmap` hands the
+kernel a plain tensor. It is the form of JAX's `make_differentiable_fk`
+(momentum_tpu/ops/fk_pallas.py:127-142), a `custom_jvp` with tangents from
+the lifted XLA FK; there is no derivative kernel.
 """
 
 from __future__ import annotations
@@ -58,24 +60,48 @@ def _lib():
     return lib
 
 
+def _fk_global_direct(skeleton, local_states: torch.Tensor) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    if local_states.is_cuda:
+        return _fk_global_kernel(skeleton, local_states)
+    return fk_global_plain(skeleton, local_states)
+
+
 class _FkGlobal(torch.autograd.Function):
     """Global states by the kernel (or, on the CPU, the plain version); the
-    backward differentiates `fk_global_plain` at the saved local states."""
+    derivatives are those of `fk_global_plain` at the saved local states."""
 
     @staticmethod
-    def forward(ctx, local_states, skeleton):
+    def forward(local_states, skeleton):
+        return _fk_global_direct(skeleton, local_states)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        local_states, skeleton = inputs
         ctx.skeleton = skeleton
         ctx.save_for_backward(local_states)
-        return fk_global(skeleton, local_states)  # grad is off in here
+        ctx.save_for_forward(local_states)
 
     @staticmethod
     def backward(ctx, grad_out):
         (local,) = ctx.saved_tensors
-        with torch.enable_grad():
-            local = local.detach().requires_grad_()
-            out = fk_global_plain(ctx.skeleton, local)
-        (grad,) = torch.autograd.grad(out, local, grad_out)
-        return grad, None
+        _, vjp = torch.func.vjp(lambda x: fk_global_plain(ctx.skeleton, x), local)
+        return vjp(grad_out)[0], None
+
+    @staticmethod
+    def jvp(ctx, local_tangent, _skeleton_tangent):
+        (local,) = ctx.saved_tensors
+        return torch.func.jvp(lambda x: fk_global_plain(ctx.skeleton, x),
+                              (local,), (local_tangent,))[1]
+
+    @staticmethod
+    def vmap(info, in_dims, local_states, skeleton):
+        """The vmapped dimension becomes the leading batch dimension of one
+        launch (the kernel takes any leading dims)."""
+        dim = in_dims[0]
+        if dim is None:
+            return _FkGlobal.apply(local_states, skeleton), None
+        return _FkGlobal.apply(local_states.movedim(dim, 0).contiguous(), skeleton), 0
 
 
 def fk_global(skeleton, local_states: torch.Tensor) -> torch.Tensor:
@@ -84,13 +110,10 @@ def fk_global(skeleton, local_states: torch.Tensor) -> torch.Tensor:
     A CPU tensor takes `fk_global_plain`. A CUDA tensor launches
     fk_global_kernel or raises: it must be float32, contiguous and 16-byte
     aligned, on the device of `skeleton.prefix_table`, with at most
-    `fk_global_max_joints()` (1023) joints. Local states that require grad
-    (with grad enabled) go through `_FkGlobal`, on either device."""
-    if local_states.requires_grad and torch.is_grad_enabled():
-        return _FkGlobal.apply(local_states, skeleton)
-    if not local_states.is_cuda:
-        return fk_global_plain(skeleton, local_states)
-    return _fk_global_kernel(skeleton, local_states)
+    `fk_global_max_joints()` (1023) joints. The call goes through
+    `_FkGlobal` on either device, so reverse mode, forward mode and
+    torch.func's transforms reach the kernel through its rules."""
+    return _FkGlobal.apply(local_states, skeleton)
 
 
 def _fk_global_kernel(skeleton, local_states: torch.Tensor) -> torch.Tensor:

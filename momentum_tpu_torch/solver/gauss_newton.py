@@ -55,8 +55,19 @@ class SolverOptions:
     energy_from_residual: bool = False
     # only "cholesky" is ported; "qr" and "cg" raise (ROADMAP M5)
     linear_solver: str = "cholesky"
+    # GN/LM raise for it (ROADMAP M5); the sequence solver's Armijo search
+    # halves the step up to line_search_steps times
     do_line_search: bool = False
+    line_search_steps: int = 10
     store_history: bool = False
+    # Sequence solver only: accumulate the block normal equations in float64
+    # and factor them in float64, downcasting the step (the reference's
+    # useDoublePrecisionNormalEquations, sequence_cholesky_solver.h:31-33;
+    # the JAX package's branch with x64 enabled, ROADMAP F13)
+    f64_normal_equations: bool = False
+    # Sequence solver only: the equilibrated band's diagonal jitter (None:
+    # sequence.solver's default, 1e-7 in float32)
+    equilibrated_jitter: Optional[float] = None
 
 
 class SolveResult(NamedTuple):

@@ -1,7 +1,8 @@
-"""The full-body synthetic rig of momentum_tpu/testing/fixtures.py::
-create_fullbody_character, rebuilt from the same numpy arithmetic so the
-skeleton, parameter transform, limits, locators, skinned tube mesh and
-inverse bind pose are bit-equal to the JAX fixture's.
+"""The synthetic rigs of momentum_tpu/testing/fixtures.py, rebuilt from the
+same numpy arithmetic so the skeleton, parameter transform, limits,
+locators, skinned mesh and inverse bind pose are bit-equal to the JAX
+fixtures': `create_test_character` (a chain of joints) and
+`create_fullbody_character` (the 51-joint humanoid).
 """
 
 from __future__ import annotations
@@ -14,7 +15,87 @@ from momentum_tpu_torch.character import (
 from momentum_tpu_torch.character.skeleton import PARAMS_PER_JOINT
 from momentum_tpu_torch.device import resolve
 
-__all__ = ["create_fullbody_character"]
+__all__ = ["create_test_character", "create_fullbody_character"]
+
+
+def create_test_character(num_joints: int = 3, dtype=torch.float32,
+                          device="cuda") -> Character:
+    """A chain of `num_joints` joints 1 apart along +Y: root translation and
+    rotation, a global scale, joint 1's x rotation, a shared z rotation of
+    joints 1 and 2 at half weight each, and the x rotation of every further
+    joint (num_joints + 7 parameters); one locator per joint; a skinned
+    ribbon mesh (5 segments per bone, 2 vertices each); a MinMax limit on
+    parameter 0; on `device` (the card unless the caller asks for the CPU).
+    The JAX fixture's collision capsules are left out: the port's Character
+    holds no collision geometry yet."""
+    if num_joints < 3:
+        raise ValueError("num_joints must be >= 3")
+    device = resolve(device, "create_test_character")
+    parents = [-1] + list(range(num_joints - 1))
+    offsets = np.zeros((num_joints, 3), np.float64)
+    offsets[1:, 1] = 1.0
+    names = ["root"] + [f"joint{i}" for i in range(1, num_joints)]
+    skeleton = make_skeleton(parents, translation_offsets=offsets, names=names, dtype=dtype,
+                             device=device)
+
+    pnames = ["root_tx", "root_ty", "root_tz", "root_rx", "root_ry", "root_rz",
+              "scale_global", "joint1_rx", "shared_rz"]
+    pnames += [f"joint{k}_rx" for k in range(2, num_joints)]
+    n_jp = num_joints * PARAMS_PER_JOINT
+    mat = np.zeros((n_jp, len(pnames)), np.float64)
+    for i in range(6):
+        mat[i, i] = 1.0  # root tx..rz
+    mat[6, 6] = 1.0  # root scale <- scale_global
+    mat[1 * PARAMS_PER_JOINT + 3, 7] = 1.0  # joint1_rx
+    mat[1 * PARAMS_PER_JOINT + 5, 8] = 0.5  # shared_rz
+    mat[2 * PARAMS_PER_JOINT + 5, 8] = 0.5  # shared_rz
+    for k in range(2, num_joints):
+        mat[k * PARAMS_PER_JOINT + 3, 9 + k - 2] = 1.0
+    pt = ParameterTransform(transform=torch.as_tensor(mat, dtype=dtype, device=device),
+                            offsets=torch.zeros(n_jp, dtype=dtype, device=device),
+                            names=tuple(pnames))
+
+    rng = np.random.default_rng(10001)
+    locators = Locators(
+        parent=torch.arange(num_joints, dtype=torch.int32, device=device),
+        offset=torch.as_tensor(rng.uniform(-1.0, 1.0, size=(num_joints, 3)), dtype=dtype,
+                               device=device),
+        weight=torch.ones(num_joints, dtype=dtype, device=device),
+        names=tuple(f"l{i}" for i in range(num_joints)))
+
+    # mesh: 5 segments per bone, 2 vertices each, skinned to (bone, next)
+    seg_per = 5
+    verts, sidx, swgt = [], [], []
+    for b in range(num_joints):
+        nxt = min(b + 1, num_joints - 1)
+        for s in range(seg_per):
+            frac = s / seg_per
+            for x in (-0.5, 0.5):
+                verts.append([x, b + frac, 0.0])
+                row_i = np.zeros(8, np.int32)
+                row_w = np.zeros(8, np.float32)
+                if frac > 0.5 and nxt != b:
+                    row_i[0], row_i[1] = nxt, b
+                    row_w[0], row_w[1] = frac, 1.0 - frac
+                else:
+                    row_i[0], row_i[1] = b, nxt
+                    row_w[0] = 1.0 - frac if nxt != b else 1.0
+                    row_w[1] = frac if nxt != b else 0.0
+                sidx.append(row_i)
+                swgt.append(row_w)
+    faces = []
+    for i in range(seg_per * num_joints - 1):
+        faces.append([2 * i + 0, 2 * i + 2, 2 * i + 1])
+        faces.append([2 * i + 1, 2 * i + 2, 2 * i + 3])
+    mesh = Mesh(vertices=torch.as_tensor(np.asarray(verts), dtype=dtype, device=device),
+                faces=torch.as_tensor(np.asarray(faces), dtype=torch.int32, device=device))
+    skin = SkinWeights(index=torch.as_tensor(np.stack(sidx), device=device),
+                       weight=torch.as_tensor(np.stack(swgt), dtype=dtype, device=device))
+    char = Character(skeleton=skeleton, parameter_transform=pt,
+                     limits=make_limits(minmax=[(0, -0.1, 0.1, 1.0)], device=device),
+                     locators=locators, name=f"test_character_{num_joints}",
+                     mesh=mesh, skin_weights=skin)
+    return char.with_inverse_bind_pose()
 
 
 def create_fullbody_character(dtype=torch.float32, device="cuda") -> Character:
@@ -23,7 +104,8 @@ def create_fullbody_character(dtype=torch.float32, device="cuda") -> Character:
     and 3 rotation parameters per non-root joint (157 parameters), 80
     locators, MinMax limits on every rotation parameter and the scale, and a
     skinned tube mesh (612 vertices, 612 faces) with its inverse bind pose,
-    on `device` (the card unless the caller asks for the CPU)."""
+    and the parameter set "scaling" (the global scale), on `device` (the
+    card unless the caller asks for the CPU)."""
     device = resolve(device, "create_fullbody_character")
     names = ["root"]
     parents = [-1]
@@ -66,6 +148,7 @@ def create_fullbody_character(dtype=torch.float32, device="cuda") -> Character:
         transform=torch.as_tensor(mat, dtype=dtype, device=device),
         offsets=torch.zeros(mat.shape[0], dtype=dtype, device=device),
         names=tuple(pnames),
+        parameter_sets={"scaling": (6,)},
     )
 
     rng = np.random.default_rng(20002)

@@ -1,7 +1,8 @@
 """Where the time of the port's workloads goes on one CUDA card.
 
     python -m momentum_tpu_torch.testing.profile_workload
-        [--workload ik|render|fullstack|vertex|both] [--batch 2048] [--out DIR]
+        [--workload ik|render|fullstack|vertex|sequence|both] [--batch 2048]
+        [--frames 1024] [--fullbody] [--out DIR]
 
 Prints, for the IK workload (build_fullbody_ik_problem + make_solve_batch,
 LM 5 + 6 compacted):
@@ -20,6 +21,15 @@ make_vertex_fit_solve at B = 256, GN 4 + 2 on the worst 64):
     rows and Jacobian from that context: joint axes, skinning walk and the
     parameter-transform chain; JᵀJ/Jᵀr; the damped solve), and the whole
     iteration;
+for the sequence solve (bench_suite.py config 5, or 5f with --fullbody:
+build_sequence_problem + make_sequence_solve, GN 8 over F frames):
+  * each layer of one GN iteration timed alone with CUDA events (the frame
+    contexts through K1; the per-frame rows and analytic Jacobian; their
+    JᵀJ and arrowhead products; each sequence module's window Jacobians by
+    forward mode; the whole normal equations; equilibration; the SPIKE
+    local systems, their batched Thomas scans through K2+K3 and the
+    interface LU; the Schur complement and universal solve), the whole
+    iteration, and the K1 and K2+K3 launches of one iteration;
 and for the render clip (build_render_clip + make_render_clip, 32 frames at
 640×480 @ 2×2 SS with a 256 × 256 shadow map):
   * FK and skinning of the clip, and each layer of frame 0's render (project
@@ -60,17 +70,20 @@ def bound(nbytes: float, flops: float) -> dict:
                 bound_by="bytes" if by_bytes >= by_flops else "operations")
 
 
-def solve_bound(batch: int, n: int) -> dict:
-    """bound() of B damped (n, n) solves: a, damp and b read, x written;
-    n³/3 flops to factor and 2n² to substitute, per system."""
-    return bound(4 * batch * (n * n + 3 * n), batch * (n ** 3 / 3 + 2 * n * n))
+def solve_bound(batch: int, n: int, k: int = 1) -> dict:
+    """bound() of B damped (n, n) solves with k right-hand sides: a, damp
+    and b read, x written; n³/3 flops to factor and 2n² per right-hand side
+    to substitute, per system."""
+    return bound(4 * batch * (n * n + n + 2 * n * k), batch * (n ** 3 / 3 + 2 * n * n * k))
 
 
 def library_solve(a, damp, b):
     """The library's damped solve as a timed function: cholesky_ex +
-    cholesky_solve on a + diag(damp) formed beforehand. A yardstick: the
-    port never calls it."""
+    cholesky_solve on a + diag(damp) formed beforehand, for b (B, n) or
+    (B, n, k). A yardstick: the port never calls it."""
     ad = a + torch.diag_embed(damp)
+    if b.ndim == a.ndim:
+        return lambda: torch.cholesky_solve(b, torch.linalg.cholesky_ex(ad)[0])
     return lambda: torch.cholesky_solve(b[..., None], torch.linalg.cholesky_ex(ad)[0])[..., 0]
 
 
@@ -229,6 +242,70 @@ def vertex_layer_times(prob) -> dict:
     }
 
 
+def sequence_layer_times(prob) -> dict:
+    """ms per call of each layer of one GN iteration of config 5 (a
+    testing.workloads.SequenceProblem) at its start, and the kernel launches
+    of one iteration."""
+    from momentum_tpu_torch.math.linalg import psd_solve
+    from momentum_tpu_torch.ops import fk as fk_ops, psd
+    from momentum_tpu_torch.sequence import block_tridiag as bt, solver as seq
+    from momentum_tpu_torch.solver import SolverOptions
+
+    fn, pf, u = prob.fn, prob.pf0, prob.u0
+    opts = SolverOptions(max_iterations=1)
+    frame_jac = seq.make_frame_jacobian(fn)
+    rows, j_pf, j_u = frame_jac(pf, u)
+    j_pf_t = j_pf.transpose(-1, -2)
+    system = seq._normal_equations(fn, pf, u)
+    (diag, offs, uc, ub, rf, ru, q), _, _ = seq._equilibrate(system, opts)
+    if q != 1:
+        raise ValueError("profiles the tridiagonal case (sequence windows of 2)")
+    nu, f = uc.shape[-1], diag.shape[0]
+    rhs = torch.cat([uc, rf[..., None]], dim=-1)
+    kp = min(bt.SPIKE_PARTS, max(2, f // bt.SPIKE_CHUNK))
+    dd, uu, big = bt._spike_local_systems(diag, offs[0], rhs, kp)
+    sol = bt._block_tridiag_solve_thomas_batched(dd, uu, big)
+    t_sol = bt.block_tridiag_solve(diag, offs[0], rhs)
+
+    def schur():
+        t_inv_u, t_inv_b = t_sol[..., :nu], t_sol[..., nu]
+        x_u = psd_solve(ub - torch.einsum("fpu,fpv->uv", uc, t_inv_u),
+                        ru - torch.einsum("fpu,fp->u", uc, t_inv_b))
+        return t_inv_b - torch.einsum("fpu,u->fp", t_inv_u, x_u)
+
+    times = {
+        "frame contexts (PT + K1)": event_ms(lambda: fn.frame_contexts(fn.join(pf, u))),
+        "per-frame rows + analytic Jacobian": event_ms(lambda: frame_jac(pf, u)),
+        "per-frame JtJ + arrowhead products": event_ms(lambda: (
+            j_pf_t @ j_pf, j_pf_t @ j_u, j_u.flatten(0, 1).T @ j_u.flatten(0, 1),
+            j_pf_t @ rows[..., None], j_u.flatten(0, 1).T @ rows.flatten())),
+    }
+    for sef in fn.sequence_errors:
+        times[f"{type(sef).__name__} window Jacobians (forward mode)"] = event_ms(
+            lambda sef=sef: seq.window_jacobian(fn, sef, pf, u), reps=3)
+    times.update({
+        "normal equations (all of the above + band products)": event_ms(
+            lambda: seq._normal_equations(fn, pf, u), reps=3),
+        "equilibration": event_ms(lambda: seq._equilibrate(system, opts)),
+        f"SPIKE local systems ({kp} chunks)": event_ms(
+            lambda: bt._spike_local_systems(diag, offs[0], rhs, kp)),
+        f"SPIKE locals: batched Thomas, {dd.shape[1]} steps (K2+K3)": event_ms(
+            lambda: bt._block_tridiag_solve_thomas_batched(dd, uu, big), reps=3),
+        f"SPIKE interface LU ({kp} blocks of {2 * diag.shape[-1]}) + chunk rows": event_ms(
+            lambda: bt._spike_interface_solve(sol, rhs.shape[-1]), reps=3),
+        "whole GN iteration (solve_sequence, 1 iteration)": event_ms(
+            lambda: seq.solve_sequence(fn, pf, u, opts), reps=3),
+    })
+    if nu:
+        times["Schur complement + universal solve"] = event_ms(schur)
+    torch.cuda.synchronize()
+    fk_ops.launches = psd.launches = 0
+    seq.solve_sequence(fn, pf, u, opts)
+    times["launches of one iteration"] = {"fk_global_kernel": fk_ops.launches,
+                                          "damped_chol_solve_kernel": psd.launches}
+    return times
+
+
 def render_layer_times(char, cam, motion) -> dict:
     """ms per call of each layer of the render clip: FK and skinning of all
     frames, then each layer of frame 0's shadowed render."""
@@ -288,6 +365,22 @@ def render_layer_times(char, cam, motion) -> dict:
     }
 
 
+def device_busy(run):
+    """(wall s, device-busy ms, profiler) of one run under torch.profiler:
+    the sum of the device-side rows (kernels, memcpy; the aten rows repeat
+    their time), one stream, so nothing overlaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return prof_wall, device_ms, prof
+
+
 def _wall_and_profile(run, card: str, label: str, out_dir, units: float, unit: str):
     """Median wall of 3 warm runs, then one run under torch.profiler: the
     device-busy share and the kernel table (and trace, into out_dir)."""
@@ -302,17 +395,8 @@ def _wall_and_profile(run, card: str, label: str, out_dir, units: float, unit: s
     wall = statistics.median(walls)
     print(f"{label}: wall {wall * 1e3:.2f} ms (median of 3), {units / wall:.2f} {unit} [{card}]")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
+    prof_wall, device_ms, prof = device_busy(run)
     events = prof.key_averages()
-    # device-side rows only (kernels, memcpy); the aten rows repeat their time
-    device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     print(f"profiled {label}: wall {prof_wall * 1e3:.2f} ms (profiler on), device busy "
           f"{device_ms:.2f} ms; idle share {1 - device_ms / (prof_wall * 1e3):.3f} of the "
           f"profiled wall, {1 - device_ms / (wall * 1e3):.3f} of the unprofiled wall [{card}]")
@@ -332,9 +416,13 @@ def main():
         make_solve_batch)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--workload", choices=("ik", "render", "fullstack", "vertex", "both"),
+    ap.add_argument("--workload",
+                    choices=("ik", "render", "fullstack", "vertex", "sequence", "both"),
                     default="both", help="both = ik and render")
     ap.add_argument("--batch", type=int, default=2048)
+    ap.add_argument("--frames", type=int, default=1024, help="the sequence's frame count")
+    ap.add_argument("--fullbody", action="store_true",
+                    help="the sequence on the full-body rig (config 5f)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="directory for the kernel tables and traces")
     args = ap.parse_args()
@@ -383,6 +471,21 @@ def main():
         solve = make_vertex_fit_solve(prob.char, prob.ef0, batch)
         _wall_and_profile(lambda: solve(prob.targets, prob.x0), card,
                           f"vertex-fit B={batch}", args.out, batch, "solves/s")
+
+    if args.workload == "sequence":
+        from momentum_tpu_torch.testing.workloads import (
+            build_sequence_problem, make_sequence_solve)
+
+        prob = build_sequence_problem(args.frames, fullbody=args.fullbody, seed=args.seed,
+                                      device="cuda")
+        tag = f"config {'5f' if args.fullbody else '5'} F={args.frames}"
+        for name, ms in sequence_layer_times(prob).items():
+            print(f"sequence layer {tag}: {name}: "
+                  + (f"{ms:.4f} ms" if isinstance(ms, float) else str(ms)) + f" [{card}]")
+        solve = make_sequence_solve(prob.fn)
+        _wall_and_profile(lambda: solve(prob.pf0, prob.u0), card,
+                          f"sequence-{'5f' if args.fullbody else '5'} F={args.frames}",
+                          args.out, args.frames, "frames/s")
 
     if args.workload in ("render", "both"):
         char, motion, cam = build_render_clip(32, seed=args.seed, device="cuda")

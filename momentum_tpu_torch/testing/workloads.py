@@ -23,6 +23,13 @@ Config 4 (:244-367) fits pose and 8 blend-shape coefficients of the same rig
 to 306 of its skinned mesh vertices: one frame by LM, and 2b's batch of 256 by
 Gauss-Newton, 4 full-batch iterations then 2 more on the worst 64.
 
+Config 5 (:378-418) solves a whole take at once: F = 1024 frames of
+position targets from uniform-random poses, a motion-smoothness term
+(ModelParametersSequenceErrorFunction, weight 0.1), the rig's "scaling"
+parameters shared by all frames (none on the 16-joint test rig of config
+5, the global scale on the full-body rig of 5f), Gauss-Newton 8 on the
+block-banded normal equations (sequence/solver.py).
+
 The render clip: the full-body character's skinned tube mesh (612 vertices,
 612 faces) posed by a 32-frame random walk in its 157 parameters, rendered
 with Lambert shading and a 256 × 256 shadow map at 1280 × 960 and box-
@@ -46,7 +53,9 @@ __all__ = ["build_fullbody_ik_problem", "make_solve_stage", "make_solve_batch",
            "fullstack_lm_optimum",
            "build_fullstack_frame", "solve_fullstack_frame", "VertexFitProblem",
            "VERTEX_FIT_REFINE", "VERTEX_FIT_BATCH", "build_vertex_fit_problem",
-           "make_vertex_fit_solve", "solve_vertex_fit_frame", "build_render_clip",
+           "make_vertex_fit_solve", "solve_vertex_fit_frame", "SEQUENCE_FRAMES",
+           "SequenceProblem", "build_sequence_problem", "make_sequence_solve",
+           "build_render_clip",
            "make_render_clip", "clip_vertices", "render_clip_passes"]
 
 # 5 full-batch LM iterations + 6 compacted iterations on the worst 128 of 2048
@@ -352,6 +361,63 @@ def solve_vertex_fit_frame(char, ef0, targets, x0):
     fn = SkeletonSolverFunction(char, (dataclasses.replace(ef0, target=targets),))
     return solve_ik(fn, x0, options=SolverOptions(max_iterations=20),
                     method="levenberg_marquardt")
+
+
+SEQUENCE_FRAMES = 1024  # config 5's frame count (bench_suite.py:378)
+
+
+class SequenceProblem(NamedTuple):
+    """bench_suite.py config 5 (:378-418) on one device."""
+
+    fn: object  # SequenceSolverFunction: stacked position targets + motion smoothness
+    pf0: torch.Tensor  # (F, n_pf) zeros
+    u0: torch.Tensor  # (n_u,) zeros
+    gt: torch.Tensor  # (F, P) the truths the targets come from
+
+
+def build_sequence_problem(frames: int = SEQUENCE_FRAMES, fullbody: bool = False,
+                           seed: int = 0, device="cuda") -> SequenceProblem:
+    """Config 5's problem (5f with fullbody) on `device` (the card unless the
+    caller asks for the CPU), drawn from numpy as the JAX recipe draws it:
+    truths U(−0.2, 0.2) over (F, P) from `seed`, their locator positions as
+    the targets of one stacked PositionErrorFunction, motion smoothness of
+    weight 0.1, the rig's "scaling" set universal; the solve starts from
+    zero."""
+    from momentum_tpu_torch.errors import PositionErrorFunction
+    from momentum_tpu_torch.sequence import (
+        ModelParametersSequenceErrorFunction, SequenceSolverFunction)
+    from momentum_tpu_torch.testing.fixtures import (
+        create_fullbody_character, create_test_character)
+
+    device = resolve(device, "build_sequence_problem")
+    char = (create_fullbody_character(device=device) if fullbody
+            else create_test_character(16, device=device))
+    p = char.num_model_parameters
+    rng = np.random.default_rng(seed)
+    gt = torch.as_tensor(rng.uniform(-0.2, 0.2, (frames, p)).astype(np.float32), device=device)
+    targets = char.locators.world_positions(char.skeleton_states(gt))
+    ef0 = PositionErrorFunction.create(
+        char.locators.parent.cpu().numpy(), char.locators.offset.cpu().numpy(),
+        np.zeros((char.locators.num_locators, 3)), device=device)
+    universal = np.zeros(p, bool)
+    universal[list(char.parameter_transform.parameter_sets.get("scaling", ()))] = True
+    fn = SequenceSolverFunction.create(
+        char, frames, universal=universal,
+        per_frame_errors=(dataclasses.replace(ef0, target=targets),),
+        sequence_errors=(ModelParametersSequenceErrorFunction.create(p, weight=0.1,
+                                                                     device=device),))
+    pf0, u0 = fn.split(torch.zeros(frames, p, device=device))
+    return SequenceProblem(fn=fn, pf0=pf0, u0=u0, gt=gt)
+
+
+def make_sequence_solve(fn, options=None):
+    """Config 5's solve `(pf0, u0) -> SequenceSolveResult`: solve_sequence
+    with `options` (config 5's SolverOptions(max_iterations=8) by default)."""
+    from momentum_tpu_torch.sequence import solve_sequence
+    from momentum_tpu_torch.solver import SolverOptions
+
+    options = SolverOptions(max_iterations=8) if options is None else options
+    return lambda pf0, u0: solve_sequence(fn, pf0, u0, options)
 
 
 def build_render_clip(frames: int = 32, seed: int = 0, device="cuda",

@@ -136,6 +136,68 @@ def test_fk_kernel_gradients_match_plain(cuda_problem):
     assert type(out.grad_fn).__name__ == "_FkGlobalBackward"
 
 
+def test_fk_kernel_forward_mode_matches_plain(cuda_problem):
+    """K1 under torch.func at B = 64 on the full-body rig: jacfwd (vmapped
+    over the batch) and jvp vmapped over a batch of 5 tangents, through
+    fk_global (the kernel for the primal, its jvp and vmap rules for the
+    tangents) against the same through fk_global_plain."""
+    char, _, _, x0 = cuda_problem
+    skel, pt = char.skeleton, char.parameter_transform
+    x = x0[:64].contiguous()
+
+    def fk_of(fk_fn):
+        return lambda th: fk_fn(skel, fk.local_skel_states(skel, pt.apply(th)))
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    tangents = torch.randn(5, *x.shape, generator=g).cuda()
+    out = {}
+    for name, fk_fn in (("kernel", fk_ops.fk_global), ("plain", fk_ops.fk_global_plain)):
+        before = fk_ops.launches
+        jac = torch.func.vmap(torch.func.jacfwd(fk_of(fk_fn)))(x)
+        jvps = torch.func.vmap(lambda t: torch.func.jvp(fk_of(fk_fn), (x,), (t,)))(tangents)
+        out[name] = (jac, *jvps)
+        assert (fk_ops.launches > before) == (name == "kernel")
+    assert out["kernel"][0].shape == (64, char.num_joints, 8, char.num_model_parameters)
+    for k, p in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(k, p, rtol=1e-5, atol=2e-5)
+
+
+def test_damped_solve_kernel_sequence_shape(cuda_problem):
+    """K2+K3 at the full-body SPIKE forward step's shape: 32 systems of
+    n = 156 with 470 right-hand sides, against the plain solve."""
+    a, d, b = _spd(156, 32, seed=11)
+    rhs = torch.randn(32, 156, 470, generator=torch.Generator(device="cpu").manual_seed(12))
+    rhs = rhs.cuda()
+    before = psd.launches
+    x = psd.damped_chol_solve(a, d, rhs)
+    assert psd.launches == before + 1
+    x_plain = psd.damped_chol_solve_plain(a, d, rhs)
+    ad = (a + torch.diag_embed(d)).double()
+    res = (torch.linalg.norm(ad @ x.double() - rhs.double(), dim=-2)
+           / torch.linalg.norm(rhs.double(), dim=-2))
+    assert float(res.max()) <= 1e-5
+    assert float((x - x_plain).abs().max() / x_plain.abs().max()) <= 1e-3
+
+
+def test_config5_on_cuda_matches_cpu():
+    """Config 5's sequence solve at F = 256 (SPIKE with 8 parts) on the card,
+    through K1 and K2+K3, against the port on the CPU: the same iteration
+    count, final errors within 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    results = {}
+    for device in ("cuda", "cpu"):
+        prob = workloads.build_sequence_problem(256, device=device)
+        fk_ops.launches = psd.launches = 0
+        results[device] = workloads.make_sequence_solve(prob.fn)(prob.pf0, prob.u0)
+        if device == "cuda":
+            assert fk_ops.launches > 0 and psd.launches > 0
+    gpu, cpu = results["cuda"], results["cpu"]
+    assert gpu.iterations == cpu.iterations
+    assert abs(float(gpu.error) / float(cpu.error) - 1) <= 1e-3
+    assert bool(torch.isfinite(gpu.per_frame).all())
+
+
 @pytest.mark.parametrize("n", [157, 40, 33, 1, 64, 224, 225, 300, 512])
 def test_damped_solve_kernel_matches_plain(cuda_problem, n):
     """The rig's n = 157 (padded to 160 in shared memory), a ragged last panel

@@ -178,7 +178,7 @@ def _skeleton_pair(name, chars):
     parents = {"chain226": [-1] + list(range(225)),
                "star": [-1] + [0] * 20,
                "two_roots": [-1, 0, 1, 1, -1, 4, 5, 6, 2, 8, 4]}[name]
-    return jmake(parents), tmake(parents)
+    return jmake(parents), tmake(parents, device="cpu")
 
 
 SKELETONS = ["fixture", "chain226", "star", "two_roots"]
@@ -220,7 +220,7 @@ def test_unsorted_skeleton_is_refused():
     from momentum_tpu_torch.character import make_skeleton
 
     with pytest.raises(ValueError):
-        make_skeleton([-1, 2, 0])
+        make_skeleton([-1, 2, 0], device="cpu")
 
 
 def test_passive_joint_limits_match_jax(rng):
@@ -233,6 +233,6 @@ def test_passive_joint_limits_match_jax(rng):
                (3, 5, -0.1, 0.1, 1.0, 0.0)]
     jp = rng.uniform(-0.5, 0.5, (6, 5 * 7)).astype(np.float32)
     out_j = np.asarray(jmake(minmax_joint=records).apply_passive(jnp.asarray(jp)))
-    out_t = tmake(minmax_joint=records).apply_passive(torch.as_tensor(jp)).numpy()
+    out_t = tmake(minmax_joint=records, device="cpu").apply_passive(torch.as_tensor(jp)).numpy()
     np.testing.assert_array_equal(out_t, out_j)
     assert np.any(out_t != jp) and np.all(out_t[:, 3 * 7 + 5] == jp[:, 3 * 7 + 5])

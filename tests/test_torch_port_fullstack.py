@@ -161,7 +161,7 @@ def test_mppca_from_components_matches_jax():
     args = dict(pi=np.asarray([0.5, 0.3, 0.2]), mu=rng.normal(0, 1, (k, d)),
                 w_list=[rng.normal(0, 0.3, (d, 2)) for _ in range(k)],
                 sigma2=np.asarray([0.5, 1.0, 2.0]))
-    pj, pt = JaxMppca.from_components(**args), Mppca.from_components(**args)
+    pj, pt = JaxMppca.from_components(**args), Mppca.from_components(**args, device="cpu")
     for f in ("mu", "cinv", "l", "rpre"):
         np.testing.assert_array_equal(getattr(pt, f).numpy(), np.asarray(getattr(pj, f)), f)
     xs = rng.normal(0, 1, (5, d)).astype(np.float32)
@@ -176,7 +176,7 @@ def test_pose_prior_create_maps_names_like_jax():
     args = dict(pi=np.asarray([1.0]), mu=np.zeros((1, 3)), w_list=[np.ones((3, 1))],
                 sigma2=np.asarray([1.0]), names=("c", "zz", "a"))
     pj = jerr.PosePriorErrorFunction.create(JaxMppca.from_components(**args), names)
-    pt = PosePriorErrorFunction.create(Mppca.from_components(**args), names)
+    pt = PosePriorErrorFunction.create(Mppca.from_components(**args, device="cpu"), names)
     assert pt.param_index == pj.param_index == (2, -1, 0)
     np.testing.assert_array_equal(pt.sub_jtj.numpy(), np.asarray(pj.sub_jtj))
     x = np.asarray([[0.3, -0.2, 0.5, 0.7]], np.float32)
@@ -187,7 +187,7 @@ def test_pose_prior_create_maps_names_like_jax():
 def test_orientation_create_pads_with_identity_like_jax():
     q = np.asarray([[0.0, 0.0, np.sin(0.2), np.cos(0.2)]], np.float32)
     oj = jerr.OrientationErrorFunction.create([3], q, capacity=3)
-    ot = OrientationErrorFunction.create([3], q, capacity=3)
+    ot = OrientationErrorFunction.create([3], q, capacity=3, device="cpu")
     for k, v in orientation_error_to_numpy(oj).items():
         np.testing.assert_array_equal(orientation_error_to_numpy(ot)[k], v, k)
 
@@ -195,7 +195,7 @@ def test_orientation_create_pads_with_identity_like_jax():
 def test_limit_counts_rows_like_jax():
     jchar = jax_fullbody_character()
     tchar = port_fullbody_character()
-    assert (LimitErrorFunction.create().num_rows_for(tchar)
+    assert (LimitErrorFunction.create(device="cpu").num_rows_for(tchar)
             == jerr.LimitErrorFunction.create().num_rows_for(jchar) == 151)
 
 

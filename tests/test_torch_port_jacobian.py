@@ -125,7 +125,7 @@ def test_create_matches_jax_tables(problem):
     args = (np.asarray(char_j.locators.parent), np.asarray(char_j.locators.offset),
             np.ones((80, 3)))
     ef_j = JPos.create(*args, cweight=cweight, weight=0.5, capacity=100)
-    ef_t = TPos.create(*args, cweight=cweight, weight=0.5, capacity=100)
+    ef_t = TPos.create(*args, cweight=cweight, weight=0.5, capacity=100, device="cpu")
     for k in ("parent", "offset", "target", "cweight", "weight"):
         np.testing.assert_array_equal(getattr(ef_t, k).numpy(), np.asarray(getattr(ef_j, k)))
     assert ef_t.num_rows() == ef_j.num_rows() == 300

@@ -12,6 +12,12 @@ import pytest
 import torch
 
 from momentum_tpu_torch import bridge
+from momentum_tpu_torch.camera import PinholeIntrinsics
+from momentum_tpu_torch.character import make_limits, make_skeleton
+from momentum_tpu_torch.errors import (
+    LimitErrorFunction, Mppca, OrientationErrorFunction, PositionErrorFunction,
+    VertexNormalErrorFunction, VertexPlaneErrorFunction, VertexPositionErrorFunction,
+    VertexProjectionErrorFunction)
 from momentum_tpu_torch.ops import fk as fk_ops, psd, raster
 from momentum_tpu_torch.testing import fixtures, workloads
 
@@ -33,7 +39,9 @@ def test_port_imports_no_jax():
         "new = {'momentum_tpu_torch.errors.limit', 'momentum_tpu_torch.errors.pose_prior',\n"
         "       'momentum_tpu_torch.solver.ik', 'momentum_tpu_torch.ops.chol',\n"
         "       'momentum_tpu_torch.errors.vertex', 'momentum_tpu_torch.character.blend_shape',\n"
-        "       'momentum_tpu_torch.character.pose_shape', 'momentum_tpu_torch.character.utility'}\n"
+        "       'momentum_tpu_torch.character.pose_shape', 'momentum_tpu_torch.character.utility',\n"
+        "       'momentum_tpu_torch.sequence.block_tridiag', 'momentum_tpu_torch.sequence.errors',\n"
+        "       'momentum_tpu_torch.sequence.solver_function', 'momentum_tpu_torch.sequence.solver'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "assert len(names) >= 30, names\n"
         "print('ok', len(names))\n")
@@ -91,6 +99,7 @@ def test_cpu_fullstack_launches_no_kernel():
     ("build_render_clip", (1,)),
     ("build_fullstack_frame", ()),
     ("build_vertex_fit_problem", (4,)),
+    ("build_sequence_problem", (4,)),
 ])
 def test_workloads_default_to_the_card(monkeypatch, entry, args):
     """The workload entry points build on the card unless the caller asks for
@@ -155,13 +164,41 @@ def _bridge_inputs():
     }
 
 
-@pytest.mark.parametrize("entry", sorted(_bridge_inputs()) + ["create_fullbody_character"])
+# F12: the public constructors a problem is built from, each with small
+# arguments; called with no device they build on the card
+_CONSTRUCTORS = {
+    "make_skeleton": lambda **kw: make_skeleton([-1, 0], **kw),
+    "make_limits": lambda **kw: make_limits(minmax=[(0, -0.1, 0.1, 1.0)], **kw),
+    "PositionErrorFunction.create": lambda **kw: PositionErrorFunction.create(
+        [0], np.zeros((1, 3)), np.zeros((1, 3)), **kw),
+    "OrientationErrorFunction.create": lambda **kw: OrientationErrorFunction.create(
+        [0], np.asarray([[0, 0, 0, 1]], np.float32), **kw),
+    "LimitErrorFunction.create": lambda **kw: LimitErrorFunction.create(**kw),
+    "Mppca.from_components": lambda **kw: Mppca.from_components(
+        pi=[1.0], mu=np.zeros((1, 2)), w_list=[np.ones((2, 1))], sigma2=[1.0], **kw),
+    "VertexPositionErrorFunction.create": lambda **kw: VertexPositionErrorFunction.create(
+        [0], np.zeros((1, 3)), **kw),
+    "VertexPlaneErrorFunction.create": lambda **kw: VertexPlaneErrorFunction.create(
+        [0], np.zeros((1, 3)), np.asarray([[0, 0, 1]]), **kw),
+    "VertexNormalErrorFunction.create": lambda **kw: VertexNormalErrorFunction.create(
+        [0], np.zeros((1, 3)), np.asarray([[0, 0, 1]]), **kw),
+    "VertexProjectionErrorFunction.create": lambda **kw: VertexProjectionErrorFunction.create(
+        [0], np.zeros((1, 3, 4)), np.zeros((1, 2)), **kw),
+    "PinholeIntrinsics.create": lambda **kw: PinholeIntrinsics.create(
+        50.0, 50.0, 16.0, 16.0, image_size=(32, 32), **kw),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_bridge_inputs()) + [
+    "create_fullbody_character", "create_test_character"] + sorted(_CONSTRUCTORS))
 def test_entry_points_default_to_the_card(monkeypatch, entry):
-    """F10: the bridge and the fixture build on the card unless the caller
-    asks for the CPU; with no card the default raises and names the way
-    out, and device='cpu' builds there."""
-    if entry == "create_fullbody_character":
-        make = fixtures.create_fullbody_character
+    """F10, F12: the bridge, the fixtures and the public constructors build
+    on the card unless the caller asks for the CPU; with no card the default
+    raises and names the way out, and device='cpu' builds there."""
+    if entry in ("create_fullbody_character", "create_test_character"):
+        make = getattr(fixtures, entry)
+    elif entry in _CONSTRUCTORS:
+        make = _CONSTRUCTORS[entry]
     else:
         inputs = _bridge_inputs()[entry]
         make = lambda **kw: getattr(bridge, entry)(inputs, **kw)  # noqa: E731
@@ -170,3 +207,16 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
+
+
+def test_bridge_carries_parameter_sets():
+    """character_from_numpy carries the parameter transform's names and
+    named parameter sets across (config 5 reads parameter_sets["scaling"])."""
+    char = fixtures.create_fullbody_character(device="cpu")
+    assert char.parameter_transform.parameter_sets == {"scaling": (6,)}
+    d = {k: v for k, v in _bridge_inputs()["character_from_numpy"].items()}
+    d.update(parameter_names=char.parameter_transform.names,
+             parameter_sets={"scaling": np.asarray([6])})
+    out = bridge.character_from_numpy(d, device="cpu").parameter_transform
+    assert out.parameter_sets == {"scaling": (6,)}
+    assert out.names == char.parameter_transform.names

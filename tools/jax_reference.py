@@ -7,9 +7,12 @@ momentum_tpu_torch/testing/workloads.py:
     worst B/2 by marker energy, against each element's 40-iteration LM
     optimum on the normal equations: conv_at_1e5 and median_excess_vs_40it;
   * config 4: the single frame's final energy (LM 20 from zero); 4b (seed 1):
-    GN 4 + 2 on the worst B/4, median_param_sq_err and the divergent count.
+    GN 4 + 2 on the worst B/4, median_param_sq_err and the divergent count;
+  * config 5 (the 16-joint test rig) and 5f (the full-body rig): the
+    sequence solve of F frames (GN 8, universal parameters the rig's
+    "scaling" set): the final error, iterations and converged.
 
-    python tools/jax_reference.py [--batch 256] [--configs 2 2b 4]
+    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f] [--frames 1024]
 
 Runs the JAX package on the CPU only (no part of momentum_tpu_torch); prints
 one JSON line per figure.
@@ -168,11 +171,51 @@ def config4(batch):
                        median_energy=float(np.median(np.asarray(res_b.error))))
 
 
+def config5(frames, fullbody):
+    """bench_suite.py config 5 (:378-418): the sequence solve of `frames`
+    frames on the 16-joint test rig or the full-body rig (5f)."""
+    from momentum_tpu.errors import PositionErrorFunction
+    from momentum_tpu.sequence.errors import ModelParametersSequenceErrorFunction
+    from momentum_tpu.sequence.solver import solve_sequence
+    from momentum_tpu.sequence.solver_function import SequenceSolverFunction
+    from momentum_tpu.solver import SolverOptions
+    from momentum_tpu.testing.fixtures import create_fullbody_character, create_test_character
+
+    char = create_fullbody_character() if fullbody else create_test_character(16)
+    p = char.num_model_parameters
+    rng = np.random.default_rng(0)
+    gt = jnp.asarray(rng.uniform(-0.2, 0.2, (frames, p)), jnp.float32)
+    targets = jax.vmap(char.locators.world_positions)(jax.vmap(char.skeleton_states)(gt))
+    ef0 = PositionErrorFunction.create(
+        np.asarray(char.locators.parent), np.asarray(char.locators.offset),
+        np.zeros((char.locators.num_locators, 3)))
+    stacked = jax.vmap(lambda t: dataclasses.replace(ef0, target=t))(targets)
+    smooth = ModelParametersSequenceErrorFunction.create(p, weight=0.1)
+    universal = np.zeros(p, bool)
+    if "scaling" in char.parameter_transform.parameter_sets:
+        universal[list(char.parameter_transform.parameter_sets["scaling"])] = True
+    fn = SequenceSolverFunction.create(char, frames, universal=universal,
+                                       per_frame_errors=(stacked,), sequence_errors=(smooth,))
+    pf0, u0 = fn.split(jnp.zeros((frames, p)))
+    res = jax.jit(lambda pf, u: solve_sequence(fn, pf, u, SolverOptions(max_iterations=8)))(
+        pf0, u0)
+    return dict(config="5f" if fullbody else "5", frames=frames, error=float(res.error),
+                iterations=int(res.iterations), converged=bool(res.converged))
+
+
+CONFIGS = ("2", "2b", "4", "5", "5f")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=256)
-    ap.add_argument("--configs", nargs="+", choices=("2", "2b", "4"), default=("2", "2b", "4"))
+    ap.add_argument("--configs", nargs="+", default=["2,2b,4"],
+                    help=f"comma- or space-separated, of {','.join(CONFIGS)}")
+    ap.add_argument("--frames", type=int, default=1024, help="config 5's frame count")
     args = ap.parse_args()
+    args.configs = [c for arg in args.configs for c in arg.split(",") if c]
+    if not set(args.configs) <= set(CONFIGS):
+        ap.error(f"--configs takes {CONFIGS}, got {args.configs}")
     t0 = time.perf_counter()
     figures = []
     if "2" in args.configs:
@@ -181,6 +224,9 @@ def main():
         figures.append(config2b(args.batch))
     if "4" in args.configs:
         figures.extend(config4(args.batch))
+    for name in ("5", "5f"):
+        if name in args.configs:
+            figures.append(config5(args.frames, name == "5f"))
     for fig in figures:
         print(json.dumps(dict(fig, device="jax cpu")), flush=True)
     print(f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
