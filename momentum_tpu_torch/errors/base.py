@@ -7,9 +7,9 @@ pure functions of an `EvalContext`:
     residual(ctx)  -> (..., C*D) GN rows, scaled by sqrt(weight · w · ρ'(‖f‖²))
     error(ctx)     -> (...,)   exact energy  weight · Σ_c w_c · ρ(‖f_c‖²)
 
-Unused rows have weight 0 and parent 0. No autograd runs through the rows
-(the Jacobians are analytic), so the robust row scale needs no
-stop-gradient here.
+Unused rows have weight 0 and parent 0. The robust row scale is frozen
+(detached) as in JAX (stop_gradient, momentum_tpu/errors/base.py:97-107),
+so the forward-mode Jacobian of the rows is the reference's IRLS one.
 
 Modules with structured Jacobians may also add their JᵀJ, Jᵀr and Σ rows²
 straight into the normal equations without forming rows (the reference's
@@ -96,7 +96,7 @@ class ErrorFunction:
         loss = self._loss()
         if loss.alpha == 2.0:
             return scale * (1.0 / loss.c)
-        return scale * torch.sqrt(torch.clamp(loss.deriv(sq), min=0.0))
+        return scale * torch.sqrt(torch.clamp(loss.deriv(sq), min=0.0)).detach()
 
 
 class VectorErrorFunction(ErrorFunction):

@@ -56,7 +56,7 @@ class LimitErrorFunction(ErrorFunction):
         s = torch.sqrt(torch.clamp(K_LIMIT_WEIGHT * self.weight * w, min=0.0))
         if self.loss.alpha == 2.0:
             return s * (1.0 / self.loss.c)
-        return s * torch.sqrt(torch.clamp(self.loss.deriv(sq), min=0.0))
+        return s * torch.sqrt(torch.clamp(self.loss.deriv(sq), min=0.0)).detach()
 
     def raw(self, character, ctx: EvalContext):
         raise NotImplementedError("LimitErrorFunction evaluates per record type")

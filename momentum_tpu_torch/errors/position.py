@@ -5,9 +5,11 @@
   OrientationErrorFunction (orientation_error_function.cpp:15-40)
       f_c = R_world(parent_c) · R_offset_c − R_target_c (flattened) (9 rows)
 
+  ModelParametersErrorFunction (model_parameters_error_function.h)
+      f_p = θ_p − target_p, weighted by pweight_p                   (P rows)
+
 Constraint tables are padded to a static capacity with weight-0 rows whose
-parent is 0. The model-parameter residual comes with the rest of the
-catalog (ROADMAP M3).
+parent is 0.
 """
 
 from __future__ import annotations
@@ -18,11 +20,12 @@ import numpy as np
 import torch
 
 from momentum_tpu_torch.device import resolve
-from momentum_tpu_torch.errors.base import EvalContext, VectorErrorFunction
+from momentum_tpu_torch.errors.base import ErrorFunction, EvalContext, VectorErrorFunction
 from momentum_tpu_torch.math import quaternion as quat, skel_state as ss
 from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
 
-__all__ = ["PositionErrorFunction", "OrientationErrorFunction"]
+__all__ = ["PositionErrorFunction", "OrientationErrorFunction",
+           "ModelParametersErrorFunction"]
 
 _LN2 = 0.6931471805599453  # scale is log2-parameterized (joint_state.cpp:22-62)
 
@@ -235,3 +238,38 @@ class OrientationErrorFunction(VectorErrorFunction):
                    cweight=torch.as_tensor(_pad_rows(cweight, cap), device=device),
                    weight=torch.tensor(weight, dtype=torch.float32, device=device),
                    loss=loss or GeneralizedLoss())
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ModelParametersErrorFunction(ErrorFunction):
+    """L2 pull of the model parameters toward a target pose: error =
+    weight·Σ_p pweight_p·(θ_p − target_p)², one row per parameter, no robust
+    loss (as the reference). target and pweight may carry a leading frame
+    axis (a stacked per-frame module)."""
+
+    target: torch.Tensor  # (..., P)
+    pweight: torch.Tensor  # (..., P) per-parameter weights (0 disables)
+    weight: torch.Tensor
+
+    has_analytic_jacobian = True
+
+    def raw(self, character, ctx: EvalContext):
+        return (ctx.model_params - self.target)[..., None], self.pweight
+
+    def num_rows(self) -> int:
+        return self.target.shape[-1]
+
+    def jacobian(self, character, ctx: EvalContext, jc):
+        """Rows and their model-space Jacobian diag(scale); no joint-space block."""
+        scale = torch.sqrt(torch.clamp(self.weight * self.pweight, min=0.0))
+        rows = scale * (ctx.model_params - self.target)
+        return rows, None, torch.diag_embed(scale.expand(rows.shape))
+
+    @classmethod
+    def create(cls, target, pweight=None, weight=1.0, device="cuda"):
+        device = resolve(device, "ModelParametersErrorFunction.create")
+        target = np.asarray(target, np.float32)
+        pweight = np.ones_like(target) if pweight is None else np.asarray(pweight, np.float32)
+        return cls(target=torch.as_tensor(target, device=device),
+                   pweight=torch.as_tensor(pweight, device=device),
+                   weight=torch.tensor(weight, dtype=torch.float32, device=device))

@@ -1,5 +1,5 @@
-"""Batch-native Gauss-Newton and Levenberg-Marquardt on analytic Jacobians
-or direct normal equations, after momentum_tpu/solver/gauss_newton.py.
+"""Batch-native Gauss-Newton and Levenberg-Marquardt, after
+momentum_tpu/solver/gauss_newton.py.
 
 Gauss-Newton (gauss_newton_solver.cpp:224-262): each iteration solves
 (JᵀJ + reg·I) δ = Jᵀr at x, from the normal equations' provider or from
@@ -11,9 +11,12 @@ Jᵀr at x, tries x − δ, and accepts it only where the energy drops, shrinkin
 trust_region_qr.cpp:82-230). An element stops once an accepted step changes
 its energy by at most threshold·FLT_EPS relative (solver.cpp:86-121).
 
-Both take their linearization from the analytic rows and Jacobian or from
-the normal equations' provider (structured modules add JᵀJ without rows),
-and both freeze the parameters an enabled_mask disables.
+Both take their linearization from the normal equations' provider
+(structured modules add JᵀJ without rows), from the analytic rows and
+Jacobian, or, given the residual alone, from forward mode: one JVP per
+parameter-basis tangent, vmapped (`ad_jacobian`, JAX's linearize plus
+vmapped JVP, :141-156). Both freeze the parameters an enabled_mask
+disables.
 
 Both loops run eagerly: the test "any element still running" reads one bool
 from the device each iteration (a host sync; the JAX package's `cond` ran on
@@ -79,8 +82,24 @@ class SolveResult(NamedTuple):
     lambda_final: Optional[torch.Tensor] = None
 
 
-def _jacobian(x: torch.Tensor, jacobian_fn: Callable):
-    """(rows, Jᵀ) with Jᵀ (..., P, R) from the analytic provider."""
+def ad_jacobian(residual_fn: Callable, x: torch.Tensor):
+    """(rows (..., R), Jᵀ (..., P, R)) of residual_fn at x (..., P) by
+    forward mode: torch.func.jvp with each parameter-basis tangent e_p,
+    vmapped over p. With a batched primal, e_p is broadcast across the
+    batch; the JVP is linear, so it gives every element's column p at once.
+    FK reaches kernel K1 through its jvp and vmap rules (ops/fk.py)."""
+    p = x.shape[-1]
+    eye = torch.eye(p, dtype=x.dtype, device=x.device)
+    tangents = eye.reshape((p,) + (1,) * (x.ndim - 1) + (p,)).expand((p,) + x.shape)
+    rows, jt = torch.func.vmap(lambda t: torch.func.jvp(residual_fn, (x,), (t,)))(tangents)
+    return rows[0], jt.movedim(0, -2)
+
+
+def _jacobian(residual_fn: Callable, x: torch.Tensor, jacobian_fn: Optional[Callable]):
+    """(rows, Jᵀ) with Jᵀ (..., P, R): from the analytic provider when one
+    is given, else by forward mode (`ad_jacobian`)."""
+    if jacobian_fn is None:
+        return ad_jacobian(residual_fn, x)
     rows, j = jacobian_fn(x)
     return rows, j.transpose(-1, -2)
 
@@ -108,11 +127,8 @@ def solve_gauss_newton(
 
     normal_fn: x -> (JᵀJ, Jᵀr, Σ rows²), the direct provider
     (SkeletonSolverFunction.normal_equations); else jacobian_fn: x -> (rows,
-    J (..., R, P)). One of the two is required (the port has no AD
-    Jacobian). enabled_mask (P,) 0/1 freezes the disabled parameters."""
-    if normal_fn is None and jacobian_fn is None:
-        raise NotImplementedError("the port solves with analytic Jacobians or normal "
-                                  "equations only: pass normal_fn or jacobian_fn")
+    J (..., R, P)); else the Jacobian of residual_fn by forward mode.
+    enabled_mask (P,) 0/1 freezes the disabled parameters."""
     opts = options
     _refuse_unported(opts)
     p = x0.shape[-1]
@@ -132,7 +148,7 @@ def solve_gauss_newton(
                 jtr = jtr * mask
             err = sq if opts.energy_from_residual else error_fn(x)
         else:
-            rows, jt = _jacobian(x, jacobian_fn)
+            rows, jt = _jacobian(residual_fn, x, jacobian_fn)
             jt = jt * mask[:, None]
             jtj = jt @ jt.transpose(-1, -2)
             jtr = (jt @ rows[..., None])[..., 0]
@@ -163,14 +179,11 @@ def solve_levenberg_marquardt(
     (SkeletonSolverFunction.normal_equations), called at every iteration's
     x, after a reject too; the energy is then error_fn's (with
     energy_from_residual the caller passes a Σ rows² evaluator, residual_sq);
-    else jacobian_fn: x -> (rows (..., R), J (..., R, P)). One of the two is
-    required (the port has no AD Jacobian). enabled_mask (P,) 0/1 freezes
+    else jacobian_fn: x -> (rows (..., R), J (..., R, P)); else the
+    Jacobian of residual_fn by forward mode. enabled_mask (P,) 0/1 freezes
     the disabled parameters. lambda0: optional per-element initial damping
     that overrides options.lambda_init, e.g. a previous solve's
     `lambda_final`."""
-    if normal_fn is None and jacobian_fn is None:
-        raise NotImplementedError("the port solves with analytic Jacobians or normal "
-                                  "equations only: pass normal_fn or jacobian_fn")
     opts = options
     _refuse_unported(opts)
     p = x0.shape[-1]
@@ -197,7 +210,7 @@ def solve_levenberg_marquardt(
                 jtj = jtj * (mask[:, None] * mask[None, :])
                 jtr = jtr * mask
             return x - solve_normal(jtj, jtr, jtj.diagonal(dim1=-2, dim2=-1), lam)
-        rows, jt = _jacobian(x, jacobian_fn)
+        rows, jt = _jacobian(residual_fn, x, jacobian_fn)
         if enabled_mask is not None:
             jt = jt * mask[:, None]
         jtj = jt @ jt.transpose(-1, -2)

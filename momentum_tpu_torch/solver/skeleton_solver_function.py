@@ -2,6 +2,12 @@
 (skeleton_solver_function.h:21-95): one FK per evaluation, and one skinning
 pass when a module needs the posed mesh, shared by all error functions; rows
 concatenated in order.
+
+The Jacobian of the modules with an analytic one is chained through the
+parameter transform; the others' (the AD modules: body.py's, Plane) comes
+by forward mode through the same context (JAX's linearize plus vmapped
+JVP, momentum_tpu/solver/skeleton_solver_function.py:167-182), row-aligned
+after the analytic modules' rows.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from momentum_tpu_torch.character.character import Character
 from momentum_tpu_torch.character.skinning import skin_points, update_normals
 from momentum_tpu_torch.errors.base import EvalContext
 from momentum_tpu_torch.solver.analytic_jacobian import make_jacobian_context
+from momentum_tpu_torch.solver.gauss_newton import ad_jacobian
 
 __all__ = ["SkeletonSolverFunction"]
 
@@ -23,6 +30,9 @@ __all__ = ["SkeletonSolverFunction"]
 class SkeletonSolverFunction:
     character: Character
     error_functions: tuple
+    # take the forward-mode Jacobian even when every module has an analytic
+    # one (solve_ik then passes no jacobian_fn), for tests and A/Bs
+    force_ad: bool = False
 
     def context(self, model_params: torch.Tensor) -> EvalContext:
         """One FK pass (parameter transform, passive limits, global states),
@@ -59,31 +69,52 @@ class SkeletonSolverFunction:
         ctx = self.context(model_params)
         return sum(ef.error(self.character, ctx) for ef in self.error_functions)
 
+    def gradient(self, model_params: torch.Tensor) -> torch.Tensor:
+        """d error / d model params by reverse mode (through K1's backward
+        on the card, ROADMAP F8)."""
+        return torch.func.grad(self.error)(model_params)
+
     @property
     def fully_analytic(self) -> bool:
-        """Whether every module has an analytic Jacobian."""
-        return all(ef.has_analytic_jacobian for ef in self.error_functions)
+        """Whether every module has an analytic Jacobian (and force_ad is off)."""
+        return not self.force_ad and all(ef.has_analytic_jacobian
+                                         for ef in self.error_functions)
 
     def residual_and_jacobian(self, model_params: torch.Tensor):
         """(rows (..., R), J (..., R, P)): the modules with a fused
-        model-space Jacobian (`jacobian_model`) first, then the others'
-        joint-space rows chained through the parameter transform."""
+        model-space Jacobian (`jacobian_model`) first, then the others with
+        an analytic one, their joint-space rows chained through the
+        parameter transform, then the AD modules' by forward mode."""
         return self._rows_and_jacobian(self.context(model_params), self.error_functions)
 
     def _rows_and_jacobian(self, ctx: EvalContext, error_functions):
         """The fused modules' rows and J, then the blockwise ones': their
         joint-space rows J (..., R, nJ·7) times the parameter transform (a
         plain GEMM, outside any kernel in JAX too) plus their model-space
-        blocks (the blend-shape columns)."""
-        missing = [type(ef).__name__ for ef in error_functions if not ef.has_analytic_jacobian]
-        if missing:
-            raise NotImplementedError(f"{missing} have no analytic Jacobian in the port; "
-                                      "the AD branch comes with ROADMAP M5")
+        blocks (the blend-shape columns); then the rows and J of the modules
+        without an analytic Jacobian, by forward mode through a context of
+        their own."""
+        analytic = [ef for ef in error_functions if ef.has_analytic_jacobian]
+        ad_efs = [ef for ef in error_functions if not ef.has_analytic_jacobian]
+        rows, jacs = [], []
+        if analytic:
+            self._analytic_rows_and_jacobian(ctx, analytic, rows, jacs)
+        if ad_efs:
+            def ad_residual(x):
+                c2 = self.context(x)
+                return torch.cat([ef.residual(self.character, c2) for ef in ad_efs], dim=-1)
+
+            r, jt = ad_jacobian(ad_residual, ctx.model_params)
+            rows.append(r)
+            jacs.append(jt.transpose(-1, -2))
+        return torch.cat(rows, dim=-1), torch.cat(jacs, dim=-2)
+
+    def _analytic_rows_and_jacobian(self, ctx: EvalContext, error_functions, rows, jacs):
+        """Append the analytic modules' rows and J to `rows` and `jacs`."""
         jc = make_jacobian_context(self.character, ctx)
         pt_mat = self.character.parameter_transform.transform
         fused = [ef for ef in error_functions if hasattr(ef, "jacobian_model")]
         blockwise = [ef for ef in error_functions if not hasattr(ef, "jacobian_model")]
-        rows, jacs = [], []
         for ef in fused:
             r, j = ef.jacobian_model(self.character, ctx, jc, pt_mat)
             rows.append(r)
@@ -93,11 +124,11 @@ class SkeletonSolverFunction:
             for ef in blockwise:
                 r, j_jp, j_model = ef.jacobian(self.character, ctx, jc)
                 rows.append(r)
-                jp_blocks.append(j_jp)
+                jp_blocks.append(r.new_zeros(r.shape + pt_mat.shape[:1]) if j_jp is None
+                                 else j_jp)
                 model_blocks.append(r.new_zeros(r.shape + pt_mat.shape[1:]) if j_model is None
                                     else j_model)
             jacs.append(torch.cat(jp_blocks, dim=-2) @ pt_mat + torch.cat(model_blocks, dim=-2))
-        return torch.cat(rows, dim=-1), torch.cat(jacs, dim=-2)
 
     @property
     def has_structured_modules(self) -> bool:

@@ -1,7 +1,7 @@
 """Where the time of the port's workloads goes on one CUDA card.
 
     python -m momentum_tpu_torch.testing.profile_workload
-        [--workload ik|render|fullstack|vertex|sequence|both] [--batch 2048]
+        [--workload ik|render|fullstack|vertex|sequence|tracking|both] [--batch 2048]
         [--frames 1024] [--fullbody] [--out DIR]
 
 Prints, for the IK workload (build_fullbody_ik_problem + make_solve_batch,
@@ -30,6 +30,15 @@ build_sequence_problem + make_sequence_solve, GN 8 over F frames):
     local systems, their batched Thomas scans through K2+K3 and the
     interface LU; the Schur complement and universal solve), the whole
     iteration, and the K1 and K2+K3 launches of one iteration;
+for marker tracking (bench_suite.py config 6 on config 6s's clip,
+build_tracking_clip: the CMU rig, 343 frames × 41 markers):
+  * each layer of one LM iteration timed alone with CUDA events, at one
+    frame (per-frame tracking) and at every frame (the hierarchical
+    batched refine): the AD Jacobian (forward mode through K1), JᵀJ/Jᵀr,
+    the damped solve (K2+K3), the trial energy, the whole iteration, and
+    the host's part (the iteration less its layers);
+  * the wall and device-busy share of per-frame tracking of 32 frames and
+    of the batched refine at every frame;
 and for the render clip (build_render_clip + make_render_clip, 32 frames at
 640×480 @ 2×2 SS with a 256 × 256 shadow map):
   * FK and skinning of the clip, and each layer of frame 0's render (project
@@ -306,6 +315,47 @@ def sequence_layer_times(prob) -> dict:
     return times
 
 
+def tracking_layer_times(clip, batch: int, lam: float = 0.01) -> dict:
+    """ms per call of each layer of one LM iteration of config 6s's pose
+    solve (a testing.workloads.TrackingClip) on its first `batch` frames,
+    from the true motion plus N(0, 0.02) noise (seed 1): the layers, the
+    whole iteration (solve_levenberg_marquardt, 1 iteration), and the host's
+    part, the iteration less the layers."""
+    from momentum_tpu_torch.math.linalg import damped_psd_solve
+    from momentum_tpu_torch.solver import SkeletonSolverFunction, SolverOptions
+    from momentum_tpu_torch.solver.gauss_newton import ad_jacobian, solve_levenberg_marquardt
+    from momentum_tpu_torch.errors import LimitErrorFunction
+    from momentum_tpu_torch.tracking import TrackingConfig
+    from momentum_tpu_torch.tracking.tracker import _marker_error_template
+
+    char, markers = clip.char, clip.markers
+    ef0, per_frame = _marker_error_template(char, markers, TrackingConfig())
+    g = torch.Generator().manual_seed(1)
+    x = clip.truth[:batch] + 0.02 * torch.randn(clip.truth[:batch].shape, generator=g).to(
+        clip.truth.device)
+    pos, occ = markers.positions[:batch], markers.occluded[:batch]
+    if batch == 1:
+        x, pos, occ = x[0], pos[0], occ[0]
+    fn = SkeletonSolverFunction(char, (per_frame(ef0, pos, occ),
+                                       LimitErrorFunction.create(device=x.device)))
+    rows, jt = ad_jacobian(fn.residual, x)
+    jtj, jtr = jt @ jt.transpose(-1, -2), (jt @ rows[..., None])[..., 0]
+    damp = lam * torch.clamp(jtj.diagonal(dim1=-2, dim2=-1), min=1e-12) + 1e-3
+    one = SolverOptions(max_iterations=1, regularization=1e-3)
+    times = {
+        "AD Jacobian (forward mode, FK through K1)": event_ms(
+            lambda: ad_jacobian(fn.residual, x), reps=3),
+        "JtJ + Jtr": event_ms(lambda: (jt @ jt.transpose(-1, -2), jt @ rows[..., None])),
+        "damped solve (K2+K3)": event_ms(lambda: damped_psd_solve(jtj, damp, jtr)),
+        "trial energy (FK through K1 + rows)": event_ms(lambda: fn.error(x)),
+    }
+    whole = event_ms(lambda: solve_levenberg_marquardt(fn.residual, fn.error, x, None, one),
+                     reps=3)
+    times["host and the rest (the iteration less the layers)"] = whole - sum(times.values())
+    times["whole LM iteration (solve_levenberg_marquardt, 1 iteration)"] = whole
+    return times
+
+
 def render_layer_times(char, cam, motion) -> dict:
     """ms per call of each layer of the render clip: FK and skinning of all
     frames, then each layer of frame 0's shadowed render."""
@@ -417,7 +467,8 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload",
-                    choices=("ik", "render", "fullstack", "vertex", "sequence", "both"),
+                    choices=("ik", "render", "fullstack", "vertex", "sequence", "tracking",
+                             "both"),
                     default="both", help="both = ik and render")
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--frames", type=int, default=1024, help="the sequence's frame count")
@@ -486,6 +537,26 @@ def main():
         _wall_and_profile(lambda: solve(prob.pf0, prob.u0), card,
                           f"sequence-{'5f' if args.fullbody else '5'} F={args.frames}",
                           args.out, args.frames, "frames/s")
+
+    if args.workload == "tracking":
+        from momentum_tpu_torch.testing.workloads import (
+            build_tracking_clip, track_clip_per_frame)
+        from momentum_tpu_torch.tracking import MarkerSequence, TrackingConfig, track_poses_batched
+
+        clip = build_tracking_clip(seed=args.seed, device="cuda")
+        frames = clip.markers.num_frames
+        for batch in (1, frames):
+            for name, ms in tracking_layer_times(clip, batch).items():
+                print(f"tracking layer B={batch}: {name}: {ms:.4f} ms [{card}]")
+        first = MarkerSequence(clip.markers.positions[:32], clip.markers.occluded[:32],
+                               clip.markers.names)
+        _wall_and_profile(lambda: track_clip_per_frame(clip.char, first, clip.truth[0]), card,
+                          "per-frame-tracking of 32 frames", args.out, 32, "frames/s")
+        refine = TrackingConfig(max_iter=10, regularization=1e-3, method="levenberg_marquardt")
+        _wall_and_profile(lambda: track_poses_batched(clip.char, clip.markers, refine,
+                                                      initial=clip.truth), card,
+                          f"batched-refine of {frames} frames (LM 10)", args.out, frames,
+                          "frames/s")
 
     if args.workload in ("render", "both"):
         char, motion, cam = build_render_clip(32, seed=args.seed, device="cuda")

@@ -30,6 +30,16 @@ parameters shared by all frames (none on the 16-joint test rig of config
 5, the global scale on the full-body rig of 5f), Gauss-Newton 8 on the
 block-banded normal equations (sequence/solver.py).
 
+Config 6s (a synthetic stand-in for config 6, :441-560, whose CMU take is
+not in the repository) tracks a clip of the take's size, 343 frames × 41
+markers, on the CMU rig (tracking/cmu.py: 23 joints, 73 parameters, mm,
+z-up): a walk of 2 m along x, every rotation a sine of random amplitude and
+phase (tests/test_tracking.py's recipe), the global scale at 0.1 (log2),
+the markers the locators' positions plus N(0, 2 mm) noise, each occluded
+on 5% of the frames. Its five stages are config 6's: calibration, the
+locators-only pass, per-frame tracking, the smoothed refine and
+hierarchical batched tracking.
+
 The render clip: the full-body character's skinned tube mesh (612 vertices,
 612 faces) posed by a 32-frame random walk in its 157 parameters, rendered
 with Lambert shading and a 256 × 256 shadow map at 1280 × 960 and box-
@@ -55,6 +65,10 @@ __all__ = ["build_fullbody_ik_problem", "make_solve_stage", "make_solve_batch",
            "VERTEX_FIT_REFINE", "VERTEX_FIT_BATCH", "build_vertex_fit_problem",
            "make_vertex_fit_solve", "solve_vertex_fit_frame", "SEQUENCE_FRAMES",
            "SequenceProblem", "build_sequence_problem", "make_sequence_solve",
+           "TRACKING_FRAMES", "TrackingClip", "tracking_clip_draws", "build_tracking_clip",
+           "calibration_frames", "calibrate_clip", "calibrate_clip_locators",
+           "track_clip_per_frame", "refine_clip", "track_clip_hierarchical",
+           "clip_marker_errors_mm",
            "build_render_clip",
            "make_render_clip", "clip_vertices", "render_clip_passes"]
 
@@ -418,6 +432,136 @@ def make_sequence_solve(fn, options=None):
 
     options = SolverOptions(max_iterations=8) if options is None else options
     return lambda pf0, u0: solve_sequence(fn, pf0, u0, options)
+
+
+TRACKING_FRAMES = 343  # config 6's take, 02_01.c3d (bench_suite.py:442-444)
+TRACKING_SCALE = 0.1  # config 6s's true scale_global (log2)
+
+
+class TrackingClip(NamedTuple):
+    """Config 6s on one device."""
+
+    char: object  # the CMU rig (tracking/cmu.py)
+    markers: object  # MarkerSequence (F, 41, 3) with its occlusion mask
+    truth: torch.Tensor  # (F, 73) the motion the markers come from
+    seed_params: torch.Tensor  # (73,) zeros with the root at frame 0's marker centroid
+
+
+def tracking_clip_draws(frames: int, seed: int, num_params: int, num_markers: int):
+    """Config 6s's numpy draws, in order: (motion (F, P) float32, marker
+    noise (F, M, 3) in mm, occluded (F, M) bool). Root x walks 0 → 2000 mm,
+    root y stays 0, root z = 900 + 20·sin(2πt) mm; every rotation parameter
+    is amp·sin(2πt + phase) with amp U(0.05, 0.3) rad and phase U(0, 2π)
+    (tests/test_tracking.py:33-52); scale_global (parameter 6) is 0.1."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, frames)[:, None]
+    amp = rng.uniform(0.05, 0.3, num_params)
+    phase = rng.uniform(0.0, 2 * np.pi, num_params)
+    motion = amp * np.sin(2 * np.pi * t + phase)
+    motion[:, 0] = np.linspace(0.0, 2000.0, frames)
+    motion[:, 1] = 0.0
+    motion[:, 2] = 900.0 + 20.0 * np.sin(2 * np.pi * t[:, 0])
+    motion[:, 6] = TRACKING_SCALE
+    noise = rng.normal(0.0, 2.0, (frames, num_markers, 3))
+    occluded = rng.random((frames, num_markers)) < 0.05
+    return motion.astype(np.float32), noise.astype(np.float32), occluded
+
+
+def build_tracking_clip(frames: int = TRACKING_FRAMES, seed: int = 0,
+                        device="cuda") -> TrackingClip:
+    """Config 6s on `device` (the card unless the caller asks for the CPU):
+    the CMU rig, `tracking_clip_draws`' motion, its locators' positions by
+    the port's FK plus the noise, and the occlusion mask."""
+    from momentum_tpu_torch.tracking import MarkerSequence, create_cmu_character
+
+    device = resolve(device, "build_tracking_clip")
+    char = create_cmu_character(device=device)
+    motion, noise, occluded = tracking_clip_draws(
+        frames, seed, char.num_model_parameters, char.locators.num_locators)
+    truth = torch.as_tensor(motion, device=device)
+    positions = (char.locators.world_positions(char.skeleton_states(truth))
+                 + torch.as_tensor(noise, device=device))
+    markers = MarkerSequence(positions=positions,
+                             occluded=torch.as_tensor(occluded, device=device),
+                             names=char.locators.names)
+    seed_params = torch.zeros(char.num_model_parameters, device=device)
+    seed_params[:3] = positions[0].mean(dim=0)
+    return TrackingClip(char=char, markers=markers, truth=truth, seed_params=seed_params)
+
+
+def _tracking_configs():
+    """Config 6's settings (bench_suite.py:459-534): calibration, per-frame
+    tracking, the refine."""
+    from momentum_tpu_torch.tracking import CalibrationConfig, RefineConfig, TrackingConfig
+
+    lm = "levenberg_marquardt"
+    return (CalibrationConfig(calib_frames=10, major_iter=2, max_iter=25, regularization=1e-3,
+                              method=lm),
+            TrackingConfig(max_iter=15, regularization=1e-3, method=lm),
+            RefineConfig(max_iter=10, regularization=1e-3, smoothing=1e-4, method=lm))
+
+
+def calibration_frames(frames: int) -> np.ndarray:
+    """The frames calibrate_model samples from a clip of `frames` with
+    config 6's 10 calibration frames (no greedy sampling)."""
+    return np.arange(0, frames, max(1, frames // 10))[:10]
+
+
+def calibrate_clip(clip: TrackingClip):
+    """Stage 1: (identity (P,), motion of the sampled frames) by
+    calibrate_model (10 frames, 2 rounds, LM 25, regularization 1e-3) from
+    `seed_params`."""
+    from momentum_tpu_torch.tracking import calibrate_model
+
+    return calibrate_model(clip.char, clip.markers, _tracking_configs()[0],
+                           initial=clip.seed_params)
+
+
+def calibrate_clip_locators(clip: TrackingClip, identity: torch.Tensor):
+    """Stage 2: (the rig with its locator offsets re-estimated, motion of
+    the sampled frames): one locators-only round from `identity`."""
+    from momentum_tpu_torch.tracking import calibrate_model
+
+    cfg = dataclasses.replace(_tracking_configs()[0], locators_only=True, major_iter=1)
+    _, motion, char = calibrate_model(clip.char, clip.markers, cfg, initial=identity)
+    return char, motion
+
+
+def track_clip_per_frame(char, markers, identity: torch.Tensor):
+    """Stage 3: warm-started per-frame tracking (LM 15) → TrackingResult."""
+    from momentum_tpu_torch.tracking import track_poses_per_frame
+
+    return track_poses_per_frame(char, markers, _tracking_configs()[1], initial=identity)
+
+
+def refine_clip(char, markers, motion: torch.Tensor):
+    """Stage 4: the smoothed whole-clip refine of `motion` (GN 10 with line
+    search, smoothing 1e-4, float64 normal equations) → TrackingResult."""
+    from momentum_tpu_torch.tracking import refine_motion
+
+    return refine_motion(char, markers, motion, _tracking_configs()[2])[0]
+
+
+def track_clip_hierarchical(char, markers, identity: torch.Tensor, stride: int = 8):
+    """Stage 5: keyframes every `stride` frames by the warm-started chain,
+    then every frame at once, LM 10 and 5 more on the worst 64 →
+    TrackingResult."""
+    from momentum_tpu_torch.tracking import track_poses_hierarchical
+
+    cfg = dataclasses.replace(_tracking_configs()[1], refine=(10, 5, 64))
+    return track_poses_hierarchical(char, markers, cfg, initial=identity, stride=stride)
+
+
+def clip_marker_errors_mm(char, markers, motion: torch.Tensor, rows=slice(None)) -> np.ndarray:
+    """The distances (mm) between the matched locators of `motion` and the
+    visible markers of the frames `rows`, flattened (bench_suite.py config
+    6's `_err_mm`)."""
+    from momentum_tpu_torch.tracking.tracker import _match_locators
+
+    li, mi = _match_locators(char, markers)
+    world = char.locators.world_positions(char.skeleton_states(motion)).cpu().numpy()
+    pos, occ = markers.positions.cpu().numpy()[rows], markers.occluded.cpu().numpy()[rows]
+    return np.linalg.norm(world[:, li] - pos[:, mi], axis=-1)[~occ[:, mi]]
 
 
 def build_render_clip(frames: int = 32, seed: int = 0, device="cuda",

@@ -782,3 +782,71 @@ def test_raster_kernels_refuse_what_they_cannot_take(cuda_device):
         raster.rasterize_planes(v, f, w, h, th=3)
     with pytest.raises(RuntimeError):
         raster.rasterize_planes(v.clone().requires_grad_(), f, w, h)
+
+
+@pytest.fixture(scope="module")
+def tracking_clip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return workloads.build_tracking_clip(16, seed=0, device="cuda")
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+def test_ad_jacobian_through_k1_matches_plain(tracking_clip, batch):
+    """The forward-mode Jacobian of config 6s's marker rows on the card,
+    FK through K1 (launched for the primal), against the same with FK on
+    the plain version (K1 replaced by fk_global_plain) and against the
+    analytic Jacobian."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+    from momentum_tpu_torch.solver.gauss_newton import ad_jacobian
+    from momentum_tpu_torch.tracking import TrackingConfig
+    from momentum_tpu_torch.tracking.tracker import _marker_error_template
+
+    char, markers = tracking_clip.char, tracking_clip.markers
+    ef0, per_frame = _marker_error_template(char, markers, TrackingConfig())
+    x = tracking_clip.truth[:batch] if batch > 1 else tracking_clip.truth[0]
+    pos, occ = (markers.positions[:batch], markers.occluded[:batch]) if batch > 1 else (
+        markers.positions[0], markers.occluded[0])
+    fn = SkeletonSolverFunction(char, (per_frame(ef0, pos, occ),))
+    before = fk_ops.launches
+    rows, jt = ad_jacobian(fn.residual, x)
+    assert fk_ops.launches > before
+    real = fk_ops._fk_global_kernel
+    fk_ops._fk_global_kernel = fk_ops.fk_global_plain
+    try:
+        rows_p, jt_p = ad_jacobian(fn.residual, x)
+    finally:
+        fk_ops._fk_global_kernel = real
+    scale = float(jt_p.abs().max())
+    # the rows differ by the rounding of world positions ~2 m from the origin
+    # (mm units): K1 and the plain FK compose in float32, each to its own ulp
+    torch.testing.assert_close(rows, rows_p, rtol=0,
+                               atol=1e-6 * float(markers.positions.abs().max()))
+    torch.testing.assert_close(jt, jt_p, rtol=0, atol=1e-5 * scale)
+    _, jac = fn.residual_and_jacobian(x)
+    torch.testing.assert_close(jt.transpose(-1, -2), jac, rtol=0, atol=1e-4 * scale)
+
+
+def test_per_frame_tracking_on_the_card_matches_the_cpu(tracking_clip):
+    """16 frames of config 6s's per-frame tracking (LM 15, warm-started
+    from the first frame's true pose, AD Jacobians through K1, steps
+    through K2+K3) on the card against the same on the CPU: the medians of
+    the per-frame energies and of the marker errors. Single frames are not
+    compared: a frame whose LM stops in another valley under a 1e-6
+    perturbation of the start (frame 10: energy 609.6 or 221.8 on the CPU)
+    does so between the card and the CPU too."""
+    from momentum_tpu_torch.tracking import MarkerSequence, create_cmu_character
+
+    clip = tracking_clip
+    cpu_char = create_cmu_character(device="cpu")
+    cpu_markers = MarkerSequence(clip.markers.positions.cpu(), clip.markers.occluded.cpu(),
+                                 clip.markers.names)
+    before = (fk_ops.launches, psd.launches)
+    card = workloads.track_clip_per_frame(clip.char, clip.markers, clip.truth[0])
+    assert fk_ops.launches > before[0] and psd.launches > before[1]
+    cpu = workloads.track_clip_per_frame(cpu_char, cpu_markers, clip.truth[0].cpu())
+    e_card, e_cpu = float(card.errors.median()), float(cpu.errors.median())
+    assert abs(e_card - e_cpu) <= 1e-2 * e_cpu
+    d_card = workloads.clip_marker_errors_mm(clip.char, clip.markers, card.motion)
+    d_cpu = workloads.clip_marker_errors_mm(cpu_char, cpu_markers, cpu.motion)
+    assert abs(np.median(d_card) - np.median(d_cpu)) <= 0.02 * np.median(d_cpu)

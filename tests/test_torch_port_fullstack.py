@@ -301,8 +301,9 @@ def test_unported_solver_options_raise(stack):
     with pytest.raises(NotImplementedError):  # LM on the normal equations: no histories
         solve_ik(fn, xt, options=SolverOptions(store_history=True),
                  method="levenberg_marquardt")
-    with pytest.raises(NotImplementedError):  # limits and priors have no fused Jacobian
-        fn.residual_and_jacobian(xt)
+    # limits and priors have no analytic Jacobian: their rows come by forward mode
+    rows, jac = fn.residual_and_jacobian(xt)
+    assert jac.shape == rows.shape + (xt.shape[-1],) and bool(torch.isfinite(jac).all())
     with pytest.raises(NotImplementedError):
         solve_levenberg_marquardt(fn.residual, fn.error, xt,
                                   options=SolverOptions(linear_solver="qr"),

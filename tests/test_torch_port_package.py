@@ -15,11 +15,13 @@ from momentum_tpu_torch import bridge
 from momentum_tpu_torch.camera import PinholeIntrinsics
 from momentum_tpu_torch.character import make_limits, make_skeleton
 from momentum_tpu_torch.errors import (
-    LimitErrorFunction, Mppca, OrientationErrorFunction, PositionErrorFunction,
-    VertexNormalErrorFunction, VertexPlaneErrorFunction, VertexPositionErrorFunction,
-    VertexProjectionErrorFunction)
+    CenterOfMassErrorFunction, FloorErrorFunction, HeightErrorFunction, LimitErrorFunction,
+    ModelParametersErrorFunction, Mppca, OrientationErrorFunction, PlaneErrorFunction,
+    PositionErrorFunction, VertexNormalErrorFunction, VertexPlaneErrorFunction,
+    VertexPositionErrorFunction, VertexProjectionErrorFunction)
 from momentum_tpu_torch.ops import fk as fk_ops, psd, raster
 from momentum_tpu_torch.testing import fixtures, workloads
+from momentum_tpu_torch import tracking
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -42,6 +44,12 @@ def test_port_imports_no_jax():
         "       'momentum_tpu_torch.character.pose_shape', 'momentum_tpu_torch.character.utility',\n"
         "       'momentum_tpu_torch.sequence.block_tridiag', 'momentum_tpu_torch.sequence.errors',\n"
         "       'momentum_tpu_torch.sequence.solver_function', 'momentum_tpu_torch.sequence.solver'}\n"
+        "new |= {'momentum_tpu_torch.errors.geometric', 'momentum_tpu_torch.errors.body',\n"
+        "       'momentum_tpu_torch.tracking', 'momentum_tpu_torch.tracking.tracker',\n"
+        "       'momentum_tpu_torch.tracking.cmu', 'momentum_tpu_torch.tracking.config',\n"
+        "       'momentum_tpu_torch.tracking.gap_fill',\n"
+        "       'momentum_tpu_torch.tracking.tracker_utils',\n"
+        "       'momentum_tpu_torch.tracking.process_markers'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "assert len(names) >= 30, names\n"
         "print('ok', len(names))\n")
@@ -100,6 +108,7 @@ def test_cpu_fullstack_launches_no_kernel():
     ("build_fullstack_frame", ()),
     ("build_vertex_fit_problem", (4,)),
     ("build_sequence_problem", (4,)),
+    ("build_tracking_clip", (4,)),
 ])
 def test_workloads_default_to_the_card(monkeypatch, entry, args):
     """The workload entry points build on the card unless the caller asks for
@@ -186,17 +195,28 @@ _CONSTRUCTORS = {
         [0], np.zeros((1, 3, 4)), np.zeros((1, 2)), **kw),
     "PinholeIntrinsics.create": lambda **kw: PinholeIntrinsics.create(
         50.0, 50.0, 16.0, 16.0, image_size=(32, 32), **kw),
+    "ModelParametersErrorFunction.create": lambda **kw: ModelParametersErrorFunction.create(
+        np.zeros(2), **kw),
+    "PlaneErrorFunction.create": lambda **kw: PlaneErrorFunction.create(
+        [0], np.zeros((1, 3)), np.asarray([[0, 1, 0]]), [0.0], **kw),
+    "FloorErrorFunction.create": lambda **kw: FloorErrorFunction.create([0, 1], **kw),
+    "CenterOfMassErrorFunction.create": lambda **kw: CenterOfMassErrorFunction.create(
+        [0], [1.0], np.zeros(3), **kw),
+    "HeightErrorFunction.create": lambda **kw: HeightErrorFunction.create(1.7, **kw),
 }
 
 
 @pytest.mark.parametrize("entry", sorted(_bridge_inputs()) + [
-    "create_fullbody_character", "create_test_character"] + sorted(_CONSTRUCTORS))
+    "create_fullbody_character", "create_test_character", "create_cmu_character"]
+    + sorted(_CONSTRUCTORS))
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """F10, F12: the bridge, the fixtures and the public constructors build
     on the card unless the caller asks for the CPU; with no card the default
     raises and names the way out, and device='cpu' builds there."""
     if entry in ("create_fullbody_character", "create_test_character"):
         make = getattr(fixtures, entry)
+    elif entry == "create_cmu_character":
+        make = tracking.create_cmu_character
     elif entry in _CONSTRUCTORS:
         make = _CONSTRUCTORS[entry]
     else:

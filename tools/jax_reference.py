@@ -10,9 +10,20 @@ momentum_tpu_torch/testing/workloads.py:
     GN 4 + 2 on the worst B/4, median_param_sq_err and the divergent count;
   * config 5 (the 16-joint test rig) and 5f (the full-body rig): the
     sequence solve of F frames (GN 8, universal parameters the rig's
-    "scaling" set): the final error, iterations and converged.
+    "scaling" set): the final error, iterations and converged;
+  * config 6s, config 6's marker pipeline (bench_suite.py:441-560) on the
+    synthetic 343-frame clip of testing/workloads.py::build_tracking_clip
+    (the same numpy motion, noise and occlusion; the markers by JAX's FK):
+    the calibrated scale_global, the locators' largest offset change (mm),
+    and per stage the median and p90 marker error (mm) over the visible
+    markers (over calibration's 10 sampled frames for the two calibration
+    stages), with the tracking stages' median per-frame energy; with
+    --out-6s, also the calibrated identity and locator offsets and the
+    per-frame motion, which the smoke feeds to the port's tracking stages
+    and refine.
 
-    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f] [--frames 1024]
+    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s] [--frames 1024]
+        [--out-6s tools/jax_reference_6s.json]
 
 Runs the JAX package on the CPU only (no part of momentum_tpu_torch); prints
 one JSON line per figure.
@@ -203,7 +214,83 @@ def config5(frames, fullbody):
                 iterations=int(res.iterations), converged=bool(res.converged))
 
 
-CONFIGS = ("2", "2b", "4", "5", "5f")
+def tracking_clip_draws(frames, seed, num_params, num_markers):
+    """testing/workloads.py::tracking_clip_draws, the same numpy draws in
+    the same order: (motion, noise (mm), occluded)."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, frames)[:, None]
+    amp = rng.uniform(0.05, 0.3, num_params)
+    phase = rng.uniform(0.0, 2 * np.pi, num_params)
+    motion = amp * np.sin(2 * np.pi * t + phase)
+    motion[:, 0] = np.linspace(0.0, 2000.0, frames)
+    motion[:, 1] = 0.0
+    motion[:, 2] = 900.0 + 20.0 * np.sin(2 * np.pi * t[:, 0])
+    motion[:, 6] = 0.1
+    noise = rng.normal(0.0, 2.0, (frames, num_markers, 3))
+    occluded = rng.random((frames, num_markers)) < 0.05
+    return motion.astype(np.float32), noise.astype(np.float32), occluded
+
+
+def config6s(frames, seed=0):
+    """Config 6's five stages (bench_suite.py:459-558) on the synthetic clip."""
+    from momentum_tpu.tracking import (
+        CalibrationConfig, MarkerSequence, TrackingConfig, calibrate_model, refine_motion,
+        track_poses_hierarchical, track_poses_per_frame)
+    from momentum_tpu.tracking.cmu import create_cmu_character
+    from momentum_tpu.tracking.config import RefineConfig
+    from momentum_tpu.tracking.tracker import _match_locators
+
+    char = create_cmu_character()
+    p = char.num_model_parameters
+    motion, noise, occluded = tracking_clip_draws(frames, seed, p, char.locators.num_locators)
+    states = jax.vmap(char.skeleton_states)(jnp.asarray(motion))
+    positions = jax.vmap(char.locators.world_positions)(states) + jnp.asarray(noise)
+    seq = MarkerSequence(positions=positions, occluded=jnp.asarray(occluded),
+                         names=tuple(char.locators.names))
+    seed_params = jnp.zeros(p).at[:3].set(jnp.mean(seq.positions[0], axis=0))
+    cfg = CalibrationConfig(calib_frames=10, major_iter=2, max_iter=25, regularization=1e-3,
+                            method="levenberg_marquardt")
+    out = dict(config="6s", frames=frames)
+    t0 = time.perf_counter()
+    identity, calib_motion = calibrate_model(char, seq, cfg, initial=seed_params)
+    out["calibrate_s"] = time.perf_counter() - t0
+    cfg_loc = dataclasses.replace(cfg, locators_only=True, major_iter=1)
+    _, loc_motion, char2 = calibrate_model(char, seq, cfg_loc, initial=identity)
+    li, mi = _match_locators(char2, seq)
+    sampled = np.arange(0, frames, max(1, frames // 10))[:10]  # calibrate_model's frames
+
+    def err_mm(c, m, rows=slice(None)):
+        wp = jax.vmap(c.locators.world_positions)(jax.vmap(c.skeleton_states)(m))
+        pos, occ = np.asarray(seq.positions)[rows], np.asarray(seq.occluded)[rows]
+        d = np.linalg.norm(np.asarray(wp[:, li]) - pos[:, mi], axis=-1)[~occ[:, mi]]
+        return dict(median_mm=float(np.median(d)), p90_mm=float(np.percentile(d, 90)))
+
+    tcfg = TrackingConfig(max_iter=15, regularization=1e-3, method="levenberg_marquardt")
+    out["scale_global"] = float(identity[6])
+    out["calibrate"] = err_mm(char, calib_motion, sampled)
+    out["locators"] = err_mm(char2, loc_motion, sampled)
+    tr = track_poses_per_frame(char2, seq, tcfg, initial=identity)
+    out["per_frame"] = dict(err_mm(char2, tr.motion),
+                            median_energy=float(np.median(np.asarray(tr.errors))))
+    rcfg = RefineConfig(max_iter=10, regularization=1e-3, smoothing=1e-4,
+                        method="levenberg_marquardt")
+    refined, _ = refine_motion(char2, seq, tr.motion, rcfg)
+    out["refine"] = dict(err_mm(char2, refined.motion), energy=float(refined.errors[0]))
+    bcfg = dataclasses.replace(tcfg, refine=(10, 5, 64))
+    hier = track_poses_hierarchical(char2, seq, bcfg, initial=identity, stride=8)
+    out["hierarchical"] = dict(err_mm(char2, hier.motion),
+                               median_energy=float(np.median(np.asarray(hier.errors))))
+    out["locator_offset_shift_mm"] = float(np.abs(
+        np.asarray(char2.locators.offset) - np.asarray(char.locators.offset)).max())
+    # the calibration's outputs and the per-frame motion: the inputs of the
+    # tracking stages and of the refine
+    out["identity"] = np.asarray(identity).tolist()
+    out["locator_offsets"] = np.asarray(char2.locators.offset).tolist()
+    out["per_frame_motion"] = np.asarray(tr.motion)
+    return out
+
+
+CONFIGS = ("2", "2b", "4", "5", "5f", "6s")
 
 
 def main():
@@ -212,6 +299,13 @@ def main():
     ap.add_argument("--configs", nargs="+", default=["2,2b,4"],
                     help=f"comma- or space-separated, of {','.join(CONFIGS)}")
     ap.add_argument("--frames", type=int, default=1024, help="config 5's frame count")
+    ap.add_argument("--tracking-frames", type=int, default=343,
+                    help="config 6s's frame count")
+    ap.add_argument("--out-6s", default=None,
+                    help="write config 6s's figures, with the calibrated identity and "
+                         "locator offsets, to this JSON file, and the per-frame motion "
+                         "beside it as <name>_per_frame.npy (chip_smoke.py reads "
+                         "tools/jax_reference_6s.json and tools/jax_reference_6s_per_frame.npy)")
     args = ap.parse_args()
     args.configs = [c for arg in args.configs for c in arg.split(",") if c]
     if not set(args.configs) <= set(CONFIGS):
@@ -227,7 +321,16 @@ def main():
     for name in ("5", "5f"):
         if name in args.configs:
             figures.append(config5(args.frames, name == "5f"))
+    if "6s" in args.configs:
+        figures.append(config6s(args.tracking_frames))
     for fig in figures:
+        if fig.get("config") == "6s":
+            motion = fig.pop("per_frame_motion")
+            if args.out_6s:
+                with open(args.out_6s, "w") as f:
+                    json.dump(dict(fig, device="jax cpu"), f, indent=1)
+                np.save(os.path.splitext(args.out_6s)[0] + "_per_frame.npy", motion)
+            fig = {k: v for k, v in fig.items() if k not in ("identity", "locator_offsets")}
         print(json.dumps(dict(fig, device="jax cpu")), flush=True)
     print(f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
