@@ -53,7 +53,21 @@ then drives the port's paths through those kernels and checks their output:
     K1 and steps through K2+K3: per stage frames/s, the marker errors
     against JAX CPU's and the launches; the AD Jacobian held against the
     analytic one at B = 343, K1 held at B = 1 and 343, K2+K3 at (1, 73) and
-    (343, 73).
+    (343, 73);
+  * config C, batched IK at B = 2048 over every rigid module of the error
+    catalog (position, both distorted cameras' projections, the projection
+    matrix, aim, fixed axis, normal and distance in a union, joint-to-joint,
+    state, the six limit record types, capsule and floor collision): LM 10
+    on the normal equations, blockwise analytic Jacobians and forward mode
+    through K1, K2+K3 at (2048, 157): each module's median energy,
+    conv_at_1e5 and divergent count against JAX CPU's on the first 256
+    elements; K2+K3 held at (2048, 157), the forward-mode rows through K1
+    against the plain FK's;
+  * config 6k, config 6s's clip with the 2D keypoints of four cameras:
+    batched tracking from the calibrated identity and the refine, both with
+    markers and keypoints, against JAX CPU's marker and reprojection errors;
+    the forward-mode rows through K1 against the plain FK's at B = 343,
+    K2+K3 held at (343, 73).
 
     python3 chip_smoke.py
 
@@ -167,6 +181,23 @@ TRACKING_SCALE_TOL = 2e-3  # against JAX CPU's
 TRACKING_TRUE_SCALE = 0.1  # the clip's truth, printed beside the result
 # the forward-mode Jacobian through K1 against the analytic one, of max|J|
 AD_JAC_RTOL = 1e-4
+# config C, batched IK over the whole rigid error catalog at B = 2048, held
+# on its first 256 elements (the same draws at every batch size) against the
+# JAX package on the CPU (python tools/jax_reference.py --configs catalog
+# --out-catalog tools/jax_reference_catalog.json): every module's median
+# final energy within 20% (an energy under 1e-8 of the median total is float32
+# roundoff of a converged term: held to that), conv_at_1e5 within 0.01, no
+# divergent element
+CATALOG_JAX_CPU_FILE = "tools/jax_reference_catalog.json"
+CATALOG_HELD = 256
+CATALOG_MEDIAN_RTOL, CATALOG_MEDIAN_FLOOR = 0.2, 1e-8
+CATALOG_CONV_SLACK = 0.01
+# forward-mode rows through K1 against the same through fk_global_plain, of max|J|
+AD_K1_RTOL = 1e-5
+# config 6k, config 6s's clip with the four cameras' keypoints, against JAX CPU
+# (python tools/jax_reference.py --configs 6k --out-6k tools/jax_reference_6k.json):
+# config 6s's tolerances, the median reprojection error held like the medians
+KEYPOINTS_JAX_CPU_FILE = "tools/jax_reference_6k.json"
 
 
 def phase_device():
@@ -210,7 +241,7 @@ def _hold_fk(skel, local, label):
     kernel, and the profiler's device time), the plain version's, the bound."""
     from momentum_tpu_torch.ops import fk as fk_ops
     from momentum_tpu_torch.testing.profile_workload import (
-        bound, event_ms, kernel_device_ms)
+        bound, event_ms, fmt_ms, kernel_device_ms)
 
     batch = local.shape[0]
     out = fk_ops.fk_global(skel, local)
@@ -228,7 +259,7 @@ def _hold_fk(skel, local, label):
                  batch * local.shape[1] * 65)
     print(f"K1 fk_global_kernel (B={batch}, nJ={local.shape[1]}, "
           f"{skel.prefix_table.shape[0]} levels, {label}): max|kernel - plain| = {err:.3e} "
-          f"(tol {tol:.1e}); kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+          f"(tol {tol:.1e}); kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), plain "
           f"{plain_ms:.4f} ms, bound {b_fk['bound_ms']:.6f} ms ({b_fk['bound_by']}), "
           f"{b_fk['bound_ms'] / ms:.1%} of it")
     if not err <= tol:
@@ -259,7 +290,7 @@ def phase_psd(char, ef0, targets, x0):
     from momentum_tpu_torch.ops import psd
     from momentum_tpu_torch.solver import SkeletonSolverFunction
     from momentum_tpu_torch.testing.profile_workload import (
-        in_turns, kernel_device_ms, library_solve, solve_bound)
+        fmt_ms, in_turns, kernel_device_ms, library_solve, solve_bound)
 
     fn = SkeletonSolverFunction(char, (dataclasses.replace(ef0, target=targets),))
     rows, j = fn.residual_and_jacobian(x0)
@@ -295,7 +326,7 @@ def phase_psd(char, ef0, targets, x0):
               f"{PSD_RELRES_TOL:.0e}); max|x_kernel - x_plain| = {err:.3e} ({x_rel:.3e} of "
               f"max|x|, tol {PSD_X_TOL:.0e}); in turns: kernel {t['kernel']:.4f} ms, library "
               f"cholesky_ex + cholesky_solve {t['library']:.4f} ms, plain {t['plain']:.4f} ms; "
-              f"device time kernel {dev_ms:.4f} ms, library {lib_dev_ms:.4f} ms; bound "
+              f"device time kernel {fmt_ms(dev_ms)} ms, library {fmt_ms(lib_dev_ms)} ms; bound "
               f"{b_psd['bound_ms']:.4f} ms ({b_psd['bound_by']}), "
               f"{b_psd['bound_ms'] / t['kernel']:.1%} of it")
         if not (res_k <= PSD_RELRES_TOL and x_rel <= PSD_X_TOL):
@@ -692,7 +723,7 @@ def _hold_psd_matrix(a, d, b, label):
     in turns; the bound."""
     from momentum_tpu_torch.ops import psd
     from momentum_tpu_torch.testing.profile_workload import (
-        in_turns, kernel_device_ms, library_solve, solve_bound)
+        fmt_ms, in_turns, kernel_device_ms, library_solve, solve_bound)
 
     batch, n = b.shape[:2]
     k = b.shape[2] if b.ndim == 3 else 1
@@ -715,7 +746,7 @@ def _hold_psd_matrix(a, d, b, label):
           f"against float64 kernel {fwd['kernel']:.3e} / plain {fwd['plain']:.3e} (kernel's "
           f"tol: {X_FWD_FACTOR:.0f}x the plain's, at least {PSD_X_TOL:.0e}); in turns: kernel "
           f"{t['kernel']:.4f} ms, library {t['library']:.4f} ms, plain {t['plain']:.4f} ms; "
-          f"device time kernel {dev_ms:.4f} ms; bound {b_psd['bound_ms']:.4f} ms "
+          f"device time kernel {fmt_ms(dev_ms)} ms; bound {b_psd['bound_ms']:.4f} ms "
           f"({b_psd['bound_by']}), {b_psd['bound_ms'] / t['kernel']:.1%} of it")
     if not (res_k <= max(PSD_RELRES_TOL, X_FWD_FACTOR * res_p)
             and fwd["kernel"] <= max(PSD_X_TOL, X_FWD_FACTOR * fwd["plain"])):
@@ -791,7 +822,7 @@ def phase_sequence(smi):
             torch.cuda.synchronize()
             it_walls.append(time.perf_counter() - t0)
         prof_wall, busy_ms, _ = device_busy(lambda: solve(prob.pf0, prob.u0))
-        idle = 1 - busy_ms / (prof_wall * 1e3)
+        idle = None if busy_ms is None else 1 - busy_ms / (prof_wall * 1e3)
         err, want = float(res.error), SEQUENCE_ERROR_JAX_CPU[name]
         p, nu = fn.num_per_frame, fn.num_universal
         print(f"config {name} (F={frames}, P={fn.character.num_model_parameters}, per-frame "
@@ -800,8 +831,9 @@ def phase_sequence(smi):
               f"{err:.6e} (JAX CPU {want:.6e}), iterations {res.iterations} (JAX CPU "
               f"{SEQUENCE_ITERATIONS_JAX_CPU}), converged {bool(res.converged)}; one GN "
               f"iteration {statistics.median(it_walls) * 1e3:.1f} ms; device busy "
-              f"{busy_ms:.1f} of {prof_wall * 1e3:.1f} ms profiled, idle share {idle:.3f}; "
-              f"peak memory {peak_gb:.3f} GiB; kernel launches {counts[name]}")
+              + (f"{busy_ms:.1f} of {prof_wall * 1e3:.1f} ms profiled, idle share {idle:.3f}; "
+                 if busy_ms is not None else "not measured (the profile saw no device time); ")
+              + f"peak memory {peak_gb:.3f} GiB; kernel launches {counts[name]}")
         if res.per_frame.shape != prob.pf0.shape or not bool(torch.isfinite(res.per_frame).all()):
             raise AssertionError(f"config {name}: parameters of the wrong shape or not finite")
         if not (abs(err / want - 1) <= SEQUENCE_RTOL
@@ -1045,6 +1077,212 @@ def phase_tracking(smi):
     return counts, numbers, fk_numbers, psd_numbers
 
 
+def _hold_ad_rows(solver_fn, x, label):
+    """The forward-mode Jacobian of solver_fn's rows at x (B, P) with FK's
+    primal on K1 against the same with FK on fk_global_plain, to AD_K1_RTOL
+    of max|J|; K1's launches in the first."""
+    from momentum_tpu_torch.ops import fk as fk_ops
+    from momentum_tpu_torch.solver.gauss_newton import ad_jacobian
+
+    out, launches = {}, {}
+    for name in ("kernel", "plain"):
+        if name == "plain":
+            real, fk_ops.fk_global = fk_ops.fk_global, fk_ops.fk_global_plain
+        try:
+            _reset_counts()
+            out[name] = ad_jacobian(solver_fn.residual, x)
+            torch.cuda.synchronize()
+            launches[name] = _counts()["fk_global_kernel"]
+        finally:
+            if name == "plain":
+                fk_ops.fk_global = real
+    (rk, jk), (rp, jp) = out["kernel"], out["plain"]
+    err = float((jk - jp).abs().max() / jp.abs().max())
+    row_err = float((rk - rp).abs().max() / rp.abs().max())
+    print(f"forward-mode rows of {label} (B={x.shape[0]}, R={rk.shape[-1]}, P={x.shape[-1]}) "
+          f"through K1 ({launches['kernel']} launches) against fk_global_plain "
+          f"({launches['plain']}): max|ΔJ| {err:.3e} of max|J|, rows {row_err:.3e} (tol "
+          f"{AD_K1_RTOL:.0e})")
+    if not (err <= AD_K1_RTOL and row_err <= AD_K1_RTOL and launches["kernel"] >= 1
+            and launches["plain"] == 0):
+        raise AssertionError(f"{label}: forward-mode rows through K1 disagree with the plain "
+                             f"FK's ({err}, rows {row_err}) or launches {launches}")
+    return dict(max_rel_err=err, rows_rel_err=row_err, k1_launches=launches["kernel"],
+                batch=x.shape[0])
+
+
+def _last_system(run, batch):
+    """The (a, damp, b) of the last K2+K3 call of `run()` on `batch` systems."""
+    from momentum_tpu_torch.ops import psd
+
+    seen = []
+    real = psd.damped_chol_solve
+
+    def record(a, damp, b):
+        if a.shape[0] == batch:
+            seen[:] = [(a.clone(), damp.clone(), b.clone())]
+        return real(a, damp, b)
+
+    psd.damped_chol_solve = record
+    try:
+        run()
+    finally:
+        psd.damped_chol_solve = real
+    if not seen:
+        raise AssertionError(f"the path gave K2+K3 no system at B = {batch}")
+    return seen[0]
+
+
+def phase_catalog(smi):
+    """Config C: batched IK at B = 2048 over every rigid module of the
+    catalog on the full-body rig (workloads.build_catalog_ik_problem): LM 10
+    through solve_ik on the normal equations, the blockwise analytic
+    Jacobians and forward mode for CameraProjection, PlaneCollision and the
+    Union; K1 every context, K2+K3 at (2048, 157). Figures on the first 256
+    elements against JAX CPU's and on all 2048: each module's median final
+    energy, conv_at_1e5 (against the solve continued 20 iterations), the
+    divergent count; solves/s (the median of 3 warm solves) and the peak
+    memory (the idle share comes from profile_workload --workload catalog).
+    Then K2+K3 held at (2048, 157) on the path's normal equations and the
+    forward-mode rows held through K1 against the plain FK."""
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, CATALOG_JAX_CPU_FILE)) as f:
+        want = json.load(f)
+    problem = w.build_catalog_ik_problem(w.CATALOG_BATCH, seed=SEED, device="cuda")
+    batch = problem.x0.shape[0]
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = w.solve_catalog(problem)
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    walls = []
+    for _ in range(3):  # warm
+        t0 = time.perf_counter()
+        w.solve_catalog(problem)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    more = w.solve_catalog(problem, x0=res.params, iterations=w.CATALOG_MORE)
+    held = w.catalog_figures(problem, res.params, more.params, slice(0, CATALOG_HELD))
+    full = w.catalog_figures(problem, res.params, more.params)
+    print(f"config C (catalog IK, B={batch}, P={problem.x0.shape[-1]}, "
+          f"{len(problem.modules)} modules, LM {w.CATALOG_ITERATIONS}): {batch / wall:.1f} "
+          f"solves/s (median wall {wall:.3f} s of 3 warm runs) on {smi}; peak memory "
+          f"{peak_gb:.3f} GiB; kernel launches {counts}")
+    floor = CATALOG_MEDIAN_FLOOR * want["median_energy"]["total"]
+    bad = []
+    for label, jax_med in want["median_energy"].items():
+        med = held["median_energy"][label]
+        ok = abs(med - jax_med) <= CATALOG_MEDIAN_RTOL * jax_med + floor
+        bad += [] if ok else [label]
+        print(f"  config C {label}: median final energy {med:.6e} on the first "
+              f"{CATALOG_HELD} (JAX CPU {jax_med:.6e}){'' if ok else ' OUT OF TOLERANCE'}; "
+              f"all {batch}: {full['median_energy'][label]:.6e}")
+    print(f"  config C conv_at_1e5 {held['conv_at_1e5']:.4f} on the first {CATALOG_HELD} "
+          f"(JAX CPU {want['conv_at_1e5']:.4f}), {full['conv_at_1e5']:.4f} on all {batch}; "
+          f"divergent {held['divergent']} / {full['divergent']} (JAX CPU {want['divergent']})")
+    if bad or abs(held["conv_at_1e5"] - want["conv_at_1e5"]) > CATALOG_CONV_SLACK \
+            or full["divergent"] or any(n == 0 for n in counts.values()):
+        raise AssertionError(f"config C: medians {bad} out of tolerance, conv_at_1e5 "
+                             f"{held['conv_at_1e5']} (JAX CPU {want['conv_at_1e5']}), divergent "
+                             f"{full['divergent']}, or launches {counts}")
+    efs = tuple(ef for _, ef in problem.modules)
+    fn = SkeletonSolverFunction(problem.char, efs)
+    ad_fn = SkeletonSolverFunction(problem.char, tuple(ef for ef in efs
+                                                       if not ef.has_analytic_jacobian))
+    numbers = dict(solves_per_s=batch / wall, wall_s=wall, peak_memory_gib=peak_gb,
+                   first_256=held, all=full, launches=counts,
+                   ad_rows=_hold_ad_rows(ad_fn, problem.x0, "config C's forward-mode modules"))
+    a, b = fn.normal_equations(problem.x0)[:2]
+    damp = (0.01 * torch.clamp(a.diagonal(dim1=-2, dim2=-1), min=1e-12) + 1e-5).contiguous()
+    psd_numbers = _hold_psd_matrix(a.contiguous(), damp, b.contiguous(),
+                                   "config C's normal equations at the warm starts")
+    return counts, numbers, psd_numbers
+
+
+def phase_keypoints(smi):
+    """Config 6k: config 6s's 343-frame clip and the keypoints of four
+    cameras about 4 m from the walk (pinhole, two OpenCV, fisheye; 1280 × 720;
+    the truth locators' projections + N(0, 1 px), 5% unobserved), from JAX
+    CPU's config 6s calibration: track_poses_batched of every frame with
+    markers and keypoints (LM 15, projection weight 1.5) from the calibrated
+    identity, and refine_motion of JAX CPU's per-frame motion with them.
+    Per stage frames/s, the median and p90 marker error (mm) and the median
+    reprojection error (px) against JAX CPU's, the launches (the idle share
+    comes from profile_workload --workload keypoints). Then the forward-mode rows of the keypoint solve
+    held through K1 against the plain FK at B = 343, and K2+K3 held at
+    (343, 73) on a system of the batched stage."""
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+    from momentum_tpu_torch.tracking import tracker
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, KEYPOINTS_JAX_CPU_FILE)) as f:
+        want = json.load(f)
+    with open(os.path.join(here, TRACKING_JAX_CPU_FILE)) as f:
+        jax_6s = json.load(f)
+    jax_motion = torch.as_tensor(np.load(os.path.join(here, TRACKING_JAX_CPU_MOTION_FILE)),
+                                 device="cuda")
+    clip = w.build_tracking_clip(w.TRACKING_FRAMES, seed=SEED, device="cuda")
+    keypoints = w.build_keypoint_clip(clip, seed=SEED)
+    markers, frames = clip.markers, clip.markers.num_frames
+    rig = dataclasses.replace(clip.char, locators=dataclasses.replace(
+        clip.char.locators, offset=torch.as_tensor(jax_6s["locator_offsets"], device="cuda")))
+    identity = torch.as_tensor(jax_6s["identity"], device="cuda")
+    counts, numbers = {}, {}
+
+    def stage(name, run):
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = _counts()
+        d = w.clip_marker_errors_mm(rig, markers, out.motion)
+        px = w.clip_reprojection_errors_px(rig, keypoints, out.motion)
+        got = dict(median_mm=float(np.median(d)), p90_mm=float(np.percentile(d, 90)),
+                   median_px=float(np.median(px)))
+        ref = want[name]
+        print(f"config 6k {name}: {frames / wall:.2f} frames/s (wall {wall:.2f} s) on {smi}; "
+              f"marker error median {got['median_mm']:.4f} mm (JAX CPU {ref['median_mm']:.4f}), "
+              f"p90 {got['p90_mm']:.4f} mm (JAX CPU {ref['p90_mm']:.4f}); reprojection error "
+              f"median {got['median_px']:.4f} px (JAX CPU {ref['median_px']:.4f}); kernel "
+              f"launches {counts[name]}")
+        if not (bool(torch.isfinite(out.motion).all())
+                and abs(got["median_mm"] - ref["median_mm"])
+                <= max(TRACKING_MEDIAN_RTOL * ref["median_mm"], TRACKING_MEDIAN_ATOL_MM)
+                and abs(got["p90_mm"] - ref["p90_mm"]) <= TRACKING_P90_RTOL * ref["p90_mm"]
+                and abs(got["median_px"] - ref["median_px"])
+                <= TRACKING_MEDIAN_RTOL * ref["median_px"]):
+            raise AssertionError(f"config 6k {name}: {got} not within tolerance of JAX CPU's "
+                                 f"{ref}")
+        numbers[name] = dict(frames_per_s=frames / wall, wall_s=wall, launches=counts[name],
+                             **got)
+        return out
+
+    batched = stage("batched", lambda: w.track_clip_keypoints(rig, markers, keypoints, identity))
+    stage("refine", lambda: w.refine_clip_keypoints(rig, markers, keypoints, jax_motion))
+    total = {k: sum(c[k] for c in counts.values()) for k in counts["batched"]}
+    if any(n == 0 for n in total.values()):
+        raise AssertionError(f"config 6k did not run through every kernel: {counts}")
+    cfg = w._keypoint_configs()[0]
+    solve = tracker._frame_solve(rig, markers, cfg, None, keypoints)
+    ef = solve.per_frame(solve.ef0, markers.positions, markers.occluded)
+    kp_efs = tuple(pf(e0, t, c) for (e0, pf), (t, c) in zip(solve.kp, solve.kp_data))
+    numbers["ad_rows"] = _hold_ad_rows(
+        SkeletonSolverFunction(rig, (ef,) + solve.others + kp_efs), batched.motion,
+        "config 6k's marker, limit and keypoint modules")
+    one_step = dataclasses.replace(cfg, max_iter=2)
+    system = _last_system(lambda: tracker.track_poses_batched(
+        rig, markers, one_step, initial=identity, camera_keypoints=keypoints), frames)
+    psd_numbers = _hold_psd_matrix(*system, "config 6k batched LM step")
+    return counts, numbers, psd_numbers
+
+
 def _frame_vertices(char, motion, frame=0):
     """The skinned vertices of frame `frame` of the clip."""
     from momentum_tpu_torch.testing.workloads import clip_vertices
@@ -1148,8 +1386,9 @@ def phase_raster(char, cam, motion):
         n_ovf = int(ovf.sum()) if cull else 0
         covered = int(hit.sum())
         b_raster, scanned, n_live, unculled = _raster_bound(*args, covered)
-        ms = kernel_device_ms(lambda: raster._raster_kernel(*args, True), kernel)
         busy_ms = event_ms(lambda: raster._raster_kernel(*args, True), busy=True)
+        # the profiler's kernel time, else the launches queued behind a sleep
+        ms = kernel_device_ms(lambda: raster._raster_kernel(*args, True), kernel) or busy_ms
         plain_ms = event_ms(lambda: raster._raster_plain(*args, 128, True))
         call_ms = event_ms(lambda: raster.rasterize_planes(sv, faces, w, h, **kw))
         err = max(errs.values())
@@ -1193,7 +1432,7 @@ def phase_render_clip(char, cam, motion, smi):
     raster passes per frame (K4b) and a 2×2 box filter; 3 timed runs, then
     the device time of K4b's 64 launches and K1's one per clip (profiler)."""
     from momentum_tpu_torch.ops import fk as fk_ops, raster
-    from momentum_tpu_torch.testing.profile_workload import kernel_device_ms
+    from momentum_tpu_torch.testing.profile_workload import fmt_ms, kernel_device_ms
     from momentum_tpu_torch.testing.workloads import make_render_clip
 
     render_clip = make_render_clip(char, cam)
@@ -1225,8 +1464,8 @@ def phase_render_clip(char, cam, motion, smi):
           f"on {smi}; mean coverage {cov:.6f} (JAX CPU {CLIP_COVERAGE_JAX_CPU:.6f}), "
           f"mean colour of covered pixels {[round(c, 6) for c in mean_color]}; "
           f"kernel launches {counts}; device ms per clip (profiler): K4b "
-          f"{device_ms['raster_planes_binned_kernel']:.4f} over its 64 launches, K1 "
-          f"{device_ms['fk_global_kernel']:.4f}")
+          f"{fmt_ms(device_ms['raster_planes_binned_kernel'])} over its 64 launches, K1 "
+          f"{fmt_ms(device_ms['fk_global_kernel'])}")
     if imgs.shape != (frames, 480, 640, 3) or not bool(torch.isfinite(imgs).all()):
         raise AssertionError(f"render clip: images {tuple(imgs.shape)} of the wrong shape "
                              "or not finite")
@@ -1473,6 +1712,10 @@ def main():
     lap("sequence_accel")
     track_counts, track_numbers, track_fk, track_psd = phase_tracking(smi)
     lap("tracking")
+    catalog_counts, catalog_numbers, catalog_psd = phase_catalog(smi)
+    lap("catalog")
+    kp_counts, kp_numbers, kp_psd = phase_keypoints(smi)
+    lap("keypoints")
 
     from momentum_tpu_torch.testing.workloads import build_render_clip
 
@@ -1498,7 +1741,11 @@ def main():
              by_batch={str(b): nums for b, nums in fk_by_batch.items()},
              sequence_B1024={c: seq_numbers[c].pop("fk") for c in seq_counts},
              tracking_launches={st: n["fk_global_kernel"] for st, n in track_counts.items()},
-             **{f"tracking_B{b}": nums for b, nums in track_fk.items()}),
+             **{f"tracking_B{b}": nums for b, nums in track_fk.items()},
+             catalog_launches=catalog_counts["fk_global_kernel"],
+             catalog_ad_rows=catalog_numbers.pop("ad_rows"),
+             keypoint_launches={st: n["fk_global_kernel"] for st, n in kp_counts.items()},
+             keypoint_ad_rows=kp_numbers.pop("ad_rows")),
         dict(name="damped_chol_solve_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/psd_pallas.py:53",
@@ -1515,7 +1762,11 @@ def main():
                 for nums in (seq_numbers[c].pop("psd") for c in seq_counts)},
              tracking_launches={st: n["damped_chol_solve_kernel"]
                                 for st, n in track_counts.items()},
-             **{f"tracking_{shape}": nums for shape, nums in track_psd.items()}),
+             **{f"tracking_{shape}": nums for shape, nums in track_psd.items()},
+             catalog_launches=catalog_counts["damped_chol_solve_kernel"],
+             catalog_2048x157=catalog_psd,
+             keypoint_launches={st: n["damped_chol_solve_kernel"] for st, n in kp_counts.items()},
+             keypoints_343x73=kp_psd),
         dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:55",
@@ -1547,7 +1798,8 @@ def main():
              **chol_numbers["K5b"]),
     ]
     print(json.dumps({"config2": config2_numbers, "config4": vertex_numbers,
-                      "config5": seq_numbers, "config6s": track_numbers}))
+                      "config5": seq_numbers, "config6s": track_numbers,
+                      "configC": catalog_numbers, "config6k": kp_numbers}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -10,12 +10,9 @@ character_from_numpy keys (shapes as in momentum_tpu):
     joint_parent (nJ,) int32, pre_rotation (nJ, 4), translation_offset (nJ, 3),
     transform (nJ*7, P), offsets (nJ*7,), optional parameter_names (P,) str,
     optional parameter_sets (a dict of name -> index array),
-    minmax_index (M,), minmax_bounds (M, 2), minmax_weight (M,),
-    minmax_joint_index (MJ,), minmax_joint_bounds (MJ, 2),
-    minmax_joint_weight (MJ,), minmax_joint_passive (MJ,),
-    optional linear_count, linear_joint_count, halfplane_count,
-    ellipsoid_count (): the character's records of the limit types the port
-    does not hold; any count above 0 raises NotImplementedError,
+    the limit tables of ParameterLimits under their field names
+    (minmax_index (M,), minmax_bounds (M, 2), ..., ellipsoid_weight (E,)),
+    a record type whose tables are absent having no records,
     optional locator_parent (L,), locator_offset (L, 3), locator_weight (L,);
     optional mesh_vertices (V, 3), mesh_faces (F, 3) int32, and with them
     optional mesh_normals (V, 3), mesh_texcoords (T, 2),
@@ -24,9 +21,15 @@ character_from_numpy keys (shapes as in momentum_tpu):
     inverse_bind_pose (nJ, 8);
     optional blend_shape_base (V, 3), blend_shape_vectors (K, V, 3),
     blend_shape_param_index (K,) and the same three for
-    face_expression_{base,vectors,param_index}
-camera_from_numpy keys (a pinhole Camera):
-    fx, fy, cx, cy (), image_width, image_height (), eye_from_world (8,)
+    face_expression_{base,vectors,param_index};
+    optional collision_parent (C,), collision_transform (C, 8),
+    collision_radius (C, 2), collision_length (C,), and with them optional
+    collision_ptype (C,), collision_ellipsoid_radii (C, 3),
+    collision_box_half_extents (C, 3)
+camera_from_numpy keys:
+    fx, fy, cx, cy (), image_width, image_height (), eye_from_world (8,),
+    and for a distorted model k and p: k (6,) with p (4,) an OpenCV camera,
+    k (4,) alone a fisheye one
 position_error_from_numpy keys:
     parent (C,), offset (C, 3), target (..., C, 3), cweight (C,), weight (),
     optional loss_alpha, loss_c
@@ -51,13 +54,16 @@ CPU, and raises on a machine without one.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from momentum_tpu_torch.camera import Camera, PinholeIntrinsics
+from momentum_tpu_torch.camera import (
+    Camera, OpenCVFisheyeIntrinsics, OpenCVIntrinsics, PinholeIntrinsics)
 from momentum_tpu_torch.character import (
-    BlendShape, Character, Locators, Mesh, ParameterLimits, ParameterTransform, Skeleton,
-    SkinWeights)
+    BlendShape, Character, CollisionGeometry, Locators, Mesh, ParameterLimits,
+    ParameterTransform, Skeleton, SkinWeights, make_limits)
 from momentum_tpu_torch.device import resolve
 from momentum_tpu_torch.errors import (
     LimitErrorFunction, Mppca, OrientationErrorFunction, PosePriorErrorFunction,
@@ -71,10 +77,8 @@ __all__ = ["character_from_numpy", "camera_from_numpy", "position_error_from_num
            "vertex_plane_error_from_numpy", "vertex_normal_error_from_numpy",
            "vertex_projection_error_from_numpy"]
 
-_LIMIT_KEYS = ("minmax_index", "minmax_bounds", "minmax_weight", "minmax_joint_index",
-               "minmax_joint_bounds", "minmax_joint_weight", "minmax_joint_passive")
-# limit record types the port's ParameterLimits does not hold (ROADMAP M3)
-_UNPORTED_LIMITS = ("linear", "linear_joint", "halfplane", "ellipsoid")
+_LIMIT_KEYS = tuple(f.name for f in dataclasses.fields(ParameterLimits))
+_COLLISION_KEYS = tuple(f.name for f in dataclasses.fields(CollisionGeometry))
 
 
 def _t(d, key, device):
@@ -100,11 +104,26 @@ def _basis(d, prefix, device):
     return basis, tuple(int(i) for i in np.asarray(d[f"{prefix}_param_index"]))
 
 
+def _limits(d, device) -> ParameterLimits:
+    """The limit tables of d, an absent table empty."""
+    empty = make_limits(device=device)
+    tables = {}
+    for k in _LIMIT_KEYS:
+        default = getattr(empty, k)
+        tables[k] = _t(d, k, device).to(default.dtype) if k in d else default
+    return ParameterLimits(**tables)
+
+
+def _collision(d, device):
+    if "collision_parent" not in d:
+        return None
+    return CollisionGeometry(**{
+        k: (_t(d, f"collision_{k}", device).to(torch.int32) if k in ("parent", "ptype")
+            else _t(d, f"collision_{k}", device))
+        for k in _COLLISION_KEYS if f"collision_{k}" in d})
+
+
 def character_from_numpy(d: dict, device="cuda") -> Character:
-    held = {k: int(d.get(f"{k}_count", 0)) for k in _UNPORTED_LIMITS}
-    if any(held.values()):
-        raise NotImplementedError(
-            f"the character holds limit records the port does not carry yet: {held}")
     device = resolve(device, "character_from_numpy")
     skeleton = Skeleton(joint_parent=_t(d, "joint_parent", device).to(torch.int32),
                         pre_rotation=_t(d, "pre_rotation", device),
@@ -114,7 +133,7 @@ def character_from_numpy(d: dict, device="cuda") -> Character:
         names=tuple(str(n) for n in d.get("parameter_names", ())),
         parameter_sets={k: tuple(int(i) for i in np.asarray(v))
                         for k, v in d.get("parameter_sets", {}).items()})
-    limits = ParameterLimits(**{k: _t(d, k, device) for k in _LIMIT_KEYS})
+    limits = _limits(d, device)
     locators = None
     if "locator_parent" in d:
         locators = Locators(parent=_t(d, "locator_parent", device).to(torch.int32),
@@ -142,14 +161,22 @@ def character_from_numpy(d: dict, device="cuda") -> Character:
                      inverse_bind_pose=inverse_bind_pose, blend_shape=blend,
                      blend_shape_param_index=blend_index,
                      face_expression_blend_shape=face,
-                     face_expression_param_index=face_index)
+                     face_expression_param_index=face_index,
+                     collision=_collision(d, device))
 
 
 def camera_from_numpy(d: dict, device="cuda") -> Camera:
     device = resolve(device, "camera_from_numpy")
-    intr = PinholeIntrinsics.create(
-        *(np.float32(d[k]) for k in ("fx", "fy", "cx", "cy")),
-        image_size=(int(d["image_width"]), int(d["image_height"])), device=device)
+    args = [np.float32(d[k]) for k in ("fx", "fy", "cx", "cy")]
+    size = (int(d["image_width"]), int(d["image_height"]))
+    if "p" in d:
+        intr = OpenCVIntrinsics.create(*args, k=np.asarray(d["k"]), p=np.asarray(d["p"]),
+                                       image_size=size, device=device)
+    elif "k" in d:
+        intr = OpenCVFisheyeIntrinsics.create(*args, k=np.asarray(d["k"]), image_size=size,
+                                              device=device)
+    else:
+        intr = PinholeIntrinsics.create(*args, image_size=size, device=device)
     return Camera.create(intr, _t(d, "eye_from_world", device))
 
 

@@ -1,3 +1,4 @@
-"""Cameras: the pinhole model and its extrinsics."""
+"""Cameras: pinhole, OpenCV and OpenCV fisheye intrinsics, and their extrinsics."""
 
-from momentum_tpu_torch.camera.models import Camera, PinholeIntrinsics  # noqa: F401
+from momentum_tpu_torch.camera.models import (  # noqa: F401
+    Camera, OpenCVFisheyeIntrinsics, OpenCVIntrinsics, PinholeIntrinsics)

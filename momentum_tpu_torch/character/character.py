@@ -1,6 +1,6 @@
 """Character: skeleton + parameter transform + limits + locators, and an
-optional skinned mesh with its inverse bind pose, body blend shapes and
-face-expression blend shapes (character.h:33-283).
+optional skinned mesh with its inverse bind pose, body blend shapes,
+face-expression blend shapes and collision geometry (character.h:33-283).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from momentum_tpu_torch.character.skeleton import Skeleton
 from momentum_tpu_torch.character.skinning import SkinWeights
 from momentum_tpu_torch.math import skel_state as ss
 
-__all__ = ["Mesh", "Locators", "Character"]
+__all__ = ["Mesh", "Locators", "CollisionGeometry", "Character"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -70,6 +70,45 @@ class Locators:
         return ss.transform_points(states, self.offset)
 
 
+# CollisionPrimitiveType (collision_geometry.h:22-26)
+PRIMITIVE_TAPERED_CAPSULE = 0
+PRIMITIVE_ELLIPSOID = 1
+PRIMITIVE_BOX = 2
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CollisionGeometry:
+    """Per-joint collision primitives in SoA form (collision_geometry.h:22-170
+    TaperedCapsule / Ellipsoid / Box): the transform in the parent joint's
+    frame (an (8,) skel_state) and each primitive type's shape fields.
+    `ptype` selects the primitive kind of a row (None: all capsules); the
+    unused shape fields of a row are zero."""
+
+    parent: torch.Tensor  # (C,) int32
+    transform: torch.Tensor  # (C, 8) local skel_state
+    radius: torch.Tensor  # (C, 2) tapered-capsule endpoint radii
+    length: torch.Tensor  # (C,) capsule length along local x
+    ptype: Optional[torch.Tensor] = None  # (C,) int32: 0 capsule, 1 ellipsoid, 2 box
+    ellipsoid_radii: Optional[torch.Tensor] = None  # (C, 3)
+    box_half_extents: Optional[torch.Tensor] = None  # (C, 3)
+
+    @property
+    def num_capsules(self) -> int:
+        return self.parent.shape[0]
+
+    def primitive_types(self) -> torch.Tensor:
+        if self.ptype is None:
+            return torch.zeros_like(self.parent)
+        return self.ptype
+
+    def shape3(self, field: str) -> torch.Tensor:
+        """The (C, 3) shape field `field`, zeros when the geometry has none."""
+        arr = getattr(self, field)
+        if arr is None:
+            return self.radius.new_zeros(self.parent.shape + (3,))
+        return arr
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Character:
     skeleton: Skeleton
@@ -88,6 +127,7 @@ class Character:
     # (character.h faceExpressionBlendShape, parameter_transform.h:212-215)
     face_expression_blend_shape: Optional[BlendShape] = None
     face_expression_param_index: Optional[tuple] = None
+    collision: Optional[CollisionGeometry] = None
 
     @property
     def num_joints(self) -> int:
@@ -119,6 +159,9 @@ class Character:
         if self.inverse_bind_pose is not None:
             return self
         return dataclasses.replace(self, inverse_bind_pose=ss.inverse(self.bind_pose()))
+
+    def with_collision_geometry(self, collision: CollisionGeometry) -> "Character":
+        return dataclasses.replace(self, collision=collision)
 
     def with_blend_shape(self, blend_shape: BlendShape, num_shapes=None) -> "Character":
         """Attach a blend-shape basis and extend the rig with its coefficient

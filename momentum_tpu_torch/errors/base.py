@@ -31,7 +31,7 @@ import torch
 
 from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
 
-__all__ = ["EvalContext", "ErrorFunction", "VectorErrorFunction"]
+__all__ = ["EvalContext", "ErrorFunction", "VectorErrorFunction", "UnionErrorFunction"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -109,3 +109,35 @@ class VectorErrorFunction(ErrorFunction):
 
     def constraint_count(self) -> int:
         raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class UnionErrorFunction(ErrorFunction):
+    """Several modules in one slot (diff_ik union_error_function.h
+    UnionErrorFunctionT): the children's rows concatenated, each scaled by
+    sqrt(weight), and the sum of their energies times weight. It has no
+    analytic Jacobian, as in JAX: its rows reach the solver by forward mode."""
+
+    children: tuple = ()
+    weight: Optional[torch.Tensor] = None  # scalar; None is 1
+
+    def _weight(self, ref: torch.Tensor) -> torch.Tensor:
+        return ref.new_ones(()) if self.weight is None else self.weight
+
+    def error(self, character, ctx: EvalContext) -> torch.Tensor:
+        total = sum(c.error(character, ctx) for c in self.children)
+        return self._weight(ctx.model_params) * total
+
+    def residual(self, character, ctx: EvalContext) -> torch.Tensor:
+        rows = [c.residual(character, ctx) for c in self.children]
+        if not rows:
+            return ctx.model_params.new_zeros(ctx.model_params.shape[:-1] + (0,))
+        w = torch.sqrt(self._weight(ctx.model_params))
+        return torch.cat([w * r for r in rows], dim=-1)
+
+    def num_rows(self) -> int:
+        return sum(c.num_rows() for c in self.children)
+
+    @property
+    def needs_mesh(self) -> bool:
+        return any(c.needs_mesh for c in self.children)

@@ -64,6 +64,20 @@ class PositionErrorFunction(VectorErrorFunction):
     def raw(self, character, ctx: EvalContext):
         return self._world(ctx, self._parents(ctx)) - self.target, self.cweight
 
+    def jacobian(self, character, ctx: EvalContext, jc):
+        """Rows (..., 3C) and their joint-space Jacobian (..., 3C, nJ·7)
+        (the position path of skeleton_derivative.cpp); the solver takes
+        jacobian_model, this is its joint-space form."""
+        from momentum_tpu_torch.solver.analytic_jacobian import point_jacobian
+
+        parents = self._parents(ctx)
+        world = self._world(ctx, parents)
+        f = world - self.target
+        scale = self._row_scale(self.cweight, torch.sum(f * f, dim=-1))
+        j = scale[..., None, None] * point_jacobian(jc, world, parents)
+        rows = (scale[..., None] * f).reshape(f.shape[:-2] + (-1,))
+        return rows, j.reshape(j.shape[:-3] + (rows.shape[-1], j.shape[-1])), None
+
     def jacobian_model(self, character, ctx: EvalContext, jc, pt_mat):
         """Rows (..., 3C) and d(rows)/d(model params) (..., 3C, P) through
         the merged-factor contraction
@@ -172,6 +186,23 @@ class OrientationErrorFunction(VectorErrorFunction):
     def raw(self, character, ctx: EvalContext):
         _, diff = self._rotations(ctx, self._parents(ctx))
         return diff.reshape(diff.shape[:-2] + (9,)), self.cweight
+
+    def jacobian(self, character, ctx: EvalContext, jc):
+        """Rows (..., 9C) and their joint-space Jacobian (..., 9C, nJ·7):
+        column v_j of R_world has the derivative rotationAxis × v_j (the
+        orientation path of skeleton_derivative.cpp); the solver takes
+        jacobian_model, this is its joint-space form."""
+        from momentum_tpu_torch.solver.analytic_jacobian import vector_jacobian
+
+        parents = self._parents(ctx)
+        r_world, diff = self._rotations(ctx, parents)
+        f = diff.reshape(diff.shape[:-2] + (9,))
+        scale = self._row_scale(self.cweight, torch.sum(f * f, dim=-1))
+        j = torch.stack([vector_jacobian(jc, r_world[..., k], parents) for k in range(3)],
+                        dim=-2)  # (..., C, 3out, 3col, nJ·7), [i, j] = d r[i, j]
+        j = scale[..., None, None, None] * j
+        rows = (scale[..., None] * f).reshape(f.shape[:-2] + (-1,))
+        return rows, j.reshape(j.shape[:-4] + (rows.shape[-1], j.shape[-1])), None
 
     def jacobian_model(self, character, ctx: EvalContext, jc, pt_mat):
         """Rows (..., 9C) and d(rows)/d(model params) (..., 9C, P): each

@@ -12,7 +12,7 @@ import torch
 
 __all__ = ["identity", "multiply", "conjugate", "normalize", "rotate_vector",
            "euler_to_quaternion", "to_rotation_matrix", "from_rotation_matrix",
-           "to_axis_angle", "blend"]
+           "to_axis_angle", "blend", "from_two_vectors"]
 
 _EPS = 1e-12
 
@@ -137,3 +137,16 @@ def blend(quats: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Ten
     m = torch.einsum("...ki,...kj,...k->...ij", quats, quats, weights)
     _, vecs = torch.linalg.eigh(m)  # ascending eigenvalues
     return vecs[..., :, 3]
+
+
+def from_two_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The shortest-arc quaternion turning direction a onto direction b;
+    antiparallel directions turn by π about an axis orthogonal to a."""
+    a = a / torch.clamp(torch.linalg.vector_norm(a, dim=-1, keepdim=True), min=_EPS)
+    b = b / torch.clamp(torch.linalg.vector_norm(b, dim=-1, keepdim=True), min=_EPS)
+    w = 1.0 + torch.sum(a * b, dim=-1, keepdim=True)
+    pick = torch.where(torch.abs(a[..., :1]) < 0.9, a.new_tensor([1.0, 0.0, 0.0]),
+                       a.new_tensor([0.0, 1.0, 0.0]))
+    q = torch.cat([_cross(a, b), w], dim=-1)
+    q_anti = torch.cat([_cross(a, pick), torch.zeros_like(w)], dim=-1)
+    return normalize(torch.where(w < 1e-6, q_anti, q))

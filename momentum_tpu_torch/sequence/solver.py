@@ -63,11 +63,15 @@ def make_frame_jacobian(fn: SequenceSolverFunction):
     """(pf (F, n_pf), u (n_u,)) -> (rows (F, R), J_pf (F, R, n_pf), J_u
     (F, R, n_u)) of the per-frame modules: the analytic full-θ Jacobian
     (residual_and_jacobian, its per-frame and universal columns selected)
-    whenever every module has one, else forward mode through the frame
-    contexts. The JAX package's P ≥ 64 gate (:82-85) only chooses between
-    these two equal Jacobians for the TPU's sake."""
-    ssf = SkeletonSolverFunction(fn.character, fn.per_frame_errors)
-    if ssf.fully_analytic:
+    when every module has one and the rig has at least 64 parameters, else
+    forward mode through the frame contexts: JAX's gate (:82-85), and like
+    JAX's the analytic branch takes each module's joint-space Jacobian
+    through the parameter transform (prefer_fused=False). The forms agree
+    to float32 roundoff, but a calibration's scale solve from poorly
+    tracked poses and the refine's near-null directions amplify that
+    roundoff, so the port takes the branch JAX takes."""
+    ssf = SkeletonSolverFunction(fn.character, fn.per_frame_errors, prefer_fused=False)
+    if ssf.fully_analytic and fn.character.num_model_parameters >= 64:
         def frame_jac(pf, u):
             rows, jac = ssf.residual_and_jacobian(fn.join(pf, u))
             return (rows, jac.index_select(-1, fn._index("per_frame_index", pf.device)),

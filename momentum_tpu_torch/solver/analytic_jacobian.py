@@ -23,7 +23,7 @@ import torch
 from momentum_tpu_torch.character import fk
 from momentum_tpu_torch.math import quaternion as quat, skel_state as ss
 
-__all__ = ["JacobianContext", "make_jacobian_context",
+__all__ = ["JacobianContext", "make_jacobian_context", "fused_point_jacobian_model",
            "fused_point_jacobian_model_merged", "fused_rotation_factor",
            "fused_vector_jacobian_model", "point_jacobian", "vector_jacobian",
            "skinned_point_jacobian", "skinned_vector_jacobian", "skinned_blend_jacobian"]
@@ -82,6 +82,38 @@ def fused_point_jacobian_model_merged(jc: JacobianContext, points: torch.Tensor,
     h1 = torch.einsum("...cn,...nwp->...cwp", mask, d_r)
     term_r = _cross2(h1, points[..., :, :, None])
     return t1 + term_r + _LN2 * points[..., :, :, None] * m_pt6[..., :, None, :]
+
+
+def fused_point_jacobian_model(jc: JacobianContext, points: torch.Tensor,
+                               parents: torch.Tensor, pt_mat: torch.Tensor,
+                               scale=None) -> torch.Tensor:
+    """d(world point)/d(MODEL parameters), (..., C, 3, P), the unmerged
+    form: the chain rule J_jp · PT reassociated so that every contraction
+    over joints is a mask product on small precontracted factors, the
+    translation, scale and rotation terms each on their own,
+
+        translation  mask @ (transAxis·PT_t)
+        scale        ln2·(p_c ⊗ mask @ PT_s − mask @ (t_j ⊗ PT_s))
+        rotation     (mask @ (rotAxis·PT_r)) × p_c − mask @ ((rotAxis·PT_r) × t_j)
+
+    the diff = p_c − t_j of the joint-space form split so nothing of size
+    (..., C, nJ, ...) is formed. The merged form's parity oracle."""
+    nj = jc.anc_mask.shape[0]
+    ptj = pt_mat.reshape(nj, 7, pt_mat.shape[1])
+    mask = jc.anc_mask.index_select(1, parents).T  # (C, nJ)
+    if scale is not None:
+        mask = mask * scale[..., :, None]
+    a_t = torch.einsum("...nij,njp->...nip", jc.trans_axis, ptj[:, :3])
+    term_t = torch.einsum("...cn,...nip->...cip", mask, a_t)
+    pt6 = ptj[:, 6]
+    m_pt6 = mask @ pt6  # (..., C, P)
+    w_s = torch.einsum("...nv,np->...nvp", jc.joint_pos, pt6)
+    term_s = _LN2 * (points[..., :, :, None] * m_pt6[..., :, None, :]
+                     - torch.einsum("...cn,...nvp->...cvp", mask, w_s))
+    d_r = torch.einsum("...nwk,nkp->...nwp", jc.rot_axis, ptj[:, 3:6])
+    h1 = torch.einsum("...cn,...nwp->...cwp", mask, d_r)
+    h2 = torch.einsum("...cn,...nvp->...cvp", mask, _cross2(d_r, jc.joint_pos[..., :, :, None]))
+    return term_t + term_s + _cross2(h1, points[..., :, :, None]) - h2
 
 
 def fused_rotation_factor(jc: JacobianContext, parents: torch.Tensor,

@@ -33,6 +33,11 @@ class SkeletonSolverFunction:
     # take the forward-mode Jacobian even when every module has an analytic
     # one (solve_ik then passes no jacobian_fn), for tests and A/Bs
     force_ad: bool = False
+    # take a module's model-space `jacobian_model` where it has one; False
+    # takes its joint-space `jacobian` chained through the parameter
+    # transform, JAX's default (the sequence solver's frame Jacobians take
+    # it, as JAX's do)
+    prefer_fused: bool = True
 
     def context(self, model_params: torch.Tensor) -> EvalContext:
         """One FK pass (parameter transform, passive limits, global states),
@@ -113,8 +118,9 @@ class SkeletonSolverFunction:
         """Append the analytic modules' rows and J to `rows` and `jacs`."""
         jc = make_jacobian_context(self.character, ctx)
         pt_mat = self.character.parameter_transform.transform
-        fused = [ef for ef in error_functions if hasattr(ef, "jacobian_model")]
-        blockwise = [ef for ef in error_functions if not hasattr(ef, "jacobian_model")]
+        fused = [ef for ef in error_functions
+                 if self.prefer_fused and hasattr(ef, "jacobian_model")]
+        blockwise = [ef for ef in error_functions if not any(ef is f for f in fused)]
         for ef in fused:
             r, j = ef.jacobian_model(self.character, ctx, jc, pt_mat)
             rows.append(r)

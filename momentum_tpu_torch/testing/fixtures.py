@@ -1,7 +1,7 @@
 """The synthetic rigs of momentum_tpu/testing/fixtures.py, rebuilt from the
 same numpy arithmetic so the skeleton, parameter transform, limits,
-locators, skinned mesh and inverse bind pose are bit-equal to the JAX
-fixtures': `create_test_character` (a chain of joints) and
+locators, skinned mesh, inverse bind pose and collision capsules are
+bit-equal to the JAX fixtures': `create_test_character` (a chain of joints) and
 `create_fullbody_character` (the 51-joint humanoid).
 """
 
@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from momentum_tpu_torch.character import (
-    Character, Locators, Mesh, ParameterTransform, SkinWeights, make_limits, make_skeleton)
+    Character, CollisionGeometry, Locators, Mesh, ParameterTransform, SkinWeights, make_limits,
+    make_skeleton)
 from momentum_tpu_torch.character.skeleton import PARAMS_PER_JOINT
 from momentum_tpu_torch.device import resolve
 
@@ -25,9 +26,9 @@ def create_test_character(num_joints: int = 3, dtype=torch.float32,
     joints 1 and 2 at half weight each, and the x rotation of every further
     joint (num_joints + 7 parameters); one locator per joint; a skinned
     ribbon mesh (5 segments per bone, 2 vertices each); a MinMax limit on
-    parameter 0; on `device` (the card unless the caller asks for the CPU).
-    The JAX fixture's collision capsules are left out: the port's Character
-    holds no collision geometry yet."""
+    parameter 0; one tapered capsule per joint along its local +Y (radius
+    0.15, length 1); on `device` (the card unless the caller asks for the
+    CPU)."""
     if num_joints < 3:
         raise ValueError("num_joints must be >= 3")
     device = resolve(device, "create_test_character")
@@ -91,10 +92,20 @@ def create_test_character(num_joints: int = 3, dtype=torch.float32,
                 faces=torch.as_tensor(np.asarray(faces), dtype=torch.int32, device=device))
     skin = SkinWeights(index=torch.as_tensor(np.stack(sidx), device=device),
                        weight=torch.as_tensor(np.stack(swgt), dtype=dtype, device=device))
+    # the capsules' local transform turns their x axis onto +Y: Rz(90°)
+    cap_tf = np.zeros((num_joints, 8), np.float32)
+    cap_tf[:, 5] = np.sin(np.pi / 4)  # qz
+    cap_tf[:, 6] = np.cos(np.pi / 4)  # qw
+    cap_tf[:, 7] = 1.0  # scale
+    collision = CollisionGeometry(
+        parent=torch.arange(num_joints, dtype=torch.int32, device=device),
+        transform=torch.as_tensor(cap_tf, device=device),
+        radius=torch.full((num_joints, 2), 0.15, dtype=dtype, device=device),
+        length=torch.ones(num_joints, dtype=dtype, device=device))
     char = Character(skeleton=skeleton, parameter_transform=pt,
                      limits=make_limits(minmax=[(0, -0.1, 0.1, 1.0)], device=device),
                      locators=locators, name=f"test_character_{num_joints}",
-                     mesh=mesh, skin_weights=skin)
+                     mesh=mesh, skin_weights=skin, collision=collision)
     return char.with_inverse_bind_pose()
 
 

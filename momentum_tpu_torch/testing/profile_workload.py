@@ -1,7 +1,8 @@
 """Where the time of the port's workloads goes on one CUDA card.
 
     python -m momentum_tpu_torch.testing.profile_workload
-        [--workload ik|render|fullstack|vertex|sequence|tracking|both] [--batch 2048]
+        [--workload ik|render|fullstack|vertex|sequence|tracking|catalog|keypoints|both]
+        [--batch 2048]
         [--frames 1024] [--fullbody] [--out DIR]
 
 Prints, for the IK workload (build_fullbody_ik_problem + make_solve_batch,
@@ -39,6 +40,17 @@ build_tracking_clip: the CMU rig, 343 frames × 41 markers):
     the host's part (the iteration less its layers);
   * the wall and device-busy share of per-frame tracking of 32 frames and
     of the batched refine at every frame;
+for config C (build_catalog_ik_problem + solve_catalog, LM 10 at B = 2048
+over every rigid module of the catalog):
+  * each layer of one LM iteration timed alone with CUDA events (the
+    context, the analytic Jacobians, the forward-mode Jacobian, the
+    position module's direct normal equations, JᵀJ/Jᵀr of the dense rows,
+    the damped solve, the trial energy), the whole iteration and the host's
+    part, and the wall and device-busy share of the solve;
+for config 6k (config 6s's clip with four cameras' keypoints,
+build_keypoint_clip + track_clip_keypoints at every frame):
+  * each layer of one LM iteration of the batched solve, as for tracking,
+    and the wall and device-busy share of the batched solve;
 and for the render clip (build_render_clip + make_render_clip, 32 frames at
 640×480 @ 2×2 SS with a 256 × 256 shadow map):
   * FK and skinning of the clip, and each layer of frame 0's render (project
@@ -59,6 +71,7 @@ import dataclasses
 import os
 import statistics
 import subprocess
+import sys
 import time
 
 import torch
@@ -103,7 +116,7 @@ def card_name_and_power_limit() -> str:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-_PROFILE_ATTEMPTS = 3  # profiles kernel_device_ms takes before it fails
+_PROFILE_ATTEMPTS = 3  # profiles kernel_device_ms takes before it gives up
 # ~0.1 ms at an H100's clock: longer than one kernel wrapper call on the host
 _SLEEP_CYCLES_PER_CALL = 200_000
 
@@ -141,7 +154,8 @@ def in_turns(fns: dict, rounds: int = 3, busy: bool = False) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def kernel_device_ms(fn, match: str, reps: int = 10, per_call: int | None = 1) -> float:
+def kernel_device_ms(fn, match: str, reps: int = 10,
+                     per_call: int | None = 1) -> float | None:
     """Device time per call of the kernels whose name contains `match`, from
     torch.profiler over `reps` calls of fn after two warm-up calls: the
     kernel's own time, without the host's launch overhead that CUDA events
@@ -150,7 +164,10 @@ def kernel_device_ms(fn, match: str, reps: int = 10, per_call: int | None = 1) -
     divided by reps). The time per call is the mean over the launches the
     profile holds times per_call: on an H100 a profile of ten launches has
     held nine, and once none (then it is taken again, up to
-    _PROFILE_ATTEMPTS in all)."""
+    _PROFILE_ATTEMPTS in all). None, not measured, when no profile saw
+    device time for such a kernel: on one H100 the profiler stopped seeing
+    any kernel part-way through a process, and stayed so; callers then keep
+    their CUDA-event times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -168,8 +185,15 @@ def kernel_device_ms(fn, match: str, reps: int = 10, per_call: int | None = 1) -
         if us > 0:
             calls = reps if per_call is None else sum(e.count for e in seen) / per_call
             return us / 1e3 / calls
-    raise RuntimeError(f"{_PROFILE_ATTEMPTS} profiles saw no device time for a kernel named "
-                       f"{match!r}; the last saw {[(e.key, e.count) for e in events]}")
+    print(f"{_PROFILE_ATTEMPTS} profiles saw no device time for a kernel named {match!r} "
+          f"(the last saw {[(e.key, e.count) for e in events]}): its device time is not "
+          f"measured", file=sys.stderr, flush=True)
+    return None
+
+
+def fmt_ms(ms: float | None) -> str:
+    """A time in ms as the smoke and the profiles print it, or "not measured"."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def layer_times(char, ef0, targets, x0, lam: float = 0.01) -> dict:
@@ -415,10 +439,106 @@ def render_layer_times(char, cam, motion) -> dict:
     }
 
 
+def catalog_layer_times(problem, lam: float = 0.01) -> dict:
+    """ms per call of each layer of one LM iteration of config C (a
+    testing.workloads.CatalogProblem) at its warm starts: the context (FK
+    through K1), the analytic Jacobians of the dense modules (blockwise,
+    chained through the parameter transform), the forward-mode Jacobian of
+    the modules without one (FK through K1), the position module's direct
+    normal equations, JᵀJ + Jᵀr of the dense rows, the damped solve (K2+K3),
+    the trial energy; the whole iteration (solve_ik, 1 iteration), and the
+    host's part, the iteration less the layers."""
+    from momentum_tpu_torch.math.linalg import damped_psd_solve
+    from momentum_tpu_torch.solver import SkeletonSolverFunction, SolverOptions, solve_ik
+
+    char, x = problem.char, problem.x0
+    efs = tuple(ef for _, ef in problem.modules)
+    fn = SkeletonSolverFunction(char, efs)
+    direct = [ef for ef in efs if ef.supports_normal_contrib(char)]
+    dense = [ef for ef in efs if ef not in direct]
+    analytic = [ef for ef in dense if ef.has_analytic_jacobian]
+    ad = [ef for ef in dense if not ef.has_analytic_jacobian]
+    ctx = fn.context(x)
+    rows, jac = fn._rows_and_jacobian(ctx, dense)
+    jt = jac.transpose(-1, -2)
+    jtj, jtr = jt @ jac, (jt @ rows[..., None])[..., 0]
+    damp = lam * torch.clamp(jtj.diagonal(dim1=-2, dim2=-1), min=1e-12) + 1e-5
+    p = x.shape[-1]
+
+    def direct_normal():
+        from momentum_tpu_torch.solver.analytic_jacobian import make_jacobian_context
+
+        jc = make_jacobian_context(char, ctx)
+        acc = (x.new_zeros(x.shape[:-1] + (p, p)), x.new_zeros(x.shape), x.new_zeros(x.shape[:-1]))
+        for ef in direct:
+            acc = ef.accumulate_normal(char, ctx, jc, char.parameter_transform.transform, acc)
+        return acc
+
+    times = {
+        "context (FK through K1)": event_ms(lambda: fn.context(x), reps=3),
+        "analytic Jacobians (blockwise, through the parameter transform)": event_ms(
+            lambda: fn._rows_and_jacobian(ctx, analytic), reps=3),
+        "AD Jacobian (forward mode, FK through K1)": event_ms(
+            lambda: fn._rows_and_jacobian(ctx, ad), reps=3),
+        "direct normal equations (position)": event_ms(direct_normal, reps=3),
+        "JtJ + Jtr of the dense rows": event_ms(lambda: (jt @ jac, jt @ rows[..., None]),
+                                                reps=3),
+        "damped solve (K2+K3)": event_ms(lambda: damped_psd_solve(jtj, damp, jtr)),
+        "trial energy (FK through K1 + every module)": event_ms(lambda: fn.error(x), reps=3),
+    }
+    one = SolverOptions(max_iterations=1, regularization=1e-5)
+    whole = event_ms(lambda: solve_ik(fn, x, options=one, method="levenberg_marquardt"),
+                     reps=3)
+    times["host and the rest (the iteration less the layers)"] = whole - sum(times.values())
+    times["whole LM iteration (solve_ik, 1 iteration)"] = whole
+    return times
+
+
+def keypoint_layer_times(clip, keypoints, lam: float = 0.01) -> dict:
+    """ms per call of each layer of one LM iteration of config 6k's batched
+    pose solve (markers, limits and the four cameras' keypoint modules, all
+    343 frames) at the true motion plus N(0, 0.02) (seed 1): the AD
+    Jacobian, JᵀJ + Jᵀr, the damped solve (K2+K3), the trial energy; the
+    whole iteration (track_poses_batched, 1 iteration), and the host's part."""
+    from momentum_tpu_torch.math.linalg import damped_psd_solve
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+    from momentum_tpu_torch.solver.gauss_newton import ad_jacobian
+    from momentum_tpu_torch.testing.workloads import _keypoint_configs
+    from momentum_tpu_torch.tracking import track_poses_batched
+    from momentum_tpu_torch.tracking.tracker import _frame_solve
+
+    char, markers = clip.char, clip.markers
+    cfg = _keypoint_configs()[0]
+    solve = _frame_solve(char, markers, cfg, None, keypoints)
+    kp_efs = tuple(pf(e0, t, c) for (e0, pf), (t, c) in zip(solve.kp, solve.kp_data))
+    fn = SkeletonSolverFunction(char, (solve.per_frame(solve.ef0, markers.positions,
+                                                       markers.occluded),)
+                                + solve.others + kp_efs)
+    g = torch.Generator().manual_seed(1)
+    x = clip.truth + 0.02 * torch.randn(clip.truth.shape, generator=g).to(clip.truth.device)
+    rows, jt = ad_jacobian(fn.residual, x)
+    jtj, jtr = jt @ jt.transpose(-1, -2), (jt @ rows[..., None])[..., 0]
+    damp = lam * torch.clamp(jtj.diagonal(dim1=-2, dim2=-1), min=1e-12) + 1e-3
+    times = {
+        "AD Jacobian (forward mode, FK through K1)": event_ms(
+            lambda: ad_jacobian(fn.residual, x), reps=3),
+        "JtJ + Jtr": event_ms(lambda: (jt @ jt.transpose(-1, -2), jt @ rows[..., None])),
+        "damped solve (K2+K3)": event_ms(lambda: damped_psd_solve(jtj, damp, jtr)),
+        "trial energy (FK through K1 + rows)": event_ms(lambda: fn.error(x)),
+    }
+    one = dataclasses.replace(cfg, max_iter=1)
+    whole = event_ms(lambda: track_poses_batched(char, markers, one, initial=x,
+                                                 camera_keypoints=keypoints), reps=3)
+    times["host and the rest (the iteration less the layers)"] = whole - sum(times.values())
+    times["whole LM iteration (track_poses_batched, 1 iteration)"] = whole
+    return times
+
+
 def device_busy(run):
     """(wall s, device-busy ms, profiler) of one run under torch.profiler:
     the sum of the device-side rows (kernels, memcpy; the aten rows repeat
-    their time), one stream, so nothing overlaps."""
+    their time), one stream, so nothing overlaps. The busy time is None,
+    not measured, when the profile saw no device time (kernel_device_ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -428,7 +548,7 @@ def device_busy(run):
         prof_wall = time.perf_counter() - t0
     device_ms = sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    return prof_wall, device_ms, prof
+    return prof_wall, device_ms or None, prof
 
 
 def _wall_and_profile(run, card: str, label: str, out_dir, units: float, unit: str):
@@ -447,9 +567,14 @@ def _wall_and_profile(run, card: str, label: str, out_dir, units: float, unit: s
 
     prof_wall, device_ms, prof = device_busy(run)
     events = prof.key_averages()
-    print(f"profiled {label}: wall {prof_wall * 1e3:.2f} ms (profiler on), device busy "
-          f"{device_ms:.2f} ms; idle share {1 - device_ms / (prof_wall * 1e3):.3f} of the "
-          f"profiled wall, {1 - device_ms / (wall * 1e3):.3f} of the unprofiled wall [{card}]")
+    if device_ms is None:
+        print(f"profiled {label}: wall {prof_wall * 1e3:.2f} ms (profiler on); the profile "
+              f"saw no device time, so the idle share is not measured [{card}]")
+    else:
+        print(f"profiled {label}: wall {prof_wall * 1e3:.2f} ms (profiler on), device busy "
+              f"{device_ms:.2f} ms; idle share {1 - device_ms / (prof_wall * 1e3):.3f} of "
+              f"the profiled wall, {1 - device_ms / (wall * 1e3):.3f} of the unprofiled "
+              f"wall [{card}]")
     table = events.table(sort_by="self_device_time_total", row_limit=25)
     print(table)
     if out_dir:
@@ -468,7 +593,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload",
                     choices=("ik", "render", "fullstack", "vertex", "sequence", "tracking",
-                             "both"),
+                             "catalog", "keypoints", "both"),
                     default="both", help="both = ik and render")
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--frames", type=int, default=1024, help="the sequence's frame count")
@@ -556,6 +681,31 @@ def main():
         _wall_and_profile(lambda: track_poses_batched(clip.char, clip.markers, refine,
                                                       initial=clip.truth), card,
                           f"batched-refine of {frames} frames (LM 10)", args.out, frames,
+                          "frames/s")
+
+    if args.workload == "catalog":
+        from momentum_tpu_torch.testing.workloads import build_catalog_ik_problem, solve_catalog
+
+        problem = build_catalog_ik_problem(args.batch, seed=args.seed, device="cuda")
+        for name, ms in catalog_layer_times(problem).items():
+            print(f"catalog layer B={args.batch}: {name}: {ms:.4f} ms [{card}]")
+        _wall_and_profile(lambda: solve_catalog(problem), card,
+                          f"catalog-solve B={args.batch} (LM 10)", args.out, args.batch,
+                          "solves/s")
+
+    if args.workload == "keypoints":
+        from momentum_tpu_torch.testing.workloads import (
+            build_keypoint_clip, build_tracking_clip, track_clip_keypoints)
+
+        clip = build_tracking_clip(seed=args.seed, device="cuda")
+        keypoints = build_keypoint_clip(clip, seed=args.seed)
+        frames = clip.markers.num_frames
+        for name, ms in keypoint_layer_times(clip, keypoints).items():
+            print(f"keypoint layer B={frames}: {name}: {ms:.4f} ms [{card}]")
+        # from the clip's seed pose (the rest, the root at frame 0's markers)
+        _wall_and_profile(lambda: track_clip_keypoints(clip.char, clip.markers, keypoints,
+                                                       clip.seed_params), card,
+                          f"keypoint-batched of {frames} frames (LM 15)", args.out, frames,
                           "frames/s")
 
     if args.workload in ("render", "both"):

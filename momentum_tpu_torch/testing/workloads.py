@@ -70,7 +70,12 @@ __all__ = ["build_fullbody_ik_problem", "make_solve_stage", "make_solve_batch",
            "track_clip_per_frame", "refine_clip", "track_clip_hierarchical",
            "clip_marker_errors_mm",
            "build_render_clip",
-           "make_render_clip", "clip_vertices", "render_clip_passes"]
+           "make_render_clip", "clip_vertices", "render_clip_passes",
+           "CATALOG_BATCH", "CATALOG_MORE", "CatalogProblem", "catalog_recipe", "catalog_draws",
+           "catalog_character", "build_catalog_ik_problem", "solve_catalog",
+           "catalog_energies", "catalog_figures", "KEYPOINT_PROJECTION_WEIGHT",
+           "keypoint_recipe", "keypoint_draws", "build_keypoint_clip", "track_clip_keypoints",
+           "refine_clip_keypoints", "clip_reprojection_errors_px"]
 
 # 5 full-batch LM iterations + 6 compacted iterations on the worst 128 of 2048
 DEFAULT_REFINE = (5, 6, 128)
@@ -634,3 +639,368 @@ def render_clip_passes(char, cam, motion, width: int = 640, height: int = 480,
             frame[name] = raster._kernel_args(sv, faces, w, h, **kw)
         frames.append(frame)
     return frames
+
+
+# ---- config C: batched IK over the whole rigid error catalog ----
+
+CATALOG_BATCH = 2048
+CATALOG_ITERATIONS = 10
+CATALOG_MORE = 20  # conv_at_1e5's yardstick: the solve continued this many iterations
+CATALOG_NOISE = 0.05
+# the full-body rig's joints the catalog's modules attach to (fixtures.py's
+# order: root, spine0-5, neck0-1, head0-1, then per side clavicle, arm0-3,
+# hand0-6, hip, leg0-3, foot0-2)
+CATALOG_HEAD = 10  # head1
+CATALOG_AXES = (0, 6)  # root (pelvis), spine5
+CATALOG_ENDS = (22, 42, 30, 50)  # l_hand6, r_hand6, l_foot2, r_foot2
+CATALOG_WRISTS = (16, 36)  # l_hand0, r_hand0
+CATALOG_PELVIS = 0
+
+
+def catalog_recipe() -> dict:
+    """Config C's fixed inputs, numpy only, so that the port and
+    tools/jax_reference.py build identical ones: the three cameras (an
+    OpenCV one with k1, k2, p1, p2, a fisheye one, and a pinhole one whose
+    projection_matrix() the Projection module takes), ten limb and torso
+    capsules along their bones, one Linear, LinearJoint, HalfPlane and
+    Ellipsoid limit record each (make_limits' record tuples), the floor
+    plane, the Distance module's origins and every module's weight."""
+    def rz(angle):
+        return [0.0, 0.0, np.sin(angle / 2), np.cos(angle / 2)]
+
+    # (joint, its bone's direction as a rotation of local x, length, radii)
+    spine, left, right, down = rz(np.pi / 2), rz(0.0), rz(np.pi), rz(-np.pi / 2)
+    caps = [(2, spine, 0.25, (0.12, 0.12)), (5, spine, 0.25, (0.12, 0.12)),
+            (12, left, 0.28, (0.05, 0.04)), (14, left, 0.28, (0.05, 0.04)),
+            (32, right, 0.28, (0.05, 0.04)), (34, right, 0.28, (0.05, 0.04)),
+            (24, down, 0.32, (0.08, 0.06)), (26, down, 0.32, (0.08, 0.06)),
+            (44, down, 0.32, (0.08, 0.06)), (46, down, 0.32, (0.08, 0.06))]
+    ell = np.eye(4, dtype=np.float32)
+    ell[:3, :3] = np.diag([0.6, 0.3, 0.3])
+    ell[:3, 3] = [0.6, 0.0, 0.0]
+    big = 3.0e38
+    return dict(
+        cameras=[
+            dict(kind="opencv", position=(0.3, 0.4, 4.5), fx=900.0, fy=900.0, cx=640.0,
+                 cy=360.0, k=(-0.05, 0.01, 0.0, 0.0, 0.0, 0.0), p=(0.001, -0.0005)),
+            dict(kind="fisheye", position=(3.5, 0.6, 3.0), fx=500.0, fy=500.0, cx=640.0,
+                 cy=360.0, k=(0.02, -0.005, 0.001, 0.0)),
+            dict(kind="pinhole", position=(-4.0, 0.3, 2.0), fx=800.0, fy=800.0, cx=640.0,
+                 cy=360.0)],
+        camera_target=(0.0, 0.2, 0.0), camera_up=(0.0, 1.0, 0.0), image_size=(1280, 720),
+        capsule_parent=np.asarray([c[0] for c in caps], np.int32),
+        capsule_transform=np.asarray([[0.0, 0.0, 0.0] + c[1] + [1.0] for c in caps],
+                                     np.float32),
+        capsule_radius=np.asarray([c[3] for c in caps], np.float32),
+        capsule_length=np.asarray([c[2] for c in caps], np.float32),
+        # l_arm1_rx = 0.5·l_arm0_rx; r_arm1 rx = 0.5·r_arm0 rx (joint space);
+        # 0.6·l_leg0_rx + 0.8·l_leg1_rx ≥ −0.1; l_hand0 on an ellipsoid about spine5
+        linear=[(43, 40, 0.5, 0.0, -big, big, 1.0)],
+        linear_joint=[(33 * 7 + 3, 32 * 7 + 3, 0.5, 0.0, -big, big, 1.0)],
+        halfplane=[(76, 79, 0.6, 0.8, -0.1, 1.0)],
+        ellipsoid=[(16, 6, np.zeros(3, np.float32), ell, 1.0)],
+        floor_normal=(0.0, 1.0, 0.0), floor_offset=-1.35,
+        distance_origin=np.asarray([[0.0, 2.0, 0.0], [0.0, 2.0, 0.0], [0.0, -2.0, 1.0],
+                                    [0.0, -2.0, -1.0]], np.float32),
+        weights=dict(camera=1e-6, projection=1e-6, state=1e-2))
+
+
+def catalog_draws(batch: int, seed: int, num_params: int, noise: float = CATALOG_NOISE):
+    """(truth (B, P), x0 (B, P)): uniform ±0.3 truths and a warm start of
+    truth + N(0, noise), from two generators, so that the first n elements
+    are the same at every batch size."""
+    truth = np.random.default_rng(seed).uniform(-0.3, 0.3, (batch, num_params))
+    x0 = truth + np.random.default_rng(seed + 1).normal(0.0, noise, (batch, num_params))
+    return truth.astype(np.float32), x0.astype(np.float32)
+
+
+class CatalogProblem(NamedTuple):
+    """Config C on one device."""
+
+    char: object  # the full-body rig with the recipe's capsules and extra limit records
+    modules: tuple  # ((label, module), ...), every target taken from each element's truth
+    truth: torch.Tensor  # (B, 157)
+    x0: torch.Tensor  # (B, 157)
+
+
+def _recipe_cameras(recipe, device):
+    """The cameras of a recipe (catalog_recipe, keypoint_recipe), each
+    placed by look_at."""
+    from momentum_tpu_torch.camera import (
+        Camera, OpenCVFisheyeIntrinsics, OpenCVIntrinsics, PinholeIntrinsics)
+
+    cams = []
+    for c in recipe["cameras"]:
+        args = (c["fx"], c["fy"], c["cx"], c["cy"])
+        size = recipe["image_size"]
+        if c["kind"] == "opencv":
+            intr = OpenCVIntrinsics.create(*args, k=c["k"], p=c["p"], image_size=size,
+                                           device=device)
+        elif c["kind"] == "fisheye":
+            intr = OpenCVFisheyeIntrinsics.create(*args, k=c["k"], image_size=size,
+                                                  device=device)
+        else:
+            intr = PinholeIntrinsics.create(*args, image_size=size, device=device)
+        cams.append(Camera.create(intr).look_at(c["position"], recipe["camera_target"],
+                                                recipe["camera_up"]))
+    return cams
+
+
+def catalog_character(device="cuda"):
+    """The full-body rig with config C's capsules and extra limit records."""
+    from momentum_tpu_torch.character import CollisionGeometry, concat_limits, make_limits
+    from momentum_tpu_torch.testing.fixtures import create_fullbody_character
+
+    device = resolve(device, "catalog_character")
+    r = catalog_recipe()
+    char = create_fullbody_character(device=device)
+    extra = make_limits(linear=r["linear"], linear_joint=r["linear_joint"],
+                        halfplane=r["halfplane"], ellipsoid=r["ellipsoid"], device=device)
+    col = CollisionGeometry(**{k: torch.as_tensor(r[f"capsule_{k}"], device=device)
+                               for k in ("parent", "transform", "radius", "length")})
+    return dataclasses.replace(char, limits=concat_limits(char.limits, extra), collision=col)
+
+
+def build_catalog_ik_problem(batch: int = CATALOG_BATCH, seed: int = 0,
+                             device="cuda") -> CatalogProblem:
+    """Config C on `device` (the card unless the caller asks for the CPU):
+    the full-body rig (catalog_character), `catalog_draws`' truths and warm
+    starts, and every rigid module of the catalog with its targets from each
+    element's truth: Position on the 80 locators; CameraProjection of them
+    through the OpenCV and the fisheye camera; Projection through the
+    pinhole camera's matrix; AimDir and AimDist on the head; the three
+    FixedAxis modules on pelvis and spine; Normal and Distance on the hands
+    and feet, in one Union; the three JointToJoint modules, wrists relative
+    to the pelvis; State over all joints (matrix type, weight 1e-2); the
+    limits (the rig's 151 MinMax records and the recipe's four);
+    Collision over the ten capsules; PlaneCollision against the floor."""
+    from momentum_tpu_torch import errors as E
+    from momentum_tpu_torch.math import quaternion as quat, skel_state as ss
+
+    device = resolve(device, "build_catalog_ik_problem")
+    r = catalog_recipe()
+    w = r["weights"]
+    char = catalog_character(device)
+    truth_np, x0_np = catalog_draws(batch, seed, char.num_model_parameters)
+    truth = torch.as_tensor(truth_np, device=device)
+    states = char.skeleton_states(truth)  # (B, nJ, 8)
+    cams = _recipe_cameras(r, device)
+    loc = char.locators
+    world = loc.world_positions(states)  # (B, 80, 3)
+    parent, offset = loc.parent.cpu().numpy(), loc.offset.cpu().numpy()
+    n_loc = loc.num_locators
+
+    def at(joints):
+        return states[:, list(joints)]
+
+    def rep(ef, **tables):
+        return dataclasses.replace(ef, **tables)
+
+    z3 = np.zeros((1, 3), np.float32)
+    mods = [("position", rep(E.PositionErrorFunction.create(
+        parent, offset, np.zeros((n_loc, 3)), device=device), target=world))]
+    for label, cam in (("camera_opencv", cams[0]), ("camera_fisheye", cams[1])):
+        mods.append((label, rep(E.CameraProjectionErrorFunction.create(
+            cam, parent, offset, np.zeros((n_loc, 2)), weight=w["camera"], device=device),
+            target=cam.project(world)[0][..., :2])))
+    proj = cams[2].projection_matrix()
+    q = torch.einsum("ij,...j->...i", proj[:, :3], world) + proj[:, 3]
+    mods.append(("projection", rep(E.ProjectionErrorFunction.create(
+        parent, offset, np.broadcast_to(proj.cpu().numpy(), (n_loc, 3, 4)),
+        np.zeros((n_loc, 2)), weight=w["projection"], device=device),
+        target=q[..., :2] / q[..., 2:3])))
+
+    head = at([CATALOG_HEAD])
+    fwd = np.asarray([[0.0, 0.0, 1.0]], np.float32)
+    aim = ss.transform_points(head, torch.as_tensor(z3, device=device)) + 0.5 * \
+        ss.rotate_vectors(head, torch.as_tensor(fwd, device=device))
+    for label, cls in (("aim_dir", E.AimDirErrorFunction), ("aim_dist", E.AimDistErrorFunction)):
+        mods.append((label, rep(cls.create([CATALOG_HEAD], z3, fwd, z3, device=device),
+                                target=aim)))
+    up = np.asarray([[0.0, 1.0, 0.0]] * 2, np.float32)
+    axes = ss.rotate_vectors(at(CATALOG_AXES), torch.as_tensor(up, device=device))
+    for label, cls in (("fixed_axis_diff", E.FixedAxisDiffErrorFunction),
+                       ("fixed_axis_cos", E.FixedAxisCosErrorFunction),
+                       ("fixed_axis_angle", E.FixedAxisAngleErrorFunction)):
+        mods.append((label, rep(cls.create(list(CATALOG_AXES), up, up, device=device),
+                                global_axis=axes)))
+
+    n_end = len(CATALOG_ENDS)
+    ends = at(CATALOG_ENDS)
+    z_end = np.zeros((n_end, 3), np.float32)
+    normal = E.NormalErrorFunction.create(list(CATALOG_ENDS), z_end,
+                                          np.tile([[0.0, 1.0, 0.0]], (n_end, 1)), z_end,
+                                          device=device)
+    origin = torch.as_tensor(r["distance_origin"], device=device)
+    distance = E.DistanceErrorFunction.create(list(CATALOG_ENDS), z_end, r["distance_origin"],
+                                              np.zeros(n_end), device=device)
+    mods.append(("union_normal_distance", E.UnionErrorFunction(children=(
+        rep(normal, global_point=ends[..., :3]),
+        rep(distance, target=torch.linalg.vector_norm(ends[..., :3] - origin, dim=-1))))))
+
+    src, ref = at(CATALOG_WRISTS), at([CATALOG_PELVIS] * len(CATALOG_WRISTS))
+    diff = src[..., :3] - ref[..., :3]
+    q_ref_inv = quat.conjugate(ref[..., 3:7])
+    n_w = len(CATALOG_WRISTS)
+    z_w = np.zeros((n_w, 3), np.float32)
+    pair = (list(CATALOG_WRISTS), [CATALOG_PELVIS] * n_w)
+    mods += [
+        ("j2j_position", rep(E.JointToJointPositionErrorFunction.create(
+            *pair, z_w, z_w, z_w, device=device), target=quat.rotate_vector(q_ref_inv, diff))),
+        ("j2j_distance", rep(E.JointToJointDistanceErrorFunction.create(
+            *pair, z_w, z_w, np.zeros(n_w), device=device),
+            target=torch.linalg.vector_norm(diff, dim=-1))),
+        ("j2j_orientation", rep(E.JointToJointOrientationErrorFunction.create(
+            *pair, np.tile([[0.0, 0.0, 0.0, 1.0]], (n_w, 1)), device=device),
+            target=quat.multiply(q_ref_inv, src[..., 3:7]))),
+        ("state", rep(E.StateErrorFunction.create(states[0].cpu().numpy(), weight=w["state"],
+                                                  device=device), target_state=states)),
+        ("limits", E.LimitErrorFunction.create(device=device)),
+        ("collision", E.CollisionErrorFunction.create(char, device=device)),
+        ("plane_collision", E.PlaneCollisionErrorFunction.create(
+            char, r["floor_normal"], r["floor_offset"], device=device)),
+    ]
+    return CatalogProblem(char=char, modules=tuple(mods), truth=truth,
+                          x0=torch.as_tensor(x0_np, device=device))
+
+
+def solve_catalog(problem: CatalogProblem, x0=None, iterations: int = CATALOG_ITERATIONS):
+    """Config C's solve: solve_ik's LM (regularization 1e-5), `iterations`
+    iterations over every module, from x0 (the problem's warm starts by
+    default) → SolveResult."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction, SolverOptions, solve_ik
+
+    fn = SkeletonSolverFunction(problem.char, tuple(ef for _, ef in problem.modules))
+    return solve_ik(fn, problem.x0 if x0 is None else x0,
+                    options=SolverOptions(max_iterations=iterations, regularization=1e-5),
+                    method="levenberg_marquardt")
+
+
+def catalog_energies(problem: CatalogProblem, params: torch.Tensor) -> dict:
+    """Each module's energy (B,) at `params` (B, P), by label, and "total"."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    fn = SkeletonSolverFunction(problem.char, tuple(ef for _, ef in problem.modules))
+    ctx = fn.context(params)
+    out = {label: ef.error(problem.char, ctx) for label, ef in problem.modules}
+    out["total"] = sum(out.values())
+    return out
+
+
+def catalog_figures(problem: CatalogProblem, params: torch.Tensor, params_more: torch.Tensor,
+                    rows=slice(None)) -> dict:
+    """Config C's figures over the elements `rows`: every module's median
+    energy at `params`, conv_at_1e5 (the fraction whose total energy at
+    `params` is within 1e-5 of its energy at `params_more`, the solve
+    continued CATALOG_MORE iterations) and the divergent count (not finite)."""
+    final = {k: v[rows].detach().cpu().numpy().astype(np.float64)
+             for k, v in catalog_energies(problem, params).items()}
+    longer = catalog_energies(problem, params_more)["total"][rows].cpu().numpy()
+    total = final["total"]
+    finite = np.isfinite(total)
+    return dict(median_energy={k: float(np.median(v)) for k, v in final.items()},
+                conv_at_1e5=float(np.mean(finite & (total - longer <= 1e-5))),
+                divergent=int(np.sum(~finite)), batch=int(total.shape[0]))
+
+
+# ---- config 6k: config 6s's clip with 2D keypoints from four cameras ----
+
+# markers carry N(0, 2 mm) per axis (12 mm² a marker), keypoints N(0, 1 px)
+# per axis (2 px² a camera, 8 px² over four): 1.5 px⁻²·mm² puts the two on
+# a par at the noise
+KEYPOINT_PROJECTION_WEIGHT = 1.5
+KEYPOINT_NOISE_PX = 1.0
+KEYPOINT_UNOBSERVED = 0.05
+
+
+def keypoint_recipe() -> dict:
+    """Config 6k's cameras, numpy only (tools/jax_reference.py has the same
+    numbers): four cameras about 4 m from the walk's middle (the clip is
+    mm, z-up), looking at it, 1280 × 720: one pinhole, two OpenCV, one
+    fisheye."""
+    return dict(
+        cameras=[
+            dict(kind="pinhole", position=(1000.0, -4000.0, 1500.0), fx=1000.0, fy=1000.0,
+                 cx=640.0, cy=360.0),
+            dict(kind="opencv", position=(1000.0, 4000.0, 1200.0), fx=1100.0, fy=1100.0,
+                 cx=630.0, cy=350.0, k=(-0.08, 0.02, 0.0, 0.0, 0.0, 0.0), p=(0.0005, -0.0003)),
+            dict(kind="opencv", position=(-3000.0, -500.0, 1300.0), fx=950.0, fy=950.0,
+                 cx=645.0, cy=365.0, k=(-0.03, 0.005, 0.0, 0.0, 0.0, 0.0), p=(-0.0002, 0.0004)),
+            dict(kind="fisheye", position=(5000.0, 800.0, 1400.0), fx=600.0, fy=600.0,
+                 cx=640.0, cy=360.0, k=(0.03, -0.004, 0.0005, 0.0))],
+        camera_target=(1000.0, 0.0, 900.0), camera_up=(0.0, 0.0, 1.0), image_size=(1280, 720))
+
+
+def keypoint_draws(frames: int, seed: int, num_cameras: int, num_locators: int):
+    """(pixel noise (C, F, L, 2), unobserved (C, F, L) bool) from their own
+    generator (seed + 2), so config 6s's draws stay as they are."""
+    rng = np.random.default_rng(seed + 2)
+    noise = rng.normal(0.0, KEYPOINT_NOISE_PX, (num_cameras, frames, num_locators, 2))
+    return noise.astype(np.float32), rng.random((num_cameras, frames, num_locators)) \
+        < KEYPOINT_UNOBSERVED
+
+
+def build_keypoint_clip(clip: TrackingClip, seed: int = 0) -> tuple:
+    """Config 6k's keypoints on clip's device: per camera of keypoint_recipe
+    a CameraKeypointData whose targets are the truth locators' projections
+    plus `keypoint_draws`' noise, with confidence 1 where the keypoint is
+    observed (the 5% draw) and its truth projects into the image in front
+    of the camera, 0 elsewhere."""
+    r = keypoint_recipe()
+    device = clip.truth.device
+    cams = _recipe_cameras(r, device)
+    world = clip.char.locators.world_positions(clip.char.skeleton_states(clip.truth))
+    noise, unobserved = keypoint_draws(clip.truth.shape[0], seed, len(cams), world.shape[1])
+    from momentum_tpu_torch.tracking import CameraKeypointData
+
+    out = []
+    w, h = r["image_size"]
+    for c, cam in enumerate(cams):
+        uvz, valid = cam.project(world)
+        u, v = uvz[..., 0], uvz[..., 1]
+        seen = (valid & (uvz[..., 2] >= 0.01) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+                & ~torch.as_tensor(unobserved[c], device=device))
+        out.append(CameraKeypointData(
+            camera=cam, targets=uvz[..., :2] + torch.as_tensor(noise[c], device=device),
+            confidence=seen.float()))
+    return tuple(out)
+
+
+def _keypoint_configs():
+    """Config 6k's settings: config 6's tracking and refine (LM 15; LM 10
+    with smoothing 1e-4) with the keypoints' projection weight."""
+    import dataclasses as dc
+
+    _, track, refine = _tracking_configs()
+    return (dc.replace(track, projection_weight=KEYPOINT_PROJECTION_WEIGHT),
+            dc.replace(refine, projection_weight=KEYPOINT_PROJECTION_WEIGHT))
+
+
+def track_clip_keypoints(char, markers, keypoints, identity: torch.Tensor):
+    """Config 6k's first stage: every frame at once from `identity`,
+    markers and keypoints (track_poses_batched, LM 15) → TrackingResult."""
+    from momentum_tpu_torch.tracking import track_poses_batched
+
+    return track_poses_batched(char, markers, _keypoint_configs()[0], initial=identity,
+                               camera_keypoints=keypoints)
+
+
+def refine_clip_keypoints(char, markers, keypoints, motion: torch.Tensor):
+    """Config 6k's second stage: the smoothed whole-clip refine of `motion`
+    with the keypoints → TrackingResult."""
+    from momentum_tpu_torch.tracking import refine_motion
+
+    return refine_motion(char, markers, motion, _keypoint_configs()[1],
+                         camera_keypoints=keypoints)[0]
+
+
+def clip_reprojection_errors_px(char, keypoints, motion: torch.Tensor) -> np.ndarray:
+    """The distances (px) between the observed keypoints and the projections
+    of `motion`'s locators, over every camera, flattened."""
+    world = char.locators.world_positions(char.skeleton_states(motion))
+    out = []
+    for kp in keypoints:
+        uv = kp.camera.project(world)[0][..., :2]
+        d = torch.linalg.vector_norm(uv - kp.targets, dim=-1)
+        out.append(d[kp.confidence > 0].cpu().numpy())
+    return np.concatenate(out)

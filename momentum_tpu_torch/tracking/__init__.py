@@ -8,7 +8,7 @@ from momentum_tpu_torch.tracking.gap_fill import fill_marker_gaps  # noqa: F401
 from momentum_tpu_torch.tracking.process_markers import (  # noqa: F401
     calibrate_markers, process_markers)
 from momentum_tpu_torch.tracking.tracker import (  # noqa: F401
-    MarkerSequence, TrackingResult, calibrate_locators, calibrate_model, get_locator_error,
+    CameraKeypointData, MarkerSequence, TrackingResult, calibrate_locators, calibrate_model, get_locator_error,
     refine_motion, track_poses_batched, track_poses_for_frames, track_poses_hierarchical,
     track_poses_per_frame, track_sequence)
 from momentum_tpu_torch.tracking.tracker_utils import (  # noqa: F401

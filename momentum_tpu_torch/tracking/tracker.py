@@ -13,17 +13,18 @@
 
 Markers are a (F, M, 3) tensor and a (F, M) occlusion mask; an occluded
 marker's constraint has weight 0 (the reference drops it per frame,
-marker_tracker.cpp:287-476). Every pose solve passes the residual alone,
+marker_tracker.cpp:287-476). 2D keypoints seen by calibrated cameras
+(CameraKeypointData, the reference's markerless multi-view input) add one
+CameraProjectionErrorFunction per camera over the character's locators,
+scaled by config.projection_weight (addKeypointProjectionConstraints,
+marker_tracker.cpp:312-366). Every pose solve passes the residual alone,
 as JAX's do, so its Jacobian comes by forward mode (solver/gauss_newton.py
 `ad_jacobian`), with FK on kernel K1 and the damped solves on K2+K3.
 
-Not ported yet: 2D camera keypoints (errors/camera_projection.py, ROADMAP
-M3) and glove data (tracking/glove_utils.py, ROADMAP M7); a non-empty
-`camera_keypoints` or `glove_data` raises NotImplementedError. The
-skinned-locator branch of `get_locator_error` waits for
-errors/skinned_locator.py (ROADMAP M5), and the collision term of
-`track_sequence` for a Character with collision geometry (ROADMAP M3): the
-port's Character holds neither.
+Not ported yet: glove data (tracking/glove_utils.py, ROADMAP M7); a
+non-empty `glove_data` raises NotImplementedError. The skinned-locator
+branch of `get_locator_error` waits for errors/skinned_locator.py (ROADMAP
+M5): the port's Character holds no skinned locators.
 """
 
 from __future__ import annotations
@@ -37,8 +38,9 @@ import torch
 
 from momentum_tpu_torch.character.character import Character
 from momentum_tpu_torch.errors import (
-    HeightErrorFunction, LimitErrorFunction, ModelParametersErrorFunction,
-    PlaneErrorFunction, PositionErrorFunction)
+    CameraProjectionErrorFunction, CollisionErrorFunction, HeightErrorFunction,
+    LimitErrorFunction, ModelParametersErrorFunction, PlaneErrorFunction,
+    PositionErrorFunction)
 from momentum_tpu_torch.math import skel_state as ss
 from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
 from momentum_tpu_torch.sequence import (
@@ -50,7 +52,7 @@ from momentum_tpu_torch.tracking.config import CalibrationConfig, TrackingConfig
 from momentum_tpu_torch.tracking.tracker_utils import (
     _scaling_mask, compute_floor_contact_constraints)
 
-__all__ = ["MarkerSequence", "TrackingResult", "track_poses_per_frame",
+__all__ = ["MarkerSequence", "CameraKeypointData", "TrackingResult", "track_poses_per_frame",
            "track_poses_batched", "track_poses_for_frames", "track_poses_hierarchical",
            "track_sequence", "calibrate_model", "calibrate_locators", "get_locator_error",
            "refine_motion"]
@@ -76,6 +78,18 @@ class MarkerSequence:
         return self.positions.shape[1]
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class CameraKeypointData:
+    """One camera's 2D keypoints (marker_tracker.h:36-40), in dense form: a
+    slot per locator of the character, `targets` (F, L, 2) in pixels and
+    `confidence` (F, L), 0 where the keypoint is not observed (the
+    reference's per-observation locatorIndex / confidence list)."""
+
+    camera: object  # momentum_tpu_torch.camera.Camera, world-space extrinsics
+    targets: torch.Tensor  # (F, L, 2)
+    confidence: torch.Tensor  # (F, L)
+
+
 class TrackingResult(NamedTuple):
     motion: torch.Tensor  # (F, P) model parameters per frame
     errors: torch.Tensor  # (F,) final per-frame energy
@@ -85,10 +99,7 @@ def _device(character: Character) -> torch.device:
     return character.parameter_transform.transform.device
 
 
-def _refuse_unported(camera_keypoints=(), glove_data=()):
-    if camera_keypoints:
-        raise NotImplementedError("2D camera keypoints need errors/camera_projection.py, "
-                                  "which the port has not yet (ROADMAP M3)")
+def _refuse_unported(glove_data=()):
     if glove_data:
         raise NotImplementedError("glove data needs tracking/glove_utils.py, which the port "
                                   "has not yet (ROADMAP M7)")
@@ -154,6 +165,40 @@ def _marker_error_template(character: Character, markers: MarkerSequence, config
     return ef0, per_frame
 
 
+def _keypoint_error_template(character: Character, ckd: CameraKeypointData, config):
+    """(ef0, per_frame): a CameraProjectionErrorFunction of ckd's camera over
+    the character's locators, weight config.projection_weight, and
+    per_frame(ef, targets (..., L, 2), confidence (..., L)) giving it the
+    frames' keypoints as targets and their confidences as weights."""
+    loc = character.locators
+    n = loc.num_locators
+    ef0 = CameraProjectionErrorFunction.create(
+        ckd.camera, loc.parent.cpu().numpy(), loc.offset.cpu().numpy(),
+        np.zeros((n, 2), np.float32), cweight=np.zeros(n, np.float32),
+        weight=getattr(config, "projection_weight", 0.0), device=_device(character))
+
+    def per_frame(ef, targets, confidence):
+        return dataclasses.replace(ef, target=targets, cweight=confidence)
+
+    return ef0, per_frame
+
+
+def _keypoint_templates(character: Character, camera_keypoints, config) -> tuple:
+    """One (ef0, per_frame) per camera, none when projection_weight is 0."""
+    if not camera_keypoints or getattr(config, "projection_weight", 0.0) <= 0:
+        return ()
+    return tuple(_keypoint_error_template(character, ckd, config) for ckd in camera_keypoints)
+
+
+def _keypoint_modules(character: Character, camera_keypoints, config) -> tuple:
+    """The cameras' keypoint modules stacked over the frames of the
+    keypoint data (the sequence solves' per-frame modules)."""
+    return tuple(per_frame(ef0, ckd.targets, ckd.confidence)
+                 for (ef0, per_frame), ckd in zip(
+                     _keypoint_templates(character, camera_keypoints, config),
+                     camera_keypoints))
+
+
 def _floor_rows(character: Character, prefix: str = "Floor_"):
     """(parents, offsets, cweights) of the Floor_ locators, weighted
     loc.weight × 5 (plane_error_function.cpp:15 createFloorConstraints), or
@@ -201,21 +246,27 @@ def _solver_for(config):
 
 class _FrameSolve(NamedTuple):
     """What every pose solve of one clip shares: the marker template, the
-    modules beside it (limits and the floor) and the solver's settings."""
+    modules beside it (limits and the floor), the keypoint templates, the
+    keypoint data of every frame and the solver's settings."""
 
     character: Character
     ef0: PositionErrorFunction
     per_frame: object
     others: tuple
+    kp: tuple  # one (ef0, per_frame) per camera
+    kp_data: tuple  # one (targets (F, L, 2), confidence (F, L)) per camera
     opts: SolverOptions
     mask: Optional[torch.Tensor]
     solver: object
 
-    def __call__(self, positions, occluded, x0, iters=None, lam0=None):
-        """One solve of the frames `positions` (..., M, 3) from x0 (..., P);
-        lam0 resumes an LM solve's damping."""
+    def __call__(self, positions, occluded, x0, iters=None, lam0=None, rows=slice(None)):
+        """One solve of the frames `positions` (..., M, 3) from x0 (..., P),
+        their keypoints the frames `rows` of kp_data; lam0 resumes an LM
+        solve's damping."""
         ef = self.per_frame(self.ef0, positions, occluded)
-        fn = SkeletonSolverFunction(self.character, (ef,) + self.others)
+        kp_efs = tuple(pf(e0, t[rows], c[rows])
+                       for (e0, pf), (t, c) in zip(self.kp, self.kp_data))
+        fn = SkeletonSolverFunction(self.character, (ef,) + self.others + kp_efs)
         opts = self.opts if iters is None else dataclasses.replace(self.opts,
                                                                    max_iterations=iters)
         if lam0 is not None and self.solver is solve_levenberg_marquardt:
@@ -223,13 +274,15 @@ class _FrameSolve(NamedTuple):
         return self.solver(fn.residual, fn.error, x0, self.mask, opts)
 
 
-def _frame_solve(character: Character, markers: MarkerSequence, config,
-                 enabled_mask) -> _FrameSolve:
+def _frame_solve(character: Character, markers: MarkerSequence, config, enabled_mask,
+                 camera_keypoints=()) -> _FrameSolve:
     ef0, per_frame = _marker_error_template(character, markers, config)
     limits = LimitErrorFunction.create(device=_device(character))
     fl = _floor_error(character) if getattr(config, "floor_constraints", True) else None
+    kp = _keypoint_templates(character, camera_keypoints, config)
+    kp_data = tuple((ckd.targets, ckd.confidence) for ckd in camera_keypoints) if kp else ()
     return _FrameSolve(
-        character, ef0, per_frame, (limits,) + (() if fl is None else (fl,)),
+        character, ef0, per_frame, (limits,) + (() if fl is None else (fl,)), kp, kp_data,
         SolverOptions(max_iterations=config.max_iter, regularization=config.regularization),
         _pose_mask(character, config, enabled_mask), _solver_for(config))
 
@@ -246,7 +299,7 @@ def _warm_started(solve: _FrameSolve, markers: MarkerSequence, x: torch.Tensor):
     on the device. → (motion (F, P), errors (F,))."""
     motion, errors = [], []
     for f in range(markers.num_frames):
-        res = solve(markers.positions[f], markers.occluded[f], x)
+        res = solve(markers.positions[f], markers.occluded[f], x, rows=f)
         x = torch.where(torch.isfinite(res.params).all(), res.params, x)
         motion.append(x)
         errors.append(res.error)
@@ -267,8 +320,9 @@ def track_poses_per_frame(
     """Frame-by-frame tracking with warm starts (trackPosesPerframe,
     marker_tracker.cpp:754-930). `frame_stride` > 1 solves every Nth frame
     and repeats each solved pose up to the next (:753-790; a stride under 5
-    keeps the solved frames warm-starting each other)."""
-    _refuse_unported(camera_keypoints, glove_data)
+    keeps the solved frames warm-starting each other), markers alone, as
+    JAX's. `camera_keypoints`: CameraKeypointData of the same frames."""
+    _refuse_unported(glove_data)
     if frame_stride > 1:
         f = markers.num_frames
         x_init = _initial(character, initial)
@@ -277,7 +331,7 @@ def track_poses_per_frame(
             character, markers, init_motion, config, np.arange(0, f, frame_stride),
             is_continuous=frame_stride < 5, enabled_mask=enabled_mask)
     markers = _mask_low_visibility(markers, config.min_vis_percent)
-    solve = _frame_solve(character, markers, config, enabled_mask)
+    solve = _frame_solve(character, markers, config, enabled_mask, camera_keypoints)
     motion, errors = _warm_started(solve, markers, _initial(character, initial))
     return TrackingResult(motion=motion, errors=errors)
 
@@ -294,10 +348,9 @@ def track_poses_batched(
     batched solve. With config.refine = (k_full, r_refine, capacity): k_full
     iterations on every frame, then r_refine more on the `capacity` frames
     of the highest energy, their LM damping carried (solver/compaction.py's
-    economics)."""
-    _refuse_unported(camera_keypoints)
+    economics). `camera_keypoints`: CameraKeypointData of the same frames."""
     markers = _mask_low_visibility(markers, config.min_vis_percent)
-    solve = _frame_solve(character, markers, config, enabled_mask)
+    solve = _frame_solve(character, markers, config, enabled_mask, camera_keypoints)
     f_cnt, p = markers.num_frames, character.num_model_parameters
     x0 = _initial(character, initial)
     x_b = x0.expand(f_cnt, p) if x0.ndim == 1 else x0
@@ -313,7 +366,7 @@ def track_poses_batched(
     key = torch.nan_to_num(res1.error, nan=3e38, posinf=3e38)
     idx = torch.topk(key, capacity).indices
     res2 = solve(markers.positions[idx], markers.occluded[idx], res1.params[idx], r_refine,
-                 lam1[idx])
+                 lam1[idx], rows=idx)
     return TrackingResult(motion=res1.params.index_copy(0, idx, res2.params),
                           errors=res1.error.index_copy(0, idx, res2.error))
 
@@ -436,8 +489,11 @@ def track_sequence(
     """Whole-sequence solve with smoothness (trackSequence,
     marker_tracker.cpp:228-700) → (TrackingResult, universal values).
     `extra_per_frame_errors` are stacked per-frame modules added to the
-    marker and limit set (calibration's first-frame constraints)."""
-    _refuse_unported(camera_keypoints, glove_data)
+    marker and limit set (calibration's first-frame constraints), after
+    the collision term (config.collision_error_weight > 0 and a character
+    with collision geometry) and the floor; the cameras' keypoint modules
+    follow them."""
+    _refuse_unported(glove_data)
     f, p = markers.num_frames, character.num_model_parameters
     device = _device(character)
     markers = _mask_low_visibility(markers, config.min_vis_percent)
@@ -450,11 +506,15 @@ def track_sequence(
             p, pweight=pweight, weight=config.smoothing, device=device),)
     per_frame_errors = [per_frame(ef0, markers.positions, markers.occluded),
                         LimitErrorFunction.create(device=device)]
+    if config.collision_error_weight > 0 and character.collision is not None:
+        per_frame_errors.append(CollisionErrorFunction.create(
+            character, weight=config.collision_error_weight, device=device))
     if getattr(config, "floor_constraints", True):
         fl = _floor_error(character)
         if fl is not None:
             per_frame_errors.append(fl)
     per_frame_errors.extend(extra_per_frame_errors)
+    per_frame_errors.extend(_keypoint_modules(character, camera_keypoints, config))
 
     fn = SequenceSolverFunction.create(character, f, universal=universal,
                                        per_frame_errors=tuple(per_frame_errors),
@@ -559,8 +619,9 @@ def calibrate_model(
     `scaling_set` names the parameter set of the identity parameters
     (else every parameter named like a scale). Returns (identity (P,),
     motion); with config.locators_only the locator offsets are re-estimated
-    instead of the scale and the refined character comes third."""
-    _refuse_unported(camera_keypoints)
+    instead of the scale and the refined character comes third.
+    `camera_keypoints`: CameraKeypointData of the same frames, sampled with
+    the markers."""
     f_all = markers.num_frames
     n_sample = min(config.calib_frames, f_all)
     if config.greedy_sampling > 0:
@@ -578,6 +639,9 @@ def calibrate_model(
     sel = torch.as_tensor(idx, device=markers.positions.device)
     sampled = MarkerSequence(positions=markers.positions[sel],
                              occluded=markers.occluded[sel], names=markers.names)
+    sampled_kp = tuple(CameraKeypointData(camera=ckd.camera, targets=ckd.targets[sel],
+                                          confidence=ckd.confidence[sel])
+                       for ckd in camera_keypoints)
 
     pt = character.parameter_transform
     universal = _scaling_mask(character, scaling_set)
@@ -603,7 +667,8 @@ def calibrate_model(
     u_idx = torch.as_tensor(np.nonzero(universal)[0], device=identity.device)
     motion = None
     for _ in range(config.major_iter):
-        tracked = track_poses_per_frame(character, sampled, track_cfg, initial=identity)
+        tracked = track_poses_per_frame(character, sampled, track_cfg, initial=identity,
+                                        camera_keypoints=sampled_kp)
         if config.locators_only:
             # refine only the locator offsets against the tracked poses
             character = calibrate_locators(character, sampled, tracked.motion, config)
@@ -614,6 +679,8 @@ def calibrate_model(
             ad = _adaptive_floor_contacts(character, config, tracked.motion)
             if ad is not None:
                 extras = extras_static + (ad,)
+        # the keypoints ride the scale's sequence solve as stacked modules
+        extras = extras + _keypoint_modules(character, sampled_kp, track_cfg)
         seq_res, u = track_sequence(character, sampled, track_cfg, universal=universal,
                                     initial=tracked.motion, extra_per_frame_errors=extras)
         identity = identity.index_copy(0, u_idx, u)
@@ -674,10 +741,10 @@ def refine_motion(
     re-calibration (RefineConfig.calib_id). With config.f64 (the default)
     the normal equations accumulate and factor in float64, JAX's x64 scope
     (ROADMAP F13); FK and the rows stay float32, as in JAX, whose inputs
-    are float32 arrays there too. → (TrackingResult, universal values)."""
+    are float32 arrays there too. `camera_keypoints`: CameraKeypointData of
+    the same frames. → (TrackingResult, universal values)."""
     from momentum_tpu_torch.tracking.config import RefineConfig
 
-    _refuse_unported(camera_keypoints)
     config = config or RefineConfig()
     f, p = markers.num_frames, character.num_model_parameters
     device = _device(character)
@@ -685,6 +752,7 @@ def refine_motion(
     ef0, per_frame = _marker_error_template(character, markers, config)
     per_frame_errors = [per_frame(ef0, markers.positions, markers.occluded),
                         LimitErrorFunction.create(device=device)]
+    per_frame_errors.extend(_keypoint_modules(character, camera_keypoints, config))
     if config.regularizer > 0:
         reg0 = ModelParametersErrorFunction.create(np.zeros(p, np.float32),
                                                    weight=config.regularizer, device=device)

@@ -179,6 +179,18 @@ def test_damped_solve_kernel_sequence_shape(cuda_problem):
     assert float((x - x_plain).abs().max() / x_plain.abs().max()) <= 1e-3
 
 
+def test_kernel_device_ms_is_none_for_a_kernel_it_did_not_see(cuda_problem):
+    """The profiler's time of K2+K3 is positive; for a name no launch has
+    it is None (not measured), not an error that would end chip_smoke.py."""
+    from momentum_tpu_torch.testing.profile_workload import fmt_ms, kernel_device_ms
+
+    a, d, b = _spd(157, 64, seed=13)
+    ms = kernel_device_ms(lambda: psd.damped_chol_solve(a, d, b), "damped_chol_solve_kernel")
+    assert ms is not None and ms > 0
+    none = kernel_device_ms(lambda: psd.damped_chol_solve(a, d, b), "no_such_kernel")
+    assert none is None and fmt_ms(none) == "not measured"
+
+
 def test_config5_on_cuda_matches_cpu():
     """Config 5's sequence solve at F = 256 (SPIKE with 8 parts) on the card,
     through K1 and K2+K3, against the port on the CPU: the same iteration
@@ -850,3 +862,58 @@ def test_per_frame_tracking_on_the_card_matches_the_cpu(tracking_clip):
     d_card = workloads.clip_marker_errors_mm(clip.char, clip.markers, card.motion)
     d_cpu = workloads.clip_marker_errors_mm(cpu_char, cpu_markers, cpu.motion)
     assert abs(np.median(d_card) - np.median(d_cpu)) <= 0.02 * np.median(d_cpu)
+
+
+@pytest.fixture(scope="module")
+def catalog_problems():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return (workloads.build_catalog_ik_problem(64, seed=0, device="cuda"),
+            workloads.build_catalog_ik_problem(64, seed=0, device="cpu"))
+
+
+def test_catalog_ik_on_the_card_matches_the_cpu(catalog_problems):
+    """Config C at B = 64 (every rigid module of the catalog, LM 10) on the
+    card, K1 and K2+K3 launched, against the same on the CPU's plain path:
+    each module's median final energy within 20% as chip_smoke.py holds it
+    against JAX CPU's (or under 1e-8 of the total, float32 roundoff of a
+    converged term), and the elements' total energies at a median relative
+    difference under 1e-3."""
+    card, cpu = catalog_problems
+    before = (fk_ops.launches, psd.launches)
+    res_card = workloads.solve_catalog(card)
+    assert fk_ops.launches > before[0] and psd.launches > before[1]
+    res_cpu = workloads.solve_catalog(cpu)
+    e_card = {k: v.cpu().numpy() for k, v in workloads.catalog_energies(
+        card, res_card.params).items()}
+    e_cpu = {k: v.numpy() for k, v in workloads.catalog_energies(cpu, res_cpu.params).items()}
+    floor = 1e-8 * float(np.median(e_cpu["total"]))
+    for k in e_cpu:
+        a, b = float(np.median(e_card[k])), float(np.median(e_cpu[k]))
+        assert abs(a - b) <= 0.2 * b + floor, (k, a, b)
+    rel = np.abs(e_card["total"] - e_cpu["total"]) / e_cpu["total"]
+    assert float(np.median(rel)) <= 1e-3
+    assert bool(torch.isfinite(res_card.params).all())
+
+
+def test_camera_projection_rows_through_k1_match_plain(catalog_problems):
+    """The forward-mode Jacobian of config C's CameraProjection rows (the
+    OpenCV and the fisheye camera) at B = 64, FK's primal through K1, against
+    the same with FK on the plain version."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+    from momentum_tpu_torch.solver.gauss_newton import ad_jacobian
+
+    card, _ = catalog_problems
+    mods = tuple(ef for label, ef in card.modules if label.startswith("camera_"))
+    fn = SkeletonSolverFunction(card.char, mods)
+    before = fk_ops.launches
+    rows, jt = ad_jacobian(fn.residual, card.x0)
+    assert fk_ops.launches > before
+    real = fk_ops._fk_global_kernel
+    fk_ops._fk_global_kernel = fk_ops.fk_global_plain
+    try:
+        rows_p, jt_p = ad_jacobian(fn.residual, card.x0)
+    finally:
+        fk_ops._fk_global_kernel = real
+    torch.testing.assert_close(rows, rows_p, rtol=0, atol=1e-5 * float(rows_p.abs().max()))
+    torch.testing.assert_close(jt, jt_p, rtol=0, atol=1e-5 * float(jt_p.abs().max()))

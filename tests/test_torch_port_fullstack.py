@@ -200,18 +200,34 @@ def test_limit_counts_rows_like_jax():
 
 
 def test_bridge_refuses_limits_the_port_lacks():
-    """A character with any record type that the port's ParameterLimits does
-    not hold is refused, not carried over without its rows."""
-    from momentum_tpu.character.limits import concat_limits, create_halfplane, create_linear
+    """The bridge once refused the record types the port lacked; it now
+    carries every one across: a JAX character with a Linear, LinearJoint,
+    HalfPlane and Ellipsoid record each keeps them, table for table, and
+    the limit energy at a pose that violates all of them is JAX's."""
+    from momentum_tpu.character import limits as jl
 
     jchar = jax_fullbody_character()
-    d = character_to_numpy(jchar)
-    assert all(d[f"{k}_count"] == 0 for k in ("linear", "linear_joint", "halfplane",
-                                              "ellipsoid"))
-    for extra in (create_linear(7, 8, 1.0, 0.0), create_halfplane(7, 8, (1.0, 0.0))):
-        bad = dataclasses.replace(jchar, limits=concat_limits(jchar.limits, extra))
-        with pytest.raises(NotImplementedError):
-            bridge.character_from_numpy(character_to_numpy(bad), device="cpu")
+    ell = np.diag([0.2, 0.3, 0.25, 1.0]).astype(np.float32)
+    extra = [jl.create_linear(7, 8, 1.5, 0.1, weight=2.0),
+             jl.create_linear_joint(2, 3, 3, 4, 0.5, -0.2),
+             jl.create_halfplane(9, 10, (0.6, 0.8), 0.05, weight=3.0),
+             jl.create_ellipsoid(1, 4, np.asarray([0.3, 0.1, 0.0]), ell, weight=5.0)]
+    limits = jchar.limits
+    for e in extra:
+        limits = jl.concat_limits(limits, e)
+    jbig = dataclasses.replace(jchar, limits=limits)
+    tbig = bridge.character_from_numpy(character_to_numpy(jbig), device="cpu")
+    assert tbig.limits.counts == jbig.limits.counts
+    for k, v in character_to_numpy(jbig).items():
+        if k.startswith(("minmax", "linear", "halfplane", "ellipsoid")):
+            np.testing.assert_array_equal(getattr(tbig.limits, k).numpy(), v, k)
+    x = np.random.default_rng(2).uniform(-0.6, 0.6, (3, jchar.num_model_parameters))
+    x = x.astype(np.float32)
+    jlim, tlim = jerr.LimitErrorFunction.create(), LimitErrorFunction.create(device="cpu")
+    want = jax.vmap(JaxSolverFunction(jbig, (jlim,)).error)(jnp.asarray(x))
+    got = SkeletonSolverFunction(tbig, (tlim,)).error(torch.as_tensor(x))
+    assert float(np.min(np.asarray(want))) > 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=ENERGY_RTOL)
 
 
 def test_gauss_newton_jacobian_and_normal_paths_agree(stack):

@@ -8,31 +8,34 @@ from __future__ import annotations
 import numpy as np
 
 
-# limit record types the port's ParameterLimits does not hold
-UNPORTED_LIMITS = ("linear", "linear_joint", "halfplane", "ellipsoid")
+# the limit tables of a ParameterLimits (the same field names in both packages)
+LIMIT_KEYS = (
+    "minmax_index", "minmax_bounds", "minmax_weight", "minmax_joint_index",
+    "minmax_joint_bounds", "minmax_joint_weight", "minmax_joint_passive", "linear_ref",
+    "linear_tgt", "linear_scale", "linear_offset", "linear_range", "linear_weight",
+    "linear_joint_ref", "linear_joint_tgt", "linear_joint_scale", "linear_joint_offset",
+    "linear_joint_range", "linear_joint_weight", "halfplane_idx1", "halfplane_idx2",
+    "halfplane_normal", "halfplane_offset", "halfplane_weight", "ellipsoid_parent",
+    "ellipsoid_frame_parent", "ellipsoid_point_offset", "ellipsoid_mat", "ellipsoid_inv",
+    "ellipsoid_weight")
+COLLISION_KEYS = ("parent", "transform", "radius", "length", "ptype", "ellipsoid_radii",
+                  "box_half_extents")
 
 
 def character_to_numpy(char) -> dict:
     """The arrays of a Character (JAX or port) that bridge.character_from_numpy
-    reads, as numpy, with the counts of the limit records the port does not
-    hold (0 for a port character)."""
-    lim = char.limits
-    counts = lim.counts
+    reads, as numpy: every limit table, and the collision geometry's."""
     d = dict(
         joint_parent=char.skeleton.joint_parent,
         pre_rotation=char.skeleton.pre_rotation,
         translation_offset=char.skeleton.translation_offset,
         transform=char.parameter_transform.transform,
         offsets=char.parameter_transform.offsets,
-        minmax_index=lim.minmax_index,
-        minmax_bounds=lim.minmax_bounds,
-        minmax_weight=lim.minmax_weight,
-        minmax_joint_index=lim.minmax_joint_index,
-        minmax_joint_bounds=lim.minmax_joint_bounds,
-        minmax_joint_weight=lim.minmax_joint_weight,
-        minmax_joint_passive=lim.minmax_joint_passive,
     )
-    d.update({f"{k}_count": np.int64(counts.get(k, 0)) for k in UNPORTED_LIMITS})
+    d.update({k: getattr(char.limits, k) for k in LIMIT_KEYS})
+    if char.collision is not None:
+        d.update({f"collision_{k}": getattr(char.collision, k) for k in COLLISION_KEYS
+                  if getattr(char.collision, k) is not None})
     if char.locators is not None:
         d.update(locator_parent=char.locators.parent,
                  locator_offset=char.locators.offset,
@@ -60,10 +63,11 @@ def character_to_numpy(char) -> dict:
 
 
 def camera_to_numpy(cam) -> dict:
-    """The arrays of a pinhole Camera (JAX or port) that
-    bridge.camera_from_numpy reads, as numpy."""
+    """The arrays of a Camera (JAX or port) that bridge.camera_from_numpy
+    reads, as numpy: the distortion's k and p where the model has them."""
     intr = cam.intrinsics
-    d = {k: to_numpy(getattr(intr, k)) for k in ("fx", "fy", "cx", "cy")}
+    d = {k: to_numpy(getattr(intr, k)) for k in ("fx", "fy", "cx", "cy", "k", "p")
+         if hasattr(intr, k)}
     d.update(image_width=np.int64(intr.image_width), image_height=np.int64(intr.image_height),
              eye_from_world=to_numpy(cam.eye_from_world))
     return d

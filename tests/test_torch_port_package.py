@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from momentum_tpu_torch import bridge
-from momentum_tpu_torch.camera import PinholeIntrinsics
-from momentum_tpu_torch.character import make_limits, make_skeleton
+from momentum_tpu_torch import errors as E
+from momentum_tpu_torch.camera import (
+    Camera, OpenCVFisheyeIntrinsics, OpenCVIntrinsics, PinholeIntrinsics)
+from momentum_tpu_torch.character import limits as L, make_limits, make_skeleton
 from momentum_tpu_torch.errors import (
     CenterOfMassErrorFunction, FloorErrorFunction, HeightErrorFunction, LimitErrorFunction,
     ModelParametersErrorFunction, Mppca, OrientationErrorFunction, PlaneErrorFunction,
@@ -50,6 +52,10 @@ def test_port_imports_no_jax():
         "       'momentum_tpu_torch.tracking.gap_fill',\n"
         "       'momentum_tpu_torch.tracking.tracker_utils',\n"
         "       'momentum_tpu_torch.tracking.process_markers'}\n"
+        "new |= {'momentum_tpu_torch.errors.joint_pair', 'momentum_tpu_torch.errors.state',\n"
+        "       'momentum_tpu_torch.errors.collision',\n"
+        "       'momentum_tpu_torch.errors.camera_projection',\n"
+        "       'momentum_tpu_torch.math.geometry'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "assert len(names) >= 30, names\n"
         "print('ok', len(names))\n")
@@ -109,6 +115,8 @@ def test_cpu_fullstack_launches_no_kernel():
     ("build_vertex_fit_problem", (4,)),
     ("build_sequence_problem", (4,)),
     ("build_tracking_clip", (4,)),
+    ("build_catalog_ik_problem", (4,)),
+    ("catalog_character", ()),
 ])
 def test_workloads_default_to_the_card(monkeypatch, entry, args):
     """The workload entry points build on the card unless the caller asks for
@@ -203,6 +211,46 @@ _CONSTRUCTORS = {
     "CenterOfMassErrorFunction.create": lambda **kw: CenterOfMassErrorFunction.create(
         [0], [1.0], np.zeros(3), **kw),
     "HeightErrorFunction.create": lambda **kw: HeightErrorFunction.create(1.7, **kw),
+    **{f"{name}.create": (lambda name: lambda **kw: getattr(E, name).create(
+        [0], np.zeros((1, 3)), np.asarray([[0, 0, 1]]), np.ones((1, 3)), **kw))(name)
+       for name in ("AimDistErrorFunction", "AimDirErrorFunction")},
+    **{f"{name}.create": (lambda name: lambda **kw: getattr(E, name).create(
+        [0], np.asarray([[0, 1, 0]]), np.asarray([[0, 1, 0]]), **kw))(name)
+       for name in ("FixedAxisDiffErrorFunction", "FixedAxisCosErrorFunction",
+                    "FixedAxisAngleErrorFunction")},
+    "NormalErrorFunction.create": lambda **kw: E.NormalErrorFunction.create(
+        [0], np.zeros((1, 3)), np.asarray([[0, 1, 0]]), np.zeros((1, 3)), **kw),
+    "DistanceErrorFunction.create": lambda **kw: E.DistanceErrorFunction.create(
+        [0], np.zeros((1, 3)), np.ones((1, 3)), [1.0], **kw),
+    "ProjectionErrorFunction.create": lambda **kw: E.ProjectionErrorFunction.create(
+        [0], np.zeros((1, 3)), np.zeros((1, 3, 4)), np.zeros((1, 2)), **kw),
+    **{f"{name}.create": (lambda name: lambda **kw: getattr(E, name).create(
+        [1], [0], np.zeros((1, 3)), np.zeros((1, 3)),
+        np.zeros((1, 3) if "Position" in name else 1), **kw))(name)
+       for name in ("JointToJointPositionErrorFunction", "JointToJointDistanceErrorFunction")},
+    "JointToJointOrientationErrorFunction.create":
+        lambda **kw: E.JointToJointOrientationErrorFunction.create(
+            [1], [0], np.asarray([[0, 0, 0, 1]]), **kw),
+    "StateErrorFunction.create": lambda **kw: E.StateErrorFunction.create(
+        np.tile(np.asarray([0, 0, 0, 0, 0, 0, 1, 1], np.float32), (2, 1)), **kw),
+    "CollisionErrorFunction.create": lambda **kw: E.CollisionErrorFunction.create(
+        fixtures.create_test_character(4, device="cpu"), **kw),
+    "PlaneCollisionErrorFunction.create": lambda **kw: E.PlaneCollisionErrorFunction.create(
+        fixtures.create_test_character(4, device="cpu"), **kw),
+    "CameraProjectionErrorFunction.create":
+        lambda **kw: E.CameraProjectionErrorFunction.create(
+            Camera.create(PinholeIntrinsics.create(50.0, 50.0, 16.0, 16.0, device="cpu")),
+            [0], np.zeros((1, 3)), np.zeros((1, 2)), **kw),
+    "OpenCVIntrinsics.create": lambda **kw: OpenCVIntrinsics.create(
+        50.0, 50.0, 16.0, 16.0, k=(0.1, 0, 0, 0, 0, 0), **kw),
+    "OpenCVFisheyeIntrinsics.create": lambda **kw: OpenCVFisheyeIntrinsics.create(
+        50.0, 50.0, 16.0, 16.0, k=(0.1, 0, 0, 0), **kw),
+    "create_minmax": lambda **kw: L.create_minmax(0, -0.1, 0.1, **kw),
+    "create_minmax_joint": lambda **kw: L.create_minmax_joint(0, 3, -0.1, 0.1, **kw),
+    "create_linear": lambda **kw: L.create_linear(1, 2, 0.5, 0.0, **kw),
+    "create_linear_joint": lambda **kw: L.create_linear_joint(1, 3, 2, 3, 0.5, 0.0, **kw),
+    "create_halfplane": lambda **kw: L.create_halfplane(1, 2, (0.6, 0.8), **kw),
+    "create_ellipsoid": lambda **kw: L.create_ellipsoid(0, 1, np.zeros(3), np.eye(4), **kw),
 }
 
 

@@ -144,16 +144,18 @@ def _plane_modules(jchar, half_plane=False, cweight=None):
 
 
 def test_mixed_analytic_and_ad_rows_match_jax(rigs):
-    """SkeletonSolverFunction with Position (analytic) and Plane (forward
-    mode): residual_and_jacobian's rows and Jacobian against JAX's, row for
-    row, and the solver's normal equations through the same branch."""
+    """SkeletonSolverFunction with Position (analytic) and CenterOfMass
+    (forward mode; Plane, which this test took before, has its analytic
+    Jacobian now): residual_and_jacobian's rows and Jacobian against JAX's,
+    row for row, and the solver's normal equations through the same
+    branch."""
     jchar, tchar = rigs
     p = jchar.num_model_parameters
     rng = np.random.default_rng(4)
     x = rng.uniform(-0.3, 0.3, p).astype(np.float32)
     targets = rng.normal(0, 1, (jchar.locators.num_locators, 3)).astype(np.float32)
     jpos, tpos = _position_modules(jchar, tchar, targets)
-    jpl, tpl = _plane_modules(jchar)
+    jpl, tpl = _module_pairs(jchar)["center_of_mass"]
     jfn, tfn = JSSF(jchar, (jpos, jpl)), TSSF(tchar, (tpos, tpl))
     assert not tfn.fully_analytic
     j_rows, j_jac = jax.jit(jfn.residual_and_jacobian)(jnp.asarray(x))
@@ -270,14 +272,14 @@ def _module_pairs(jchar):
                                   "center_of_mass", "center_of_mass_plane", "height"])
 def test_module_matches_jax_and_finite_differences(rigs, name):
     """Each module's rows, energy and Jacobian (analytic for
-    ModelParameters, forward mode for the rest) against JAX's, at B = 3;
-    and the Jacobian against central differences in float64."""
+    ModelParameters and Plane, forward mode for the rest) against JAX's, at
+    B = 3; and the Jacobian against central differences in float64."""
     jchar, tchar = rigs
     jef, tef = _module_pairs(jchar)[name]
     p = jchar.num_model_parameters
     x = np.random.default_rng(9).uniform(-0.4, 0.4, (3, p)).astype(np.float32)
     jfn, tfn = JSSF(jchar, (jef,)), TSSF(tchar, (tef,))
-    assert tfn.fully_analytic == (name == "model_parameters")
+    assert tfn.fully_analytic == (name in ("model_parameters", "plane", "plane_half"))
     np.testing.assert_allclose(tfn.residual(torch.as_tensor(x)).numpy(),
                                np.asarray(jax.jit(jfn.residual)(jnp.asarray(x))), **MODULE_TOL)
     np.testing.assert_allclose(tfn.error(torch.as_tensor(x)).numpy(),
@@ -571,16 +573,152 @@ def test_floor_and_calibration_extras_match_jax(rigs):
         np.testing.assert_allclose(t_u.numpy(), np.asarray(j_u), rtol=1e-3, atol=1e-4)
 
 
-def test_keypoints_and_gloves_raise(rigs):
-    """The keypoint path waits for camera_projection.py (M3), the glove path
-    for glove_utils.py (M7)."""
+def _keypoints(jchar, thetas, seed=21):
+    """(JAX keypoint data, the port's) of two cameras 6 units from the rig
+    (a pinhole and an OpenCV one, by look_at): JAX's projections of the
+    locators at `thetas` plus N(0, 0.5 px), a confidence of 0 on 10% of them
+    and 0.5-1 on the rest."""
+    from momentum_tpu.camera import Camera, OpenCVIntrinsics, PinholeIntrinsics
+    from momentum_tpu_torch import bridge
+
+    from test_torch_port_helpers import camera_to_numpy
+
+    rng = np.random.default_rng(seed)
+    cams = [Camera.create(PinholeIntrinsics.create(500.0, 500.0, 320.0, 240.0,
+                                                   image_size=(640, 480))),
+            Camera.create(OpenCVIntrinsics.create(450.0, 460.0, 330.0, 235.0,
+                                                  k=(-0.05, 0.01, 0, 0, 0, 0), p=(0.001, 0.0),
+                                                  image_size=(640, 480)))]
+    cams = [cams[0].look_at((0.5, 1.5, 6.0), (0.0, 1.5, 0.0)),
+            cams[1].look_at((5.0, 2.0, 3.0), (0.0, 1.5, 0.0))]
+    world = jax.vmap(jchar.locators.world_positions)(
+        jax.vmap(jchar.skeleton_states)(jnp.asarray(thetas)))
+    out_j, out_t = [], []
+    for cam in cams:
+        uv = np.asarray(cam.project(world)[0][..., :2])
+        tgt = (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
+        conf = (rng.uniform(0.5, 1.0, uv.shape[:-1])
+                * (rng.random(uv.shape[:-1]) > 0.1)).astype(np.float32)
+        out_j.append(jt.tracker.CameraKeypointData(camera=cam, targets=jnp.asarray(tgt),
+                                                   confidence=jnp.asarray(conf)))
+        out_t.append(tt.CameraKeypointData(
+            camera=bridge.camera_from_numpy(camera_to_numpy(cam), device="cpu"),
+            targets=torch.as_tensor(tgt), confidence=torch.as_tensor(conf)))
+    return tuple(out_j), tuple(out_t)
+
+
+KP_WEIGHT = 1e-3  # 0.5 px keypoint noise against 0.01 marker noise: comparable energies
+
+
+@pytest.mark.parametrize("entry", ["per_frame", "batched", "batched_refine", "sequence",
+                                   "calibrate", "refine"])
+def test_keypoint_entry_points_match_jax(rigs, entry):
+    """Markers and two cameras' 2D keypoints through each of the five
+    keypoint entry points (CameraKeypointData, projection_weight > 0),
+    against JAX's per-frame energies (and the calibrated scale)."""
     jchar, tchar = rigs
-    _, _, tm = _markers(jchar, 2)
-    with pytest.raises(NotImplementedError, match="M3"):
-        tt.track_poses_per_frame(tchar, tm, camera_keypoints=(object(),))
+    f = 6
+    # the calibration's first solves start at rest, where an occluded marker
+    # leaves the 4-locator rig's GN steps to roundoff (as in the marker-only
+    # case): every marker seen there, LM
+    calibrate = entry == "calibrate"
+    thetas, jm, tm = _markers(jchar, f, occlusion=0.0 if calibrate else 0.1,
+                              scale=0.2 if calibrate else None)
+    jk, tk = _keypoints(jchar, thetas)
+    kw = dict(regularization=1e-5, method=LM, projection_weight=KP_WEIGHT)
+    if entry == "per_frame":
+        jres = jt.track_poses_per_frame(jchar, jm, jt.TrackingConfig(max_iter=15, **kw),
+                                        camera_keypoints=jk)
+        tres = tt.track_poses_per_frame(tchar, tm, tt.TrackingConfig(max_iter=15, **kw),
+                                        camera_keypoints=tk)
+    elif entry.startswith("batched"):
+        refine = (4, 2, 3) if entry == "batched_refine" else None
+        jres = jax.jit(lambda m: jt.track_poses_batched(
+            jchar, m, jt.TrackingConfig(max_iter=15, refine=refine, **kw),
+            camera_keypoints=jk))(jm)
+        tres = tt.track_poses_batched(tchar, tm, tt.TrackingConfig(max_iter=15, refine=refine,
+                                                                   **kw), camera_keypoints=tk)
+    elif entry == "sequence":
+        cfg = dict(max_iter=20, regularization=1e-5, smoothing=1e-4,
+                   projection_weight=KP_WEIGHT)
+        jres, _ = jt.track_sequence(jchar, jm, jt.TrackingConfig(**cfg), camera_keypoints=jk)
+        tres, _ = tt.track_sequence(tchar, tm, tt.TrackingConfig(**cfg), camera_keypoints=tk)
+    elif entry == "calibrate":
+        cfg = dict(calib_frames=3, major_iter=1, max_iter=15, regularization=1e-6,
+                   projection_weight=KP_WEIGHT, method=LM)
+        j_id, j_m = jt.calibrate_model(jchar, jm, jt.CalibrationConfig(**cfg),
+                                       camera_keypoints=jk)
+        t_id, t_m = tt.calibrate_model(tchar, tm, tt.CalibrationConfig(**cfg),
+                                       camera_keypoints=tk)
+        assert abs(float(t_id[6]) - float(j_id[6])) <= 1e-4
+        np.testing.assert_allclose(t_m.numpy(), np.asarray(j_m), atol=2e-3)
+        return
+    else:
+        noisy = thetas + np.random.default_rng(2).normal(0, 0.05, thetas.shape)
+        noisy = noisy.astype(np.float32)
+        cfg = dict(max_iter=10, regularization=1e-5, regularizer=1e-3, smoothing=1e-4,
+                   projection_weight=KP_WEIGHT)
+        jres, _ = jtracker.refine_motion(jchar, jm, jnp.asarray(noisy),
+                                         jt.config.RefineConfig(**cfg), camera_keypoints=jk)
+        tres, _ = tt.refine_motion(tchar, tm, torch.as_tensor(noisy), tt.RefineConfig(**cfg),
+                                   camera_keypoints=tk)
+    _energies(jres, tres)
+    # the keypoints count: without them the energies differ
+    if entry == "per_frame":
+        bare = tt.track_poses_per_frame(tchar, tm, tt.TrackingConfig(max_iter=15, **kw))
+        assert not np.allclose(bare.errors.numpy(), tres.errors.numpy(), rtol=1e-2)
+
+
+def test_track_sequence_collision_term_matches_jax():
+    """track_sequence with the collision term (collision_error_weight > 0)
+    on create_test_character, against JAX's energy. The fixture's capsules
+    run along whole bones and touch only when the chain folds, so two of
+    them are swapped for a pair that meets when joint 1 bends by more than
+    ~0.13 rad: joint 0's upward and joint 2's downward, 0.5 long, radius
+    0.499, 1.0 apart at rest. The term is active on the clip."""
+    from momentum_tpu.character.character import CollisionGeometry as JCollision
+    from momentum_tpu_torch import bridge
+
+    from test_torch_port_helpers import character_to_numpy
+
+    jchar = jax_test_character(4)
+    tf = np.zeros((2, 8), np.float32)
+    tf[:, 5] = [np.sin(np.pi / 4), -np.sin(np.pi / 4)]  # +Y from joint 0, -Y from joint 2
+    tf[:, 6] = np.cos(np.pi / 4)
+    tf[:, 7] = 1.0
+    jchar = dataclasses.replace(jchar, collision=JCollision(
+        parent=jnp.asarray([0, 2], jnp.int32), transform=jnp.asarray(tf),
+        radius=jnp.full((2, 2), 0.499, jnp.float32), length=jnp.full((2,), 0.5, jnp.float32)))
+    tchar = dataclasses.replace(  # the locators with their names, which the bridge drops
+        bridge.character_from_numpy(character_to_numpy(jchar), device="cpu"),
+        locators=tfix.create_test_character(4, device="cpu").locators)
+    thetas, jm, tm = _markers(jchar, 5)
+    cfg = dict(max_iter=10, regularization=1e-5, smoothing=1e-4, collision_error_weight=50.0)
+    jres, _ = jt.track_sequence(jchar, jm, jt.TrackingConfig(**cfg))
+    tres, _ = tt.track_sequence(tchar, tm, tt.TrackingConfig(**cfg))
+    _energies(jres, tres)
+    coll = terr.CollisionErrorFunction.create(tchar, weight=50.0, device="cpu")
+    np.testing.assert_array_equal(coll.pair_a.numpy(), [0])
+    ctx = TSSF(tchar, (coll,)).context(torch.as_tensor(thetas))
+    assert float(coll.error(tchar, ctx).max()) > 0
+    plain, _ = tt.track_sequence(tchar, tm, tt.TrackingConfig(
+        **dict(cfg, collision_error_weight=0.0)))
+    assert not np.allclose(plain.errors.numpy(), tres.errors.numpy(), rtol=1e-4)
+
+
+def test_keypoints_and_gloves_raise(rigs):
+    """The glove path waits for glove_utils.py (M7); the keypoint path, once
+    refused here, runs: per-frame tracking and the sequence solve with
+    keypoints give finite motions."""
+    jchar, tchar = rigs
+    thetas, _, tm = _markers(jchar, 2)
+    _, tk = _keypoints(jchar, thetas)
     with pytest.raises(NotImplementedError, match="M7"):
         tt.track_poses_per_frame(tchar, tm, glove_data=(object(),))
-    with pytest.raises(NotImplementedError, match="M3"):
-        tt.track_sequence(tchar, tm, camera_keypoints=(object(),))
-    with pytest.raises(NotImplementedError, match="M3"):
-        tt.calibrate_model(tchar, tm, camera_keypoints=(object(),))
+    with pytest.raises(NotImplementedError, match="M7"):
+        tt.track_sequence(tchar, tm, glove_data=(object(),))
+    cfg = tt.TrackingConfig(max_iter=5, projection_weight=KP_WEIGHT)
+    res = tt.track_poses_per_frame(tchar, tm, cfg, camera_keypoints=tk)
+    assert bool(torch.isfinite(res.motion).all())
+    seq, _ = tt.track_sequence(tchar, tm, cfg, camera_keypoints=tk)
+    assert bool(torch.isfinite(seq.motion).all())
