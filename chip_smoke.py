@@ -67,7 +67,20 @@ then drives the port's paths through those kernels and checks their output:
     batched tracking from the calibrated identity and the refine, both with
     markers and keypoints, against JAX CPU's marker and reprojection errors;
     the forward-mode rows through K1 against the plain FK's at B = 343,
-    K2+K3 held at (343, 73).
+    K2+K3 held at (343, 73);
+  * config D, differentiable IK at B = 2048: θ* by torch_interop.solve_ik_torch
+    (GN 20, K1 and K2+K3) and the gradients of Σ w·θ* to the targets and the
+    constraint weights by the implicit function theorem (the normal
+    equations through K1, one K2+K3 solve at (2048, 157), the energy's
+    directional derivative through K1's jvp rule): the per-element energies
+    and gradients against JAX CPU's vmapped solve_ik_ift, the backward's
+    K2+K3 solve held against the plain one; the solver variants on its
+    problem (QR, trust-region QR, CG with K1 under every JVP and VJP sweep,
+    line search, gradient descent, histories) against JAX CPU's;
+  * config 4x, config 4b with the point-triangle, vertex-distance and
+    camera-vertex projection modules (forward-mode Jacobians through K1):
+    their rows and Jacobians on the card against the CPU's, each module's
+    median final energy against JAX CPU's.
 
     python3 chip_smoke.py
 
@@ -198,6 +211,42 @@ AD_K1_RTOL = 1e-5
 # (python tools/jax_reference.py --configs 6k --out-6k tools/jax_reference_6k.json):
 # config 6s's tolerances, the median reprojection error held like the medians
 KEYPOINTS_JAX_CPU_FILE = "tools/jax_reference_6k.json"
+# config D, differentiable IK at B = 2048 (GN 20), held on its first 256
+# elements against the JAX package's vmapped solve_ik_ift on the CPU (python
+# tools/jax_reference.py --configs diffik --out-diffik
+# tools/jax_reference_diffik.json, which writes the per-element arrays the
+# smoke reads beside it, as .npz): the median energy at θ* within 20% (the IK rule); ∂L/∂targets'
+# median per-element relative L2 error within 5e-2. GN 20 at regularization
+# 1e-6 leaves about a third of the elements off a stationary point in both
+# packages (gradient rmse up to ~10, the port and JAX each), where the IFT
+# gradient is not defined and the two packages' iterates part. On the
+# elements stationary in both (rmse ≤ 1e-3), 95% of the elements'
+# ∂L/∂targets and ∂L/∂cweight within 5e-2 in relative L2: a few reach
+# another stationary point in each package (the port on the CPU: 2 of 115
+# at B = 256, 0.36 and 0.59 apart, the other 113 under 6.2e-3), so the
+# relative L2 error pooled over the elements is printed, not held
+DIFFIK_JAX_CPU_ARRAYS = "tools/jax_reference_diffik.npz"
+DIFFIK_HELD = 256
+DIFFIK_ENERGY_RTOL = 0.2
+DIFFIK_STATIONARY = 1e-3
+DIFFIK_GRAD_TOL = 5e-2
+DIFFIK_SHARE_MIN = 0.95
+# solve_ik_ift called directly against solve_ik_torch: the same computation,
+# apart from the atomic adds of index_select's backward
+DIFFIK_DIRECT_TOL = 1e-4
+# the solver variants on config D's position problem, against JAX CPU at
+# B = 256 (python tools/jax_reference.py --configs variants --out-variants
+# tools/jax_reference_variants.json): the median final energy within 20%
+VARIANTS_JAX_CPU_FILE = "tools/jax_reference_variants.json"
+VARIANT_MEDIAN_RTOL = 0.2
+# config 4x against JAX CPU (python tools/jax_reference.py --configs 4x
+# --out-4x tools/jax_reference_4x.json): each module's median final energy on
+# the first 64 elements within 20%; the card's rows and forward-mode
+# Jacobians against the CPU's, of max|.|
+VERTEX_EXTRA_JAX_CPU_FILE = "tools/jax_reference_4x.json"
+VERTEX_EXTRA_HELD = 64
+VERTEX_EXTRA_MEDIAN_RTOL = 0.2
+VERTEX_EXTRA_ROWS_RTOL = 1e-4
 
 
 def phase_device():
@@ -1283,6 +1332,326 @@ def phase_keypoints(smi):
     return counts, numbers, psd_numbers
 
 
+def _phi_leaves(prob):
+    """Config D's differentiable inputs: fresh leaves of its targets,
+    per-constraint weights and warm starts."""
+    return tuple(t.clone().requires_grad_() for t in (prob.targets, prob.cweight, prob.x0))
+
+
+def _diff_ik_split(fn, theta, mask, g, reg):
+    """For fn's inputs that require grad, the CUDA-event times (ms, the median of 3 runs of 3) of the IFT
+    backward's three layers at θ*, as solver/diff_ik.py runs them: the
+    normal equations (K1 in their context), the damped solve of
+    (2·JᵀJ + damp) u = g·mask (K2+K3), and the energy's directional
+    derivative along u by forward mode (K1's primal and jvp rule),
+    reverse-differentiated in the targets and weights."""
+    from momentum_tpu_torch.math.linalg import damped_psd_solve
+    from momentum_tpu_torch.solver.diff_ik import _leaves, _swap
+    from momentum_tpu_torch.testing.profile_workload import event_ms
+
+    def hessian():
+        with torch.no_grad():
+            return fn.normal_equations(theta)[0]
+
+    h = 2.0 * hessian() * (mask[:, None] * mask[None, :])
+    damp = reg + (1.0 - mask)
+    u = damped_psd_solve(h, damp, g * mask) * mask
+    leaves = _leaves(fn.error_functions, [])
+
+    def phi_part():
+        fresh = [t.detach().requires_grad_() for t in leaves]
+        f2 = _swap(fn, {id(t): f for t, f in zip(leaves, fresh)})
+        _, de = torch.func.jvp(f2.error, (theta,), (u,))
+        return torch.autograd.grad(-de.sum(), fresh)
+
+    return dict(normal_equations_ms=event_ms(hessian, reps=3, samples=3),
+                damped_solve_ms=event_ms(lambda: damped_psd_solve(h, damp, g * mask),
+                                         reps=3, samples=3),
+                phi_gradient_ms=event_ms(phi_part, reps=3, samples=3))
+
+
+def phase_diff_ik(smi):
+    """Config D, differentiable IK at B = 2048 (workloads.build_diff_ik_problem):
+    θ* by torch_interop.solve_ik_torch (GN 20 through K1 and K2+K3, the
+    prior, scale_global disabled) and the loss Σ w·θ* back-propagated by the
+    IFT. Solves/s of the forward and the backward's ms (CUDA events, the
+    median of 3 warm calls), the launches of each, the median gradient rmse
+    at θ*; on the first 256 elements against JAX CPU's vmapped solve_ik_ift:
+    the per-element energy (the median within 20%), ∂L/∂targets per element
+    (the median relative L2 error within 5e-2) and, on the elements at a
+    stationary point in both, the shares of ∂L/∂targets and ∂L/∂cweight
+    within 5e-2 (95% at least), the relative L2 error pooled over them
+    printed; x0's pass-through gradient exact; the same gradients through solve_ik_ift directly, to rounding.
+    The backward's K2+K3 solve at (2048, 157) held against the plain one;
+    one split of the backward into its three layers."""
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch.ops import psd
+    from momentum_tpu_torch.solver import gradient_rmse, solve_ik_ift
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ref = np.load(os.path.join(here, DIFFIK_JAX_CPU_ARRAYS))
+    prob = w.build_diff_ik_problem(w.DIFF_IK_BATCH, seed=SEED, device="cuda")
+    batch = prob.x0.shape[0]
+
+    def forward():
+        t, c, x0 = _phi_leaves(prob)
+        return (t, c, x0), w.solve_diff_ik(prob, t, c, x0)
+
+    def loss(theta):
+        return (theta * prob.w).sum()
+
+    leaves, theta = forward()  # warm-up
+    loss(theta).backward()
+    fwd_ms, bwd_ms = [], []
+    for i in range(3):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        _reset_counts()
+        e0.record()
+        leaves, theta = forward()
+        e1.record()
+        torch.cuda.synchronize()
+        if i == 0:
+            fwd_counts = _counts()
+            _reset_counts()
+        loss(theta).backward()
+        e2.record()
+        torch.cuda.synchronize()
+        if i == 0:
+            bwd_counts = _counts()
+        fwd_ms.append(e0.elapsed_time(e1))
+        bwd_ms.append(e1.elapsed_time(e2))
+    fwd, bwd = statistics.median(fwd_ms), statistics.median(bwd_ms)
+    t, c, x0 = leaves
+    theta = theta.detach()
+    fn = w.diff_ik_solver_fn(prob, {"targets": prob.targets, "cweight": prob.cweight})
+    energy = fn.error(theta)
+    rmse = gradient_rmse(fn, theta, prob.mask)
+    held = slice(0, DIFFIK_HELD)
+    e_t, e_j = energy[held].cpu().double().numpy(), ref["energy"][held].astype(np.float64)
+    g_t = t.grad[held].cpu().double().numpy().reshape(DIFFIK_HELD, -1)
+    g_j = ref["grad_targets"][held].astype(np.float64).reshape(DIFFIK_HELD, -1)
+    rel_t = np.linalg.norm(g_t - g_j, axis=-1) / np.linalg.norm(g_j, axis=-1)
+    stationary = ((rmse[held].cpu().numpy() <= DIFFIK_STATIONARY)
+                  & (ref["gradient_rmse"][held] <= DIFFIK_STATIONARY))
+    c_t = c.grad[held].cpu().double().numpy()
+    c_j = ref["grad_cweight"][held].astype(np.float64)
+    rel_c = np.linalg.norm(c_t - c_j, axis=-1) / np.linalg.norm(c_j, axis=-1)
+    pooled_c = float(np.linalg.norm(c_t[stationary] - c_j[stationary])
+                     / np.linalg.norm(c_j[stationary]))
+    share = {name: float(np.mean(rel[stationary] < DIFFIK_GRAD_TOL))
+             for name, rel in (("targets", rel_t), ("cweight", rel_c))}
+    x0_bar = x0.grad.clone()
+    scale = prob.char.parameter_transform.names.index("scale_global")
+    x0_ok = (bool(torch.equal(x0_bar[:, scale], prob.w[:, scale]))
+             and float(x0_bar[:, torch.arange(x0_bar.shape[1], device=x0_bar.device) != scale].abs().max()) == 0.0)
+    divergent = int((~torch.isfinite(energy)).sum())
+    med_e, med_ej = float(np.median(e_t)), float(np.median(e_j))
+    print(f"config D (differentiable IK, B={batch}, P={theta.shape[-1]}, GN "
+          f"{w.diff_ik_options().max_iterations}, loss sum(w theta*)): forward {batch / fwd * 1e3:.0f} "
+          f"solves/s ({fwd:.1f} ms), backward {bwd:.2f} ms (CUDA events, the median of 3 warm "
+          f"calls) on {smi}; kernel launches forward {fwd_counts}, backward {bwd_counts}; median "
+          f"gradient rmse at theta* {float(rmse.median()):.3e}, {float(rmse[held].median()):.3e} "
+          f"on the first {DIFFIK_HELD} (JAX CPU {np.median(ref['gradient_rmse'][held]):.3e}); "
+          f"divergent {divergent}")
+    print(f"  config D on the first {DIFFIK_HELD}: median energy {med_e:.6e} (JAX CPU "
+          f"{med_ej:.6e}); dL/dtargets median per-element rel. L2 error {np.median(rel_t):.3e}, "
+          f"{np.mean(rel_t < DIFFIK_GRAD_TOL):.3f} of elements under {DIFFIK_GRAD_TOL:.0e}; "
+          f"{int(stationary.sum())} elements stationary in both (gradient rmse <= "
+          f"{DIFFIK_STATIONARY:.0e}): shares under {DIFFIK_GRAD_TOL:.0e} {share} (at least "
+          f"{DIFFIK_SHARE_MIN}), dL/dcweight median per-element rel. L2 error "
+          f"{np.median(rel_c[stationary]):.3e} and rel. L2 error over them {pooled_c:.3e}; x0's "
+          f"pass-through gradient {'exact' if x0_ok else 'WRONG'}")
+    if not (abs(med_e - med_ej) <= DIFFIK_ENERGY_RTOL * med_ej and divergent == 0
+            and np.median(rel_t) <= DIFFIK_GRAD_TOL
+            and min(share.values()) >= DIFFIK_SHARE_MIN and x0_ok
+            and all(n > 0 for n in list(fwd_counts.values()) + list(bwd_counts.values()))):
+        raise AssertionError(f"config D out of tolerance of JAX CPU's, or launches forward "
+                             f"{fwd_counts} backward {bwd_counts}")
+
+    # the same gradients through solve_ik_ift directly, from the same inputs
+    t2, c2, x2 = _phi_leaves(prob)
+    fn2 = w.diff_ik_solver_fn(prob, {"targets": t2, "cweight": c2})
+    loss(solve_ik_ift(fn2, x2, prob.mask, w.diff_ik_options())).backward()
+    direct = {name: float(torch.linalg.vector_norm(a.grad - b.grad)
+                          / torch.linalg.vector_norm(b.grad))
+              for name, a, b in (("targets", t2, t), ("cweight", c2, c), ("x0", x2, x0))}
+    print(f"  config D through solve_ik_ift directly: rel. L2 difference of the gradients to "
+          f"solve_ik_torch's {direct} (tol {DIFFIK_DIRECT_TOL:.0e})")
+    if not all(d <= DIFFIK_DIRECT_TOL for d in direct.values()):
+        raise AssertionError(f"config D: solve_ik_ift and solve_ik_torch disagree: {direct}")
+
+    # the backward's K2+K3 system at (2048, 157), and one split of the backward
+    seen = []
+    real = psd.damped_chol_solve
+
+    def record(a, damp, b):
+        seen.append((a.clone(), damp.clone(), b.clone()))
+        return real(a, damp, b)
+
+    _, theta3 = forward()
+    psd.damped_chol_solve = record
+    try:
+        loss(theta3).backward()
+    finally:
+        psd.damped_chol_solve = real
+    if len(seen) != 1:
+        raise AssertionError(f"config D's backward made {len(seen)} K2+K3 calls, not 1")
+    psd_numbers = _hold_psd_matrix(*seen[0], "config D's IFT backward at theta*")
+    t4, c4, _ = _phi_leaves(prob)
+    split = _diff_ik_split(w.diff_ik_solver_fn(prob, {"targets": t4, "cweight": c4}), theta,
+                           prob.mask, prob.w, w.diff_ik_options().regularization)
+    print(f"  config D backward split (CUDA events): {split}")
+    numbers = dict(forward_solves_per_s=batch / fwd * 1e3, forward_ms=fwd, backward_ms=bwd,
+                   forward_launches=fwd_counts, backward_launches=bwd_counts,
+                   median_gradient_rmse=float(rmse.median()), median_energy=med_e,
+                   median_rel_l2_targets=float(np.median(rel_t)),
+                   share_targets_under_tol=float(np.mean(rel_t < DIFFIK_GRAD_TOL)),
+                   stationary_in_both=int(stationary.sum()), share_stationary_under_tol=share,
+                   median_rel_l2_cweight_stationary=float(np.median(rel_c[stationary])),
+                   rel_l2_cweight_stationary=pooled_c, direct=direct, backward_split=split)
+    return prob, fwd_counts, bwd_counts, numbers, psd_numbers
+
+
+def phase_solver_variants(prob, smi):
+    """The solver variants (workloads.variant_recipe) on config D's position
+    problem at B = 2048: GN by QR, LM by QR (TrustRegionQR), matrix-free GN
+    by CG (K1 under every JVP and VJP sweep), GN with the line search,
+    gradient descent, GN with histories (their shapes asserted): each one's
+    wall, launches and median final energy on the first 256 elements against
+    JAX CPU's (within 20%), divergent 0."""
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, VARIANTS_JAX_CPU_FILE)) as f:
+        want = json.load(f)
+    fn = SkeletonSolverFunction(prob.char,
+                                (dataclasses.replace(prob.ef0, target=prob.targets),))
+    batch, p = prob.x0.shape
+    counts, numbers = {}, {}
+    for name, (cls, opts, _) in w.variant_recipe().items():
+        _reset_counts()
+        t0 = time.perf_counter()
+        _, res = w.solve_variant(prob, name)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = _counts()
+        e = fn.error(res.params).cpu().double().numpy()
+        med, ref = float(np.median(e[:DIFFIK_HELD])), want[name]["median_energy"]
+        divergent = int((~np.isfinite(e)).sum())
+        hist = ""
+        if opts.get("store_history"):
+            n = opts["max_iterations"]
+            shapes = (tuple(res.error_history.shape), tuple(res.param_history.shape))
+            if shapes != ((n, batch), (n, batch, p)):
+                raise AssertionError(f"variant {name}: history shapes {shapes}")
+            hist = f"; histories {shapes}"
+        print(f"variant {name} ({cls}, {res.iterations} iterations, B={batch}): wall "
+              f"{wall * 1e3:.1f} ms on {smi}; median final energy {med:.6e} on the first "
+              f"{DIFFIK_HELD} (JAX CPU {ref:.6e}), divergent {divergent}; kernel launches "
+              f"{counts[name]}{hist}")
+        if not (abs(med - ref) <= VARIANT_MEDIAN_RTOL * ref and divergent == 0):
+            raise AssertionError(f"variant {name}: median {med} not within "
+                                 f"{VARIANT_MEDIAN_RTOL} of JAX CPU's {ref}, or {divergent} "
+                                 f"divergent")
+        numbers[name] = dict(wall_s=wall, median_energy=med, divergent=divergent,
+                             iterations=res.iterations, launches=counts[name])
+    total = {k: sum(c[k] for c in counts.values()) for k in counts["gn_qr"]}
+    if total["fk_global_kernel"] == 0 or counts["gn_line_search"]["damped_chol_solve_kernel"] == 0:
+        raise AssertionError(f"the solver variants did not run through every kernel: {counts}")
+    numbers["qr_step"] = _time_qr_step(fn, prob.x0, smi)
+    return counts, numbers
+
+
+def _time_qr_step(fn, x, smi):
+    """The QR variants' library call at the path's shape: torch.linalg.qr of
+    the damped stack [J; √damp·I] (B, R + P, P) at x, timed by CUDA events
+    (two warm-up calls, the median of 2), beside K2+K3 on the same step's
+    normal equations; the QR is the one JAX makes too (jnp.linalg.qr outside
+    any Pallas kernel), not a kernel to port."""
+    from momentum_tpu_torch.math.linalg import damped_psd_solve
+    from momentum_tpu_torch.testing.profile_workload import event_ms
+
+    rows, j = fn.residual_and_jacobian(x)
+    p = x.shape[-1]
+    damp = torch.full((p,), 1e-3, device=x.device)
+    aug = torch.cat([j, torch.diag_embed(torch.sqrt(damp)).expand(j.shape[0], p, p)], dim=-2)
+    qr_ms = event_ms(lambda: torch.linalg.qr(aug), reps=1, samples=2)
+    jtj = j.transpose(-1, -2) @ j
+    jtr = (j.transpose(-1, -2) @ rows[..., None])[..., 0]
+    chol_ms = event_ms(lambda: damped_psd_solve(jtj, damp, jtr))
+    print(f"GN's QR step at B={aug.shape[0]}: torch.linalg.qr of ({aug.shape[1]}, {p}) stacks "
+          f"{qr_ms:.1f} ms; K2+K3 on the same step's normal equations ({p}, {p}) "
+          f"{chol_ms:.4f} ms (CUDA events) on {smi}")
+    return dict(qr_ms=qr_ms, damped_chol_solve_ms=chol_ms, shape=list(aug.shape))
+
+
+def phase_vertex_extra(smi):
+    """Config 4x: config 4b at B = 256 with the point-triangle,
+    vertex-distance and camera-vertex projection modules (forward-mode
+    Jacobians; workloads.build_vertex_extra_problem), GN 4 + 2 as 4b: each new
+    module's rows and forward-mode Jacobian on the card at 16 warm starts
+    against the port's CPU computation, then each module's median final
+    energy on the first 64 elements against JAX CPU's (within 20%),
+    divergent 0, the wall of one solve and the launches."""
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, VERTEX_EXTRA_JAX_CPU_FILE)) as f:
+        want = json.load(f)
+    prob = w.build_vertex_extra_problem(device="cuda")
+    cpu = w.build_vertex_extra_problem(device="cpu")
+    labels = ("vertex_position", "point_triangle", "vertex_distance", "camera_vertex")
+    rows_err = {}
+    x16 = prob.fit.x0[:16]
+    for label, card_ef, cpu_ef in zip(labels[1:], w.vertex_extra_modules(
+            prob, prob.fit.targets[:16], prob.distance.target[:16],
+            prob.camera.target[:16])[1:], w.vertex_extra_modules(
+            cpu, cpu.fit.targets[:16], cpu.distance.target[:16], cpu.camera.target[:16])[1:]):
+        rk, jk = SkeletonSolverFunction(prob.fit.char, (card_ef,)).residual_and_jacobian(x16)
+        rc, jc = SkeletonSolverFunction(cpu.fit.char, (cpu_ef,)).residual_and_jacobian(x16.cpu())
+        rows_err[label] = dict(
+            rows=float((rk.cpu() - rc).abs().max() / rc.abs().max()),
+            jacobian=float((jk.cpu() - jc).abs().max() / jc.abs().max()))
+    print(f"config 4x modules' rows and forward-mode Jacobians (B=16, P="
+          f"{prob.fit.x0.shape[-1]}) on the card against the CPU, of max|.|: {rows_err} (tol "
+          f"{VERTEX_EXTRA_ROWS_RTOL:.0e})")
+    if not all(v <= VERTEX_EXTRA_ROWS_RTOL for d in rows_err.values() for v in d.values()):
+        raise AssertionError(f"config 4x: the card's rows or Jacobians disagree with the "
+                             f"CPU's: {rows_err}")
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = w.make_vertex_extra_solve(prob)(prob.fit.x0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    fn = SkeletonSolverFunction(prob.fit.char, w.vertex_extra_modules(
+        prob, prob.fit.targets, prob.distance.target, prob.camera.target))
+    ctx = fn.context(res.params)
+    per = {lab: ef.error(prob.fit.char, ctx).cpu().double().numpy()
+           for lab, ef in zip(labels, fn.error_functions)}
+    divergent = int((~np.isfinite(sum(per.values()))).sum())
+    batch = prob.fit.x0.shape[0]
+    print(f"config 4x (B={batch}, P={prob.fit.x0.shape[-1]}, GN 4 + 2 on the worst 64, "
+          f"{res.iterations} iterations): wall {wall:.2f} s (one solve, the first) on {smi}; "
+          f"divergent {divergent}; kernel launches {counts}")
+    bad, medians = [], {}
+    for lab in labels:
+        med, ref = float(np.median(per[lab][:VERTEX_EXTRA_HELD])), want["median_energy"][lab]
+        medians[lab] = med
+        ok = abs(med - ref) <= VERTEX_EXTRA_MEDIAN_RTOL * ref
+        bad += [] if ok else [lab]
+        print(f"  config 4x {lab}: median final energy {med:.6e} on the first "
+              f"{VERTEX_EXTRA_HELD} (JAX CPU {ref:.6e}){'' if ok else ' OUT OF TOLERANCE'}; "
+              f"all {batch}: {float(np.median(per[lab])):.6e}")
+    if bad or divergent or any(n == 0 for n in counts.values()):
+        raise AssertionError(f"config 4x: medians {bad} out of tolerance, {divergent} "
+                             f"divergent, or launches {counts}")
+    return counts, dict(wall_s=wall, median_energy=medians, divergent=divergent,
+                        rows_and_jacobians=rows_err, launches=counts)
+
+
 def _frame_vertices(char, motion, frame=0):
     """The skinned vertices of frame `frame` of the clip."""
     from momentum_tpu_torch.testing.workloads import clip_vertices
@@ -1716,6 +2085,13 @@ def main():
     lap("catalog")
     kp_counts, kp_numbers, kp_psd = phase_keypoints(smi)
     lap("keypoints")
+    diff_prob, dik_fwd, dik_bwd, dik_numbers, dik_psd = phase_diff_ik(smi)
+    lap("diff_ik")
+    var_counts, var_numbers = phase_solver_variants(diff_prob, smi)
+    del diff_prob
+    lap("solver_variants")
+    vx_counts, vx_numbers = phase_vertex_extra(smi)
+    lap("vertex_extra")
 
     from momentum_tpu_torch.testing.workloads import build_render_clip
 
@@ -1745,7 +2121,11 @@ def main():
              catalog_launches=catalog_counts["fk_global_kernel"],
              catalog_ad_rows=catalog_numbers.pop("ad_rows"),
              keypoint_launches={st: n["fk_global_kernel"] for st, n in kp_counts.items()},
-             keypoint_ad_rows=kp_numbers.pop("ad_rows")),
+             keypoint_ad_rows=kp_numbers.pop("ad_rows"),
+             diff_ik_launches=dict(forward=dik_fwd["fk_global_kernel"],
+                                   backward=dik_bwd["fk_global_kernel"]),
+             variant_launches={v: n["fk_global_kernel"] for v, n in var_counts.items()},
+             vertex_extra_launches=vx_counts["fk_global_kernel"]),
         dict(name="damped_chol_solve_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/psd_pallas.py:53",
@@ -1766,7 +2146,12 @@ def main():
              catalog_launches=catalog_counts["damped_chol_solve_kernel"],
              catalog_2048x157=catalog_psd,
              keypoint_launches={st: n["damped_chol_solve_kernel"] for st, n in kp_counts.items()},
-             keypoints_343x73=kp_psd),
+             keypoints_343x73=kp_psd,
+             diff_ik_launches=dict(forward=dik_fwd["damped_chol_solve_kernel"],
+                                   backward=dik_bwd["damped_chol_solve_kernel"]),
+             diff_ik_backward_2048x157=dik_psd,
+             variant_launches={v: n["damped_chol_solve_kernel"] for v, n in var_counts.items()},
+             vertex_extra_launches=vx_counts["damped_chol_solve_kernel"]),
         dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:55",
@@ -1799,7 +2184,9 @@ def main():
     ]
     print(json.dumps({"config2": config2_numbers, "config4": vertex_numbers,
                       "config5": seq_numbers, "config6s": track_numbers,
-                      "configC": catalog_numbers, "config6k": kp_numbers}))
+                      "configC": catalog_numbers, "config6k": kp_numbers,
+                      "configD": dik_numbers, "variants": var_numbers,
+                      "config4x": vx_numbers}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

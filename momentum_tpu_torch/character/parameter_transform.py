@@ -9,11 +9,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from momentum_tpu_torch.character.skeleton import PARAMS_PER_JOINT
 
-__all__ = ["ParameterTransform"]
+__all__ = ["ParameterTransform", "InverseParameterTransform"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -42,3 +43,29 @@ class ParameterTransform:
     def apply(self, model_params: torch.Tensor) -> torch.Tensor:
         """(..., nP) → (..., nJ*7): one dense matmul (parameter_transform.cpp:110)."""
         return model_params @ self.transform.T + self.offsets
+
+    def pinv(self) -> torch.Tensor:
+        """(nP, nJ*7) pseudo-inverse for the joint → model mapping
+        (inverse_parameter_transform.h), computed once on the host by
+        numpy, as JAX's, and returned on the transform's device."""
+        pinv = np.linalg.pinv(self.transform.detach().cpu().numpy())
+        return torch.as_tensor(pinv, dtype=self.transform.dtype, device=self.transform.device)
+
+    def inverse(self) -> "InverseParameterTransform":
+        """The least-squares joint → model inverse (pybind
+        ParameterTransform.inverse)."""
+        return InverseParameterTransform(self)
+
+
+class InverseParameterTransform:
+    """Joint parameters → model parameters through the pseudo-inverse
+    (inverse_parameter_transform.h): apply() gives the θ minimizing
+    ‖T·θ + offsets − joint_params‖²."""
+
+    def __init__(self, parameter_transform: ParameterTransform):
+        self.parameter_transform = parameter_transform
+        self._pinv = parameter_transform.pinv()
+
+    def apply(self, joint_params: torch.Tensor) -> torch.Tensor:
+        """(..., nJ*7) → (..., nP)."""
+        return (joint_params - self.parameter_transform.offsets) @ self._pinv.T

@@ -21,5 +21,6 @@ from momentum_tpu_torch.errors.position import (  # noqa: F401
     ModelParametersErrorFunction, OrientationErrorFunction, PositionErrorFunction)
 from momentum_tpu_torch.errors.state import StateErrorFunction  # noqa: F401
 from momentum_tpu_torch.errors.vertex import (  # noqa: F401
+    CameraVertexProjectionErrorFunction, PointTriangleVertexErrorFunction,
     VertexNormalErrorFunction, VertexPlaneErrorFunction, VertexPositionErrorFunction,
-    VertexProjectionErrorFunction)
+    VertexProjectionErrorFunction, VertexVertexDistanceErrorFunction)

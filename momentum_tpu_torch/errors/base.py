@@ -27,11 +27,22 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
 
-__all__ = ["EvalContext", "ErrorFunction", "VectorErrorFunction", "UnionErrorFunction"]
+__all__ = ["EvalContext", "ErrorFunction", "VectorErrorFunction", "UnionErrorFunction",
+           "pad_rows"]
+
+
+def pad_rows(arr, capacity: int, fill=0) -> np.ndarray:
+    """A leading-axis table padded to a static capacity (default zero-fill),
+    on the host."""
+    arr = np.asarray(arr)
+    out = np.full((capacity,) + arr.shape[1:], fill, arr.dtype)
+    out[: arr.shape[0]] = arr
+    return out
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

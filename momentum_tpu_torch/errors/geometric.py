@@ -33,8 +33,7 @@ import numpy as np
 import torch
 
 from momentum_tpu_torch.device import resolve
-from momentum_tpu_torch.errors.base import EvalContext, VectorErrorFunction
-from momentum_tpu_torch.errors.position import _pad_rows
+from momentum_tpu_torch.errors.base import EvalContext, VectorErrorFunction, pad_rows
 from momentum_tpu_torch.math import skel_state as ss
 from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
 
@@ -63,7 +62,7 @@ def _create(cls, entry: str, device, parent, cweight, weight, loss, capacity, ta
     cap = capacity or n
 
     def t(x):
-        return torch.as_tensor(_pad_rows(x, cap), device=device)
+        return torch.as_tensor(pad_rows(x, cap), device=device)
 
     fields = {k: t(np.asarray(v, np.float32).reshape((n,) + shape))
               for k, (v, shape) in tables.items()}

@@ -20,9 +20,8 @@ import numpy as np
 import torch
 
 from momentum_tpu_torch.device import resolve
-from momentum_tpu_torch.errors.base import EvalContext, VectorErrorFunction
+from momentum_tpu_torch.errors.base import EvalContext, VectorErrorFunction, pad_rows
 from momentum_tpu_torch.errors.geometric import _dot_j, _finish, clamped
-from momentum_tpu_torch.errors.position import _pad_rows
 from momentum_tpu_torch.math import quaternion as quat, skel_state as ss
 from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
 
@@ -44,7 +43,7 @@ def _create(cls, device, source, reference, cweight, weight, loss, capacity, tab
     cap = capacity or n
 
     def t(x):
-        return torch.as_tensor(_pad_rows(x, cap), device=device)
+        return torch.as_tensor(pad_rows(x, cap), device=device)
 
     fields = {}
     for k, (v, shape) in tables.items():

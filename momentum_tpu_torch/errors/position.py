@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from momentum_tpu_torch.device import resolve
-from momentum_tpu_torch.errors.base import ErrorFunction, EvalContext, VectorErrorFunction
+from momentum_tpu_torch.errors.base import (
+    ErrorFunction, EvalContext, VectorErrorFunction, pad_rows)
 from momentum_tpu_torch.math import quaternion as quat, skel_state as ss
 from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
 
@@ -28,12 +29,6 @@ __all__ = ["PositionErrorFunction", "OrientationErrorFunction",
            "ModelParametersErrorFunction"]
 
 _LN2 = 0.6931471805599453  # scale is log2-parameterized (joint_state.cpp:22-62)
-
-
-def _pad_rows(arr: np.ndarray, capacity: int) -> np.ndarray:
-    out = np.zeros((capacity,) + arr.shape[1:], arr.dtype)
-    out[: arr.shape[0]] = arr
-    return out
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -147,7 +142,7 @@ class PositionErrorFunction(VectorErrorFunction):
         cap = capacity or n
 
         def t(x):
-            return torch.as_tensor(_pad_rows(x, cap), device=device)
+            return torch.as_tensor(pad_rows(x, cap), device=device)
 
         return cls(parent=t(parent), offset=t(offset), target=t(target),
                    cweight=t(cweight),
@@ -264,9 +259,9 @@ class OrientationErrorFunction(VectorErrorFunction):
             out[:n] = x
             return torch.as_tensor(out, device=device)
 
-        return cls(parent=torch.as_tensor(_pad_rows(parent, cap), device=device),
+        return cls(parent=torch.as_tensor(pad_rows(parent, cap), device=device),
                    offset=quats(offset), target=quats(target),
-                   cweight=torch.as_tensor(_pad_rows(cweight, cap), device=device),
+                   cweight=torch.as_tensor(pad_rows(cweight, cap), device=device),
                    weight=torch.tensor(weight, dtype=torch.float32, device=device),
                    loss=loss or GeneralizedLoss())
 

@@ -18,9 +18,20 @@ Each has the analytic joint-space Jacobian of the LBS walk
 (`jacobian`, solver/analytic_jacobian.py's skinned_* functions) plus the
 blend-shape columns in model space. The sign choices read the mesh normals,
 whose scatter-add sums with atomics on CUDA: near a zero dot product a row's
-sign can differ between runs there, so compare energies, not raw rows. The
-modules without an analytic Jacobian (point-triangle, vertex-vertex
-distance, camera-vertex projection) wait for the AD branch (ROADMAP M5).
+sign can differ between runs there, so compare energies, not raw rows.
+
+Three modules have no analytic Jacobian, as in JAX; their rows reach the
+solver by forward mode (the solver function's mixed analytic/AD branch):
+
+  PointTriangleVertexErrorFunction (point_triangle_vertex_error_function.cpp)
+      position: f = v_src − Σ_i bary_i·v_tri_i                      (3 rows)
+      plane:    f = n·(v_src − Σ_i bary_i·v_tri_i), n blended from the
+                source vertex normal and the triangle's normal       (1 row)
+  VertexVertexDistanceErrorFunction (vertex_vertex_distance_error_function.cpp:52-70)
+      f = ‖v1 − v2‖ − target                                         (1 row)
+  CameraVertexProjectionErrorFunction (camera_vertex_projection_error_function.cpp)
+      f = project(v).uv − target through a full camera model, 0 behind
+      near_clip                                                      (2 rows)
 """
 
 from __future__ import annotations
@@ -30,14 +41,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from momentum_tpu_torch.camera.models import Camera
 from momentum_tpu_torch.device import resolve
-from momentum_tpu_torch.errors.base import EvalContext, VectorErrorFunction
+from momentum_tpu_torch.errors.base import EvalContext, VectorErrorFunction, pad_rows
 from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
 from momentum_tpu_torch.solver.analytic_jacobian import (
     skinned_blend_jacobian, skinned_point_jacobian, skinned_vector_jacobian)
 
 __all__ = ["VertexPositionErrorFunction", "VertexPlaneErrorFunction",
-           "VertexNormalErrorFunction", "VertexProjectionErrorFunction"]
+           "VertexNormalErrorFunction", "VertexProjectionErrorFunction",
+           "PointTriangleVertexErrorFunction", "VertexVertexDistanceErrorFunction",
+           "CameraVertexProjectionErrorFunction"]
 
 
 def _tables(device, cap, vertex_index, cweight, **arrays):
@@ -289,4 +303,128 @@ class VertexProjectionErrorFunction(_VertexErrorFunction):
                     projection=np.asarray(projection, np.float32).reshape(n, 3, 4),
                     target=np.asarray(target, np.float32).reshape(n, 2))
         return cls(weight=torch.tensor(weight, dtype=torch.float32, device=device),
+                   near_clip=near_clip, loss=loss or GeneralizedLoss(), **t)
+
+
+def _padded(device, cap, n, cweight, **arrays) -> dict:
+    """The arrays and cweight (ones by default) as tensors on `device`,
+    padded to `cap` (or n) rows of zeros: padding rows read vertex 0 at
+    weight 0."""
+    cweight = np.ones(n, np.float32) if cweight is None else np.asarray(cweight, np.float32)
+    return {k: torch.as_tensor(pad_rows(v, cap or n), device=device)
+            for k, v in dict(arrays, cweight=cweight).items()}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PointTriangleVertexErrorFunction(VectorErrorFunction):
+    src_vertex: torch.Tensor  # (C,) int32
+    tri_vertices: torch.Tensor  # (C, 3) int32
+    bary: torch.Tensor  # (C, 3)
+    cweight: torch.Tensor
+    weight: torch.Tensor
+    constraint_type: str = "position"  # or "plane"
+    source_normal_weight: float = 0.5
+    target_normal_weight: float = 0.5
+    loss: GeneralizedLoss = GeneralizedLoss()
+
+    needs_mesh = True
+
+    @property
+    def D(self):  # noqa: N802 - VectorErrorFunction's row width
+        return 3 if self.constraint_type == "position" else 1
+
+    def constraint_count(self) -> int:
+        return self.src_vertex.shape[0]
+
+    def raw(self, character, ctx: EvalContext):
+        verts = ctx.mesh_vertices
+        v_src = verts.index_select(-2, self.src_vertex)
+        tri = verts.index_select(-2, self.tri_vertices.reshape(-1))
+        tri = tri.reshape(verts.shape[:-2] + tuple(self.tri_vertices.shape) + (3,))
+        diff = v_src - torch.sum(self.bary[..., None] * tri, dim=-2)
+        if self.constraint_type == "position":
+            return diff, self.cweight
+        src_n = ctx.mesh_normals.index_select(-2, self.src_vertex)
+        a, b, c = tri.unbind(-2)
+        tn = torch.linalg.cross(b - a, c - a)
+        tn = tn / torch.clamp(torch.linalg.vector_norm(tn, dim=-1, keepdim=True), min=1e-12)
+        n = self.source_normal_weight * src_n + self.target_normal_weight * tn
+        return torch.sum(n * diff, dim=-1, keepdim=True), self.cweight
+
+    @classmethod
+    def create(cls, src_vertex, tri_vertices, bary, cweight=None, weight=1.0,
+               constraint_type="position", loss=None, capacity=None, device="cuda"):
+        device = resolve(device, "PointTriangleVertexErrorFunction.create")
+        src_vertex = np.asarray(src_vertex, np.int32)
+        n = src_vertex.shape[0]
+        t = _padded(device, capacity, n, cweight, src_vertex=src_vertex,
+                    tri_vertices=np.asarray(tri_vertices, np.int32).reshape(n, 3),
+                    bary=np.asarray(bary, np.float32).reshape(n, 3))
+        return cls(weight=torch.tensor(weight, dtype=torch.float32, device=device),
+                   constraint_type=constraint_type, loss=loss or GeneralizedLoss(), **t)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class VertexVertexDistanceErrorFunction(VectorErrorFunction):
+    vertex1: torch.Tensor  # (C,) int32
+    vertex2: torch.Tensor  # (C,) int32
+    target: torch.Tensor  # (..., C)
+    cweight: torch.Tensor
+    weight: torch.Tensor
+    loss: GeneralizedLoss = GeneralizedLoss()
+
+    needs_mesh = True
+    D = 1
+
+    def constraint_count(self) -> int:
+        return self.vertex1.shape[0]
+
+    def raw(self, character, ctx: EvalContext):
+        p1 = ctx.mesh_vertices.index_select(-2, self.vertex1)
+        p2 = ctx.mesh_vertices.index_select(-2, self.vertex2)
+        dist = torch.linalg.vector_norm(p1 - p2 + 1e-20, dim=-1)
+        return (dist - self.target)[..., None], self.cweight
+
+    @classmethod
+    def create(cls, vertex1, vertex2, target, cweight=None, weight=1.0, loss=None,
+               capacity=None, device="cuda"):
+        device = resolve(device, "VertexVertexDistanceErrorFunction.create")
+        vertex1 = np.asarray(vertex1, np.int32)
+        t = _padded(device, capacity, vertex1.shape[0], cweight, vertex1=vertex1,
+                    vertex2=np.asarray(vertex2, np.int32),
+                    target=np.asarray(target, np.float32))
+        return cls(weight=torch.tensor(weight, dtype=torch.float32, device=device),
+                   loss=loss or GeneralizedLoss(), **t)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CameraVertexProjectionErrorFunction(VectorErrorFunction):
+    camera: Camera
+    vertex_index: torch.Tensor  # (C,) int32
+    target: torch.Tensor  # (..., C, 2) pixel targets
+    cweight: torch.Tensor
+    weight: torch.Tensor
+    near_clip: float = 0.01
+    loss: GeneralizedLoss = GeneralizedLoss()
+
+    needs_mesh = True
+    D = 2
+
+    def constraint_count(self) -> int:
+        return self.vertex_index.shape[0]
+
+    def raw(self, character, ctx: EvalContext):
+        uvz, valid = self.camera.project(ctx.mesh_vertices.index_select(-2, self.vertex_index))
+        valid = valid & (uvz[..., 2] >= self.near_clip)
+        return torch.where(valid[..., None], uvz[..., :2] - self.target, 0.0), self.cweight
+
+    @classmethod
+    def create(cls, camera, vertex_index, target, cweight=None, weight=1.0, near_clip=0.01,
+               loss=None, capacity=None, device="cuda"):
+        device = resolve(device, "CameraVertexProjectionErrorFunction.create")
+        vertex_index = np.asarray(vertex_index, np.int32)
+        n = vertex_index.shape[0]
+        t = _padded(device, capacity, n, cweight, vertex_index=vertex_index,
+                    target=np.asarray(target, np.float32).reshape(n, 2))
+        return cls(camera=camera, weight=torch.tensor(weight, dtype=torch.float32, device=device),
                    near_clip=near_clip, loss=loss or GeneralizedLoss(), **t)

@@ -11,7 +11,8 @@ from typing import Optional
 import torch
 
 from momentum_tpu_torch.solver.gauss_newton import (
-    SolveResult, SolverOptions, solve_gauss_newton, solve_levenberg_marquardt)
+    SolveResult, SolverOptions, solve_gauss_newton, solve_gradient_descent,
+    solve_levenberg_marquardt)
 from momentum_tpu_torch.solver.skeleton_solver_function import SkeletonSolverFunction
 
 __all__ = ["solve_ik", "get_solve_counters", "reset_solve_counters"]
@@ -38,27 +39,31 @@ def solve_ik(
     options: SolverOptions = SolverOptions(),
     method: str = "gauss_newton",
 ) -> SolveResult:
-    """Solve the IK problems of x0 (..., P) by "gauss_newton" or
-    "levenberg_marquardt" / "trust_region". Both take the normal equations
-    whenever a module adds its own (limits, pose prior), else every
-    module's analytic Jacobian. Elements whose result is not finite are
-    reverted to x0."""
+    """Solve the IK problems of x0 (..., P) by "gauss_newton",
+    "levenberg_marquardt" / "trust_region" or "gradient_descent" (learning
+    rate 0.01). The Cholesky path takes the normal equations whenever a
+    module adds its own (limits, pose prior); otherwise, and for QR, CG and
+    gradient descent, every module's analytic Jacobian when all have one,
+    else forward mode (JAX's routing, momentum_tpu/solver/ik.py:63-83).
+    Elements whose result is not finite are reverted to x0."""
     batch = math.prod(x0.shape[:-1])
     _counters["n_total_solve_ik"] += batch
     _counters["n_total_solve_ik_iter"] += batch * options.max_iterations
-    if method == "gradient_descent":
-        raise NotImplementedError("gradient descent comes with ROADMAP M5")
-    if method not in ("gauss_newton", "levenberg_marquardt", "trust_region"):
+    solvers = {"gauss_newton": solve_gauss_newton,
+               "levenberg_marquardt": solve_levenberg_marquardt,
+               "trust_region": solve_levenberg_marquardt,
+               "gradient_descent": solve_gradient_descent}
+    if method not in solvers:
         raise ValueError(f"unknown method {method!r}")
     jac_fn = solver_fn.residual_and_jacobian if solver_fn.fully_analytic else None
     normal_fn = None
     error_fn = solver_fn.error
-    if options.linear_solver == "cholesky" and solver_fn.has_structured_modules:
+    if (method != "gradient_descent" and options.linear_solver == "cholesky"
+            and solver_fn.has_structured_modules):
         normal_fn = solver_fn.normal_equations
         if options.energy_from_residual:
             error_fn = solver_fn.residual_sq
-    solve = solve_gauss_newton if method == "gauss_newton" else solve_levenberg_marquardt
-    result = solve(solver_fn.residual, error_fn, x0, enabled_mask, options,
-                   jacobian_fn=jac_fn, normal_fn=normal_fn)
+    result = solvers[method](solver_fn.residual, error_fn, x0, enabled_mask, options,
+                             jacobian_fn=jac_fn, normal_fn=normal_fn)
     bad = ~torch.isfinite(result.params).all(dim=-1, keepdim=True)
     return result._replace(params=torch.where(bad, x0, result.params))

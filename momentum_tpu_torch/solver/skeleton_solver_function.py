@@ -75,9 +75,11 @@ class SkeletonSolverFunction:
         return sum(ef.error(self.character, ctx) for ef in self.error_functions)
 
     def gradient(self, model_params: torch.Tensor) -> torch.Tensor:
-        """d error / d model params by reverse mode (through K1's backward
-        on the card, ROADMAP F8)."""
-        return torch.func.grad(self.error)(model_params)
+        """d error / d model params (..., P) by reverse mode (through K1's
+        backward on the card, ROADMAP F8): the gradient of the energies'
+        sum, each element's own since the elements are independent (JAX's
+        jax.grad takes one element only)."""
+        return torch.func.grad(lambda x: self.error(x).sum())(model_params)
 
     @property
     def fully_analytic(self) -> bool:

@@ -40,6 +40,17 @@ on 5% of the frames. Its five stages are config 6's: calibration, the
 locators-only pass, per-frame tracking, the smoothed refine and
 hierarchical batched tracking.
 
+Differentiable IK (config D): the IK rig and catalog_draws' truths and
+warm starts, a ModelParameters prior toward zero at weight 1e-3 (keeping H
+full-rank, as tests/test_diff_ik.py), scale_global disabled, GN 20 at
+regularization 1e-6 through torch_interop.solve_ik_torch, and the loss
+L = Σ w·θ* with w ~ N(0, 1); its gradients to the targets and the
+per-constraint weights come by the implicit function theorem. The same
+problem without the prior runs through each solver variant
+(`variant_recipe`: QR, trust-region QR, CG, line search, gradient descent,
+histories). Config 4x is config 4b with three forward-mode vertex modules
+added (`vertex_extra_recipe`).
+
 The render clip: the full-body character's skinned tube mesh (612 vertices,
 612 faces) posed by a 32-frame random walk in its 157 parameters, rendered
 with Lambert shading and a 256 × 256 shadow map at 1280 × 960 and box-
@@ -75,7 +86,11 @@ __all__ = ["build_fullbody_ik_problem", "make_solve_stage", "make_solve_batch",
            "catalog_character", "build_catalog_ik_problem", "solve_catalog",
            "catalog_energies", "catalog_figures", "KEYPOINT_PROJECTION_WEIGHT",
            "keypoint_recipe", "keypoint_draws", "build_keypoint_clip", "track_clip_keypoints",
-           "refine_clip_keypoints", "clip_reprojection_errors_px"]
+           "refine_clip_keypoints", "clip_reprojection_errors_px", "DIFF_IK_BATCH",
+           "DiffIkProblem", "build_diff_ik_problem", "diff_ik_options", "diff_ik_solver_fn",
+           "solve_diff_ik", "variant_recipe", "solve_variant", "VertexExtraProblem",
+           "vertex_extra_recipe", "build_vertex_extra_problem", "vertex_extra_modules",
+           "make_vertex_extra_solve"]
 
 # 5 full-batch LM iterations + 6 compacted iterations on the worst 128 of 2048
 DEFAULT_REFINE = (5, 6, 128)
@@ -1004,3 +1019,197 @@ def clip_reprojection_errors_px(char, keypoints, motion: torch.Tensor) -> np.nda
         d = torch.linalg.vector_norm(uv - kp.targets, dim=-1)
         out.append(d[kp.confidence > 0].cpu().numpy())
     return np.concatenate(out)
+
+
+# ---- config D: differentiable IK, and the solver variants on its problem ----
+
+DIFF_IK_BATCH = 2048
+
+
+class DiffIkProblem(NamedTuple):
+    """Config D on one device."""
+
+    char: object  # the full-body rig (157 parameters, 80 locators)
+    ef0: object  # PositionErrorFunction on the 80 locators, zero targets
+    prior: object  # ModelParametersErrorFunction toward zero, weight 1e-3
+    targets: torch.Tensor  # (B, 80, 3) the truths' locator positions
+    cweight: torch.Tensor  # (B, 80) ones: per-element constraint weights
+    x0: torch.Tensor  # (B, 157) truth + N(0, 0.05)
+    mask: torch.Tensor  # (157,) 0 at scale_global
+    w: torch.Tensor  # (B, 157) the loss weights, N(0, 1)
+
+
+def build_diff_ik_problem(batch: int = DIFF_IK_BATCH, seed: int = 0,
+                          device="cuda") -> DiffIkProblem:
+    """Config D on `device` (the card unless the caller asks for the CPU):
+    catalog_draws' truths and warm starts (two generators) and the loss
+    weights from a third (seed + 2), so the first n elements are the same at
+    every batch size."""
+    from momentum_tpu_torch.errors import ModelParametersErrorFunction, PositionErrorFunction
+    from momentum_tpu_torch.testing.fixtures import create_fullbody_character
+
+    device = resolve(device, "build_diff_ik_problem")
+    char = create_fullbody_character(device=device)
+    p = char.num_model_parameters
+    truth, x0 = catalog_draws(batch, seed, p)
+    targets = char.locators.world_positions(
+        char.skeleton_states(torch.as_tensor(truth, device=device)))
+    loc = char.locators
+    ef0 = PositionErrorFunction.create(loc.parent.cpu().numpy(), loc.offset.cpu().numpy(),
+                                       np.zeros((loc.num_locators, 3)), device=device)
+    prior = ModelParametersErrorFunction.create(np.zeros(p), weight=1e-3, device=device)
+    mask = np.ones(p, np.float32)
+    mask[char.parameter_transform.names.index("scale_global")] = 0.0
+    w = np.random.default_rng(seed + 2).normal(0.0, 1.0, (batch, p)).astype(np.float32)
+    return DiffIkProblem(
+        char=char, ef0=ef0, prior=prior, targets=targets,
+        cweight=torch.ones(batch, loc.num_locators, device=device),
+        x0=torch.as_tensor(x0, device=device), mask=torch.as_tensor(mask, device=device),
+        w=torch.as_tensor(w, device=device))
+
+
+def diff_ik_options():
+    """Config D's solve: GN 20 at regularization 1e-6."""
+    from momentum_tpu_torch.solver import SolverOptions
+
+    return SolverOptions(max_iterations=20, regularization=1e-6)
+
+
+def diff_ik_solver_fn(problem: DiffIkProblem, inputs: dict):
+    """The build function of solve_ik_torch: config D's modules with the
+    inputs' targets (B, 80, 3) and per-constraint weights (B, 80)."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    ef = dataclasses.replace(problem.ef0, target=inputs["targets"], cweight=inputs["cweight"])
+    return SkeletonSolverFunction(problem.char, (ef, problem.prior))
+
+
+def solve_diff_ik(problem: DiffIkProblem, targets, cweight, x0) -> torch.Tensor:
+    """θ* (B, 157) through torch_interop.solve_ik_torch, differentiable in
+    targets, cweight and (at scale_global) x0."""
+    from momentum_tpu_torch.torch_interop import solve_ik_torch
+
+    return solve_ik_torch(lambda inputs: diff_ik_solver_fn(problem, inputs), x0,
+                          {"targets": targets, "cweight": cweight}, diff_ik_options(),
+                          enabled_mask=problem.mask)
+
+
+def variant_recipe() -> dict:
+    """name → (solver class of solver/solvers.py, SolverOptions fields,
+    constructor keywords): the solver variants run on config D's problem
+    without the prior (tools/jax_reference.py has the same numbers)."""
+    gn = dict(max_iterations=5, regularization=1e-3)
+    return {
+        "gn_qr": ("GaussNewtonSolverQR", gn, {}),
+        "trust_region_qr": ("TrustRegionQR", gn, {}),
+        "sparse_gn_cg": ("SparseGaussNewtonSolver", dict(gn, cg_iterations=64), {}),
+        "gn_line_search": ("GaussNewtonSolver", dict(gn, do_line_search=True), {}),
+        "gradient_descent": ("GradientDescentSolver", dict(max_iterations=20),
+                             dict(learning_rate=0.01)),
+        "gn_history": ("GaussNewtonSolver", dict(gn, store_history=True), {}),
+    }
+
+
+def solve_variant(problem: DiffIkProblem, name: str):
+    """The solver of variant `name` on config D's position module alone
+    (targets from the truths), from x0; → (the solver, its SolveResult)."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction, SolverOptions, solvers
+
+    cls, opts, kw = variant_recipe()[name]
+    fn = SkeletonSolverFunction(problem.char,
+                                (dataclasses.replace(problem.ef0, target=problem.targets),))
+    solver = getattr(solvers, cls)(fn, SolverOptions(**opts), **kw)
+    solver.solve(problem.x0)
+    return solver, solver.last_result
+
+
+# ---- config 4x: config 4b with the three forward-mode vertex modules ----
+
+
+class VertexExtraProblem(NamedTuple):
+    """Config 4x on one device."""
+
+    fit: VertexFitProblem  # config 4b at B = 256
+    point_triangle: object  # PointTriangleVertexErrorFunction (no per-element field)
+    distance: object  # VertexVertexDistanceErrorFunction, targets (B, C) from the truths
+    camera: object  # CameraVertexProjectionErrorFunction, targets (B, C, 2) from the truths
+
+
+def vertex_extra_recipe(num_vertices: int, faces: np.ndarray) -> dict:
+    """Config 4x's constraint tables on a mesh of `num_vertices` with
+    `faces` (F, 3): 16 triangles, each pulling a vertex of a nearby face
+    (not its own) to its centroid; vertex pairs across the body; every 8th
+    vertex seen by catalog_recipe's OpenCV camera."""
+    tri = faces[::38][:16]
+    src = faces[3::38][:16, 2]
+    v1 = np.arange(0, num_vertices // 2, 17)
+    return dict(src_vertex=src, tri_vertices=tri, bary=np.full((len(tri), 3), 1.0 / 3.0),
+                vertex1=v1, vertex2=(v1 + num_vertices // 2) % num_vertices,
+                camera_vertex=np.arange(0, num_vertices, 8),
+                weights=dict(point_triangle=0.1, distance=1.0, camera=1e-6))
+
+
+def build_vertex_extra_problem(batch: int = VERTEX_FIT_BATCH, seed: int = 1,
+                               device="cuda") -> VertexExtraProblem:
+    """Config 4x on `device` (the card unless the caller asks for the CPU):
+    config 4b's problem and the recipe's three modules, the distances and
+    pixel targets taken from each element's truth."""
+    from momentum_tpu_torch import errors as E
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    device = resolve(device, "build_vertex_extra_problem")
+    fit = build_vertex_fit_problem(batch, seed, device)
+    mesh = fit.char.mesh
+    r = vertex_extra_recipe(mesh.num_vertices, mesh.faces.cpu().numpy())
+    w = r["weights"]
+    verts = SkeletonSolverFunction(fit.char, (fit.ef0,)).context(fit.gt).mesh_vertices
+    cam = _recipe_cameras(catalog_recipe(), device)[0]
+    v1, v2 = (torch.as_tensor(r[k], device=device) for k in ("vertex1", "vertex2"))
+    dist = torch.linalg.vector_norm(verts[:, v1] - verts[:, v2] + 1e-20, dim=-1)
+    seen = verts[:, torch.as_tensor(r["camera_vertex"], device=device)]
+    n_cam = len(r["camera_vertex"])
+    return VertexExtraProblem(
+        fit=fit,
+        point_triangle=E.PointTriangleVertexErrorFunction.create(
+            r["src_vertex"], r["tri_vertices"], r["bary"], weight=w["point_triangle"],
+            device=device),
+        distance=dataclasses.replace(E.VertexVertexDistanceErrorFunction.create(
+            r["vertex1"], r["vertex2"], np.zeros(len(r["vertex1"])), weight=w["distance"],
+            device=device), target=dist),
+        camera=dataclasses.replace(E.CameraVertexProjectionErrorFunction.create(
+            cam, r["camera_vertex"], np.zeros((n_cam, 2)), weight=w["camera"],
+            device=device), target=cam.project(seen)[0][..., :2]))
+
+
+def vertex_extra_modules(problem: VertexExtraProblem, targets, distance, pixels) -> tuple:
+    """Config 4x's modules: 4b's vertex positions, then the three new ones,
+    with per-element targets (B, ...)."""
+    return (dataclasses.replace(problem.fit.ef0, target=targets), problem.point_triangle,
+            dataclasses.replace(problem.distance, target=distance),
+            dataclasses.replace(problem.camera, target=pixels))
+
+
+def make_vertex_extra_solve(problem: VertexExtraProblem):
+    """Config 4x's solve `x0 -> SolveResult`: config 4b's (solve_ik's GN at
+    regularization 1e-5 on Σ rows², 4 full-batch iterations and 2 on the
+    worst quarter), the Jacobian by forward mode since three modules have
+    no analytic one (solve_ik's routing, as JAX's)."""
+    from momentum_tpu_torch.solver import (
+        SkeletonSolverFunction, SolverOptions, solve_compacted, solve_ik)
+
+    k_full, r_refine, cap = VERTEX_FIT_REFINE
+    batch = problem.fit.x0.shape[0]
+    cap = min(batch, max(1, cap * batch // VERTEX_FIT_BATCH))
+    opts = SolverOptions(regularization=1e-5, energy_from_residual=True)
+    inputs = (problem.fit.targets, problem.distance.target, problem.camera.target)
+
+    def stage(tables, x0, iters, _lam0):
+        fn = SkeletonSolverFunction(problem.fit.char, vertex_extra_modules(problem, *tables))
+        return solve_ik(fn, x0, options=dataclasses.replace(opts, max_iterations=iters),
+                        method="gauss_newton")
+
+    def solve(x0):
+        return solve_compacted(stage, inputs, x0, capacity=cap, k_full=k_full,
+                               r_refine=r_refine)
+
+    return solve

@@ -917,3 +917,150 @@ def test_camera_projection_rows_through_k1_match_plain(catalog_problems):
         fk_ops._fk_global_kernel = real
     torch.testing.assert_close(rows, rows_p, rtol=0, atol=1e-5 * float(rows_p.abs().max()))
     torch.testing.assert_close(jt, jt_p, rtol=0, atol=1e-5 * float(jt_p.abs().max()))
+
+
+@pytest.fixture(scope="module")
+def diff_ik_problems():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return (workloads.build_diff_ik_problem(64, seed=0, device="cuda"),
+            workloads.build_diff_ik_problem(64, seed=0, device="cpu"))
+
+
+def _diff_ik_gradients(prob):
+    """(θ*, ∂L/∂targets, ∂L/∂cweight, ∂L/∂x0, gradient rmse at θ*) of config
+    D's loss Σ w·θ* through solve_ik_torch."""
+    from momentum_tpu_torch.solver import gradient_rmse
+
+    t, c, x0 = (v.clone().requires_grad_() for v in (prob.targets, prob.cweight, prob.x0))
+    theta = workloads.solve_diff_ik(prob, t, c, x0)
+    (theta * prob.w).sum().backward()
+    fn = workloads.diff_ik_solver_fn(prob, {"targets": prob.targets, "cweight": prob.cweight})
+    theta = theta.detach()
+    return theta, t.grad, c.grad, x0.grad, gradient_rmse(fn, theta, prob.mask)
+
+
+def test_diff_ik_gradient_on_the_card_matches_the_cpu(diff_ik_problems):
+    """Config D at B = 64 (GN 20 and the IFT backward: the normal equations
+    through K1, one K2+K3 solve, the energy's directional derivative through
+    K1's jvp rule) on the card against the CPU's plain path: on the elements
+    at a stationary point in both (gradient rmse ≤ 1e-3), 95% of the
+    per-element gradients to the targets and the constraint weights within
+    5e-2 relative L2, as chip_smoke.py holds the card against JAX CPU; x0's
+    pass-through gradient exact."""
+    card, cpu = diff_ik_problems
+    before = (fk_ops.launches, psd.launches)
+    got = _diff_ik_gradients(card)
+    assert fk_ops.launches > before[0] and psd.launches > before[1]
+    want = _diff_ik_gradients(cpu)
+    stationary = ((got[4].cpu() <= 1e-3) & (want[4] <= 1e-3)).numpy()
+    assert stationary.mean() >= 0.4
+    for g_card, g_cpu in zip(got[1:3], want[1:3]):
+        a, b = g_card.cpu().flatten(1).numpy(), g_cpu.flatten(1).numpy()
+        rel = np.linalg.norm(a - b, axis=-1) / np.linalg.norm(b, axis=-1)
+        assert np.mean(rel[stationary] < 5e-2) >= 0.95
+    scale = card.char.parameter_transform.names.index("scale_global")
+    x0_bar = got[3]
+    assert torch.equal(x0_bar[:, scale], card.w[:, scale])
+    assert float(x0_bar[:, [i for i in range(x0_bar.shape[1]) if i != scale]].abs().max()) == 0
+
+
+def test_ift_backward_through_k1_matches_plain(diff_ik_problems):
+    """The IFT backward at config D's warm starts (no iteration, so θ* =
+    x0; regularization 10 keeps H + 10·I well conditioned), FK on K1 —
+    launched for the normal equations' context and the directional
+    derivative's primal, its tangent by K1's jvp rule — against the same
+    with FK on the plain version: the gradients to the targets, the
+    constraint weights and x0."""
+    from momentum_tpu_torch.solver import SolverOptions, solve_ik_ift
+
+    card, _ = diff_ik_problems
+
+    def grads():
+        t, c, x0 = (v.clone().requires_grad_() for v in (card.targets, card.cweight, card.x0))
+        fn = workloads.diff_ik_solver_fn(card, {"targets": t, "cweight": c})
+        theta = solve_ik_ift(fn, x0, card.mask, SolverOptions(max_iterations=0,
+                                                              regularization=10.0))
+        before = fk_ops.launches
+        (theta * card.w).sum().backward()
+        return t.grad, c.grad, x0.grad, fk_ops.launches - before
+
+    *kernel, launches = grads()
+    assert launches >= 2
+    real = fk_ops._fk_global_kernel
+    fk_ops._fk_global_kernel = fk_ops.fk_global_plain
+    try:
+        *plain, _ = grads()
+    finally:
+        fk_ops._fk_global_kernel = real
+    for a, b in zip(kernel, plain):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
+
+
+def test_cg_matvec_through_k1_matches_plain(diff_ik_problems):
+    """CG's product Jᵀ(J v) at config D's warm starts: one torch.func.jvp
+    and the VJP of the position rows, FK's primal through K1, against the
+    same with FK on the plain version and against the analytic Jacobian's
+    dense product."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    card, _ = diff_ik_problems
+    fn = SkeletonSolverFunction(card.char,
+                                (dataclasses.replace(card.ef0, target=card.targets),))
+    v = torch.randn(card.x0.shape, generator=torch.Generator().manual_seed(3)).cuda()
+
+    def matvec():
+        _, vjp_fn = torch.func.vjp(fn.residual, card.x0)
+        return vjp_fn(torch.func.jvp(fn.residual, (card.x0,), (v,))[1])[0]
+
+    before = fk_ops.launches
+    out = matvec()
+    assert fk_ops.launches >= before + 2
+    real = fk_ops._fk_global_kernel
+    fk_ops._fk_global_kernel = fk_ops.fk_global_plain
+    try:
+        out_plain = matvec()
+    finally:
+        fk_ops._fk_global_kernel = real
+    scale = float(out_plain.abs().max())
+    torch.testing.assert_close(out, out_plain, rtol=0, atol=1e-5 * scale)
+    _, j = fn.residual_and_jacobian(card.x0)
+    dense = (j.transpose(-1, -2) @ (j @ v[..., None]))[..., 0]
+    torch.testing.assert_close(out, dense, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("name", sorted(workloads.variant_recipe()))
+def test_solver_variant_on_the_card_matches_the_cpu(diff_ik_problems, name):
+    """Each solver variant on config D's position problem at B = 64 on the
+    card against the CPU: the median final energy within 20%, as
+    chip_smoke.py holds it against JAX CPU's; every element finite."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    results = []
+    for prob in diff_ik_problems:
+        _, res = workloads.solve_variant(prob, name)
+        fn = SkeletonSolverFunction(prob.char,
+                                    (dataclasses.replace(prob.ef0, target=prob.targets),))
+        results.append(fn.error(res.params).cpu().numpy())
+    e_card, e_cpu = results
+    assert np.isfinite(e_card).all()
+    assert abs(np.median(e_card) / np.median(e_cpu) - 1) <= 0.2
+
+
+def test_vertex_extra_rows_on_the_card_match_the_cpu():
+    """Config 4x's three forward-mode vertex modules at B = 16: rows and
+    Jacobians (FK's primal through K1) on the card against the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    probs = [workloads.build_vertex_extra_problem(16, device=d) for d in ("cuda", "cpu")]
+    out = []
+    for p in probs:
+        mods = workloads.vertex_extra_modules(p, p.fit.targets, p.distance.target,
+                                              p.camera.target)[1:]
+        out.append([SkeletonSolverFunction(p.fit.char, (m,)).residual_and_jacobian(p.fit.x0)
+                    for m in mods])
+    for (rk, jk), (rc, jc) in zip(*out):
+        torch.testing.assert_close(rk.cpu(), rc, rtol=0, atol=1e-4 * float(rc.abs().max()))
+        torch.testing.assert_close(jk.cpu(), jc, rtol=0, atol=1e-4 * float(jc.abs().max()))

@@ -304,26 +304,51 @@ def test_solve_ik_reverts_failed_elements_and_counts(stack):
 
 
 def test_unported_solver_options_raise(stack):
-    _, tchar, _, tmods, x = stack
+    """The options the port refused until M5 (QR, CG, the line search,
+    histories, gradient descent) now run on the full stack, as JAX's do:
+    with normal_fn, GN factors the normal equations whatever the linear
+    solver (JAX's routing); the line search and gradient descent match
+    JAX's energies; the histories hold each iteration's parameters."""
+    jchar, tchar, jmods, tmods, x = stack
     fn = SkeletonSolverFunction(tchar, tmods)
+    jfn = JaxSolverFunction(jchar, jmods, prefer_fused=True)
     xt = torch.as_tensor(x)
-    for opts in (SolverOptions(linear_solver="qr"), SolverOptions(linear_solver="cg"),
-                 SolverOptions(do_line_search=True), SolverOptions(store_history=True)):
-        with pytest.raises(NotImplementedError):
-            solve_gauss_newton(fn.residual, fn.error, xt, options=opts,
-                               normal_fn=fn.normal_equations)
-    with pytest.raises(NotImplementedError):
-        solve_ik(fn, xt, method="gradient_descent")
-    with pytest.raises(NotImplementedError):  # LM on the normal equations: no histories
-        solve_ik(fn, xt, options=SolverOptions(store_history=True),
-                 method="levenberg_marquardt")
+    # the default regularization, 0.05: at 1e-3 element 0's first step
+    # (started past its limit) already differs by 6.5e-3 between the
+    # packages, along near-null directions (ROADMAP F5)
+    base = dict(max_iterations=3)
+    chol = solve_gauss_newton(fn.residual, fn.error, xt, options=SolverOptions(**base),
+                              normal_fn=fn.normal_equations)
+    qr = solve_gauss_newton(fn.residual, fn.error, xt,
+                            options=SolverOptions(linear_solver="qr", **base),
+                            normal_fn=fn.normal_equations)
+    torch.testing.assert_close(qr.params, chol.params, rtol=0, atol=0)
+    cg = solve_gauss_newton(fn.residual, fn.error, xt,
+                            options=SolverOptions(linear_solver="cg", **base))
+    assert bool(torch.isfinite(cg.params).all()) and bool((fn.error(cg.params) < fn.error(xt)).all())
+    hist = solve_gauss_newton(fn.residual, fn.error, xt,
+                              options=SolverOptions(store_history=True, **base),
+                              normal_fn=fn.normal_equations)
+    assert hist.param_history.shape == (3,) + xt.shape
+    torch.testing.assert_close(hist.param_history[-1], hist.params, rtol=0, atol=0)
+    for kw, method in ((dict(do_line_search=True), "gauss_newton"), ({}, "gradient_descent")):
+        rt = solve_ik(fn, xt, options=SolverOptions(**base, **kw), method=method)
+        rj = jax_solve_ik(jfn, jnp.asarray(x), None, JaxSolverOptions(**base, **kw),
+                          method=method)
+        # three float32 iterates of each package; element 0 moves most
+        # (measured 3.3e-3 apart after the line-searched GN)
+        np.testing.assert_allclose(fn.error(rt.params).numpy(),
+                                   np.asarray(jfn.error(rj.params)), rtol=1e-2, err_msg=method)
+    lm = solve_ik(fn, xt, options=SolverOptions(store_history=True, **base),
+                  method="levenberg_marquardt")
+    assert lm.error_history.shape == (3, 3) and lm.lambda_final.shape == (3,)
     # limits and priors have no analytic Jacobian: their rows come by forward mode
     rows, jac = fn.residual_and_jacobian(xt)
     assert jac.shape == rows.shape + (xt.shape[-1],) and bool(torch.isfinite(jac).all())
-    with pytest.raises(NotImplementedError):
-        solve_levenberg_marquardt(fn.residual, fn.error, xt,
-                                  options=SolverOptions(linear_solver="qr"),
-                                  jacobian_fn=fn.residual_and_jacobian)
+    lm_qr = solve_levenberg_marquardt(fn.residual, fn.error, xt,
+                                      options=SolverOptions(linear_solver="qr", **base),
+                                      jacobian_fn=fn.residual_and_jacobian)
+    assert bool(torch.isfinite(lm_qr.params).all())
 
 
 B = 64

@@ -56,6 +56,8 @@ def test_port_imports_no_jax():
         "       'momentum_tpu_torch.errors.collision',\n"
         "       'momentum_tpu_torch.errors.camera_projection',\n"
         "       'momentum_tpu_torch.math.geometry'}\n"
+        "new |= {'momentum_tpu_torch.solver.diff_ik', 'momentum_tpu_torch.solver.solvers',\n"
+        "        'momentum_tpu_torch.torch_interop'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "assert len(names) >= 30, names\n"
         "print('ok', len(names))\n")
@@ -117,6 +119,8 @@ def test_cpu_fullstack_launches_no_kernel():
     ("build_tracking_clip", (4,)),
     ("build_catalog_ik_problem", (4,)),
     ("catalog_character", ()),
+    ("build_diff_ik_problem", (4,)),
+    ("build_vertex_extra_problem", (4,)),
 ])
 def test_workloads_default_to_the_card(monkeypatch, entry, args):
     """The workload entry points build on the card unless the caller asks for
@@ -245,6 +249,15 @@ _CONSTRUCTORS = {
         50.0, 50.0, 16.0, 16.0, k=(0.1, 0, 0, 0, 0, 0), **kw),
     "OpenCVFisheyeIntrinsics.create": lambda **kw: OpenCVFisheyeIntrinsics.create(
         50.0, 50.0, 16.0, 16.0, k=(0.1, 0, 0, 0), **kw),
+    "PointTriangleVertexErrorFunction.create":
+        lambda **kw: E.PointTriangleVertexErrorFunction.create(
+            [0], [[1, 2, 3]], [[0.2, 0.3, 0.5]], **kw),
+    "VertexVertexDistanceErrorFunction.create":
+        lambda **kw: E.VertexVertexDistanceErrorFunction.create([0], [1], [0.5], **kw),
+    "CameraVertexProjectionErrorFunction.create":
+        lambda **kw: E.CameraVertexProjectionErrorFunction.create(
+            Camera.create(PinholeIntrinsics.create(50.0, 50.0, 16.0, 16.0, device="cpu")),
+            [0], np.zeros((1, 2)), **kw),
     "create_minmax": lambda **kw: L.create_minmax(0, -0.1, 0.1, **kw),
     "create_minmax_joint": lambda **kw: L.create_minmax_joint(0, 3, -0.1, 0.1, **kw),
     "create_linear": lambda **kw: L.create_linear(1, 2, 0.5, 0.0, **kw),

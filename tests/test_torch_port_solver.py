@@ -164,11 +164,13 @@ def test_energy_from_error_fn_matches_residual_energy(port_stage):
 
 
 def test_solver_without_jacobian_is_refused():
-    """A residual-only solve takes its Jacobian by forward mode; with an
-    option the port has not yet (QR) it is still refused."""
-    with pytest.raises(NotImplementedError):
-        solve_levenberg_marquardt(lambda x: x - 1.0, lambda x: ((x - 1.0) ** 2).sum(-1),
-                                  torch.zeros(2, 3), options=SolverOptions(linear_solver="qr"))
+    """A residual-only solve takes its Jacobian by forward mode, with the
+    normal equations or (since M5 no longer refused) QR."""
+    res_qr = solve_levenberg_marquardt(lambda x: x - 1.0, lambda x: ((x - 1.0) ** 2).sum(-1),
+                                       torch.zeros(2, 3),
+                                       options=SolverOptions(linear_solver="qr",
+                                                             regularization=1e-9))
+    torch.testing.assert_close(res_qr.params, torch.ones(2, 3), rtol=0, atol=1e-4)
     res = solve_levenberg_marquardt(lambda x: x - 1.0, lambda x: ((x - 1.0) ** 2).sum(-1),
                                     torch.zeros(2, 3),
                                     options=SolverOptions(regularization=1e-9))

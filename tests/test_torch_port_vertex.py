@@ -25,10 +25,18 @@ Tolerances, each with what this file measured:
   * 4b: median_param_sq_err within a factor 1.5 (measured 1.015), each
     element's final energy within a factor 2 (measured 0.61–1.70: near 1e-11
     the energies follow near-null directions, ROADMAP F5), no divergent
-    element.
+    element;
+  * the three forward-mode modules (point-triangle in both types, vertex
+    distance, camera-vertex projection): rows as above, energies 1e-4
+    relative, the Jacobian to 1e-4 of its largest entry against JAX's
+    forward-mode one, central differences as above; the geometry helpers
+    to 1e-4 relative / 1e-5 absolute; config 4x at B = 16 by each module's
+    median final energy within 20% of the tool's JAX run.
 """
 
 import dataclasses
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -51,6 +59,9 @@ from momentum_tpu_torch.solver import SkeletonSolverFunction as TFn
 from momentum_tpu_torch.testing import workloads as twork
 
 from test_torch_port_helpers import character_to_numpy, vertex_error_to_numpy
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "tools"))
+import jax_reference  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 NORMAL_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -256,3 +267,152 @@ def test_config4b_matches_jax(config4):
                               .error(x))(targets_b, rj.params))
     ratio = e_t / e_j
     assert ratio.min() >= 0.5 and ratio.max() <= 2.0, np.sort(ratio)
+
+
+# ---- the three forward-mode vertex modules, the geometry helpers, config 4x ----
+
+AD_MODULES = ["point_triangle", "point_triangle_plane", "vertex_distance", "camera_vertex"]
+
+
+def _ad_modules(rig, name):
+    """The JAX module `name` on rig's mesh and the port's from the same
+    numpy tables (targets near the posed mesh)."""
+    from momentum_tpu_torch import errors as terr
+
+    char, _, _, vid, ctx = rig
+    verts = np.asarray(ctx.mesh_vertices)  # (B, V, 3)
+    faces = np.asarray(char.mesh.faces)
+    rng = np.random.default_rng(AD_MODULES.index(name) + 30)
+    if name.startswith("point_triangle"):
+        tri = faces[::40][:12]
+        src = faces[5::40][:12, 1]
+        bary = rng.dirichlet(np.ones(3), len(tri))
+        kind = "plane" if name.endswith("plane") else "position"
+        args = (src, tri, bary, rng.uniform(0.5, 2.0, len(tri)))
+        return (jerr.PointTriangleVertexErrorFunction.create(*args, weight=0.8,
+                                                             constraint_type=kind),
+                terr.PointTriangleVertexErrorFunction.create(*args, weight=0.8,
+                                                             constraint_type=kind, device="cpu"))
+    if name == "vertex_distance":
+        v1 = vid[:20]
+        v2 = (v1 + 300) % verts.shape[1]
+        dist = np.linalg.norm(verts[:, v1] - verts[:, v2], axis=-1) + rng.normal(0, 0.02, (B, 20))
+        dist = dist.astype(np.float32)
+        j = jerr.VertexVertexDistanceErrorFunction.create(v1, v2, np.zeros(20), weight=1.5)
+        t = terr.VertexVertexDistanceErrorFunction.create(v1, v2, np.zeros(20), weight=1.5,
+                                                          device="cpu")
+        return (dataclasses.replace(j, target=jnp.asarray(dist)),
+                dataclasses.replace(t, target=torch.as_tensor(dist)))
+    cam_j = jax_reference.recipe_cameras(jax_reference.catalog_recipe())[0]
+    cam_t = twork._recipe_cameras(twork.catalog_recipe(), "cpu")[0]
+    px = np.array(cam_j.project(jnp.asarray(verts[:, vid]))[0][..., :2])
+    px = (px + rng.normal(0, 2.0, px.shape)).astype(np.float32)
+    j = jerr.CameraVertexProjectionErrorFunction.create(cam_j, vid, np.zeros((len(vid), 2)),
+                                                       weight=1e-4)
+    t = terr.CameraVertexProjectionErrorFunction.create(cam_t, vid, np.zeros((len(vid), 2)),
+                                                       weight=1e-4, device="cpu")
+    return (dataclasses.replace(j, target=jnp.asarray(px)),
+            dataclasses.replace(t, target=torch.as_tensor(px)))
+
+
+@pytest.mark.parametrize("name", AD_MODULES)
+def test_forward_mode_vertex_module_matches_jax(rig, name):
+    """Rows, energy and the forward-mode Jacobian (the solver function's
+    mixed branch: no analytic Jacobian, as in JAX) against JAX's, and
+    against central differences of the port's rows."""
+    char, tchar, x, _, _ = rig
+    ef_j, ef_t = _ad_modules(rig, name)
+    fn_j, fn_t = JFn(char, (ef_j,)), TFn(tchar, (ef_t,))
+    assert not fn_t.fully_analytic and ef_t.needs_mesh
+    xt, xj = torch.as_tensor(x), jnp.asarray(x)
+    tol = NORMAL_TOL if name.endswith("plane") else TOL  # the plane type reads the normals
+    np.testing.assert_allclose(fn_t.residual(xt).numpy(), np.asarray(fn_j.residual(xj)), **tol)
+    np.testing.assert_allclose(fn_t.error(xt).numpy(), np.asarray(fn_j.error(xj)), rtol=1e-4)
+    rows_t, jac_t = fn_t.residual_and_jacobian(xt)
+    rows_j, jac_j = fn_j.residual_and_jacobian(xj)
+    assert jac_t.shape == (B, ef_t.num_rows(), tchar.num_model_parameters)
+    scale = float(np.abs(np.asarray(jac_j)).max())
+    np.testing.assert_allclose(rows_t.numpy(), np.asarray(rows_j), **tol)
+    np.testing.assert_allclose(jac_t.numpy(), np.asarray(jac_j), rtol=0, atol=1e-4 * scale)
+    eps = 1e-2
+    for p in (0, 6, 40, 157, 166):
+        dx = np.zeros_like(x[:1])
+        dx[0, p] = eps
+        fd = ((fn_t.residual(torch.as_tensor(x[:1] + dx)).double()
+               - fn_t.residual(torch.as_tensor(x[:1] - dx)).double()) / (2 * eps)).numpy()
+        np.testing.assert_allclose(jac_t[0, :, p].numpy(), fd[0], atol=2e-3 * max(1.0, scale),
+                                   err_msg=str(p))
+
+
+def test_geometry_helpers_match_jax():
+    """closest_point_on_segment and point_triangle_closest_point on random
+    points around random triangles (every Voronoi region reached) and
+    degenerate segments, against JAX's."""
+    from momentum_tpu.math import geometry as jgeo
+    from momentum_tpu_torch.math import geometry as tgeo
+
+    rng = np.random.default_rng(5)
+    n = 4000
+    a, b, c = (rng.normal(0, 1, (n, 3)).astype(np.float32) for _ in range(3))
+    p = (rng.normal(0, 2, (n, 3))).astype(np.float32)
+    pt_t, bary_t = tgeo.point_triangle_closest_point(*(torch.as_tensor(v) for v in (p, a, b, c)))
+    pt_j, bary_j = jgeo.point_triangle_closest_point(*(jnp.asarray(v) for v in (p, a, b, c)))
+    np.testing.assert_allclose(bary_t.numpy(), np.asarray(bary_j), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(pt_t.numpy(), np.asarray(pt_j), rtol=1e-4, atol=1e-5)
+    b_np = bary_t.numpy()
+    regions = {"face": (b_np > 0).all(-1), "vertex": (b_np == 1).any(-1),
+               "edge": ((b_np == 0).sum(-1) == 1)}
+    assert all(m.any() for m in regions.values()), {k: int(m.sum()) for k, m in regions.items()}
+    d = b - a
+    d[:10] = 0.0  # degenerate segments
+    t_t = tgeo.closest_point_on_segment(torch.as_tensor(a), torch.as_tensor(d),
+                                        torch.as_tensor(p))
+    t_j = jgeo.closest_point_on_segment(jnp.asarray(a), jnp.asarray(d), jnp.asarray(p))
+    np.testing.assert_allclose(t_t.numpy(), np.asarray(t_j), rtol=1e-5, atol=1e-6)
+    assert float(t_t[:10].abs().max()) == 0.0
+
+
+def test_pad_rows_matches_jax():
+    from momentum_tpu.errors.base import pad_rows as jpad
+    from momentum_tpu_torch.errors.base import pad_rows as tpad
+
+    arr = np.arange(12, dtype=np.int32).reshape(4, 3)
+    for fill in (0, -1):
+        np.testing.assert_array_equal(tpad(arr, 6, fill), jpad(arr, 6, fill))
+
+
+def test_vertex_extra_recipe_is_the_tools():
+    faces = np.arange(612 * 3, dtype=np.int32).reshape(612, 3) % 612
+    ours, theirs = twork.vertex_extra_recipe(612, faces), jax_reference.vertex_extra_recipe(
+        612, faces)
+    assert ours.keys() == theirs.keys()
+    for k in ours:
+        if k == "weights":
+            assert ours[k] == theirs[k]
+        else:
+            np.testing.assert_array_equal(ours[k], theirs[k])
+
+
+def test_config4x_matches_the_tools():
+    """Config 4x at B = 16 (config 4b plus the three forward-mode modules, GN
+    4 + 2 on the worst 4) against the tool's JAX run: each module's median
+    final energy within 20%, as chip_smoke.py holds the card (measured
+    within 0.1%), nothing divergent."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        prob = twork.build_vertex_extra_problem(16, device="cpu")
+        res = twork.make_vertex_extra_solve(prob)(prob.fit.x0)
+        fn = TFn(prob.fit.char, twork.vertex_extra_modules(
+            prob, prob.fit.targets, prob.distance.target, prob.camera.target))
+        ctx = fn.context(res.params)
+        got = [float(np.median(ef.error(prob.fit.char, ctx).numpy()))
+               for ef in fn.error_functions]
+    finally:
+        torch.set_num_threads(threads)
+    assert res.iterations == 6 and bool(torch.isfinite(res.params).all())
+    want = jax_reference.config4x(16, held=16)
+    assert want["divergent"] == 0
+    for label, g in zip(("vertex_position", "point_triangle", "vertex_distance",
+                         "camera_vertex"), got):
+        assert abs(g / want["median_energy"][label] - 1) <= 0.2, (label, g, want)

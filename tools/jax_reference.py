@@ -34,9 +34,27 @@ momentum_tpu_torch/testing/workloads.py:
     refine of the per-frame motion, both with markers and keypoints; the
     median and p90 marker error (mm) and the median reprojection error (px).
 
-    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k]
+  * config D, differentiable IK (the recipe of
+    workloads.py::build_diff_ik_problem): GN 20 by solve_ik_ift with
+    scale_global disabled and the loss Σ w·θ*, vmapped per element (JAX's
+    IFT backward holds only unbatched, ROADMAP F20): each element's energy at
+    θ*, its gradient rmse and the gradients to its targets and constraint
+    weights, at --diffik-batch (256: the smoke holds the port's first 256 of
+    2048); with --out-diffik, the figures to a JSON file and the
+    per-element arrays beside it as <name>.npz;
+  * the solver variants on config D's position problem
+    (workloads.py::variant_recipe): each one's median final energy and
+    divergent count, and the history's shapes, at --diffik-batch;
+  * config 4x, config 4b (seed 1, B = --batch) with the three forward-mode
+    vertex modules of workloads.py::vertex_extra_recipe: GN 4 + 2 on the
+    worst B/4, each module's median final energy on the first 64 elements
+    and on all, the divergent count.
+
+    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k,diffik,variants,4x]
         [--frames 1024] [--out-6s tools/jax_reference_6s.json]
         [--out-catalog tools/jax_reference_catalog.json] [--out-6k tools/jax_reference_6k.json]
+        [--out-diffik tools/jax_reference_diffik.json] [--out-variants tools/jax_reference_variants.json]
+        [--out-4x tools/jax_reference_4x.json]
 
 Runs the JAX package on the CPU only (no part of momentum_tpu_torch); prints
 one JSON line per figure.
@@ -618,7 +636,196 @@ def config6k(frames, seed=0, reference_file=None):
     return out
 
 
-CONFIGS = ("2", "2b", "4", "5", "5f", "6s", "catalog", "6k")
+# ---- config D: differentiable IK; the solver variants on its problem ----
+
+
+def diffik_problem(batch, seed=0):
+    """workloads.py::build_diff_ik_problem: (char, ef0, prior, targets, x0,
+    mask, w)."""
+    from momentum_tpu.errors import ModelParametersErrorFunction, PositionErrorFunction
+    from momentum_tpu.testing.fixtures import create_fullbody_character
+
+    char = create_fullbody_character()
+    p = char.num_model_parameters
+    truth, x0 = catalog_draws(batch, seed, p)
+    targets = jax.jit(jax.vmap(lambda t: char.locators.world_positions(
+        char.skeleton_states(t))))(jnp.asarray(truth))
+    ef0 = PositionErrorFunction.create(np.asarray(char.locators.parent),
+                                       np.asarray(char.locators.offset),
+                                       np.zeros((char.locators.num_locators, 3)))
+    prior = ModelParametersErrorFunction.create(np.zeros(p), weight=1e-3)
+    mask = np.ones(p, np.float32)
+    mask[char.parameter_transform.names.index("scale_global")] = 0.0
+    w = np.random.default_rng(seed + 2).normal(0.0, 1.0, (batch, p)).astype(np.float32)
+    return char, ef0, prior, targets, jnp.asarray(x0), jnp.asarray(mask), jnp.asarray(w)
+
+
+def diffik(batch, seed=0):
+    """Config D: per element, θ* of GN 20 (regularization 1e-6) by
+    solve_ik_ift and the gradients of Σ w·θ* to the element's targets and
+    constraint weights; the energy and gradient rmse at θ*. Returns the
+    figures and the per-element arrays."""
+    from momentum_tpu.solver import SkeletonSolverFunction, SolverOptions
+    from momentum_tpu.solver.diff_ik import gradient_rmse, solve_ik_ift
+
+    char, ef0, prior, targets, x0, mask, w = diffik_problem(batch, seed)
+    opts = SolverOptions(max_iterations=20, regularization=1e-6)
+    cweight = jnp.ones(targets.shape[:2], jnp.float32)
+
+    def fn_of(tg, cw):
+        return SkeletonSolverFunction(char, (dataclasses.replace(ef0, target=tg, cweight=cw),
+                                             prior))
+
+    def one(tg, cw, x, wi):
+        def loss(tg, cw):
+            theta = solve_ik_ift(fn_of(tg, cw), x, mask, opts)
+            return jnp.sum(wi * theta), theta
+
+        (_, theta), (g_t, g_c) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(tg, cw)
+        return theta, g_t, g_c
+
+    def at_optimum(tg, cw, theta):
+        fn = fn_of(tg, cw)
+        return fn.error(theta), gradient_rmse(fn, theta, mask)
+
+    t0 = time.perf_counter()
+    theta, g_t, g_c = jax.jit(jax.vmap(one))(targets, cweight, x0, w)
+    energy, rmse = jax.jit(jax.vmap(at_optimum))(targets, cweight, theta)
+    arrays = dict(energy=np.asarray(energy), gradient_rmse=np.asarray(rmse),
+                  grad_targets=np.asarray(g_t), grad_cweight=np.asarray(g_c),
+                  theta=np.asarray(theta))
+    fig = dict(config="diffik", batch=batch, iterations=opts.max_iterations,
+               median_energy=float(np.median(arrays["energy"])),
+               median_gradient_rmse=float(np.median(arrays["gradient_rmse"])),
+               divergent=int(np.sum(~np.isfinite(arrays["energy"]))),
+               seconds=time.perf_counter() - t0)
+    return fig, arrays
+
+
+def variant_recipe():
+    """momentum_tpu_torch/testing/workloads.py::variant_recipe, the same
+    numbers (tests/test_torch_port_solvers.py holds the two equal)."""
+    gn = dict(max_iterations=5, regularization=1e-3)
+    return {
+        "gn_qr": ("GaussNewtonSolverQR", gn, {}),
+        "trust_region_qr": ("TrustRegionQR", gn, {}),
+        "sparse_gn_cg": ("SparseGaussNewtonSolver", dict(gn, cg_iterations=64), {}),
+        "gn_line_search": ("GaussNewtonSolver", dict(gn, do_line_search=True), {}),
+        "gradient_descent": ("GradientDescentSolver", dict(max_iterations=20),
+                             dict(learning_rate=0.01)),
+        "gn_history": ("GaussNewtonSolver", dict(gn, store_history=True), {}),
+    }
+
+
+def variants(batch, seed=0):
+    """Each solver variant on config D's position module alone, batch-native
+    from config D's warm starts: the median final energy (the energy at the
+    returned parameters), the divergent count and the wall."""
+    from momentum_tpu.solver import SkeletonSolverFunction, SolverOptions, solvers
+
+    char, ef0, _, targets, x0, _, _ = diffik_problem(batch, seed)
+    fn = SkeletonSolverFunction(char, (dataclasses.replace(ef0, target=targets),))
+    out = dict(config="variants", batch=batch)
+    for name, (cls, opts, kw) in variant_recipe().items():
+        t0 = time.perf_counter()
+        solver = getattr(solvers, cls)(fn, SolverOptions(**opts), **kw)
+        params = solver.solve(x0)
+        e = np.asarray(fn.error(params), np.float64)
+        out[name] = dict(median_energy=float(np.median(e)),
+                         divergent=int(np.sum(~np.isfinite(e))),
+                         seconds=time.perf_counter() - t0)
+        if solver.error_history is not None:
+            out[name]["history_shapes"] = [list(solver.error_history.shape),
+                                           list(solver.parameter_history.shape)]
+    return out
+
+
+# ---- config 4x: config 4b with the three forward-mode vertex modules ----
+
+
+def vertex_extra_recipe(num_vertices, faces):
+    """momentum_tpu_torch/testing/workloads.py::vertex_extra_recipe, the same numbers."""
+    tri = faces[::38][:16]
+    src = faces[3::38][:16, 2]
+    v1 = np.arange(0, num_vertices // 2, 17)
+    return dict(src_vertex=src, tri_vertices=tri, bary=np.full((len(tri), 3), 1.0 / 3.0),
+                vertex1=v1, vertex2=(v1 + num_vertices // 2) % num_vertices,
+                camera_vertex=np.arange(0, num_vertices, 8),
+                weights=dict(point_triangle=0.1, distance=1.0, camera=1e-6))
+
+
+def config4x(batch, held=64):
+    """Config 4x: config 4b's problem (seed 1) plus the recipe's
+    point-triangle, vertex-distance and camera-vertex projection modules,
+    their targets from each element's truth; GN 4 + 2 on the worst B/4
+    (solve_ik's GN at regularization 1e-5 on Σ rows², the Jacobian by forward
+    mode): each module's median final energy on the first `held` elements and
+    on all, and the divergent count."""
+    from momentum_tpu import errors as E
+    from momentum_tpu.character.blend_shape import BlendShape
+    from momentum_tpu.character.utility import add_blend_shape_parameters
+    from momentum_tpu.solver import SkeletonSolverFunction, SolverOptions, solve_compacted
+    from momentum_tpu.solver.ik import solve_ik
+    from momentum_tpu.testing.fixtures import create_fullbody_character
+
+    char = create_fullbody_character()
+    rng = np.random.default_rng(0)
+    v, k = char.mesh.num_vertices, 8
+    char = add_blend_shape_parameters(char, BlendShape(
+        base_shape=char.mesh.vertices,
+        shape_vectors=jnp.asarray(rng.normal(0, 0.01, (k, v, 3)).astype(np.float32))))
+    p = char.num_model_parameters
+    rng.uniform(-0.2, 0.2, p - k), rng.uniform(-1, 1, k)  # config 4's frame draws
+    vid = np.arange(0, v, max(v // 256, 1), dtype=np.int32)
+    ef0 = E.VertexPositionErrorFunction.create(vid, np.zeros((len(vid), 3)))
+    fn0 = SkeletonSolverFunction(char, (ef0,))
+    rng_b = np.random.default_rng(1)
+    gt_b = jnp.asarray(np.concatenate([rng_b.uniform(-0.2, 0.2, (batch, p - k)),
+                                       rng_b.uniform(-1, 1, (batch, k))], axis=-1), jnp.float32)
+    x0_b = gt_b + 0.05 * jnp.asarray(rng_b.normal(0, 1, (batch, p)), jnp.float32)
+    verts = jax.jit(jax.vmap(lambda g: fn0.context(g).mesh_vertices))(gt_b)
+    r = vertex_extra_recipe(v, np.asarray(char.mesh.faces))
+    w = r["weights"]
+    cam = recipe_cameras(catalog_recipe())[0]
+    v1, v2 = jnp.asarray(r["vertex1"]), jnp.asarray(r["vertex2"])
+    seen = verts[:, jnp.asarray(r["camera_vertex"])]
+    n_cam = len(r["camera_vertex"])
+    pt = E.PointTriangleVertexErrorFunction.create(r["src_vertex"], r["tri_vertices"],
+                                                   r["bary"], weight=w["point_triangle"])
+    dist0 = E.VertexVertexDistanceErrorFunction.create(
+        r["vertex1"], r["vertex2"], np.zeros(len(r["vertex1"])), weight=w["distance"])
+    cam0 = E.CameraVertexProjectionErrorFunction.create(
+        cam, r["camera_vertex"], np.zeros((n_cam, 2)), weight=w["camera"])
+    tables = (verts[:, jnp.asarray(vid)],
+              jnp.linalg.norm(verts[:, v1] - verts[:, v2] + 1e-20, axis=-1),
+              cam.project(seen)[0][..., :2])
+
+    def modules(tg, dist, px):
+        return (dataclasses.replace(ef0, target=tg), pt,
+                dataclasses.replace(dist0, target=dist), dataclasses.replace(cam0, target=px))
+
+    opts = SolverOptions(regularization=1e-5, energy_from_residual=True)
+
+    def stage(tabs, x, it, _lam0):
+        return solve_ik(SkeletonSolverFunction(char, modules(*tabs)), x, None,
+                        dataclasses.replace(opts, max_iterations=it), method="gauss_newton")
+
+    t0 = time.perf_counter()
+    res = jax.jit(lambda x: solve_compacted(stage, tables, x, capacity=max(1, batch // 4),
+                                            k_full=4, r_refine=2))(x0_b)
+    fn = SkeletonSolverFunction(char, modules(*tables))
+    ctx = jax.jit(fn.context)(res.params)
+    labels = ("vertex_position", "point_triangle", "vertex_distance", "camera_vertex")
+    per = {lab: np.asarray(ef.error(char, ctx), np.float64)
+           for lab, ef in zip(labels, fn.error_functions)}
+    total = sum(per.values())
+    return dict(config="4x", batch=batch, held=held,
+                median_energy={lab: float(np.median(e[:held])) for lab, e in per.items()},
+                median_energy_all={lab: float(np.median(e)) for lab, e in per.items()},
+                divergent=int(np.sum(~np.isfinite(total))), seconds=time.perf_counter() - t0)
+
+
+CONFIGS = ("2", "2b", "4", "5", "5f", "6s", "catalog", "6k", "diffik", "variants", "4x")
 
 
 def main():
@@ -642,6 +849,19 @@ def main():
     ap.add_argument("--out-6k", default=None,
                     help="write config 6k's figures to this JSON file "
                          "(chip_smoke.py reads tools/jax_reference_6k.json)")
+    ap.add_argument("--diffik-batch", type=int, default=256,
+                    help="config D's and the solver variants' batch (the smoke holds the "
+                         "port's first 256 elements)")
+    ap.add_argument("--out-diffik", default=None,
+                    help="write config D's figures to this JSON file and its per-element "
+                         "arrays beside it as <name>.npz (chip_smoke.py reads "
+                         "tools/jax_reference_diffik.json and .npz)")
+    ap.add_argument("--out-variants", default=None,
+                    help="write the solver variants' figures to this JSON file "
+                         "(chip_smoke.py reads tools/jax_reference_variants.json)")
+    ap.add_argument("--out-4x", default=None,
+                    help="write config 4x's figures to this JSON file "
+                         "(chip_smoke.py reads tools/jax_reference_4x.json)")
     args = ap.parse_args()
     args.configs = [c for arg in args.configs for c in arg.split(",") if c]
     if not set(args.configs) <= set(CONFIGS):
@@ -663,6 +883,15 @@ def main():
         figures.append(catalog(args.catalog_batch))
     if "6k" in args.configs:
         figures.append(config6k(args.tracking_frames))
+    if "diffik" in args.configs:
+        fig, arrays = diffik(args.diffik_batch)
+        if args.out_diffik:
+            np.savez_compressed(os.path.splitext(args.out_diffik)[0] + ".npz", **arrays)
+        figures.append(fig)
+    if "variants" in args.configs:
+        figures.append(variants(args.diffik_batch))
+    if "4x" in args.configs:
+        figures.append(config4x(args.batch))
     for fig in figures:
         if fig.get("config") == "6s":
             motion = fig.pop("per_frame_motion")
@@ -671,7 +900,9 @@ def main():
                     json.dump(dict(fig, device="jax cpu"), f, indent=1)
                 np.save(os.path.splitext(args.out_6s)[0] + "_per_frame.npy", motion)
             fig = {k: v for k, v in fig.items() if k not in ("identity", "locator_offsets")}
-        for name, out in (("catalog", args.out_catalog), ("6k", args.out_6k)):
+        for name, out in (("catalog", args.out_catalog), ("6k", args.out_6k),
+                          ("diffik", args.out_diffik), ("variants", args.out_variants),
+                          ("4x", args.out_4x)):
             if fig.get("config") == name and out:
                 with open(out, "w") as f:
                     json.dump(dict(fig, device="jax cpu"), f, indent=1)
