@@ -80,7 +80,20 @@ then drives the port's paths through those kernels and checks their output:
   * config 4x, config 4b with the point-triangle, vertex-distance and
     camera-vertex projection modules (forward-mode Jacobians through K1):
     their rows and Jacobians on the card against the CPU's, each module's
-    median final energy against JAX CPU's.
+    median final energy against JAX CPU's;
+  * config SL, skinned-locator IK at B = 2048 (the full-body rig's 80
+    locators turned into skinned locators, 16 sliding locator-to-triangle
+    constraints; LM 10, forward mode through K1 with the posed mesh, K2+K3
+    at (2048, 157)): the tables and each module's median energy,
+    conv_at_1e5 and get_locator_error's skinned branch against JAX CPU's;
+  * config G, glove-fused tracking of 343 frames (a glove bone under each
+    wrist, 169 parameters, two 7-finger glove streams): the sequence solve
+    and per-frame tracking of 32 frames, their marker and glove figures
+    against JAX CPU's, the glove offsets' bake round trip; K1 held at
+    B = 343, K2+K3 on a SPIKE step and a per-frame step;
+  * config 4ad, config 4b by the forward-mode Jacobian (bench_suite.py's
+    force_ad A/B): solves/s, speedup_analytic, median_param_sq_err against
+    JAX CPU's.
 
     python3 chip_smoke.py
 
@@ -247,6 +260,36 @@ VERTEX_EXTRA_JAX_CPU_FILE = "tools/jax_reference_4x.json"
 VERTEX_EXTRA_HELD = 64
 VERTEX_EXTRA_MEDIAN_RTOL = 0.2
 VERTEX_EXTRA_ROWS_RTOL = 1e-4
+# config SL, skinned-locator IK at B = 2048, held on its first 256 elements
+# against the JAX package on the CPU (python tools/jax_reference.py --configs
+# skinned --out-skinned tools/jax_reference_skinned.json): the
+# skinned-locator tables and the triangle recipe equal to JAX's (indices
+# exact, weights and rest positions within 1e-6), then config C's holds
+# (each module's median final energy within 20%, conv_at_1e5 within 0.01, no
+# divergent element) and get_locator_error of the first 32 solves within 2%
+SKINNED_JAX_CPU_FILE = "tools/jax_reference_skinned.json"
+SKINNED_HELD = 256
+SKINNED_TABLE_TOL = 1e-6
+SKINNED_LOCATOR_ERROR_RTOL = 0.02
+SKINNED_AD_ROWS_BATCH = 128  # the forward-mode rows' hold: 157 tangents of 612 vertices each
+# config G, glove-fused tracking of 343 frames, against JAX CPU (python
+# tools/jax_reference.py --configs glove --out-glove
+# tools/jax_reference_glove.json; JAX's sequence with the gloves split per
+# joint, ROADMAP F21): the sequence's final error within 1e-2, the marker
+# error median within 2% (0.02 mm at least) and p90 within 5%, the glove
+# residual medians within 2%; per-frame tracking of the first 32 frames: the
+# same medians and the median energy within 2%
+GLOVE_JAX_CPU_FILE = "tools/jax_reference_glove.json"
+GLOVE_ERROR_RTOL = 1e-2
+GLOVE_MEDIAN_RTOL = 0.02
+GLOVE_BAKE_TOL = 1e-6
+# config 4ad, config 4b solved with the forward-mode Jacobian (force_ad),
+# against JAX CPU's same route (python tools/jax_reference.py --configs 4ad
+# --out-4ad tools/jax_reference_4ad.json): median_param_sq_err within 2×, no
+# divergent element
+VERTEX_AD_JAX_CPU_FILE = "tools/jax_reference_4ad.json"
+VERTEX_AD_FACTOR = 2.0
+VERTEX_AD_ROWS_BATCH = 64
 
 
 def phase_device():
@@ -1160,16 +1203,17 @@ def _hold_ad_rows(solver_fn, x, label):
                 batch=x.shape[0])
 
 
-def _last_system(run, batch):
-    """The (a, damp, b) of the last K2+K3 call of `run()` on `batch` systems."""
+def _record_systems(run):
+    """Every (a, damp, b) that `run()` gives K2+K3, the last of each shape
+    (of a, and b's column count), cloned."""
     from momentum_tpu_torch.ops import psd
 
-    seen = []
+    seen = {}
     real = psd.damped_chol_solve
 
     def record(a, damp, b):
-        if a.shape[0] == batch:
-            seen[:] = [(a.clone(), damp.clone(), b.clone())]
+        key = tuple(a.shape) + ((b.shape[-1],) if b.ndim == a.ndim else ())
+        seen[key] = (a.clone(), damp.clone(), b.clone())
         return real(a, damp, b)
 
     psd.damped_chol_solve = record
@@ -1177,6 +1221,13 @@ def _last_system(run, batch):
         run()
     finally:
         psd.damped_chol_solve = real
+    return seen
+
+
+def _last_system(run, batch):
+    """The (a, damp, b) of the last K2+K3 call of `run()` on `batch` systems
+    (of the first shape seen at that batch)."""
+    seen = [v for k, v in _record_systems(run).items() if k[0] == batch]
     if not seen:
         raise AssertionError(f"the path gave K2+K3 no system at B = {batch}")
     return seen[0]
@@ -1652,6 +1703,287 @@ def phase_vertex_extra(smi):
                         rows_and_jacobians=rows_err, launches=counts)
 
 
+def _load_jax_cpu(name):
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, name)) as f:
+        return json.load(f)
+
+
+def phase_skinned_locators(smi):
+    """Config SL: skinned-locator IK at B = 2048 on the full-body rig with
+    its 80 locators turned into skinned locators
+    (workloads.build_skinned_ik_problem): SkinnedLocator targets from each
+    element's truth, 16 sliding SkinnedLocatorTriangle constraints, the
+    limits; solve_ik's LM 10 on the normal equations, every row of the two
+    modules by forward mode through K1 (the posed mesh's tangents in chunks,
+    SkeletonSolverFunction.AD_MESH_FLOATS), K2+K3 at (2048, 157). The tables
+    against JAX CPU's; the figures on the first 256 against JAX CPU's and on
+    all 2048; the wall of the counted (cold) solve and of one warm one; the
+    peak memory; get_locator_error's skinned branch on the first 32. Then
+    K2+K3 held at (2048, 157) on the path's normal equations, and the
+    forward-mode rows through K1 against the plain FK's at B = 128."""
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+    from momentum_tpu_torch.tracking import get_locator_error
+
+    want = _load_jax_cpu(SKINNED_JAX_CPU_FILE)
+    prob = w.build_skinned_ik_problem(w.SKINNED_BATCH, seed=SEED, device="cuda")
+    sl, tables, tri = prob.char.skinned_locators, want["tables"], prob.modules[1][1]
+    table_err = dict(
+        parents=int((sl.parents.cpu() != torch.as_tensor(tables["parents"])).sum()),
+        tri_indices=int((tri.tri_indices.cpu() != torch.as_tensor(tables["tri_indices"])).sum()),
+        candidates=int((tri.candidates.cpu() != torch.as_tensor(tables["candidates"])).sum()),
+        skin_weights=float((sl.skin_weights.cpu() - torch.as_tensor(
+            tables["skin_weights"])).abs().max()),
+        rest_position=float((sl.rest_position.cpu() - torch.as_tensor(
+            tables["rest_position"])).abs().max()))
+    print(f"config SL skinned-locator tables against JAX CPU's ({sl.num_locators} locators, K = "
+          f"{sl.parents.shape[1]}, {float((sl.skin_weights > 0).sum(1).float().mean()):.3f} "
+          f"nonzero weights each; {tri.num_rows() // 3} triangle constraints): {table_err}")
+    if (table_err["parents"] or table_err["tri_indices"] or table_err["candidates"]
+            or sl.names != tuple(tables["names"])
+            or max(table_err["skin_weights"], table_err["rest_position"]) > SKINNED_TABLE_TOL):
+        raise AssertionError(f"config SL: the skinned-locator tables differ from JAX CPU's: "
+                             f"{table_err}")
+    batch = prob.x0.shape[0]
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = w.solve_catalog(prob)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    w.solve_catalog(prob)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    more = w.solve_catalog(prob, x0=res.params, iterations=w.CATALOG_MORE)
+    held = w.catalog_figures(prob, res.params, more.params, slice(0, SKINNED_HELD))
+    full = w.catalog_figures(prob, res.params, more.params)
+    print(f"config SL (skinned-locator IK, B={batch}, P={prob.x0.shape[-1]}, LM "
+          f"{res.iterations}): {batch / wall:.1f} solves/s (warm wall {wall:.3f} s; the counted "
+          f"cold solve {cold:.3f} s) on {smi}; peak memory {peak_gb:.3f} GiB; kernel launches "
+          f"{counts}")
+    floor = CATALOG_MEDIAN_FLOOR * want["median_energy"]["total"]
+    bad = []
+    for label, jax_med in want["median_energy"].items():
+        med = held["median_energy"][label]
+        ok = abs(med - jax_med) <= CATALOG_MEDIAN_RTOL * jax_med + floor
+        bad += [] if ok else [label]
+        print(f"  config SL {label}: median final energy {med:.6e} on the first "
+              f"{SKINNED_HELD} (JAX CPU {jax_med:.6e}){'' if ok else ' OUT OF TOLERANCE'}; "
+              f"all {batch}: {full['median_energy'][label]:.6e}")
+    frames = want["locator_error"]["frames"]
+    avg, mx = get_locator_error(prob.char, w.skinned_marker_sequence(prob, frames),
+                                res.params[:frames])
+    want_avg = want["locator_error"]["average"]
+    print(f"  config SL conv_at_1e5 {held['conv_at_1e5']:.4f} on the first {SKINNED_HELD} "
+          f"(JAX CPU {want['conv_at_1e5']:.4f}), {full['conv_at_1e5']:.4f} on all {batch}; "
+          f"divergent {held['divergent']} / {full['divergent']} (JAX CPU {want['divergent']}); "
+          f"get_locator_error of the first {frames}: average {avg:.6e} (JAX CPU "
+          f"{want_avg:.6e}), max {mx:.6e}")
+    if bad or abs(held["conv_at_1e5"] - want["conv_at_1e5"]) > CATALOG_CONV_SLACK \
+            or full["divergent"] or any(n == 0 for n in counts.values()) \
+            or abs(avg - want_avg) > SKINNED_LOCATOR_ERROR_RTOL * want_avg:
+        raise AssertionError(f"config SL: medians {bad} out of tolerance, conv_at_1e5 "
+                             f"{held['conv_at_1e5']} (JAX CPU {want['conv_at_1e5']}), divergent "
+                             f"{full['divergent']}, locator error {avg} (JAX CPU {want_avg}), "
+                             f"or launches {counts}")
+    efs = tuple(ef for _, ef in prob.modules)
+    fn = SkeletonSolverFunction(prob.char, efs)
+    n = SKINNED_AD_ROWS_BATCH
+    ad_fn = SkeletonSolverFunction(prob.char, (dataclasses.replace(
+        efs[0], target=efs[0].target[:n]), efs[1]))
+    numbers = dict(solves_per_s=batch / wall, wall_s=wall, cold_wall_s=cold,
+                   peak_memory_gib=peak_gb, first_256=held, all=full, launches=counts,
+                   locator_error=dict(average=avg, max=mx), tables=table_err,
+                   ad_rows=_hold_ad_rows(ad_fn, prob.x0[:n].contiguous(),
+                                         "config SL's skinned-locator modules"))
+    a, b = fn.normal_equations(prob.x0)[:2]
+    damp = (0.01 * torch.clamp(a.diagonal(dim1=-2, dim2=-1), min=1e-12) + 1e-5).contiguous()
+    psd_numbers = _hold_psd_matrix(a.contiguous(), damp, b.contiguous(),
+                                   "config SL's normal equations at the warm starts")
+    return counts, numbers, psd_numbers
+
+
+def phase_glove(smi):
+    """Config G: glove-fused tracking on the full-body rig with a glove bone
+    under each wrist (53 joints, 169 parameters; workloads.build_glove_clip):
+    343 frames of the 80 markers and two 7-finger glove streams. The
+    sequence solve (track_sequence, LM 10 with line search, one stacked
+    position and orientation module per hand; K1 for the frame contexts,
+    K2+K3 on SPIKE's steps), then per-frame tracking of the first 32 frames
+    (LM 15, forward mode through K1, K2+K3 at (1, 169)): walls, launches,
+    the final error and the marker and glove figures against JAX CPU's; the
+    bake round trip of the solved glove parameters. Then K1 held at
+    B = 343 on the glove rig, K2+K3 held on a SPIKE step and a per-frame
+    step of the path, and the per-frame modules' forward-mode rows through
+    K1 against the plain FK's at 32 frames."""
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch.character import fk
+    from momentum_tpu_torch.math import euler, quaternion as quat
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+    from momentum_tpu_torch.testing.fixtures import create_fullbody_character
+    from momentum_tpu_torch.tracking import track_sequence, tracker
+    from momentum_tpu_torch.tracking.glove_utils import (
+        add_glove_bones, bake_glove_offsets_from_params)
+
+    want = _load_jax_cpu(GLOVE_JAX_CPU_FILE)
+    clip = w.build_glove_clip(w.GLOVE_FRAMES, seed=SEED, device="cuda")
+    frames = clip.markers.num_frames
+    counts, numbers, bad = {}, {}, []
+
+    def held(part, figs, jax_figs):
+        for k, v in figs.items():
+            ref = jax_figs[k]
+            if k == "error":
+                tol = GLOVE_ERROR_RTOL * abs(ref)
+            elif k == "median_mm":
+                tol = max(GLOVE_MEDIAN_RTOL * ref, TRACKING_MEDIAN_ATOL_MM)
+            else:
+                tol = (TRACKING_P90_RTOL if k.startswith("p90") else GLOVE_MEDIAN_RTOL) * ref
+            ok = abs(v - ref) <= tol
+            bad.extend([] if ok else [f"{part} {k}"])
+            print(f"  config G {part} {k}: {v:.6g} (JAX CPU {ref:.6g})"
+                  + ("" if ok else " OUT OF TOLERANCE"))
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    seq = w.track_glove_sequence(clip)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["sequence"] = _counts()
+    print(f"config G sequence (F={frames}, P={clip.char.num_model_parameters}, "
+          f"{clip.char.num_joints} joints, 2 gloves of 7 fingers): {frames / wall:.1f} frames/s "
+          f"(wall {wall:.2f} s) on {smi}; kernel launches {counts['sequence']}")
+    figs = dict(error=float(seq.errors[0]), **w.glove_figures(clip, seq.motion))
+    held("sequence", figs, want["sequence"])
+    numbers["sequence"] = dict(frames_per_s=frames / wall, wall_s=wall, **figs,
+                               launches=counts["sequence"])
+
+    head = w.glove_clip_head(clip)
+    n_head = head.markers.num_frames
+    _reset_counts()
+    t0 = time.perf_counter()
+    pf = w.track_glove_per_frame(head)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["per_frame"] = _counts()
+    print(f"config G per-frame (the first {n_head} frames, LM 15 each): {n_head / wall:.2f} "
+          f"frames/s (wall {wall:.2f} s) on {smi}; kernel launches {counts['per_frame']}")
+    figs = dict(median_energy=float(np.median(pf.errors.cpu().numpy())),
+                **w.glove_figures(head, pf.motion))
+    held("per_frame", figs, want["per_frame"])
+    numbers["per_frame"] = dict(frames_per_s=n_head / wall, wall_s=wall, **figs,
+                                launches=counts["per_frame"])
+
+    base = add_glove_bones(create_fullbody_character(device="cuda"), clip.config)
+    baked = bake_glove_offsets_from_params(base, seq.motion[0], clip.char, clip.config)
+    bake_err = 0.0
+    for h, wrist in enumerate(clip.config.wrist_joint_names):
+        bone = baked.skeleton.joint_names.index("glove_" + wrist)
+        solved = seq.motion[0, 157 + 6 * h:163 + 6 * h]
+        pre = quat.from_rotation_matrix(euler.euler_xyz_to_matrix(solved[3:]))
+        bake_err = max(bake_err,
+                       float((baked.skeleton.translation_offset[bone] - solved[:3]).abs().max()),
+                       float((baked.skeleton.pre_rotation[bone] - pre).abs().max()))
+    print(f"config G bake round trip ({baked.num_joints} joints, P={baked.num_model_parameters}):"
+          f" the baked glove bones against the solved offsets, max|Δ| {bake_err:.3e} (tol "
+          f"{GLOVE_BAKE_TOL:.0e})")
+    numbers["bake_max_abs_err"] = bake_err
+    if bad or bake_err > GLOVE_BAKE_TOL or not bool(torch.isfinite(seq.motion).all()) \
+            or any(n == 0 for c in counts.values() for n in c.values()):
+        raise AssertionError(f"config G: {bad} out of tolerance, bake {bake_err}, or launches "
+                             f"{counts}")
+
+    solve = tracker._frame_solve(clip.char, head.markers, w._glove_tracking_configs()[1], None,
+                                 glove_data=head.gloves, glove_config=clip.config)
+    frame_fn = SkeletonSolverFunction(clip.char, (solve.per_frame(
+        solve.ef0, head.markers.positions, head.markers.occluded),) + solve.others
+        + tracker._glove_modules(solve.gloves))
+    # at the rest pose: the rows are then the markers' whole distances, as
+    # large as the positions whose float32 FK they hold (at the solved
+    # motion they are the ~2 mm noise, 1e-3 of the positions)
+    numbers["ad_rows"] = _hold_ad_rows(frame_fn, torch.zeros_like(pf.motion),
+                                       "config G's marker, limit and glove modules")
+    skel = clip.char.skeleton
+    local = fk.local_skel_states(skel, clip.char.parameter_transform.apply(seq.motion))
+    fk_numbers = _hold_fk(skel, local.contiguous(), f"config G's {frames} frames, 53 joints")
+    one_step = dataclasses.replace(w._glove_tracking_configs()[0], max_iter=1)
+    seen = _record_systems(lambda: track_sequence(
+        clip.char, clip.markers, one_step, initial=clip.initial, glove_data=clip.gloves,
+        glove_config=clip.config))
+    p = clip.char.num_model_parameters
+    spike = max((k for k in seen if len(k) == 4 and k[1] == p), key=lambda k: k[3])
+    psd_numbers = {"{}x{}_k{}".format(*spike[:2], spike[3]): _hold_psd_matrix(
+                       *seen[spike], "config G's SPIKE step"),
+                   "1x{}".format(p): _hold_psd_matrix(*_last_system(
+                       lambda: w.track_glove_per_frame(w.glove_clip_head(clip, 1)), 1),
+                       "config G's per-frame LM step")}
+    return counts, numbers, fk_numbers, psd_numbers
+
+
+def phase_vertex_ad(smi):
+    """Config 4ad, bench_suite.py:370-375: config 4b at B = 256 (uncut)
+    solved by GN 6 with SkeletonSolverFunction(..., force_ad=True), the
+    vertex rows' Jacobian by forward mode through the skinning (K1's jvp
+    rule) instead of the analytic LBS walk, against 4b's analytic solve in
+    turns (3 warm runs each): solves/s, speedup_analytic (the AD wall over
+    the analytic one), median_param_sq_err against JAX CPU's AD route; the
+    forward-mode rows through K1 against the plain FK's at B = 64, and
+    K2+K3 held on the AD solve's last system at (256, 165)."""
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    want = _load_jax_cpu(VERTEX_AD_JAX_CPU_FILE)
+    prob = w.build_vertex_fit_problem(w.VERTEX_FIT_BATCH, device="cuda")
+    batch = prob.x0.shape[0]
+    solves = {"analytic": w.make_vertex_fit_solve(prob.char, prob.ef0, batch),
+              "ad": w.make_vertex_fit_ad_solve(prob.char, prob.ef0)}
+    for solve in solves.values():
+        solve(prob.targets, prob.x0)  # warm-up
+    walls = {k: [] for k in solves}
+    for i in range(3):
+        for name, solve in solves.items():
+            if name == "ad" and i == 0:
+                _reset_counts()
+            t0 = time.perf_counter()
+            out = solve(prob.targets, prob.x0)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            if name == "ad":
+                if i == 0:
+                    counts = _counts()
+                res = out
+    wall = {k: statistics.median(v) for k, v in walls.items()}
+    sq = ((res.params - prob.gt) ** 2).sum(-1).cpu().numpy()
+    divergent = int((~np.isfinite(sq)).sum())
+    med = float(np.median(sq))
+    speedup = wall["ad"] / wall["analytic"]
+    print(f"config 4ad (config 4b with force_ad, B={batch}, GN {res.iterations}): "
+          f"{batch / wall['ad']:.0f} solves/s (median wall {wall['ad'] * 1e3:.1f} ms of 3; "
+          f"analytic 4b {wall['analytic'] * 1e3:.1f} ms in turns), speedup_analytic "
+          f"{speedup:.2f} on {smi}; median_param_sq_err {med:.6e} (JAX CPU "
+          f"{want['median_param_sq_err']:.6e}), divergent {divergent}; kernel launches {counts}")
+    ratio = med / want["median_param_sq_err"]
+    if divergent or not 1 / VERTEX_AD_FACTOR <= ratio <= VERTEX_AD_FACTOR \
+            or any(n == 0 for n in counts.values()):
+        raise AssertionError(f"config 4ad: median_param_sq_err {med} not within a factor "
+                             f"{VERTEX_AD_FACTOR} of JAX CPU's, {divergent} divergent, or "
+                             f"launches {counts}")
+    rows_fn = SkeletonSolverFunction(prob.char, (dataclasses.replace(
+        prob.ef0, target=prob.targets[:VERTEX_AD_ROWS_BATCH]),), force_ad=True)
+    numbers = dict(solves_per_s=batch / wall["ad"], wall_s=wall["ad"],
+                   analytic_wall_s=wall["analytic"], speedup_analytic=speedup,
+                   median_param_sq_err=med, divergent=divergent, launches=counts,
+                   ad_rows=_hold_ad_rows(rows_fn, prob.x0[:VERTEX_AD_ROWS_BATCH].contiguous(),
+                                         "config 4ad's vertex rows"))
+    psd_numbers = _hold_psd_matrix(*_last_system(lambda: solves["ad"](prob.targets, prob.x0),
+                                                 batch), "config 4ad's last GN step")
+    return counts, numbers, psd_numbers
+
+
 def _frame_vertices(char, motion, frame=0):
     """The skinned vertices of frame `frame` of the clip."""
     from momentum_tpu_torch.testing.workloads import clip_vertices
@@ -2092,6 +2424,12 @@ def main():
     lap("solver_variants")
     vx_counts, vx_numbers = phase_vertex_extra(smi)
     lap("vertex_extra")
+    sl_counts, sl_numbers, sl_psd = phase_skinned_locators(smi)
+    lap("skinned_locators")
+    glove_counts, glove_numbers, glove_fk, glove_psd = phase_glove(smi)
+    lap("glove")
+    vad_counts, vad_numbers, vad_psd = phase_vertex_ad(smi)
+    lap("vertex_ad")
 
     from momentum_tpu_torch.testing.workloads import build_render_clip
 
@@ -2125,7 +2463,13 @@ def main():
              diff_ik_launches=dict(forward=dik_fwd["fk_global_kernel"],
                                    backward=dik_bwd["fk_global_kernel"]),
              variant_launches={v: n["fk_global_kernel"] for v, n in var_counts.items()},
-             vertex_extra_launches=vx_counts["fk_global_kernel"]),
+             vertex_extra_launches=vx_counts["fk_global_kernel"],
+             skinned_launches=sl_counts["fk_global_kernel"],
+             skinned_ad_rows=sl_numbers.pop("ad_rows"),
+             glove_launches={st: n["fk_global_kernel"] for st, n in glove_counts.items()},
+             glove_B343=glove_fk, glove_ad_rows=glove_numbers.pop("ad_rows"),
+             vertex_ad_launches=vad_counts["fk_global_kernel"],
+             vertex_ad_rows=vad_numbers.pop("ad_rows")),
         dict(name="damped_chol_solve_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/psd_pallas.py:53",
@@ -2151,7 +2495,14 @@ def main():
                                    backward=dik_bwd["damped_chol_solve_kernel"]),
              diff_ik_backward_2048x157=dik_psd,
              variant_launches={v: n["damped_chol_solve_kernel"] for v, n in var_counts.items()},
-             vertex_extra_launches=vx_counts["damped_chol_solve_kernel"]),
+             vertex_extra_launches=vx_counts["damped_chol_solve_kernel"],
+             skinned_launches=sl_counts["damped_chol_solve_kernel"],
+             skinned_2048x157=sl_psd,
+             glove_launches={st: n["damped_chol_solve_kernel"]
+                             for st, n in glove_counts.items()},
+             **{f"glove_{shape}": nums for shape, nums in glove_psd.items()},
+             vertex_ad_launches=vad_counts["damped_chol_solve_kernel"],
+             vertex_ad_256x165=vad_psd),
         dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:55",
@@ -2186,7 +2537,8 @@ def main():
                       "config5": seq_numbers, "config6s": track_numbers,
                       "configC": catalog_numbers, "config6k": kp_numbers,
                       "configD": dik_numbers, "variants": var_numbers,
-                      "config4x": vx_numbers}))
+                      "config4x": vx_numbers, "configSL": sl_numbers, "configG": glove_numbers,
+                      "config4ad": vad_numbers}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

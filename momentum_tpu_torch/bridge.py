@@ -13,7 +13,9 @@ character_from_numpy keys (shapes as in momentum_tpu):
     the limit tables of ParameterLimits under their field names
     (minmax_index (M,), minmax_bounds (M, 2), ..., ellipsoid_weight (E,)),
     a record type whose tables are absent having no records,
-    optional locator_parent (L,), locator_offset (L, 3), locator_weight (L,);
+    optional locator_parent (L,), locator_offset (L, 3), locator_weight (L,),
+    and with them optional locator_names (L,) str; optional joint_names
+    (nJ,) str;
     optional mesh_vertices (V, 3), mesh_faces (F, 3) int32, and with them
     optional mesh_normals (V, 3), mesh_texcoords (T, 2),
     mesh_texcoord_faces (F, 3), mesh_colors (V, 3), mesh_lines (a sequence
@@ -25,7 +27,11 @@ character_from_numpy keys (shapes as in momentum_tpu):
     optional collision_parent (C,), collision_transform (C, 8),
     collision_radius (C, 2), collision_length (C,), and with them optional
     collision_ptype (C,), collision_ellipsoid_radii (C, 3),
-    collision_box_half_extents (C, 3)
+    collision_box_half_extents (C, 3);
+    optional skinned_locator_parents (S, K), skinned_locator_skin_weights
+    (S, K), skinned_locator_rest_position (S, 3), and with them optional
+    skinned_locator_names (S,) str and skinned_locator_param_index (3S,)
+    (−1: no parameter)
 camera_from_numpy keys:
     fx, fy, cx, cy (), image_width, image_height (), eye_from_world (8,),
     and for a distorted model k and p: k (6,) with p (4,) an OpenCV camera,
@@ -63,7 +69,7 @@ from momentum_tpu_torch.camera import (
     Camera, OpenCVFisheyeIntrinsics, OpenCVIntrinsics, PinholeIntrinsics)
 from momentum_tpu_torch.character import (
     BlendShape, Character, CollisionGeometry, Locators, Mesh, ParameterLimits,
-    ParameterTransform, Skeleton, SkinWeights, make_limits)
+    ParameterTransform, Skeleton, SkinnedLocators, SkinWeights, make_limits)
 from momentum_tpu_torch.device import resolve
 from momentum_tpu_torch.errors import (
     LimitErrorFunction, Mppca, OrientationErrorFunction, PosePriorErrorFunction,
@@ -123,11 +129,29 @@ def _collision(d, device):
         for k in _COLLISION_KEYS if f"collision_{k}" in d})
 
 
+def _names(d, key) -> tuple:
+    return tuple(str(n) for n in d.get(key, ()))
+
+
+def _skinned_locators(d, device):
+    """(SkinnedLocators, parameter index tuple or None), or (None, None)."""
+    if "skinned_locator_parents" not in d:
+        return None, None
+    sl = SkinnedLocators(
+        parents=_t(d, "skinned_locator_parents", device).to(torch.int32),
+        skin_weights=_t(d, "skinned_locator_skin_weights", device),
+        rest_position=_t(d, "skinned_locator_rest_position", device),
+        names=_names(d, "skinned_locator_names"))
+    index = d.get("skinned_locator_param_index")
+    return sl, None if index is None else tuple(int(i) for i in np.asarray(index))
+
+
 def character_from_numpy(d: dict, device="cuda") -> Character:
     device = resolve(device, "character_from_numpy")
     skeleton = Skeleton(joint_parent=_t(d, "joint_parent", device).to(torch.int32),
                         pre_rotation=_t(d, "pre_rotation", device),
-                        translation_offset=_t(d, "translation_offset", device))
+                        translation_offset=_t(d, "translation_offset", device),
+                        joint_names=_names(d, "joint_names"))
     pt = ParameterTransform(
         transform=_t(d, "transform", device), offsets=_t(d, "offsets", device),
         names=tuple(str(n) for n in d.get("parameter_names", ())),
@@ -138,7 +162,8 @@ def character_from_numpy(d: dict, device="cuda") -> Character:
     if "locator_parent" in d:
         locators = Locators(parent=_t(d, "locator_parent", device).to(torch.int32),
                             offset=_t(d, "locator_offset", device),
-                            weight=_t(d, "locator_weight", device))
+                            weight=_t(d, "locator_weight", device),
+                            names=_names(d, "locator_names"))
     mesh = skin = inverse_bind_pose = None
     if "mesh_vertices" in d:
         mesh = Mesh(vertices=_t(d, "mesh_vertices", device),
@@ -156,13 +181,15 @@ def character_from_numpy(d: dict, device="cuda") -> Character:
         inverse_bind_pose = _t(d, "inverse_bind_pose", device)
     blend, blend_index = _basis(d, "blend_shape", device)
     face, face_index = _basis(d, "face_expression", device)
+    skinned, skinned_index = _skinned_locators(d, device)
     return Character(skeleton=skeleton, parameter_transform=pt, limits=limits,
                      locators=locators, mesh=mesh, skin_weights=skin,
                      inverse_bind_pose=inverse_bind_pose, blend_shape=blend,
                      blend_shape_param_index=blend_index,
                      face_expression_blend_shape=face,
                      face_expression_param_index=face_index,
-                     collision=_collision(d, device))
+                     collision=_collision(d, device), skinned_locators=skinned,
+                     skinned_locator_param_index=skinned_index)
 
 
 def camera_from_numpy(d: dict, device="cuda") -> Camera:

@@ -110,16 +110,18 @@ class SolveResult(NamedTuple):
     lambda_final: Optional[torch.Tensor] = None
 
 
-def ad_jacobian(residual_fn: Callable, x: torch.Tensor):
+def ad_jacobian(residual_fn: Callable, x: torch.Tensor, chunk_size: Optional[int] = None):
     """(rows (..., R), Jᵀ (..., P, R)) of residual_fn at x (..., P) by
     forward mode: torch.func.jvp with each parameter-basis tangent e_p,
-    vmapped over p. With a batched primal, e_p is broadcast across the
-    batch; the JVP is linear, so it gives every element's column p at once.
-    FK reaches kernel K1 through its jvp and vmap rules (ops/fk.py)."""
+    vmapped over p (`chunk_size` tangents at a time, all at once by
+    default). With a batched primal, e_p is broadcast across the batch; the
+    JVP is linear, so it gives every element's column p at once. FK reaches
+    kernel K1 through its jvp and vmap rules (ops/fk.py)."""
     p = x.shape[-1]
     eye = torch.eye(p, dtype=x.dtype, device=x.device)
     tangents = eye.reshape((p,) + (1,) * (x.ndim - 1) + (p,)).expand((p,) + x.shape)
-    rows, jt = torch.func.vmap(lambda t: torch.func.jvp(residual_fn, (x,), (t,)))(tangents)
+    rows, jt = torch.func.vmap(lambda t: torch.func.jvp(residual_fn, (x,), (t,)),
+                               chunk_size=chunk_size)(tangents)
     return rows[0], jt.movedim(0, -2)
 
 

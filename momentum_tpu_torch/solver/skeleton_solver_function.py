@@ -25,6 +25,12 @@ from momentum_tpu_torch.solver.gauss_newton import ad_jacobian
 
 __all__ = ["SkeletonSolverFunction"]
 
+# The forward-mode Jacobian through the skinning holds every vertex's 8
+# gathered influence matrices per tangent and element at once (tangents ×
+# elements × V × 8 × 12 floats); past this many floats the tangents go
+# through in chunks (config SL at B = 2048 would need ~75 GB in one)
+AD_MESH_FLOATS = 2 ** 30
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class SkeletonSolverFunction:
@@ -111,10 +117,21 @@ class SkeletonSolverFunction:
                 c2 = self.context(x)
                 return torch.cat([ef.residual(self.character, c2) for ef in ad_efs], dim=-1)
 
-            r, jt = ad_jacobian(ad_residual, ctx.model_params)
+            r, jt = ad_jacobian(ad_residual, ctx.model_params, self._tangent_chunk(ad_efs, ctx))
             rows.append(r)
             jacs.append(jt.transpose(-1, -2))
         return torch.cat(rows, dim=-1), torch.cat(jacs, dim=-2)
+
+    def _tangent_chunk(self, ad_efs, ctx: EvalContext):
+        """How many tangents the forward-mode modules `ad_efs` take at once:
+        all (None) unless they need the posed mesh and all would pass
+        AD_MESH_FLOATS."""
+        if not any(ef.needs_mesh for ef in ad_efs):
+            return None
+        skin = self.character.skin_weights.index
+        per_tangent = ctx.model_params[..., 0].numel() * skin.numel() * 12
+        chunk = max(1, AD_MESH_FLOATS // per_tangent)
+        return None if chunk >= ctx.model_params.shape[-1] else chunk
 
     def _analytic_rows_and_jacobian(self, ctx: EvalContext, error_functions, rows, jacs):
         """Append the analytic modules' rows and J to `rows` and `jacs`."""

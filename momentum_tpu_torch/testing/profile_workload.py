@@ -1,7 +1,7 @@
 """Where the time of the port's workloads goes on one CUDA card.
 
     python -m momentum_tpu_torch.testing.profile_workload
-        [--workload ik|render|fullstack|vertex|sequence|tracking|catalog|keypoints|both]
+        [--workload ik|render|fullstack|vertex|sequence|tracking|catalog|keypoints|skinned|glove|both]
         [--batch 2048]
         [--frames 1024] [--fullbody] [--out DIR]
 
@@ -47,6 +47,12 @@ over every rigid module of the catalog):
     position module's direct normal equations, JᵀJ/Jᵀr of the dense rows,
     the damped solve, the trial energy), the whole iteration and the host's
     part, and the wall and device-busy share of the solve;
+for config SL (build_skinned_ik_problem + solve_catalog, LM 10 at B = 2048
+over the skinned-locator modules and the limits): the same layers as
+config C's (no module of config SL has an analytic Jacobian);
+for config G (build_glove_clip: 343 frames, two 7-finger gloves):
+  * the wall and device-busy share of the sequence solve and of per-frame
+    tracking of its first 8 frames;
 for config 6k (config 6s's clip with four cameras' keypoints,
 build_keypoint_clip + track_clip_keypoints at every frame):
   * each layer of one LM iteration of the batched solve, as for tracking,
@@ -474,18 +480,20 @@ def catalog_layer_times(problem, lam: float = 0.01) -> dict:
             acc = ef.accumulate_normal(char, ctx, jc, char.parameter_transform.transform, acc)
         return acc
 
-    times = {
-        "context (FK through K1)": event_ms(lambda: fn.context(x), reps=3),
-        "analytic Jacobians (blockwise, through the parameter transform)": event_ms(
-            lambda: fn._rows_and_jacobian(ctx, analytic), reps=3),
+    times = {"context (FK through K1)": event_ms(lambda: fn.context(x), reps=3)}
+    if analytic:
+        times["analytic Jacobians (blockwise, through the parameter transform)"] = event_ms(
+            lambda: fn._rows_and_jacobian(ctx, analytic), reps=3)
+    times.update({
         "AD Jacobian (forward mode, FK through K1)": event_ms(
             lambda: fn._rows_and_jacobian(ctx, ad), reps=3),
-        "direct normal equations (position)": event_ms(direct_normal, reps=3),
+        "direct normal equations (" + ", ".join(type(ef).__name__ for ef in direct) + ")":
+            event_ms(direct_normal, reps=3),
         "JtJ + Jtr of the dense rows": event_ms(lambda: (jt @ jac, jt @ rows[..., None]),
                                                 reps=3),
         "damped solve (K2+K3)": event_ms(lambda: damped_psd_solve(jtj, damp, jtr)),
         "trial energy (FK through K1 + every module)": event_ms(lambda: fn.error(x), reps=3),
-    }
+    })
     one = SolverOptions(max_iterations=1, regularization=1e-5)
     whole = event_ms(lambda: solve_ik(fn, x, options=one, method="levenberg_marquardt"),
                      reps=3)
@@ -593,7 +601,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload",
                     choices=("ik", "render", "fullstack", "vertex", "sequence", "tracking",
-                             "catalog", "keypoints", "both"),
+                             "catalog", "keypoints", "skinned", "glove", "both"),
                     default="both", help="both = ik and render")
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--frames", type=int, default=1024, help="the sequence's frame count")
@@ -692,6 +700,29 @@ def main():
         _wall_and_profile(lambda: solve_catalog(problem), card,
                           f"catalog-solve B={args.batch} (LM 10)", args.out, args.batch,
                           "solves/s")
+
+    if args.workload == "skinned":
+        from momentum_tpu_torch.testing.workloads import build_skinned_ik_problem, solve_catalog
+
+        problem = build_skinned_ik_problem(args.batch, seed=args.seed, device="cuda")
+        for name, ms in catalog_layer_times(problem).items():
+            print(f"skinned layer B={args.batch}: {name}: {ms:.4f} ms [{card}]")
+        _wall_and_profile(lambda: solve_catalog(problem), card,
+                          f"skinned-solve B={args.batch} (LM 10)", args.out, args.batch,
+                          "solves/s")
+
+    if args.workload == "glove":
+        from momentum_tpu_torch.testing.workloads import (
+            build_glove_clip, glove_clip_head, track_glove_per_frame, track_glove_sequence)
+
+        clip = build_glove_clip(seed=args.seed, device="cuda")
+        frames = clip.markers.num_frames
+        _wall_and_profile(lambda: track_glove_sequence(clip), card,
+                          f"glove-sequence of {frames} frames (LM 10)", args.out, frames,
+                          "frames/s")
+        head = glove_clip_head(clip, 8)
+        _wall_and_profile(lambda: track_glove_per_frame(head), card,
+                          "glove-per-frame of 8 frames (LM 15)", args.out, 8, "frames/s")
 
     if args.workload == "keypoints":
         from momentum_tpu_torch.testing.workloads import (

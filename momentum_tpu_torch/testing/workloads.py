@@ -49,7 +49,17 @@ per-constraint weights come by the implicit function theorem. The same
 problem without the prior runs through each solver variant
 (`variant_recipe`: QR, trust-region QR, CG, line search, gradient descent,
 histories). Config 4x is config 4b with three forward-mode vertex modules
-added (`vertex_extra_recipe`).
+added (`vertex_extra_recipe`); config 4ad is config 4b solved with the
+forward-mode Jacobian (`force_ad`), bench_suite.py's A/B.
+
+Config SL, skinned-locator IK: the IK rig with its 80 locators turned into
+skinned locators, catalog_draws' truths and warm starts, SkinnedLocator
+targets from each element's truth and 16 sliding SkinnedLocatorTriangle
+constraints (`skinned_triangle_recipe`), LM 10. Config G, glove-fused
+tracking: the full-body rig with a glove bone under each wrist (53 joints,
+169 parameters), a 343-frame clip of its 80 markers and two 7-finger glove
+streams (`glove_clip_draws`), solved by track_sequence and, on its first
+32 frames, by per-frame tracking.
 
 The render clip: the full-body character's skinned tube mesh (612 vertices,
 612 faces) posed by a 32-frame random walk in its 157 parameters, rendered
@@ -90,7 +100,12 @@ __all__ = ["build_fullbody_ik_problem", "make_solve_stage", "make_solve_batch",
            "DiffIkProblem", "build_diff_ik_problem", "diff_ik_options", "diff_ik_solver_fn",
            "solve_diff_ik", "variant_recipe", "solve_variant", "VertexExtraProblem",
            "vertex_extra_recipe", "build_vertex_extra_problem", "vertex_extra_modules",
-           "make_vertex_extra_solve"]
+           "make_vertex_extra_solve", "make_vertex_fit_ad_solve", "SKINNED_BATCH",
+           "skinned_triangle_recipe", "build_skinned_ik_problem", "skinned_marker_sequence",
+           "GLOVE_FRAMES", "GLOVE_PER_FRAME_FRAMES", "GloveClip", "glove_clip_draws",
+           "quaternion_noise", "glove_character", "glove_relative", "build_glove_clip",
+           "track_glove_sequence", "glove_clip_head", "track_glove_per_frame", "rotation_angle_deg",
+           "glove_figures"]
 
 # 5 full-batch LM iterations + 6 compacted iterations on the worst 128 of 2048
 DEFAULT_REFINE = (5, 6, 128)
@@ -1213,3 +1228,323 @@ def make_vertex_extra_solve(problem: VertexExtraProblem):
                                r_refine=r_refine)
 
     return solve
+
+
+# ---- config 4ad: config 4b's forward-mode A/B (bench_suite.py:370-375) ----
+
+
+def make_vertex_fit_ad_solve(char, ef0):
+    """Config 4b's A/B solve `(targets, x0) -> SolveResult`: solve_ik's GN 6
+    on the whole batch (regularization 1e-5, Σ rows² as the energy) with
+    SkeletonSolverFunction(..., force_ad=True), so the vertex rows'
+    Jacobian comes by forward mode through the skinning (K1's jvp rule)
+    instead of the analytic LBS walk, as bench_suite.py's
+    `shape_pose_vertex_fit_batched_ad`."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction, SolverOptions, solve_ik
+
+    opts = SolverOptions(max_iterations=sum(VERTEX_FIT_REFINE[:2]), regularization=1e-5,
+                         energy_from_residual=True)
+
+    def solve(targets, x0):
+        fn = SkeletonSolverFunction(char, (dataclasses.replace(ef0, target=targets),),
+                                    force_ad=True)
+        return solve_ik(fn, x0, options=opts, method="gauss_newton")
+
+    return solve
+
+
+# ---- config SL: skinned-locator IK ----
+
+SKINNED_BATCH = 2048
+SKINNED_TRIANGLE_ROWS = tuple(range(0, 80, 5))  # 16 of the 80 locators
+SKINNED_CANDIDATES = 4  # sliding: the snapped triangle's nearest centroids
+SKINNED_TRIANGLE_WEIGHT = 0.1
+
+
+def skinned_triangle_recipe(vertices: np.ndarray, faces: np.ndarray, hits) -> dict:
+    """Config SL's triangle constraints from `hits`, one (triangle,
+    barycentric, point, distance) per row of SKINNED_TRIANGLE_ROWS as
+    closest_point_on_mesh_matching_parent gives them on the rest mesh
+    `vertices` (V, 3), `faces` (F, 3): the snapped triangle, its
+    barycentric, depth 0, and the SKINNED_CANDIDATES triangles whose rest
+    centroids are nearest the snapped point (a stable sort) as the sliding
+    candidates."""
+    centroids = vertices.astype(np.float64)[faces].mean(axis=1)
+    tri = np.asarray([h[0] for h in hits])
+    points = np.stack([h[2] for h in hits]).astype(np.float64)
+    d2 = ((centroids[None] - points[:, None]) ** 2).sum(-1)
+    return dict(tri_indices=faces[tri], bary=np.stack([h[1] for h in hits]),
+                candidates=np.argsort(d2, axis=1, kind="stable")[:, :SKINNED_CANDIDATES],
+                weight=SKINNED_TRIANGLE_WEIGHT)
+
+
+def build_skinned_ik_problem(batch: int = SKINNED_BATCH, seed: int = 0,
+                             device="cuda") -> CatalogProblem:
+    """Config SL on `device` (the card unless the caller asks for the CPU),
+    as a CatalogProblem: the full-body rig with its 80 locators turned into
+    skinned locators (locators_to_skinned_locators), `catalog_draws`'
+    truths and warm starts, and three modules: SkinnedLocator on all 80,
+    their targets each element's truth positions; SkinnedLocatorTriangle on
+    the 16 of SKINNED_TRIANGLE_ROWS, sliding over skinned_triangle_recipe's
+    candidates at weight 0.1 (not satisfiable at the truth); the limits."""
+    from momentum_tpu_torch import errors as E
+    from momentum_tpu_torch.math import skel_state as ss
+    from momentum_tpu_torch.testing.fixtures import create_fullbody_character
+    from momentum_tpu_torch.tracking import (
+        closest_point_on_mesh_matching_parent, locators_to_skinned_locators)
+
+    device = resolve(device, "build_skinned_ik_problem")
+    base = create_fullbody_character(device=device)
+    loc = base.locators
+    rows = list(SKINNED_TRIANGLE_ROWS)
+    world = ss.transform_points(base.bind_pose().index_select(0, loc.parent.long()),
+                                loc.offset).cpu().numpy()
+    parents = loc.parent.cpu().numpy()
+    hits = [closest_point_on_mesh_matching_parent(base, world[i], int(parents[i]))
+            for i in rows]
+    char = locators_to_skinned_locators(base)
+    sl = char.skinned_locators
+    if sl.num_locators != loc.num_locators:
+        raise AssertionError("a locator of the full-body rig found no triangle")
+    r = skinned_triangle_recipe(base.mesh.vertices.cpu().numpy(), base.mesh.faces.cpu().numpy(),
+                                hits)
+    truth_np, x0_np = catalog_draws(batch, seed, char.num_model_parameters)
+    truth = torch.as_tensor(truth_np, device=device)
+    sl_np = [t.cpu().numpy() for t in (sl.parents, sl.skin_weights, sl.rest_position)]
+    position = dataclasses.replace(
+        E.SkinnedLocatorErrorFunction.create(*sl_np, np.zeros((sl.num_locators, 3)),
+                                             device=device),
+        target=sl.world_positions(char, char.skeleton_states(truth)))
+    triangle = E.SkinnedLocatorTriangleErrorFunction.create(
+        *(a[rows] for a in sl_np), r["tri_indices"], r["bary"], weight=r["weight"],
+        candidates=r["candidates"], faces=base.mesh.faces.cpu().numpy(), device=device)
+    return CatalogProblem(char=char, modules=(
+        ("skinned_locator", position), ("skinned_locator_triangle", triangle),
+        ("limits", E.LimitErrorFunction.create(device=device))),
+        truth=truth, x0=torch.as_tensor(x0_np, device=device))
+
+
+def skinned_marker_sequence(problem: CatalogProblem, frames: int = 32):
+    """The skinned-locator targets of the first `frames` elements as a
+    MarkerSequence named after the skinned locators, none occluded (the
+    input of get_locator_error's skinned branch)."""
+    from momentum_tpu_torch.tracking import MarkerSequence
+
+    target = problem.modules[0][1].target[:frames]
+    return MarkerSequence(positions=target,
+                          occluded=torch.zeros(target.shape[:2], dtype=torch.bool,
+                                               device=target.device),
+                          names=problem.char.skinned_locators.names)
+
+
+# ---- config G: glove-fused tracking ----
+
+GLOVE_FRAMES = 343  # config 6s's length
+GLOVE_PER_FRAME_FRAMES = 32  # the per-frame stage's cut: it is host-bound
+GLOVE_WRISTS = ("l_arm3", "r_arm3")
+GLOVE_FINGERS = (tuple(f"l_hand{i}" for i in range(7)), tuple(f"r_hand{i}" for i in range(7)))
+# each glove bone's baked offset: translation (m), then Euler XYZ (rad)
+GLOVE_OFFSETS = ((0.03, -0.01, 0.02, 0.1, -0.05, 0.2), (-0.03, 0.01, 0.02, -0.1, 0.05, -0.2))
+GLOVE_MARKER_NOISE = 0.002  # m
+GLOVE_SENSOR_NOISE = 0.002  # m
+GLOVE_SENSOR_ROTATION_NOISE = np.deg2rad(1.0)
+GLOVE_INVALID = 0.05
+GLOVE_INIT_NOISE = 0.02
+
+
+class GloveClip(NamedTuple):
+    """Config G on one device."""
+
+    char: object  # the full-body rig with glove bones and calibration parameters (P = 169)
+    config: object  # GloveConfig
+    markers: object  # MarkerSequence (F, 80, 3)
+    gloves: tuple  # ((GloveSequence, hand), ...), 7 finger joints a hand
+    truth: torch.Tensor  # (F, 169)
+    initial: torch.Tensor  # (F, 169) truth + N(0, GLOVE_INIT_NOISE)
+
+
+def glove_clip_draws(frames: int, seed: int, num_params: int, num_markers: int,
+                     num_fingers: int = 7) -> dict:
+    """Config G's numpy draws, in order: the motion (F, P) (every rotation
+    amp·sin(2πt + phase), amp U(0.05, 0.3) rad, phase U(0, 2π); the root
+    walks x 0 → 2 m, y = 0.02·sin(2πt) m, z = 0; the scale and the glove
+    calibration parameters 0), the marker noise (m) and occlusion, the
+    initial motion's noise, then per hand the sensors' position noise (m),
+    rotation noise (axis-angle, rad) and invalid mask."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, frames)[:, None]
+    amp = rng.uniform(0.05, 0.3, num_params)
+    phase = rng.uniform(0.0, 2 * np.pi, num_params)
+    motion = amp * np.sin(2 * np.pi * t + phase)
+    motion[:, 0] = np.linspace(0.0, 2.0, frames)
+    motion[:, 1] = 0.02 * np.sin(2 * np.pi * t[:, 0])
+    motion[:, 2] = 0.0
+    motion[:, 6] = 0.0
+    motion[:, 157:] = 0.0
+    out = dict(motion=motion.astype(np.float32),
+               marker_noise=rng.normal(0.0, GLOVE_MARKER_NOISE, (frames, num_markers, 3)),
+               occluded=rng.random((frames, num_markers)) < 0.05,
+               init_noise=rng.normal(0.0, GLOVE_INIT_NOISE, (frames, num_params)))
+    for h in range(2):
+        out[f"position_noise{h}"] = rng.normal(0.0, GLOVE_SENSOR_NOISE,
+                                               (frames, num_fingers, 3))
+        out[f"rotation_noise{h}"] = rng.normal(0.0, GLOVE_SENSOR_ROTATION_NOISE,
+                                               (frames, num_fingers, 3))
+        out[f"invalid{h}"] = rng.random((frames, num_fingers)) < GLOVE_INVALID
+    return {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in out.items()}
+
+
+def quaternion_noise(q: np.ndarray, axis_angle: np.ndarray) -> np.ndarray:
+    """q ∘ exp(axis_angle) in numpy float32, (x, y, z, w) order."""
+    aa = axis_angle.astype(np.float64)
+    angle = np.linalg.norm(aa, axis=-1, keepdims=True)
+    axis = aa / np.maximum(angle, 1e-12)
+    r = np.concatenate([axis * np.sin(angle / 2), np.cos(angle / 2)], axis=-1)
+    q = q.astype(np.float64)
+    v1, w1, v2, w2 = q[..., :3], q[..., 3:], r[..., :3], r[..., 3:]
+    out = np.concatenate([w1 * v2 + w2 * v1 + np.cross(v1, v2),
+                          w1 * w2 - np.sum(v1 * v2, axis=-1, keepdims=True)], axis=-1)
+    return out.astype(np.float32)
+
+
+def glove_character(device="cuda"):
+    """(the full-body rig with a glove bone under each of GLOVE_WRISTS at
+    GLOVE_OFFSETS and their 12 calibration parameters, its GloveConfig)."""
+    from momentum_tpu_torch.testing.fixtures import create_fullbody_character
+    from momentum_tpu_torch.tracking.glove_utils import (
+        GloveConfig, GloveOffset, add_glove_bones, add_glove_calibration_parameters)
+
+    cfg = GloveConfig(wrist_joint_names=GLOVE_WRISTS)
+    offsets = tuple(GloveOffset(translation=np.asarray(o[:3], np.float32),
+                                rotation_euler_xyz=np.asarray(o[3:], np.float32))
+                    for o in GLOVE_OFFSETS)
+    base = create_fullbody_character(device=resolve(device, "glove_character"))
+    return add_glove_calibration_parameters(add_glove_bones(base, cfg, offsets), cfg), cfg
+
+
+def glove_relative(char, states: torch.Tensor, hand: int, cfg):
+    """(positions (..., S, 3), orientations (..., S, 4)) of the hand's
+    fingers in its glove bone's frame under global states (..., nJ, 8)."""
+    from momentum_tpu_torch.math import quaternion as quat
+
+    names = char.skeleton.joint_names
+    bone = names.index("glove_" + cfg.wrist_joint_names[hand])
+    fingers = torch.as_tensor([names.index(n) for n in GLOVE_FINGERS[hand]],
+                              device=states.device)
+    ref, src = states[..., bone:bone + 1, :], states.index_select(-2, fingers)
+    q_inv = quat.conjugate(ref[..., 3:7])
+    return (quat.rotate_vector(q_inv, src[..., :3] - ref[..., :3]),
+            quat.multiply(q_inv, src[..., 3:7]))
+
+
+def build_glove_clip(frames: int = GLOVE_FRAMES, seed: int = 0, device="cuda") -> GloveClip:
+    """Config G on `device` (the card unless the caller asks for the CPU):
+    glove_character, glove_clip_draws' motion, the locators' positions by
+    the port's FK plus the noise, the occlusion, and per hand a
+    GloveSequence of its 7 fingers relative to its glove bone with the
+    position and rotation noise and the invalid samples."""
+    from momentum_tpu_torch.tracking import MarkerSequence
+    from momentum_tpu_torch.tracking.glove_utils import GloveSequence
+
+    device = resolve(device, "build_glove_clip")
+    char, cfg = glove_character(device)
+    d = glove_clip_draws(frames, seed, char.num_model_parameters, char.locators.num_locators)
+    truth = torch.as_tensor(d["motion"], device=device)
+    states = char.skeleton_states(truth)
+    markers = MarkerSequence(
+        positions=char.locators.world_positions(states)
+        + torch.as_tensor(d["marker_noise"], device=device),
+        occluded=torch.as_tensor(d["occluded"], device=device), names=char.locators.names)
+    names = char.skeleton.joint_names
+    gloves = []
+    for h in range(2):
+        pos, ori = (t.cpu().numpy() for t in glove_relative(char, states, h, cfg))
+        gloves.append((GloveSequence(
+            joint_index=np.asarray([names.index(n) for n in GLOVE_FINGERS[h]], np.int32),
+            positions=pos + d[f"position_noise{h}"],
+            orientations=quaternion_noise(ori, d[f"rotation_noise{h}"]),
+            valid=~d[f"invalid{h}"]), h))
+    return GloveClip(char=char, config=cfg, markers=markers, gloves=tuple(gloves), truth=truth,
+                     initial=truth + torch.as_tensor(d["init_noise"], device=device))
+
+
+def _glove_tracking_configs():
+    """(the sequence solve's settings, the per-frame stage's): LM with line
+    search, 10 iterations, smoothing 1e-4; per frame LM 15 (config 6s's)."""
+    from momentum_tpu_torch.tracking import TrackingConfig
+
+    lm = "levenberg_marquardt"
+    return (TrackingConfig(max_iter=10, regularization=1e-3, smoothing=1e-4, method=lm),
+            TrackingConfig(max_iter=15, regularization=1e-3, method=lm))
+
+
+def track_glove_sequence(clip: GloveClip):
+    """The whole clip by track_sequence from `clip.initial`, markers and
+    both gloves (one stacked position and orientation module per hand) →
+    TrackingResult."""
+    from momentum_tpu_torch.tracking import track_sequence
+
+    return track_sequence(clip.char, clip.markers, _glove_tracking_configs()[0],
+                          initial=clip.initial, glove_data=clip.gloves,
+                          glove_config=clip.config)[0]
+
+
+def glove_clip_head(clip: GloveClip, frames: int = GLOVE_PER_FRAME_FRAMES) -> GloveClip:
+    """The clip cut to its first `frames` frames."""
+    from momentum_tpu_torch.tracking import MarkerSequence
+    from momentum_tpu_torch.tracking.glove_utils import GloveSequence
+
+    m = clip.markers
+    return clip._replace(
+        markers=MarkerSequence(positions=m.positions[:frames], occluded=m.occluded[:frames],
+                               names=m.names),
+        gloves=tuple((GloveSequence(joint_index=g.joint_index, positions=g.positions[:frames],
+                                    orientations=g.orientations[:frames],
+                                    valid=g.valid[:frames]), h) for g, h in clip.gloves),
+        truth=clip.truth[:frames], initial=clip.initial[:frames])
+
+
+def track_glove_per_frame(clip: GloveClip):
+    """Warm-started per-frame tracking of the clip (LM 15) from its first
+    initial pose, markers and both gloves → TrackingResult."""
+    from momentum_tpu_torch.tracking import track_poses_per_frame
+
+    return track_poses_per_frame(clip.char, clip.markers, _glove_tracking_configs()[1],
+                                 initial=clip.initial[0], glove_data=clip.gloves,
+                                 glove_config=clip.config)
+
+
+def rotation_angle_deg(q: np.ndarray, target: np.ndarray) -> np.ndarray:
+    """The angle (degrees) of the rotation between quaternions q and
+    target (..., 4), from conj(target) ∘ q in float64: 2·atan2(‖v‖, |w|),
+    accurate for the small angles a solve leaves."""
+    t = target.astype(np.float64)
+    q = q.astype(np.float64)
+    tv, tw, qv, qw = -t[..., :3], t[..., 3:], q[..., :3], q[..., 3:]
+    v = tw * qv + qw * tv + np.cross(tv, qv)
+    w = tw[..., 0] * qw[..., 0] - np.sum(tv * qv, axis=-1)
+    return np.rad2deg(2 * np.arctan2(np.linalg.norm(v, axis=-1), np.abs(w)))
+
+
+def glove_figures(clip: GloveClip, motion: torch.Tensor) -> dict:
+    """The median and p90 marker error (mm) over the visible markers, and
+    the median glove residuals over the valid samples: position (mm) and
+    orientation (degrees, the angle between the sensed and the solved
+    relative rotation)."""
+    from momentum_tpu_torch.tracking.tracker import _match_locators
+
+    char, markers = clip.char, clip.markers
+    states = char.skeleton_states(motion)
+    li, mi = _match_locators(char, markers)
+    world = char.locators.world_positions(states).cpu().numpy()
+    pos, occ = markers.positions.cpu().numpy(), markers.occluded.cpu().numpy()
+    err = 1e3 * np.linalg.norm(world[:, li] - pos[:, mi], axis=-1)[~occ[:, mi]]
+    gp, go = [], []
+    for g, h in clip.gloves:
+        p, q = (t.cpu().numpy().astype(np.float64) for t in glove_relative(char, states, h,
+                                                                           clip.config))
+        gp.append(1e3 * np.linalg.norm(p - g.positions, axis=-1)[g.valid])
+        go.append(rotation_angle_deg(q, g.orientations)[g.valid])
+    return dict(median_mm=float(np.median(err)), p90_mm=float(np.percentile(err, 90)),
+                glove_position_median_mm=float(np.median(np.concatenate(gp))),
+                glove_orientation_median_deg=float(np.median(np.concatenate(go))))

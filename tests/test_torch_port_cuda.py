@@ -1064,3 +1064,84 @@ def test_vertex_extra_rows_on_the_card_match_the_cpu():
     for (rk, jk), (rc, jc) in zip(*out):
         torch.testing.assert_close(rk.cpu(), rc, rtol=0, atol=1e-4 * float(rc.abs().max()))
         torch.testing.assert_close(jk.cpu(), jc, rtol=0, atol=1e-4 * float(jc.abs().max()))
+
+
+@pytest.fixture(scope="module")
+def skinned_problems():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return (workloads.build_skinned_ik_problem(64, seed=0, device="cuda"),
+            workloads.build_skinned_ik_problem(64, seed=0, device="cpu"))
+
+
+def test_skinned_ik_on_the_card_matches_the_cpu(skinned_problems):
+    """Config SL at B = 64 (skinned locators, sliding triangles, limits; LM
+    10) on the card, K1 and K2+K3 launched, against the CPU's plain path:
+    the same skinned-locator tables, each module's median final energy
+    within 20% (the IK rule, as chip_smoke.py holds it against JAX CPU's),
+    the elements' total energies at a median relative difference under
+    1e-3."""
+    card, cpu = skinned_problems
+    for a, b in ((card.char.skinned_locators.parents, cpu.char.skinned_locators.parents),
+                 (card.modules[1][1].candidates, cpu.modules[1][1].candidates)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)
+    before = (fk_ops.launches, psd.launches)
+    res_card = workloads.solve_catalog(card)
+    assert fk_ops.launches > before[0] and psd.launches > before[1]
+    res_cpu = workloads.solve_catalog(cpu)
+    e_card = {k: v.cpu().numpy() for k, v in workloads.catalog_energies(
+        card, res_card.params).items()}
+    e_cpu = {k: v.numpy() for k, v in workloads.catalog_energies(cpu, res_cpu.params).items()}
+    floor = 1e-8 * float(np.median(e_cpu["total"]))
+    for k in e_cpu:
+        a, b = float(np.median(e_card[k])), float(np.median(e_cpu[k]))
+        assert abs(a - b) <= 0.2 * b + floor, (k, a, b)
+    rel = np.abs(e_card["total"] - e_cpu["total"]) / e_cpu["total"]
+    assert float(np.median(rel)) <= 1e-3
+    assert bool(torch.isfinite(res_card.params).all())
+
+
+def test_skinned_locator_rows_through_k1_match_plain(skinned_problems):
+    """The forward-mode Jacobian of config SL's two skinned-locator modules
+    (the posed mesh's tangents included) at B = 16, FK's primal through K1,
+    against the same with FK on the plain version."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+    from momentum_tpu_torch.solver.gauss_newton import ad_jacobian
+
+    card, _ = skinned_problems
+    position, triangle = (ef for _, ef in card.modules[:2])
+    fn = SkeletonSolverFunction(card.char, (dataclasses.replace(
+        position, target=position.target[:16]), triangle))
+    x = card.x0[:16].contiguous()
+    before = fk_ops.launches
+    rows, jt = ad_jacobian(fn.residual, x)
+    assert fk_ops.launches > before
+    real = fk_ops._fk_global_kernel
+    fk_ops._fk_global_kernel = fk_ops.fk_global_plain
+    try:
+        rows_p, jt_p = ad_jacobian(fn.residual, x)
+    finally:
+        fk_ops._fk_global_kernel = real
+    torch.testing.assert_close(rows, rows_p, rtol=0, atol=1e-5 * float(rows_p.abs().max()))
+    torch.testing.assert_close(jt, jt_p, rtol=0, atol=1e-5 * float(jt_p.abs().max()))
+
+
+def test_glove_sequence_on_the_card_matches_the_cpu():
+    """Config G's track_sequence on a 130-frame clip (SPIKE's steps on the
+    card) against the CPU's: the final error within 1e-2 relative and the
+    marker and glove medians within 2%, as chip_smoke.py holds the card
+    against JAX CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    out = []
+    for device in ("cuda", "cpu"):
+        clip = workloads.build_glove_clip(130, device=device)
+        before = (fk_ops.launches, psd.launches)
+        res = workloads.track_glove_sequence(clip)
+        if device == "cuda":
+            assert fk_ops.launches > before[0] and psd.launches > before[1]
+        out.append(dict(error=float(res.errors[0]), **workloads.glove_figures(clip, res.motion)))
+    card, cpu = out
+    assert abs(card["error"] - cpu["error"]) <= 1e-2 * cpu["error"]
+    for k in ("median_mm", "glove_position_median_mm", "glove_orientation_median_deg"):
+        assert abs(card[k] - cpu[k]) <= 0.02 * cpu[k], (k, card, cpu)

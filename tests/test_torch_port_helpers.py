@@ -22,9 +22,11 @@ COLLISION_KEYS = ("parent", "transform", "radius", "length", "ptype", "ellipsoid
                   "box_half_extents")
 
 
-def character_to_numpy(char) -> dict:
+def character_to_numpy(char, names: bool = False) -> dict:
     """The arrays of a Character (JAX or port) that bridge.character_from_numpy
-    reads, as numpy: every limit table, and the collision geometry's."""
+    reads, as numpy: every limit table, the collision geometry's and the
+    skinned locators' (with their names and parameter index); with `names`,
+    the joints', parameters' and locators' names too."""
     d = dict(
         joint_parent=char.skeleton.joint_parent,
         pre_rotation=char.skeleton.pre_rotation,
@@ -56,7 +58,21 @@ def character_to_numpy(char) -> dict:
         if basis is not None:
             d.update({f"{prefix}_base": basis.base_shape, f"{prefix}_vectors": basis.shape_vectors,
                       f"{prefix}_param_index": np.asarray(index, np.int64)})
+    sl = char.skinned_locators
+    if sl is not None:
+        d.update(skinned_locator_parents=sl.parents, skinned_locator_skin_weights=sl.skin_weights,
+                 skinned_locator_rest_position=sl.rest_position)
+    if char.skinned_locator_param_index is not None:
+        d.update(skinned_locator_param_index=np.asarray(char.skinned_locator_param_index,
+                                                        np.int64))
     out = {k: to_numpy(v) for k, v in d.items()}
+    if sl is not None:
+        out["skinned_locator_names"] = list(sl.names)
+    if names:
+        out["joint_names"] = list(char.skeleton.joint_names)
+        out["parameter_names"] = list(char.parameter_transform.names)
+        if char.locators is not None:
+            out["locator_names"] = list(char.locators.names)
     if char.mesh is not None and char.mesh.lines:
         out["mesh_lines"] = [to_numpy(line) for line in char.mesh.lines]
     return out

@@ -58,6 +58,8 @@ def test_port_imports_no_jax():
         "       'momentum_tpu_torch.math.geometry'}\n"
         "new |= {'momentum_tpu_torch.solver.diff_ik', 'momentum_tpu_torch.solver.solvers',\n"
         "        'momentum_tpu_torch.torch_interop'}\n"
+        "new |= {'momentum_tpu_torch.errors.skinned_locator', 'momentum_tpu_torch.math.euler',\n"
+        "        'momentum_tpu_torch.tracking.glove_utils'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "assert len(names) >= 30, names\n"
         "print('ok', len(names))\n")
@@ -121,6 +123,9 @@ def test_cpu_fullstack_launches_no_kernel():
     ("catalog_character", ()),
     ("build_diff_ik_problem", (4,)),
     ("build_vertex_extra_problem", (4,)),
+    ("build_skinned_ik_problem", (4,)),
+    ("build_glove_clip", (4,)),
+    ("glove_character", ()),
 ])
 def test_workloads_default_to_the_card(monkeypatch, entry, args):
     """The workload entry points build on the card unless the caller asks for
@@ -258,6 +263,12 @@ _CONSTRUCTORS = {
         lambda **kw: E.CameraVertexProjectionErrorFunction.create(
             Camera.create(PinholeIntrinsics.create(50.0, 50.0, 16.0, 16.0, device="cpu")),
             [0], np.zeros((1, 2)), **kw),
+    "SkinnedLocatorErrorFunction.create": lambda **kw: E.SkinnedLocatorErrorFunction.create(
+        [[0, 1]], [[0.5, 0.5]], np.zeros((1, 3)), np.zeros((1, 3)), **kw),
+    "SkinnedLocatorTriangleErrorFunction.create":
+        lambda **kw: E.SkinnedLocatorTriangleErrorFunction.create(
+            [[0, 1]], [[0.5, 0.5]], np.zeros((1, 3)), [[0, 1, 2]], [[0.2, 0.3, 0.5]],
+            candidates=[[0, 1]], faces=np.asarray([[0, 1, 2], [1, 2, 3]]), **kw),
     "create_minmax": lambda **kw: L.create_minmax(0, -0.1, 0.1, **kw),
     "create_minmax_joint": lambda **kw: L.create_minmax_joint(0, 3, -0.1, 0.1, **kw),
     "create_linear": lambda **kw: L.create_linear(1, 2, 0.5, 0.0, **kw),

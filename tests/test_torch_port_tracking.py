@@ -707,16 +707,34 @@ def test_track_sequence_collision_term_matches_jax():
 
 
 def test_keypoints_and_gloves_raise(rigs):
-    """The glove path waits for glove_utils.py (M7); the keypoint path, once
-    refused here, runs: per-frame tracking and the sequence solve with
-    keypoints give finite motions."""
+    """The glove and keypoint paths, both once refused here, run: per-frame
+    tracking and the sequence solve with a glove on the 4-joint rig (its
+    bone under joint 2, sensors on joint 3) and with keypoints give finite
+    motions."""
+    from momentum_tpu_torch.math import skel_state as tss
+    from momentum_tpu_torch.tracking.glove_utils import (
+        GloveConfig, GloveSequence, create_glove_character)
+
     jchar, tchar = rigs
     thetas, _, tm = _markers(jchar, 2)
     _, tk = _keypoints(jchar, thetas)
-    with pytest.raises(NotImplementedError, match="M7"):
-        tt.track_poses_per_frame(tchar, tm, glove_data=(object(),))
-    with pytest.raises(NotImplementedError, match="M7"):
-        tt.track_sequence(tchar, tm, glove_data=(object(),))
+    gcfg = GloveConfig(wrist_joint_names=("joint2", "joint1"))
+    gchar = create_glove_character(tchar, gcfg)
+    assert gchar.num_joints == tchar.num_joints + 2
+    x = torch.zeros(gchar.num_model_parameters)
+    states = gchar.skeleton_states(x)
+    bone = gchar.skeleton.joint_names.index("glove_joint2")
+    rel = tss.multiply(tss.inverse(states[bone]), states[3])
+    glove = GloveSequence(joint_index=np.asarray([3], np.int32),
+                          positions=np.tile(rel[:3].numpy(), (2, 1, 1)),
+                          orientations=np.tile(rel[3:7].numpy(), (2, 1, 1)),
+                          valid=np.ones((2, 1), bool))
+    gcfg_track = tt.TrackingConfig(max_iter=5)
+    res = tt.track_poses_per_frame(gchar, tm, gcfg_track, glove_data=((glove, 0),),
+                                   glove_config=gcfg)
+    seq, _ = tt.track_sequence(gchar, tm, gcfg_track, glove_data=((glove, 0),),
+                               glove_config=gcfg)
+    assert bool(torch.isfinite(res.motion).all()) and bool(torch.isfinite(seq.motion).all())
     cfg = tt.TrackingConfig(max_iter=5, projection_weight=KP_WEIGHT)
     res = tt.track_poses_per_frame(tchar, tm, cfg, camera_keypoints=tk)
     assert bool(torch.isfinite(res.motion).all())

@@ -50,11 +50,27 @@ momentum_tpu_torch/testing/workloads.py:
     worst B/4, each module's median final energy on the first 64 elements
     and on all, the divergent count.
 
-    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k,diffik,variants,4x]
+  * config 4ad, config 4b solved with the forward-mode Jacobian
+    (force_ad, bench_suite.py:370-375): GN 6 on the whole batch,
+    median_param_sq_err and the divergent count;
+  * config SL, skinned-locator IK (the recipe of
+    workloads.py::build_skinned_ik_problem), each element one vmapped solve:
+    each module's median energy after LM 10, conv_at_1e5, the divergent
+    count at --skinned-batch, get_locator_error of the first 32 solves, and
+    the skinned-locator tables;
+  * config G, glove-fused tracking (the recipe of
+    workloads.py::build_glove_clip): track_sequence over --tracking-frames
+    frames with the gloves split per joint (ROADMAP F21), per-frame tracking
+    of the first 32; the final error, the marker errors (mm) and the glove
+    residuals.
+
+    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k,diffik,variants,4x,4ad,skinned,glove]
         [--frames 1024] [--out-6s tools/jax_reference_6s.json]
         [--out-catalog tools/jax_reference_catalog.json] [--out-6k tools/jax_reference_6k.json]
         [--out-diffik tools/jax_reference_diffik.json] [--out-variants tools/jax_reference_variants.json]
-        [--out-4x tools/jax_reference_4x.json]
+        [--out-4x tools/jax_reference_4x.json] [--out-4ad tools/jax_reference_4ad.json]
+        [--skinned-batch 256] [--out-skinned tools/jax_reference_skinned.json]
+        [--out-glove tools/jax_reference_glove.json]
 
 Runs the JAX package on the CPU only (no part of momentum_tpu_torch); prints
 one JSON line per figure.
@@ -825,7 +841,322 @@ def config4x(batch, held=64):
                 divergent=int(np.sum(~np.isfinite(total))), seconds=time.perf_counter() - t0)
 
 
-CONFIGS = ("2", "2b", "4", "5", "5f", "6s", "catalog", "6k", "diffik", "variants", "4x")
+# ---- config 4ad: config 4b's forward-mode A/B (bench_suite.py:370-375) ----
+
+
+def config4ad(batch, chunk=32):
+    """Config 4b's problem (seed 1) solved by solve_ik's GN 6 on the whole
+    batch with SkeletonSolverFunction(..., force_ad=True), bench_suite.py's
+    A/B: median_param_sq_err and the divergent count. The batch goes through
+    in chunks of `chunk` elements (GN freezes each element once it
+    converges, so a chunk's results are the whole batch's): the forward-mode
+    Jacobian through the skinning would hold ~10 GB at once on the CPU."""
+    from momentum_tpu.character.blend_shape import BlendShape
+    from momentum_tpu.character.utility import add_blend_shape_parameters
+    from momentum_tpu.errors.vertex import VertexPositionErrorFunction
+    from momentum_tpu.solver import SkeletonSolverFunction, SolverOptions
+    from momentum_tpu.solver.ik import solve_ik
+    from momentum_tpu.testing.fixtures import create_fullbody_character
+
+    char = create_fullbody_character()
+    rng = np.random.default_rng(0)
+    v, k = char.mesh.num_vertices, 8
+    char = add_blend_shape_parameters(char, BlendShape(
+        base_shape=char.mesh.vertices,
+        shape_vectors=jnp.asarray(rng.normal(0, 0.01, (k, v, 3)).astype(np.float32))))
+    p = char.num_model_parameters
+    rng.uniform(-0.2, 0.2, p - k), rng.uniform(-1, 1, k)  # config 4's frame draws
+    vid = np.arange(0, v, max(v // 256, 1), dtype=np.int32)
+    ef0 = VertexPositionErrorFunction.create(vid, np.zeros((len(vid), 3)))
+    fn0 = SkeletonSolverFunction(char, (ef0,))
+    rng_b = np.random.default_rng(1)
+    gt_b = jnp.asarray(np.concatenate([rng_b.uniform(-0.2, 0.2, (batch, p - k)),
+                                       rng_b.uniform(-1, 1, (batch, k))], axis=-1), jnp.float32)
+    x0_b = gt_b + 0.05 * jnp.asarray(rng_b.normal(0, 1, (batch, p)), jnp.float32)
+    targets = jnp.take(jax.jit(jax.vmap(lambda g: fn0.context(g).mesh_vertices))(gt_b),
+                       jnp.asarray(vid), axis=-2)
+    opts = SolverOptions(max_iterations=6, regularization=1e-5, energy_from_residual=True)
+    solve = jax.jit(lambda tg, x: solve_ik(
+        SkeletonSolverFunction(char, (dataclasses.replace(ef0, target=tg),), force_ad=True),
+        x, None, opts, method="gauss_newton").params)
+    t0 = time.perf_counter()
+    params = jnp.concatenate([solve(targets[i:i + chunk], x0_b[i:i + chunk])
+                              for i in range(0, batch, chunk)])
+    sq = np.asarray(jnp.sum((params - gt_b) ** 2, axis=-1))
+    return dict(config="4ad", batch=batch, median_param_sq_err=float(np.median(sq)),
+                divergent=int(np.sum(~np.isfinite(sq))), seconds=time.perf_counter() - t0)
+
+
+# ---- config SL: skinned-locator IK ----
+
+SKINNED_TRIANGLE_ROWS = tuple(range(0, 80, 5))
+SKINNED_CANDIDATES = 4
+SKINNED_TRIANGLE_WEIGHT = 0.1
+
+
+def skinned_triangle_recipe(vertices, faces, hits):
+    """workloads.py::skinned_triangle_recipe, the same numbers."""
+    centroids = vertices.astype(np.float64)[faces].mean(axis=1)
+    tri = np.asarray([h[0] for h in hits])
+    points = np.stack([h[2] for h in hits]).astype(np.float64)
+    d2 = ((centroids[None] - points[:, None]) ** 2).sum(-1)
+    return dict(tri_indices=faces[tri], bary=np.stack([h[1] for h in hits]),
+                candidates=np.argsort(d2, axis=1, kind="stable")[:, :SKINNED_CANDIDATES],
+                weight=SKINNED_TRIANGLE_WEIGHT)
+
+
+def skinned_problem(batch, seed=0):
+    """(character, (position module, triangle module, limits), truth, x0,
+    targets (B, 80, 3), the recipe) of config SL, as
+    workloads.py::build_skinned_ik_problem builds it."""
+    from momentum_tpu import errors as E
+    from momentum_tpu.math import skel_state as ss
+    from momentum_tpu.testing.fixtures import create_fullbody_character
+    from momentum_tpu.tracking.tracker_utils import (
+        closest_point_on_mesh_matching_parent, locators_to_skinned_locators)
+
+    base = create_fullbody_character()
+    loc = base.locators
+    rows = list(SKINNED_TRIANGLE_ROWS)
+    world = np.asarray(ss.transform_points(jnp.take(base.bind_pose(), loc.parent, axis=0),
+                                           loc.offset))
+    parents = np.asarray(loc.parent)
+    hits = [closest_point_on_mesh_matching_parent(base, world[i], int(parents[i]))
+            for i in rows]
+    char = locators_to_skinned_locators(base)
+    sl = char.skinned_locators
+    faces = np.asarray(base.mesh.faces)
+    r = skinned_triangle_recipe(np.asarray(base.mesh.vertices), faces, hits)
+    truth, x0 = catalog_draws(batch, seed, char.num_model_parameters)
+    states = jax.jit(jax.vmap(char.skeleton_states))(jnp.asarray(truth))
+    targets = jax.jit(jax.vmap(lambda st: sl.world_positions(char, st)))(states)
+    sl_np = [np.asarray(a) for a in (sl.parents, sl.skin_weights, sl.rest_position)]
+    position = E.SkinnedLocatorErrorFunction.create(*sl_np, np.zeros((sl.num_locators, 3)))
+    triangle = E.SkinnedLocatorTriangleErrorFunction.create(
+        *(a[rows] for a in sl_np), r["tri_indices"], r["bary"], weight=r["weight"],
+        candidates=r["candidates"], faces=faces)
+    return (char, (position, triangle, E.LimitErrorFunction.create()), truth, x0, targets, r)
+
+
+def skinned(batch, seed=0, iterations=10, more=20, chunk=32, frames=32):
+    """Config SL at B = `batch`: solve_ik's LM (regularization 1e-5) for
+    `iterations` iterations, then `more` from its result, each element one
+    vmapped solve, `chunk` elements a call (the forward-mode Jacobian through
+    the skinning holds ~1 GB for 32); per module the median final energy,
+    conv_at_1e5 and the divergent count; get_locator_error of the first
+    `frames` elements' solves against their targets; the skinned-locator
+    tables and the triangle recipe."""
+    from momentum_tpu.solver import SkeletonSolverFunction, SolverOptions
+    from momentum_tpu.solver.ik import solve_ik
+    from momentum_tpu.tracking import MarkerSequence, get_locator_error
+
+    char, (position, triangle, limits), truth, x0, targets, r = skinned_problem(batch, seed)
+    labels = ("skinned_locator", "skinned_locator_triangle", "limits")
+
+    def one(tgt, x):
+        efs = (dataclasses.replace(position, target=tgt), triangle, limits)
+        fn = SkeletonSolverFunction(char, efs)
+        opts = SolverOptions(max_iterations=iterations, regularization=1e-5)
+        res = solve_ik(fn, x, None, opts, method="levenberg_marquardt")
+        res2 = solve_ik(fn, res.params, None, dataclasses.replace(opts, max_iterations=more),
+                        method="levenberg_marquardt")
+        ctx = fn.context(res.params)
+        return res.params, jnp.stack([ef.error(char, ctx) for ef in efs]), fn.error(res2.params)
+
+    t0 = time.perf_counter()
+    run = jax.jit(jax.vmap(one))
+    outs = [run(targets[i:i + chunk], jnp.asarray(x0[i:i + chunk]))
+            for i in range(0, batch, chunk)]
+    params, per, longer = (np.concatenate([np.asarray(o[j]) for o in outs]) for j in range(3))
+    per, longer = per.astype(np.float64), longer.astype(np.float64)
+    total = per.sum(axis=1)
+    finite = np.isfinite(total)
+    med = {lab: float(np.median(per[:, i])) for i, lab in enumerate(labels)}
+    med["total"] = float(np.median(total))
+    ms = MarkerSequence(positions=targets[:frames],
+                        occluded=jnp.zeros((frames, targets.shape[1]), bool),
+                        names=char.skinned_locators.names)
+    avg, mx = get_locator_error(char, ms, jnp.asarray(params[:frames]))
+    sl = char.skinned_locators
+    return dict(config="skinned", batch=batch, iterations=iterations, more=more,
+                median_energy=med, conv_at_1e5=float(np.mean(finite & (total - longer <= 1e-5))),
+                divergent=int(np.sum(~finite)), locator_error=dict(frames=frames, average=avg,
+                                                                    max=mx),
+                tables=dict(parents=np.asarray(sl.parents).tolist(),
+                            skin_weights=np.asarray(sl.skin_weights).tolist(),
+                            rest_position=np.asarray(sl.rest_position).tolist(),
+                            names=list(sl.names), tri_indices=r["tri_indices"].tolist(),
+                            candidates=r["candidates"].tolist()),
+                seconds=time.perf_counter() - t0)
+
+
+# ---- config G: glove-fused tracking ----
+
+GLOVE_WRISTS = ("l_arm3", "r_arm3")
+GLOVE_FINGERS = (tuple(f"l_hand{i}" for i in range(7)), tuple(f"r_hand{i}" for i in range(7)))
+GLOVE_OFFSETS = ((0.03, -0.01, 0.02, 0.1, -0.05, 0.2), (-0.03, 0.01, 0.02, -0.1, 0.05, -0.2))
+
+
+def glove_clip_draws(frames, seed, num_params, num_markers, num_fingers=7):
+    """workloads.py::glove_clip_draws, the same numpy draws in the same order."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, frames)[:, None]
+    amp = rng.uniform(0.05, 0.3, num_params)
+    phase = rng.uniform(0.0, 2 * np.pi, num_params)
+    motion = amp * np.sin(2 * np.pi * t + phase)
+    motion[:, 0] = np.linspace(0.0, 2.0, frames)
+    motion[:, 1] = 0.02 * np.sin(2 * np.pi * t[:, 0])
+    motion[:, 2] = 0.0
+    motion[:, 6] = 0.0
+    motion[:, 157:] = 0.0
+    out = dict(motion=motion.astype(np.float32),
+               marker_noise=rng.normal(0.0, 0.002, (frames, num_markers, 3)),
+               occluded=rng.random((frames, num_markers)) < 0.05,
+               init_noise=rng.normal(0.0, 0.02, (frames, num_params)))
+    for h in range(2):
+        out[f"position_noise{h}"] = rng.normal(0.0, 0.002, (frames, num_fingers, 3))
+        out[f"rotation_noise{h}"] = rng.normal(0.0, np.deg2rad(1.0), (frames, num_fingers, 3))
+        out[f"invalid{h}"] = rng.random((frames, num_fingers)) < 0.05
+    return {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in out.items()}
+
+
+def quaternion_noise(q, axis_angle):
+    """workloads.py::quaternion_noise: q ∘ exp(axis_angle) in numpy."""
+    aa = axis_angle.astype(np.float64)
+    angle = np.linalg.norm(aa, axis=-1, keepdims=True)
+    axis = aa / np.maximum(angle, 1e-12)
+    r = np.concatenate([axis * np.sin(angle / 2), np.cos(angle / 2)], axis=-1)
+    q = q.astype(np.float64)
+    v1, w1, v2, w2 = q[..., :3], q[..., 3:], r[..., :3], r[..., 3:]
+    out = np.concatenate([w1 * v2 + w2 * v1 + np.cross(v1, v2),
+                          w1 * w2 - np.sum(v1 * v2, axis=-1, keepdims=True)], axis=-1)
+    return out.astype(np.float32)
+
+
+def glove_clip(frames, seed=0):
+    """(character, GloveConfig, MarkerSequence, ((GloveSequence, hand), ...),
+    initial motion) of config G, as workloads.py::build_glove_clip builds
+    them, the markers and glove samples by JAX's FK."""
+    from momentum_tpu.math import quaternion as quat
+    from momentum_tpu.testing.fixtures import create_fullbody_character
+    from momentum_tpu.tracking import MarkerSequence
+    from momentum_tpu.tracking.glove_utils import (
+        GloveConfig, GloveOffset, GloveSequence, add_glove_bones,
+        add_glove_calibration_parameters)
+
+    cfg = GloveConfig(wrist_joint_names=GLOVE_WRISTS)
+    offsets = tuple(GloveOffset(translation=np.asarray(o[:3], np.float32),
+                                rotation_euler_xyz=np.asarray(o[3:], np.float32))
+                    for o in GLOVE_OFFSETS)
+    char = add_glove_calibration_parameters(
+        add_glove_bones(create_fullbody_character(), cfg, offsets), cfg)
+    d = glove_clip_draws(frames, seed, char.num_model_parameters, char.locators.num_locators)
+    states = jax.jit(jax.vmap(char.skeleton_states))(jnp.asarray(d["motion"]))
+    markers = MarkerSequence(
+        positions=jax.vmap(char.locators.world_positions)(states) + jnp.asarray(d["marker_noise"]),
+        occluded=jnp.asarray(d["occluded"]), names=tuple(char.locators.names))
+    names = char.skeleton.joint_names
+    gloves = []
+    for h in range(2):
+        bone = names.index("glove_" + GLOVE_WRISTS[h])
+        ji = np.asarray([names.index(n) for n in GLOVE_FINGERS[h]], np.int32)
+        ref, src = states[:, bone:bone + 1], states[:, ji]
+        q_inv = quat.conjugate(ref[..., 3:7])
+        pos = np.asarray(quat.rotate_vector(q_inv, src[..., :3] - ref[..., :3]))
+        ori = np.asarray(quat.multiply(q_inv, src[..., 3:7]))
+        gloves.append((GloveSequence(joint_index=ji, positions=pos + d[f"position_noise{h}"],
+                                     orientations=quaternion_noise(ori, d[f"rotation_noise{h}"]),
+                                     valid=~d[f"invalid{h}"]), h))
+    return char, cfg, markers, tuple(gloves), jnp.asarray(d["motion"] + d["init_noise"])
+
+
+def split_gloves(gloves):
+    """One (GloveSequence, hand) per finger joint: JAX's track_sequence
+    holds only one orientation constraint per module at P ≥ 64 (ROADMAP
+    F21); the energy is the same sum."""
+    from momentum_tpu.tracking.glove_utils import GloveSequence
+
+    return tuple((GloveSequence(joint_index=g.joint_index[s:s + 1],
+                                positions=g.positions[:, s:s + 1],
+                                orientations=g.orientations[:, s:s + 1],
+                                valid=g.valid[:, s:s + 1]), h)
+                 for g, h in gloves for s in range(len(g.joint_index)))
+
+
+def rotation_angle_deg(q, target):
+    """workloads.py::rotation_angle_deg: the angle (degrees) between
+    quaternions q and target, from conj(target) ∘ q in float64."""
+    t = target.astype(np.float64)
+    q = q.astype(np.float64)
+    tv, tw, qv, qw = -t[..., :3], t[..., 3:], q[..., :3], q[..., 3:]
+    v = tw * qv + qw * tv + np.cross(tv, qv)
+    w = tw[..., 0] * qw[..., 0] - np.sum(tv * qv, axis=-1)
+    return np.rad2deg(2 * np.arctan2(np.linalg.norm(v, axis=-1), np.abs(w)))
+
+
+def glove_figures(char, markers, gloves, motion):
+    """workloads.py::glove_figures on JAX's FK."""
+    from momentum_tpu.math import quaternion as quat
+    from momentum_tpu.tracking.tracker import _match_locators
+
+    states = jax.jit(jax.vmap(char.skeleton_states))(jnp.asarray(motion))
+    li, mi = _match_locators(char, markers)
+    world = np.asarray(jax.vmap(char.locators.world_positions)(states))
+    pos, occ = np.asarray(markers.positions), np.asarray(markers.occluded)
+    err = 1e3 * np.linalg.norm(world[:, li] - pos[:, mi], axis=-1)[~occ[:, mi]]
+    names = char.skeleton.joint_names
+    gp, go = [], []
+    for g, h in gloves:
+        bone = names.index("glove_" + GLOVE_WRISTS[h])
+        ref, src = states[:, bone:bone + 1], states[:, np.asarray(g.joint_index)]
+        q_inv = quat.conjugate(ref[..., 3:7])
+        p = np.asarray(quat.rotate_vector(q_inv, src[..., :3] - ref[..., :3]), np.float64)
+        q = np.asarray(quat.multiply(q_inv, src[..., 3:7]), np.float64)
+        gp.append(1e3 * np.linalg.norm(p - g.positions, axis=-1)[g.valid])
+        go.append(rotation_angle_deg(q, g.orientations)[g.valid])
+    return dict(median_mm=float(np.median(err)), p90_mm=float(np.percentile(err, 90)),
+                glove_position_median_mm=float(np.median(np.concatenate(gp))),
+                glove_orientation_median_deg=float(np.median(np.concatenate(go))))
+
+
+def glove(frames, seed=0, per_frame=32):
+    """Config G: track_sequence over all `frames` frames (LM 10 with line
+    search, smoothing 1e-4, from the initial motion; the gloves split per
+    joint, ROADMAP F21) and per-frame tracking (LM 15) of the first
+    `per_frame` frames from the first initial pose, both gloves one module a
+    hand: the final error, the marker and glove figures, the per-frame
+    median energy."""
+    from momentum_tpu.tracking import (
+        MarkerSequence, TrackingConfig, track_poses_per_frame, track_sequence)
+    from momentum_tpu.tracking.glove_utils import GloveSequence
+
+    char, cfg, markers, gloves, initial = glove_clip(frames, seed)
+    lm = "levenberg_marquardt"
+    t0 = time.perf_counter()
+    res, _ = track_sequence(char, markers, TrackingConfig(
+        max_iter=10, regularization=1e-3, smoothing=1e-4, method=lm), initial=initial,
+        glove_data=split_gloves(gloves), glove_config=cfg)
+    out = dict(config="glove", frames=frames, sequence=dict(
+        error=float(res.errors[0]), **glove_figures(char, markers, gloves, res.motion)),
+        sequence_s=time.perf_counter() - t0)
+    head = MarkerSequence(positions=markers.positions[:per_frame],
+                          occluded=markers.occluded[:per_frame], names=markers.names)
+    head_gloves = tuple((GloveSequence(joint_index=g.joint_index,
+                                       positions=g.positions[:per_frame],
+                                       orientations=g.orientations[:per_frame],
+                                       valid=g.valid[:per_frame]), h) for g, h in gloves)
+    t0 = time.perf_counter()
+    pf = track_poses_per_frame(char, head, TrackingConfig(
+        max_iter=15, regularization=1e-3, method=lm), initial=initial[0],
+        glove_data=head_gloves, glove_config=cfg)
+    out["per_frame"] = dict(frames=per_frame, median_energy=float(np.median(np.asarray(
+        pf.errors))), **glove_figures(char, head, head_gloves, pf.motion))
+    out["per_frame_s"] = time.perf_counter() - t0
+    return out
+
+
+CONFIGS = ("2", "2b", "4", "5", "5f", "6s", "catalog", "6k", "diffik", "variants", "4x",
+           "4ad", "skinned", "glove")
 
 
 def main():
@@ -862,6 +1193,12 @@ def main():
     ap.add_argument("--out-4x", default=None,
                     help="write config 4x's figures to this JSON file "
                          "(chip_smoke.py reads tools/jax_reference_4x.json)")
+    ap.add_argument("--skinned-batch", type=int, default=256,
+                    help="config SL's batch (the smoke holds the port's first 256 elements)")
+    for name in ("4ad", "skinned", "glove"):
+        ap.add_argument(f"--out-{name}", default=None,
+                        help=f"write config {name}'s figures to this JSON file (chip_smoke.py "
+                             f"reads tools/jax_reference_{name}.json)")
     args = ap.parse_args()
     args.configs = [c for arg in args.configs for c in arg.split(",") if c]
     if not set(args.configs) <= set(CONFIGS):
@@ -892,6 +1229,12 @@ def main():
         figures.append(variants(args.diffik_batch))
     if "4x" in args.configs:
         figures.append(config4x(args.batch))
+    if "4ad" in args.configs:
+        figures.append(config4ad(args.batch))
+    if "skinned" in args.configs:
+        figures.append(skinned(args.skinned_batch))
+    if "glove" in args.configs:
+        figures.append(glove(args.tracking_frames))
     for fig in figures:
         if fig.get("config") == "6s":
             motion = fig.pop("per_frame_motion")
@@ -902,7 +1245,8 @@ def main():
             fig = {k: v for k, v in fig.items() if k not in ("identity", "locator_offsets")}
         for name, out in (("catalog", args.out_catalog), ("6k", args.out_6k),
                           ("diffik", args.out_diffik), ("variants", args.out_variants),
-                          ("4x", args.out_4x)):
+                          ("4x", args.out_4x), ("4ad", args.out_4ad),
+                          ("skinned", args.out_skinned), ("glove", args.out_glove)):
             if fig.get("config") == name and out:
                 with open(out, "w") as f:
                     json.dump(dict(fig, device="jax cpu"), f, indent=1)
