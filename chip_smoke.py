@@ -93,7 +93,17 @@ then drives the port's paths through those kernels and checks their output:
     B = 343, K2+K3 on a SPIKE step and a per-frame step;
   * config 4ad, config 4b by the forward-mode Jacobian (bench_suite.py's
     force_ad A/B): solves/s, speedup_analytic, median_param_sq_err against
-    JAX CPU's.
+    JAX CPU's;
+  * config 7p, the pymomentum renderer's scene on config 7's clip at
+    640 × 480: the offline viewer (render_motion with the checkerboard
+    ground and the skeleton overlay: K1 once, K4b a frame) and its GIF,
+    decoded again, and the Phong scene (render_mesh_phong 2× supersampled,
+    K4b at 1280 × 960 over back faces culled to (0, 0, 0); the skeleton's
+    cylinders, K4b; an 80-face sphere, K4a; the locators as dense dots; a
+    label): frames/s of each, frames 0-1's coverage and mean colour against
+    JAX CPU's and against the CPU's render; the three passes held against
+    the plain version; the dense and windowed rasterizers on the card
+    against the CPU's, and the three methods' face maps, ties aside.
 
     python3 chip_smoke.py
 
@@ -287,6 +297,10 @@ GLOVE_BAKE_TOL = 1e-6
 # against JAX CPU's same route (python tools/jax_reference.py --configs 4ad
 # --out-4ad tools/jax_reference_4ad.json): median_param_sq_err within 2×, no
 # divergent element
+SCENE_JAX_CPU_FILE = "tools/jax_reference_7p.json"
+SCENE_FIGURE_RTOL = 0.02  # coverage and mean colour against JAX CPU's planes figures
+SCENE_HELD_FRAMES = (0, 1)  # the frames JAX CPU rendered, and the CPU re-render's
+SCENE_METHOD_AGREEMENT = 0.999  # dense, windowed and planes face maps on the covered pixels
 VERTEX_AD_JAX_CPU_FILE = "tools/jax_reference_4ad.json"
 VERTEX_AD_FACTOR = 2.0
 VERTEX_AD_ROWS_BATCH = 64
@@ -2034,10 +2048,7 @@ def phase_raster(char, cam, motion):
     small-mesh render (the first 120 faces, frame 0: camera and shadow
     passes, unbinned at th = 4), and on frame 0's 612-face camera pass with
     cull=False."""
-    from momentum_tpu_torch.ops import raster
     from momentum_tpu_torch.rasterizer import render
-    from momentum_tpu_torch.testing.profile_workload import (
-        event_ms, kernel_device_ms)
 
     meshes = {"clip": char.mesh.faces, "small": char.mesh.faces[:SMALL_MESH_FACES].contiguous()}
     inputs = {(mesh, frame): render.shadowed_passes(cam, _frame_vertices(char, motion, frame),
@@ -2055,58 +2066,68 @@ def phase_raster(char, cam, motion):
               dict(bin_capacity=8))]
     numbers = {}
     for label, kernel, mesh, frame, pass_, extra in cases:
-        faces = meshes[mesh]
         sv, w, h, kw = inputs[mesh, frame][pass_]
-        kw = dict(kw, **extra)
-        before = raster.launches[kernel]
-        out = raster.rasterize_planes(sv, faces, w, h, **kw)
-        ref = raster.rasterize_planes_plain(sv, faces, w, h, **kw)
-        torch.cuda.synchronize()
-        if raster.launches[kernel] != before + 1:
-            raise AssertionError(f"{label}: {kernel} was not launched")
-        if not torch.equal(out["face"], ref["face"]):
-            n = int((out["face"] != ref["face"]).sum())
-            raise AssertionError(f"{label}: {kernel}'s face map differs from the plain "
-                                 f"version's at {n} pixels")
-        hit = ref["face"] >= 0
-        errs = {"depth": float((out["depth"][hit] - ref["depth"][hit]).abs().max())
-                if bool(hit.any()) else 0.0}
-        for key in ("bary", "attrs"):
-            if key in ref:
-                errs[key] = float((out[key] - ref[key]).abs().max())
-        if not bool(torch.isinf(out["depth"][~hit]).all()):
-            raise AssertionError(f"{label}: an empty pixel's depth is not inf")
-        bad = {k: e for k, e in errs.items() if not e <= RASTER_TOL[k]}
-        if bad:
-            raise AssertionError(f"{label}: {kernel} disagrees with the plain version: {bad}")
-
-        # the kernel alone against the plain version's scan, on the same tables
-        args = raster._kernel_args(sv, faces, w, h, **kw)
-        ovf, th = args[4], args[7]
-        cull = ovf is not None
-        n_ovf = int(ovf.sum()) if cull else 0
-        covered = int(hit.sum())
-        b_raster, scanned, n_live, unculled = _raster_bound(*args, covered)
-        busy_ms = event_ms(lambda: raster._raster_kernel(*args, True), busy=True)
-        # the profiler's kernel time, else the launches queued behind a sleep
-        ms = kernel_device_ms(lambda: raster._raster_kernel(*args, True), kernel) or busy_ms
-        plain_ms = event_ms(lambda: raster._raster_plain(*args, 128, True))
-        call_ms = event_ms(lambda: raster.rasterize_planes(sv, faces, w, h, **kw))
-        err = max(errs.values())
-        print(f"{kernel} [{label}] ({w}x{h}, F={faces.shape[0]}, th={th}, "
-              f"{n_ovf} of {ovf.numel() if cull else 0} tiles overflow): face maps identical, "
-              f"max|kernel - plain| " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
-              + f"; kernel {ms:.4f} ms on the device ({busy_ms:.4f} ms in CUDA events "
-              f"behind a sleep), plain {plain_ms:.4f} ms, whole rasterize_planes "
-              f"{call_ms:.4f} ms; bound {b_raster['bound_ms']:.4f} ms "
-              f"({b_raster['bound_by']}, {scanned} face-tile pairs scanned of {n_live} live "
-              f"faces, {covered} covered pixels)"
-              + (f"; the unculled scan alone {unculled['unculled_scan_ms']:.4f} ms at the f32 "
-                 "peak (no floor: the per-tile test drops faces)" if unculled else ""))
-        numbers[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b_raster,
-                              library_ms=None, events_ms=busy_ms, overflow_tiles=n_ovf,
-                              faces=faces.shape[0], pairs_scanned=scanned, **unculled)
+        numbers[label] = _hold_raster(label, kernel, sv, meshes[mesh], w, h, dict(kw, **extra))
     return numbers
+
+
+def _hold_raster(label, kernel, sv, faces, w, h, kw):
+    """`kernel` (K4a or K4b, whichever rasterize_planes launches for these
+    arguments) against the plain version on the card: face maps identical,
+    depth, barycentrics and attributes within RASTER_TOL; then the kernel
+    alone timed (profiler and CUDA events), the plain scan on the same
+    tables and the whole rasterize_planes call, and its bound."""
+    from momentum_tpu_torch.ops import raster
+    from momentum_tpu_torch.testing.profile_workload import event_ms, kernel_device_ms
+
+    before = raster.launches[kernel]
+    out = raster.rasterize_planes(sv, faces, w, h, **kw)
+    ref = raster.rasterize_planes_plain(sv, faces, w, h, **kw)
+    torch.cuda.synchronize()
+    if raster.launches[kernel] != before + 1:
+        raise AssertionError(f"{label}: {kernel} was not launched")
+    if not torch.equal(out["face"], ref["face"]):
+        n = int((out["face"] != ref["face"]).sum())
+        raise AssertionError(f"{label}: {kernel}'s face map differs from the plain "
+                             f"version's at {n} pixels")
+    hit = ref["face"] >= 0
+    errs = {"depth": float((out["depth"][hit] - ref["depth"][hit]).abs().max())
+            if bool(hit.any()) else 0.0}
+    for key in ("bary", "attrs"):
+        if key in ref:
+            errs[key] = float((out[key] - ref[key]).abs().max())
+    if not bool(torch.isinf(out["depth"][~hit]).all()):
+        raise AssertionError(f"{label}: an empty pixel's depth is not inf")
+    bad = {k: e for k, e in errs.items() if not e <= RASTER_TOL[k]}
+    if bad:
+        raise AssertionError(f"{label}: {kernel} disagrees with the plain version: {bad}")
+
+    # the kernel alone against the plain version's scan, on the same tables
+    args = raster._kernel_args(sv, faces, w, h, **kw)
+    ovf, th = args[4], args[7]
+    cull = ovf is not None
+    n_ovf = int(ovf.sum()) if cull else 0
+    covered = int(hit.sum())
+    b_raster, scanned, n_live, unculled = _raster_bound(*args, covered)
+    busy_ms = event_ms(lambda: raster._raster_kernel(*args, True), busy=True)
+    # the profiler's kernel time, else the launches queued behind a sleep
+    ms = kernel_device_ms(lambda: raster._raster_kernel(*args, True), kernel) or busy_ms
+    plain_ms = event_ms(lambda: raster._raster_plain(*args, 128, True))
+    call_ms = event_ms(lambda: raster.rasterize_planes(sv, faces, w, h, **kw))
+    err = max(errs.values())
+    print(f"{kernel} [{label}] ({w}x{h}, F={faces.shape[0]}, th={th}, "
+          f"{n_ovf} of {ovf.numel() if cull else 0} tiles overflow): face maps identical, "
+          f"max|kernel - plain| " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f"; kernel {ms:.4f} ms on the device ({busy_ms:.4f} ms in CUDA events "
+          f"behind a sleep), plain {plain_ms:.4f} ms, whole rasterize_planes "
+          f"{call_ms:.4f} ms; bound {b_raster['bound_ms']:.4f} ms "
+          f"({b_raster['bound_by']}, {scanned} face-tile pairs scanned of {n_live} live "
+          f"faces, {covered} covered pixels)"
+          + (f"; the unculled scan alone {unculled['unculled_scan_ms']:.4f} ms at the f32 "
+             "peak (no floor: the per-tile test drops faces)" if unculled else ""))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b_raster, library_ms=None,
+                events_ms=busy_ms, overflow_tiles=n_ovf, faces=faces.shape[0],
+                pairs_scanned=scanned, **unculled)
 
 
 def phase_clip_passes(char, cam, motion):
@@ -2245,6 +2266,315 @@ def phase_render_reference(card_clip, imgs_card):
           f"{float((imgs_card[:2].cpu() - aa).abs().max()):.3e}, mean coverage card "
           f"{float((imgs_card[:2] > 0).float().mean()):.6f} / CPU "
           f"{float((aa > 0).float().mean()):.6f}")
+
+
+def _decode_gif(path):
+    """(width, height, [index frames (H, W) uint8]) of a GIF89a file with a
+    global colour table and LZW-coded frames (what gui/gif.py writes)."""
+    import struct
+
+    data = open(path, "rb").read()
+    if data[:6] != b"GIF89a":
+        raise AssertionError(f"{path}: not a GIF89a file")
+    w, h, flags = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+    frames = []
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:  # an extension: skip its sub-blocks
+            pos += 2
+            while data[pos]:
+                pos += data[pos] + 1
+            pos += 1
+            continue
+        if data[pos] != 0x2C:
+            raise AssertionError(f"{path}: unexpected block 0x{data[pos]:02x} at {pos}")
+        fw, fh = struct.unpack("<HH", data[pos + 5:pos + 9])
+        min_code_size = data[pos + 10]
+        pos += 11
+        codes = bytearray()
+        while data[pos]:
+            codes += data[pos + 1:pos + 1 + data[pos]]
+            pos += data[pos] + 1
+        pos += 1
+        pixels = _lzw_decode(bytes(codes), min_code_size)
+        frames.append(np.frombuffer(pixels, np.uint8)[:fw * fh].reshape(fh, fw))
+    return w, h, frames
+
+
+def _lzw_decode(data: bytes, min_code_size: int) -> bytes:
+    """GIF's variable-width LZW, codes packed from the low bit up."""
+    clear = 1 << min_code_size
+    out = bytearray()
+    table, prev = None, None
+    code_size = min_code_size + 1
+    buf = nbits = pos = 0
+    while True:
+        while nbits < code_size:
+            buf |= data[pos] << nbits
+            pos += 1
+            nbits += 8
+        code = buf & ((1 << code_size) - 1)
+        buf >>= code_size
+        nbits -= code_size
+        if code == clear:
+            table = [bytes([i]) for i in range(clear)] + [b"", b""]
+            code_size, prev = min_code_size + 1, None
+            continue
+        if code == clear + 1:
+            return bytes(out)
+        entry = table[code] if code < len(table) else prev + prev[:1]
+        out += entry
+        if prev is not None:
+            table.append(prev + entry[:1])
+            if len(table) == 1 << code_size and code_size < 12:
+                code_size += 1
+        prev = entry
+
+
+def _scene_figures(images, ground_rgb):
+    """Mean over the given frames of the coverage (the share of pixels that
+    differ from the ground alone) and of the mean colour of those pixels:
+    tools/jax_reference.py::scene_figures."""
+    cov, col = [], []
+    for image in images:
+        covered = np.abs(image - ground_rgb).max(-1) > 0
+        cov.append(float(covered.mean()))
+        col.append(image[covered].mean(0))
+    return float(np.mean(cov)), np.mean(col, axis=0)
+
+
+def _hold_scene_figures(part, images, ground_rgb, jax_cpu):
+    """Frames SCENE_HELD_FRAMES' figures against JAX CPU's planes ones."""
+    cov, col = _scene_figures(images, ground_rgb)
+    ref = [jax_cpu[m][str(i)] for m in ("planes", "windowed") for i in SCENE_HELD_FRAMES]
+    n = len(SCENE_HELD_FRAMES)
+    ref_cov = [float(np.mean([r["coverage"] for r in ref[k * n:(k + 1) * n]])) for k in (0, 1)]
+    ref_col = [np.mean([r["mean_color"] for r in ref[k * n:(k + 1) * n]], axis=0)
+               for k in (0, 1)]
+    cov_err = abs(cov / ref_cov[0] - 1)
+    col_err = float(np.max(np.abs(col / ref_col[0] - 1)))
+    print(f"config 7p {part}, frames {list(SCENE_HELD_FRAMES)}: coverage {cov:.6f} (JAX CPU "
+          f"planes {ref_cov[0]:.6f}, windowed {ref_cov[1]:.6f}), mean colour "
+          f"{[round(float(c), 6) for c in col]} (JAX CPU planes "
+          f"{[round(float(c), 6) for c in ref_col[0]]}, windowed "
+          f"{[round(float(c), 6) for c in ref_col[1]]}): relative errors {cov_err:.4f}, "
+          f"{col_err:.4f} against planes")
+    if not (cov_err <= SCENE_FIGURE_RTOL and col_err <= SCENE_FIGURE_RTOL):
+        raise AssertionError(f"config 7p {part}: coverage or mean colour not within "
+                             f"{SCENE_FIGURE_RTOL:.0%} of JAX CPU's planes figures")
+    return dict(coverage=cov, mean_color=[float(c) for c in col], coverage_rel_err=cov_err,
+                mean_color_rel_err=col_err)
+
+
+def _timed_runs(run):
+    """Warm-up, then 3 runs each ending in a synchronize: (the first timed
+    run's launches, its output, the median wall s)."""
+    from momentum_tpu_torch.ops import fk as fk_ops, raster
+
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    for i in range(3):
+        if i == 0:
+            fk_ops.launches = 0
+            raster.launches.update(dict.fromkeys(raster.launches, 0))
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            counts = {"fk_global_kernel": fk_ops.launches, **raster.launches}
+            first = out
+    return counts, first, statistics.median(walls)
+
+
+def phase_scene_methods(char, cam, motion):
+    """The dense and windowed rasterizers on the card against the same
+    functions on the CPU (frame 0's viewer camera pass, 640 × 480, 612
+    faces: face maps equal, depth and barycentrics within 1e-5), and the
+    three methods' face maps against each other on the card."""
+    from momentum_tpu_torch.rasterizer import render
+    from momentum_tpu_torch.testing.profile_workload import event_ms
+    from momentum_tpu_torch.testing.workloads import SCENE_HEIGHT as H, SCENE_WIDTH as W
+
+    sv = render.screen_vertices(cam, _frame_vertices(char, motion))
+    faces = char.mesh.faces
+    methods = {"dense": lambda v, f: render.rasterize(v, f, W, H),
+               "windowed": lambda v, f: render._rasterize_dispatch(v, f, W, H,
+                                                                   method="windowed"),
+               "planes": lambda v, f: render._rasterize_dispatch(v, f, W, H, method="planes")}
+    card = {m: fn(sv, faces) for m, fn in methods.items()}
+    numbers = {}
+    for m in ("dense", "windowed"):
+        cpu = methods[m](sv.cpu(), faces.cpu())
+        got = {k: v.cpu() for k, v in card[m].items()}
+        hit = cpu["face"] >= 0
+        equal = torch.equal(got["face"], cpu["face"])
+        depth = float((got["depth"][hit] - cpu["depth"][hit]).abs().max())
+        bary = float((got["bary"] - cpu["bary"]).abs().max())
+        ms = event_ms(lambda fn=methods[m]: fn(sv, faces), reps=3, samples=3)
+        print(f"rasterize {m} on the card vs the CPU ({W}x{H}, F={faces.shape[0]}): face maps "
+              f"equal {equal}, max|Δ| depth {depth:.3e}, bary {bary:.3e}; {ms:.4f} ms a call")
+        if not (equal and depth <= 1e-5 and bary <= 1e-5):
+            raise AssertionError(f"{m}: the card's z-buffer differs from the CPU's")
+        numbers[m] = dict(ms=ms, depth_err=depth, bary_err=bary)
+    numbers["planes"] = dict(ms=event_ms(lambda: methods["planes"](sv, faces), reps=3,
+                                         samples=3))
+    covered = (card["dense"]["face"] >= 0) | (card["windowed"]["face"] >= 0) | (
+        card["planes"]["face"] >= 0)
+    for a, b in (("dense", "windowed"), ("dense", "planes"), ("windowed", "planes")):
+        fa, fb, da, db = card[a]["face"], card[b]["face"], card[a]["depth"], card[b]["depth"]
+        both = (fa >= 0) & (fb >= 0)
+        rel = (da - db).abs() / db.abs().clamp(min=1.0)
+        # a depth tie: the two winners' depths within the methods' own depth
+        # difference where they pick the same face (planes evaluate depth as
+        # a·x + b·y + c, ~1e-3 relative off the barycentric sum on slivers),
+        # or within 1e-5 (the windowed pass breaks ties on quantized depth)
+        tau = max(float(rel[both & (fa == fb)].max()), 1e-5)
+        differ = (fa != fb) & covered
+        ties = differ & both & (rel <= tau)
+        agree = 1.0 - float((differ & ~ties).sum()) / float(covered.sum())
+        numbers[f"{a}_vs_{b}"] = dict(agree=agree, differ=int(differ.sum()),
+                                      ties=int(ties.sum()), tie_rel_depth=tau)
+        print(f"face maps {a} vs {b} on the card: {int(differ.sum())} of {int(covered.sum())} "
+              f"covered pixels differ, {int(ties.sum())} of them depth ties (within {tau:.2e} "
+              f"relative: the two methods' largest depth gap on a shared face, or 1e-5): agreement "
+              f"{agree:.6f} ties aside")
+        if not agree >= SCENE_METHOD_AGREEMENT:
+            raise AssertionError(f"{a} and {b} face maps agree on {agree} of the covered "
+                                 "pixels, depth ties aside")
+    print(f"rasterize planes on the card: {numbers['planes']['ms']:.4f} ms a call")
+    return numbers
+
+
+def phase_scene(smi):
+    """Config 7p on the card: the offline viewer (render_motion with the
+    ground and the skeleton overlay, 32 frames: K1 once, K4b per frame, the
+    dense checkerboard once) and its GIF, decoded again; the Phong scene
+    (make_scene_render: per frame K4b at 1280 × 960 for render_mesh_phong,
+    K4b for the skeleton's cylinders, K4a for the 80-face sphere, the dense
+    locator dots and the label). Frames/s of each, median of 3 warm runs;
+    frames 0-1's figures against JAX CPU's; frames 0-1 rendered again on the
+    CPU (plain versions); the three new kernel passes held; the three
+    rasterizer methods."""
+    import tempfile
+
+    from momentum_tpu_torch.gui import render_motion, save_gif
+    from momentum_tpu_torch.gui.gif import _quantize
+    from momentum_tpu_torch.rasterizer import downsample, render, render_mesh_phong
+    from momentum_tpu_torch.rasterizer.materials import _phong_screen
+    from momentum_tpu_torch.testing import workloads as wl
+
+    char, motion, cam = wl.build_scene_clip(32, seed=SEED, device="cuda")
+    frames, w, h = motion.shape[0], wl.SCENE_WIDTH, wl.SCENE_HEIGHT
+    jax_cpu = _load_jax_cpu(SCENE_JAX_CPU_FILE)
+    binned, full = "raster_planes_binned_kernel", "raster_planes_kernel"
+
+    passes = wl.scene_passes(char, cam, motion)
+    held = {label: _hold_raster(label, kernel, *passes[name])
+            for label, kernel, name in (("config 7p Phong pass, frame 0", binned, "phong"),
+                                        ("config 7p skeleton pass, frame 0", binned, "skeleton"),
+                                        ("config 7p sphere pass, frame 0", full, "sphere"))}
+    states, verts, _ = wl.scene_poses(char, motion[:1])
+    depth = cam.project(states[0, :, :3])[0][:, 2]
+    width_px = 2 * wl.SCENE_BONE_RADIUS * float(cam.intrinsics.fx) / depth
+    print(f"config 7p bones: radius {wl.SCENE_BONE_RADIUS} m, {float(width_px.min()):.2f} to "
+          f"{float(width_px.max()):.2f} px wide at frame 0's joints; the skeleton pass has "
+          f"{passes['skeleton'][1].shape[0]} faces, the Phong pass "
+          f"{int((passes['phong'][1] != 0).any(1).sum())} of {passes['phong'][1].shape[0]} "
+          "faces left by back-face culling")
+    if not float(width_px.min()) >= 3.0:
+        raise AssertionError("config 7p: a bone is under 3 px wide")
+    methods = phase_scene_methods(char, cam, motion)
+    ground_rgb = wl.scene_ground(cam, verts[0])[1].cpu().numpy()
+
+    def viewer():
+        return render_motion(char, motion, w, h, camera=cam, ground=True, skeleton_overlay=True)
+
+    view_counts, views, view_wall = _timed_runs(viewer)
+    render_scene = wl.make_scene_render(char, cam)
+    scene_counts, scenes, scene_wall = _timed_runs(lambda: render_scene(motion))
+    print(f"config 7p viewer ({frames} frames, {w}x{h}, ground + skeleton overlay): "
+          f"{frames / view_wall:.2f} frames/s (median wall {view_wall * 1e3:.1f} ms of 3) on "
+          f"{smi}; launches {view_counts}")
+    print(f"config 7p Phong scene ({frames} frames, {w}x{h} @ 2x2 SS, ground, skeleton, "
+          f"sphere, locators, label): {frames / scene_wall:.2f} frames/s (median wall "
+          f"{scene_wall * 1e3:.1f} ms of 3) on {smi}; launches {scene_counts}")
+    for name, imgs in (("viewer", views), ("Phong scene", scenes)):
+        if imgs.shape != (frames, h, w, 3) or not np.isfinite(imgs).all():
+            raise AssertionError(f"config 7p {name}: images {imgs.shape} of the wrong shape "
+                                 "or not finite")
+    if (view_counts[binned], view_counts[full]) != (frames, 0) or \
+            view_counts["fk_global_kernel"] < 1:
+        raise AssertionError(f"config 7p viewer: expected {frames} K4b launches and ≥ 1 K1 "
+                             f"launch, got {view_counts}")
+    if (scene_counts[binned], scene_counts[full]) != (2 * frames, frames) or \
+            scene_counts["fk_global_kernel"] < 1:
+        raise AssertionError(f"config 7p scene: expected {2 * frames} K4b and {frames} K4a "
+                             f"launches and ≥ 1 K1 launch, got {scene_counts}")
+    held_frames = list(SCENE_HELD_FRAMES)
+    figures = {"viewer": _hold_scene_figures("viewer", views[held_frames], ground_rgb,
+                                             jax_cpu["viewer"]),
+               "phong": _hold_scene_figures("Phong scene", scenes[held_frames], ground_rgb,
+                                            jax_cpu["phong"])}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "motion.gif")
+        t0 = time.perf_counter()
+        save_gif(path, views, fps=30.0)
+        gif_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        gw, gh, decoded = _decode_gif(path)
+    want = [_quantize((np.clip(v, 0.0, 1.0) * 255).astype(np.uint8)) for v in views]
+    same = len(decoded) == frames and all(np.array_equal(d, q) for d, q in zip(decoded, want))
+    print(f"config 7p GIF: {size} bytes in {gif_s:.2f} s, decodes to {len(decoded)} frames of "
+          f"{gw}x{gh}, equal to the quantized frames: {same}")
+    if not (same and (gw, gh) == (w, h)):
+        raise AssertionError("config 7p: the GIF does not decode to the rendered frames")
+
+    # frames 0-1 again on the CPU, built anew there from the same seed
+    cchar, cmotion, ccam = wl.build_scene_clip(32, seed=SEED, device="cpu")
+    cviews = render_motion(cchar, cmotion[held_frames], w, h, camera=ccam, ground=True,
+                           skeleton_overlay=True)
+    gstates, gverts, _ = wl.scene_poses(char, motion[held_frames])
+    _, cverts, _ = wl.scene_poses(cchar, cmotion[held_frames])
+    reference = {}
+    for k, i in enumerate(held_frames):
+        g = render_mesh_phong(cam, gverts[k], char.mesh.faces, w, h, supersample=2)
+        c = render_mesh_phong(ccam, cverts[k], cchar.mesh.faces, w, h, supersample=2)
+        # the faces agree at a pixel when they agree at its 2 × 2 subsamples:
+        # the supersampled pass's face maps, as render_mesh_phong rasterizes it
+        subsamples = [render._rasterize_dispatch(*_phong_screen(cm, v, ch.mesh.faces, 2),
+                                                 2 * w, 2 * h)["face"].cpu()
+                      for cm, v, ch in ((cam, gverts[k], char), (ccam, cverts[k], cchar))]
+        faces_agree = downsample((subsamples[0] == subsamples[1]).float(), 2) == 1.0
+        mc, cov = c["mask"], int(c["mask"].sum())
+        flipped = int((g["mask"].cpu() != mc).sum())
+        face_same = faces_agree & mc
+        delta = (g["color"].cpu() - c["color"]).abs().max(-1).values[face_same]
+        off = int((delta > 1e-3).sum())
+        view_agree = float((np.abs(views[i] - cviews[k]).max(-1) <= 1e-3).mean())
+        # smooth shading interpolates the vertex normals, so on a sliver face
+        # the devices' last-bit differences in the skinned vertices move a
+        # pixel's barycentrics, and its colour, past 1e-3 now and then
+        print(f"config 7p frame {i} against the CPU: Phong pass {cov} covered pixels, {flipped} "
+              f"differ on the card; of the {int(face_same.sum())} whose four subsamples' faces "
+              f"agree, {off} differ in colour by > 1e-3 (the largest by "
+              f"{float(delta.max()):.3e}); viewer frame colours agree to 1e-3 on "
+              f"{view_agree:.6f} of the pixels")
+        allowed = max(3, cov // 1000)
+        if not (cov > 0 and flipped <= allowed and off <= allowed and view_agree >= 0.999):
+            raise AssertionError(f"config 7p frame {i}: the card's render disagrees with the "
+                                 "CPU's")
+        reference[str(i)] = dict(covered=cov, flipped=flipped, colour_off=off,
+                                 viewer_agree=view_agree)
+    numbers = dict(viewer=dict(frames_per_s=frames / view_wall, wall_s=view_wall,
+                               launches=view_counts, gif_bytes=size, gif_s=gif_s),
+                   phong=dict(frames_per_s=frames / scene_wall, wall_s=scene_wall,
+                              launches=scene_counts),
+                   figures=figures, cpu_reference=reference, methods=methods,
+                   bone_width_px=[float(width_px.min()), float(width_px.max())])
+    return dict(viewer=view_counts, phong=scene_counts), numbers, held
 
 
 def _relres_cols(a, damp, b, x):
@@ -2441,6 +2771,9 @@ def main():
     phase_render_reference((rchar, motion, cam), imgs)
     phase_f9(rchar, cam, motion)
     lap("f9")
+    del rchar, motion, cam
+    scene_counts, scene_numbers, scene_held = phase_scene(smi)
+    lap("scene")
     k4a = ("small mesh camera pass", "small mesh shadow pass", "camera pass, frame 0, cull=False")
     kernels = [
         dict(name="fk_global_kernel", route="cuda", source="momentum_tpu_torch/csrc/fk.cu",
@@ -2450,6 +2783,7 @@ def main():
              config2_lm_launches=config2_counts["fk_global_kernel"],
              vertex_fit_launches=vertex_counts["fk_global_kernel"],
              clip_launches=clip_counts["fk_global_kernel"],
+             scene_launches={part: n["fk_global_kernel"] for part, n in scene_counts.items()},
              clip_device_ms=clip_device_ms["fk_global_kernel"],
              sequence_launches={c: n["fk_global_kernel"] for c, n in seq_counts.items()},
              by_batch={str(b): nums for b, nums in fk_by_batch.items()},
@@ -2515,7 +2849,10 @@ def main():
              launches=small_counts["raster_planes_kernel"],
              path="shadowed render of a mesh under the bin capacity",
              **raster_numbers[k4a[0]],
-             passes={label: raster_numbers[label] for label in k4a[1:]}),
+             passes={label: raster_numbers[label] for label in k4a[1:]}
+             | {"config 7p sphere pass, frame 0": scene_held["config 7p sphere pass, frame 0"]},
+             scene_launches={part: n["raster_planes_kernel"]
+                             for part, n in scene_counts.items()}),
         dict(name="raster_planes_binned_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/raster.cu",
              replaces="momentum_tpu/ops/raster_pallas.py:220",
@@ -2523,7 +2860,10 @@ def main():
              path="shadowed render of the 32-frame clip",
              **raster_numbers["camera pass, frame 0"],
              passes={label: nums for label, nums in raster_numbers.items()
-                     if label not in k4a},
+                     if label not in k4a}
+             | {label: nums for label, nums in scene_held.items() if "sphere" not in label},
+             scene_launches={part: n["raster_planes_binned_kernel"]
+                             for part, n in scene_counts.items()},
              clip=dict(device_ms=clip_device_ms["raster_planes_binned_kernel"],
                        **clip_passes)),
         dict(name="damped_chol_solve_kernel (K5b entry point chol_solve_blocked)",
@@ -2538,7 +2878,7 @@ def main():
                       "configC": catalog_numbers, "config6k": kp_numbers,
                       "configD": dik_numbers, "variants": var_numbers,
                       "config4x": vx_numbers, "configSL": sl_numbers, "configG": glove_numbers,
-                      "config4ad": vad_numbers}))
+                      "config4ad": vad_numbers, "config7p": scene_numbers}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

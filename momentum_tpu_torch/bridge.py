@@ -53,6 +53,11 @@ vertex_{position,plane,normal,projection}_error_from_numpy keys:
     normal (C, 3) and above () for plane; target_position, target_normal
     (C, 3), source_normal_weight, target_normal_weight () for normal;
     projection (C, 3, 4), target (C, 2), near_clip () for projection
+phong_material_from_numpy keys:
+    diffuse_color, specular_color, emissive_color (3,), specular_exponent (),
+    optional diffuse_texture, emissive_texture (Th, Tw, 3)
+lights_from_numpy: a sequence of dicts with keys
+    position (3,), color (3,), type () int (0 point, 1 directional, 2 ambient)
 
 Every function builds on `device`, the card unless the caller asks for the
 CPU, and raises on a machine without one.
@@ -81,7 +86,8 @@ __all__ = ["character_from_numpy", "camera_from_numpy", "position_error_from_num
            "orientation_error_from_numpy", "limit_error_from_numpy",
            "pose_prior_from_numpy", "vertex_position_error_from_numpy",
            "vertex_plane_error_from_numpy", "vertex_normal_error_from_numpy",
-           "vertex_projection_error_from_numpy"]
+           "vertex_projection_error_from_numpy", "phong_material_from_numpy",
+           "lights_from_numpy"]
 
 _LIMIT_KEYS = tuple(f.name for f in dataclasses.fields(ParameterLimits))
 _COLLISION_KEYS = tuple(f.name for f in dataclasses.fields(CollisionGeometry))
@@ -266,3 +272,22 @@ def vertex_projection_error_from_numpy(d: dict, device="cuda") -> VertexProjecti
     return _vertex_error(VertexProjectionErrorFunction, d, device,
                          "vertex_projection_error_from_numpy", ("projection", "target"),
                          {"near_clip": float})
+
+
+def phong_material_from_numpy(d: dict, device="cuda"):
+    from momentum_tpu_torch.rasterizer.materials import PhongMaterial
+
+    device = resolve(device, "phong_material_from_numpy")
+    return PhongMaterial.create(**{k: np.asarray(d[k]) for k in (
+        "diffuse_color", "specular_color", "specular_exponent", "emissive_color")},
+        diffuse_texture=d.get("diffuse_texture"), emissive_texture=d.get("emissive_texture"),
+        device=device)
+
+
+def lights_from_numpy(lights, device="cuda") -> tuple:
+    from momentum_tpu_torch.rasterizer.materials import Light
+
+    device = resolve(device, "lights_from_numpy")
+    return tuple(Light(_t(d, "position", device).float(), _t(d, "color", device).float(),
+                       int(d["type"]))
+                 for d in lights)

@@ -1,7 +1,7 @@
 """Where the time of the port's workloads goes on one CUDA card.
 
     python -m momentum_tpu_torch.testing.profile_workload
-        [--workload ik|render|fullstack|vertex|sequence|tracking|catalog|keypoints|skinned|glove|both]
+        [--workload ik|render|fullstack|vertex|sequence|tracking|catalog|keypoints|skinned|glove|scene|both]
         [--batch 2048]
         [--frames 1024] [--fullbody] [--out DIR]
 
@@ -62,6 +62,12 @@ and for the render clip (build_render_clip + make_render_clip, 32 frames at
   * FK and skinning of the clip, and each layer of frame 0's render (project
     and face colours, planes and tables, binning and K4b of the camera and
     shadow passes, shading and box filter) timed alone with CUDA events;
+and for config 7p (build_scene_clip: the render clip's character and
+motion at 640 × 480):
+  * each layer of frame 0's Phong scene and viewer frame timed alone with
+    CUDA events (scene_layer_times), and the wall and device-busy share of
+    the 32-frame Phong scene (make_scene_render) and of the viewer
+    (render_motion with the ground and the skeleton overlay);
 and for each:
   * the wall time of the whole run, and the device-busy share from
     torch.profiler (sum of kernel time over wall time; one stream, so
@@ -445,6 +451,90 @@ def render_layer_times(char, cam, motion) -> dict:
     }
 
 
+def scene_layer_times(char, cam, motion) -> dict:
+    """ms per call of each layer of config 7p (workloads.make_scene_render
+    and the viewer's render_motion) on frame 0: the clip's poses
+    (character_state of every frame: FK by K1, skinning, normals), the
+    ground (the dense checkerboard, once per clip), the Phong pass (project
+    and cull; planes and binning; K4b at 1280 × 960; the shading: normal and
+    position interpolation, Phong lights, the 2×2 resolve), the skeleton
+    (the host's cylinders; its render_mesh; K4b alone), the sphere
+    (render_mesh, K4a), the locator dots (dense), the label (the copy to
+    the host and the text), the whole frame, and the viewer's frame
+    (render_mesh, the ground test, the host's skeleton lines)."""
+    from momentum_tpu_torch.gui.viewer import draw_skeleton
+    from momentum_tpu_torch.rasterizer import (
+        rasterize_circles, rasterize_spheres, rasterize_text, render, render_mesh)
+    from momentum_tpu_torch.rasterizer.materials import (
+        _phong_screen, _unit, default_lights, downsample, PhongMaterial, shade_phong_lights)
+    from momentum_tpu_torch.rasterizer.primitives import _bones, _cylinders_mesh
+    from momentum_tpu_torch.character.skinning import update_normals
+    from momentum_tpu_torch.math import skel_state as ss
+    from momentum_tpu_torch.ops import raster
+    from momentum_tpu_torch.testing import workloads as wl
+
+    w, h, k = wl.SCENE_WIDTH, wl.SCENE_HEIGHT, wl.SCENE_SUPERSAMPLE
+    faces = char.mesh.faces
+    states, verts, locs = wl.scene_poses(char, motion)
+    st, v, loc = states[0], verts[0], locs[0]
+    ground = wl.scene_ground(cam, verts[0])
+    screen, faces_r = _phong_screen(cam, v, faces, k)
+    args = raster._kernel_args(screen, faces_r, w * k, h * k)
+    buf = raster._raster_kernel(*args, True)
+    material = PhongMaterial.create(device=v.device)
+    cam_pos = ss.split(ss.inverse(cam.eye_from_world))[0]
+    lights = default_lights(cam_pos)
+
+    def shade():
+        n_pix = _unit(render.interpolate_attribute(buf, faces_r, update_normals(v, faces)))
+        p_pix = render.interpolate_attribute(buf, faces_r, v)
+        color = torch.where((buf["face"] >= 0)[..., None],
+                            shade_phong_lights(p_pix, n_pix, cam_pos, material, lights), 0.0)
+        return downsample(color, k), downsample(-buf["depth"], k)
+
+    cyl_v, cyl_f = _cylinders_mesh(*_bones(char.skeleton, st), wl.SCENE_BONE_RADIUS)
+    cyl_v, cyl_f = torch.as_tensor(cyl_v, device=v.device), torch.as_tensor(cyl_f, device=v.device)
+    skel_args = raster._kernel_args(render.screen_vertices(cam, cyl_v), cyl_f, w, h,
+                                    face_attrs=render.flat_face_colors(cyl_v, cyl_f,
+                                                                       render.LIGHT_DIR))
+    root = st[0, :3].cpu().numpy()
+
+    def viewer_frame():
+        out = render_mesh(cam, v, faces, w, h)
+        img = torch.where((out["depth"] < ground[0])[..., None], out["color"], ground[1])
+        return draw_skeleton(img, cam, char.skeleton, st)
+
+    n = motion.shape[0]
+    return {
+        f"poses of {n} frames (character_state: K1, skinning, normals)": event_ms(
+            lambda: wl.scene_poses(char, motion)),
+        "ground: dense checkerboard (once per clip)": event_ms(
+            lambda: wl.scene_ground(cam, verts[0])),
+        "Phong pass: project + cull": event_ms(lambda: _phong_screen(cam, v, faces, k)),
+        "Phong pass: planes + binning": event_ms(
+            lambda: raster._kernel_args(screen, faces_r, w * k, h * k)),
+        "Phong pass: K4b": event_ms(lambda: raster._raster_kernel(*args, True)),
+        "Phong shading + 2x2 resolve": event_ms(shade),
+        "skeleton: host cylinders": event_ms(
+            lambda: _cylinders_mesh(*_bones(char.skeleton, st), wl.SCENE_BONE_RADIUS)),
+        "skeleton: render_mesh": event_ms(
+            lambda: render_mesh(cam, cyl_v, cyl_f, w, h)),
+        "skeleton: K4b": event_ms(lambda: raster._raster_kernel(*skel_args, True)),
+        "sphere: rasterize_spheres (K4a)": event_ms(
+            lambda: rasterize_spheres(cam, root, wl.SCENE_SPHERE_RADIUS, w, h,
+                                      subdivision_level=wl.SCENE_SPHERE_LEVEL)),
+        "locator dots (dense)": event_ms(
+            lambda: rasterize_circles(cam, loc, w, h, radius=wl.SCENE_LOCATOR_RADIUS,
+                                      fill_color=wl.SCENE_DOT_COLOR, z_buffer=ground[0],
+                                      rgb_buffer=ground[1])),
+        "label: copy to the host + text": event_ms(
+            lambda: rasterize_text(ground[1], cam, "FRAME 0", root, scale=2)),
+        "whole Phong-scene frame (scene_frame)": event_ms(
+            lambda: wl.scene_frame(char, cam, st, v, loc, ground, "FRAME 0")),
+        "viewer frame (render_mesh, ground, host skeleton)": event_ms(viewer_frame),
+    }
+
+
 def catalog_layer_times(problem, lam: float = 0.01) -> dict:
     """ms per call of each layer of one LM iteration of config C (a
     testing.workloads.CatalogProblem) at its warm starts: the context (FK
@@ -601,7 +691,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload",
                     choices=("ik", "render", "fullstack", "vertex", "sequence", "tracking",
-                             "catalog", "keypoints", "skinned", "glove", "both"),
+                             "catalog", "keypoints", "skinned", "glove", "scene", "both"),
                     default="both", help="both = ik and render")
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--frames", type=int, default=1024, help="the sequence's frame count")
@@ -737,6 +827,21 @@ def main():
         _wall_and_profile(lambda: track_clip_keypoints(clip.char, clip.markers, keypoints,
                                                        clip.seed_params), card,
                           f"keypoint-batched of {frames} frames (LM 15)", args.out, frames,
+                          "frames/s")
+
+    if args.workload == "scene":
+        from momentum_tpu_torch.gui import render_motion
+        from momentum_tpu_torch.testing.workloads import build_scene_clip, make_scene_render
+
+        char, motion, cam = build_scene_clip(32, seed=args.seed, device="cuda")
+        for name, ms in scene_layer_times(char, cam, motion).items():
+            print(f"scene layer: {name}: {ms:.4f} ms [{card}]")
+        render_scene = make_scene_render(char, cam)
+        _wall_and_profile(lambda: render_scene(motion), card, "scene-phong of 32 frames",
+                          args.out, motion.shape[0], "frames/s")
+        _wall_and_profile(lambda: render_motion(char, motion, 640, 480, camera=cam,
+                                                ground=True, skeleton_overlay=True),
+                          card, "scene-viewer of 32 frames", args.out, motion.shape[0],
                           "frames/s")
 
     if args.workload in ("render", "both"):

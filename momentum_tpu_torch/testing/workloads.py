@@ -65,7 +65,11 @@ The render clip: the full-body character's skinned tube mesh (612 vertices,
 612 faces) posed by a 32-frame random walk in its 157 parameters, rendered
 with Lambert shading and a 256 × 256 shadow map at 1280 × 960 and box-
 filtered to 640 × 480 — the reference rasterizer's one published
-performance figure (~45 fps on an 8-core CPU).
+performance figure (~45 fps on an 8-core CPU). Config 7p, the pymomentum
+renderer's scene on that clip at 640 × 480: the offline viewer
+(gui.viewer.render_motion with the ground and the skeleton overlay) and a
+Phong scene per frame (render_mesh_phong at 2× supersampling, the ground,
+the skeleton's cylinders, a sphere, the locators as dots and a label).
 """
 
 from __future__ import annotations
@@ -91,7 +95,9 @@ __all__ = ["build_fullbody_ik_problem", "make_solve_stage", "make_solve_batch",
            "track_clip_per_frame", "refine_clip", "track_clip_hierarchical",
            "clip_marker_errors_mm",
            "build_render_clip",
-           "make_render_clip", "clip_vertices", "render_clip_passes",
+           "make_render_clip", "clip_vertices", "render_clip_passes", "SCENE_WIDTH",
+           "SCENE_HEIGHT", "SCENE_SUPERSAMPLE", "SCENE_BONE_RADIUS", "build_scene_clip",
+           "scene_poses", "scene_ground", "scene_frame", "make_scene_render", "scene_passes",
            "CATALOG_BATCH", "CATALOG_MORE", "CatalogProblem", "catalog_recipe", "catalog_draws",
            "catalog_character", "build_catalog_ik_problem", "solve_catalog",
            "catalog_energies", "catalog_figures", "KEYPOINT_PROJECTION_WEIGHT",
@@ -669,6 +675,112 @@ def render_clip_passes(char, cam, motion, width: int = 640, height: int = 480,
             frame[name] = raster._kernel_args(sv, faces, w, h, **kw)
         frames.append(frame)
     return frames
+
+
+# ---- config 7p: the pymomentum renderer's scene on config 7's clip ----
+
+SCENE_WIDTH, SCENE_HEIGHT = 640, 480
+SCENE_SUPERSAMPLE = 2
+# world sizes (m): rasterize_skeleton's default bone radius, 3.4 to 5.3 px
+# wide at the 640 × 480 camera (the joints lie 6.7 to 10.4 m from it; the
+# smoke prints the widths), locator dots 2 to 3 px across
+SCENE_BONE_RADIUS = 0.02
+SCENE_LOCATOR_RADIUS = 0.012
+SCENE_SPHERE_RADIUS = 0.05
+SCENE_SPHERE_LEVEL = 1  # 80 faces: one K4a pass
+SCENE_DOT_COLOR = (0.1, 0.9, 0.2)
+
+
+def build_scene_clip(frames: int = 32, seed: int = 0, device="cuda"):
+    """(char, motion, camera) of config 7p: config 7's character and clip
+    (`build_render_clip`) with the camera framed for 640 × 480."""
+    return build_render_clip(frames, seed, device, image_height=SCENE_HEIGHT,
+                             image_width=SCENE_WIDTH)
+
+
+def scene_poses(char, motion):
+    """character_state of every frame in one batch (FK by K1 on the card):
+    (skeleton states (F, nJ, 8), mesh vertices (F, V, 3), locators (F, L, 3))."""
+    from momentum_tpu_torch.character.character_state import character_state
+
+    st = character_state(char.with_inverse_bind_pose(), motion, update_collision=False)
+    return st.skeleton_state, st.mesh_vertices, st.locator_positions
+
+
+def scene_ground(cam, vertices0):
+    """(z, rgb) of render_motion's ground: the 10 × 10 checkerboard spanning
+    three times frame 0's horizontal extent, through the dense rasterizer."""
+    from momentum_tpu_torch.rasterizer import rasterize_checkerboard
+
+    extent = float(vertices0[:, [0, 2]].abs().max()) * 3.0 + 1.0
+    return rasterize_checkerboard(cam, SCENE_WIDTH, SCENE_HEIGHT, half_extent=extent,
+                                  squares=10)
+
+
+def scene_frame(char, cam, states, verts, locators, ground, label: str) -> dict:
+    """One frame of config 7p's Phong scene, each layer z-tested over the
+    last: render_mesh_phong (default lights, back-face culling, 2×
+    supersampled: a K4b pass at 1280 × 960 on the card) over the ground,
+    the skeleton's cylinders (render_mesh, K4b), a sphere at the root (80
+    faces, K4a), the locators as filled circles (dense), then `label` as
+    billboard text at the root (host). Returns dict(image (H, W, 3) host
+    numpy, phong = render_mesh_phong's buffers)."""
+    from momentum_tpu_torch.rasterizer import (
+        rasterize_circles, rasterize_skeleton, rasterize_spheres, rasterize_text,
+        render_mesh_phong)
+    from momentum_tpu_torch.rasterizer.utils import _z_test
+
+    w, h = SCENE_WIDTH, SCENE_HEIGHT
+    phong = render_mesh_phong(cam, verts, char.mesh.faces, w, h, supersample=SCENE_SUPERSAMPLE)
+    z, rgb = _z_test(phong["depth"], phong["color"], *ground, w, h)
+    for layer in (rasterize_skeleton(cam, char.skeleton, states, w, h,
+                                     bone_radius=SCENE_BONE_RADIUS),
+                  rasterize_spheres(cam, states[0, :3].cpu().numpy(), SCENE_SPHERE_RADIUS, w,
+                                    h, subdivision_level=SCENE_SPHERE_LEVEL)):
+        z, rgb = _z_test(layer["depth"], layer["color"], z, rgb, w, h)
+    z, rgb = rasterize_circles(cam, locators, w, h, radius=SCENE_LOCATOR_RADIUS,
+                               fill_color=SCENE_DOT_COLOR, z_buffer=z, rgb_buffer=rgb)
+    image = rasterize_text(rgb, cam, label, states[0, :3].cpu().numpy(), scale=2)
+    return dict(image=image, phong=phong)
+
+
+def make_scene_render(char, cam):
+    """`render_scene(motion) -> (frames, 480, 640, 3)` host images of
+    config 7p's Phong scene: `scene_poses`, `scene_ground` once, then
+    `scene_frame` per frame, labelled "FRAME i"."""
+
+    def render_scene(motion):
+        states, verts, locators = scene_poses(char, motion)
+        ground = scene_ground(cam, verts[0])
+        return np.stack([scene_frame(char, cam, states[i], verts[i], locators[i], ground,
+                                     f"FRAME {i}")["image"]
+                         for i in range(motion.shape[0])])
+
+    return render_scene
+
+
+def scene_passes(char, cam, motion, frame: int = 0) -> dict:
+    """The planes passes of frame `frame` of config 7p's Phong scene, each
+    (verts_screen, faces, width, height, rasterize_planes keyword
+    arguments): "phong" (the culled mesh at the supersampled size), "skeleton"
+    (the bones' cylinders, their flat Lambert colours) and "sphere"."""
+    from momentum_tpu_torch.rasterizer import render
+    from momentum_tpu_torch.rasterizer.materials import _phong_screen
+    from momentum_tpu_torch.rasterizer.primitives import _bones, _cylinders_mesh, _spheres_mesh
+
+    states, verts, _ = scene_poses(char, motion[frame:frame + 1])
+    states, verts = states[0], verts[0]
+    dev, w, h, k = verts.device, SCENE_WIDTH, SCENE_HEIGHT, SCENE_SUPERSAMPLE
+    screen, faces = _phong_screen(cam, verts, char.mesh.faces, k)
+    out = dict(phong=(screen, faces, w * k, h * k, {}))
+    for name, (v, f) in (("skeleton", _cylinders_mesh(*_bones(char.skeleton, states),
+                                                      SCENE_BONE_RADIUS)),
+                         ("sphere", _spheres_mesh(states[0, :3].cpu().numpy(),
+                                                  SCENE_SPHERE_RADIUS, SCENE_SPHERE_LEVEL))):
+        v, f = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+        out[name] = (render.screen_vertices(cam, v), f, w, h,
+                     dict(face_attrs=render.flat_face_colors(v, f, render.LIGHT_DIR)))
+    return out
 
 
 # ---- config C: batched IK over the whole rigid error catalog ----

@@ -797,6 +797,79 @@ def test_raster_kernels_refuse_what_they_cannot_take(cuda_device):
 
 
 @pytest.fixture(scope="module")
+def scene_passes(cuda_device):
+    """Config 7p's frame 0 on the card: the culled Phong pass at 1280 × 960,
+    the skeleton's 50 cylinders and the 80-face sphere, as
+    workloads.scene_passes builds them."""
+    char, motion, cam = workloads.build_scene_clip(32, seed=0, device="cuda")
+    return char, motion, cam, workloads.scene_passes(char, cam, motion)
+
+
+@pytest.mark.parametrize("name,kernel", [("phong", "raster_planes_binned_kernel"),
+                                         ("skeleton", "raster_planes_binned_kernel"),
+                                         ("sphere", "raster_planes_kernel")])
+def test_raster_kernels_on_scene_passes(scene_passes, name, kernel):
+    """K4b on the Phong pass, whose back faces culling rewrote to the
+    degenerate face (0, 0, 0) (killed by the planes, binned by vertex 0's
+    pixel all the same), and on the skeleton's 3200 faces; K4a on the
+    sphere: each equal to the plain version."""
+    *_, passes = scene_passes
+    sv, faces, w, h, kw = passes[name]
+    out, launched = _kernel_vs_plain(sv, faces, w, h, kw)
+    assert launched == kernel and bool((out["face"] >= 0).any())
+    if name == "phong":
+        assert int((faces == 0).all(1).sum()) > 100  # culled faces
+
+
+def test_dense_and_windowed_rasterizers_on_the_card_match_the_cpu(scene_passes):
+    """render.rasterize and rasterize_windowed on the card against the same
+    functions on the CPU, on frame 0's 640 × 480 camera pass and on a random
+    scene with big faces: equal face maps, depth and barycentrics to 1e-5."""
+    from momentum_tpu_torch.rasterizer import render
+
+    char, motion, cam, _ = scene_passes
+    sv = render.screen_vertices(cam, workloads.clip_vertices(char, motion[0]))
+    verts, faces, w, h, _ = _scene(5, 300, 200, 256, 96)
+    for v, f, width, height in ((sv, char.mesh.faces, 640, 480),
+                                (torch.as_tensor(verts, device="cuda"),
+                                 torch.as_tensor(faces, device="cuda"), w, h)):
+        for fn in (render.rasterize, render.rasterize_windowed):
+            got = fn(v, f, width, height)
+            want = fn(v.cpu(), f.cpu(), width, height)
+            assert torch.equal(got["face"].cpu(), want["face"])
+            assert bool((want["face"] >= 0).any())
+            hit = want["face"] >= 0
+            torch.testing.assert_close(got["depth"].cpu()[hit], want["depth"][hit], rtol=0,
+                                       atol=1e-5)
+            torch.testing.assert_close(got["bary"].cpu(), want["bary"], rtol=0, atol=1e-5)
+
+
+def test_scene_frame_on_the_card_matches_the_cpu(scene_passes):
+    """Frame 0 of config 7p's Phong scene on the card and on the CPU: the
+    Phong pass's masks on all but max(3, 0.1%) of the covered pixels, the
+    composited images' colours to 1e-3 on 99.9% of the pixels; K4b twice
+    and K4a once."""
+    char, motion, cam, _ = scene_passes
+    cchar, cmotion, ccam = workloads.build_scene_clip(32, seed=0, device="cpu")
+    frames = []
+    for c, m, k in ((char, motion, cam), (cchar, cmotion, ccam)):
+        states, verts, locs = workloads.scene_poses(c, m[:1])
+        ground = workloads.scene_ground(k, verts[0])
+        before = dict(raster.launches)
+        frames.append(workloads.scene_frame(c, k, states[0], verts[0], locs[0], ground,
+                                            "FRAME 0"))
+        if c is char:
+            assert raster.launches["raster_planes_binned_kernel"] == \
+                before["raster_planes_binned_kernel"] + 2
+            assert raster.launches["raster_planes_kernel"] == before["raster_planes_kernel"] + 1
+    g, c = frames
+    cov = int(c["phong"]["mask"].sum())
+    assert cov > 0 and int((g["phong"]["mask"].cpu() != c["phong"]["mask"]).sum()) <= max(
+        3, cov // 1000)
+    assert (np.abs(g["image"] - c["image"]).max(-1) <= 1e-3).mean() >= 0.999
+
+
+@pytest.fixture(scope="module")
 def tracking_clip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

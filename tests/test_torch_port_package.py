@@ -23,7 +23,8 @@ from momentum_tpu_torch.errors import (
     VertexPositionErrorFunction, VertexProjectionErrorFunction)
 from momentum_tpu_torch.ops import fk as fk_ops, psd, raster
 from momentum_tpu_torch.testing import fixtures, workloads
-from momentum_tpu_torch import tracking
+from momentum_tpu_torch import rasterizer as R, tracking
+from momentum_tpu_torch.gui import auto_camera
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -60,6 +61,11 @@ def test_port_imports_no_jax():
         "        'momentum_tpu_torch.torch_interop'}\n"
         "new |= {'momentum_tpu_torch.errors.skinned_locator', 'momentum_tpu_torch.math.euler',\n"
         "        'momentum_tpu_torch.tracking.glove_utils'}\n"
+        "new |= {'momentum_tpu_torch.rasterizer.materials', 'momentum_tpu_torch.rasterizer.overlays',\n"
+        "        'momentum_tpu_torch.rasterizer.primitives', 'momentum_tpu_torch.rasterizer.text',\n"
+        "        'momentum_tpu_torch.character.character_state', 'momentum_tpu_torch.gui',\n"
+        "        'momentum_tpu_torch.gui.viewer', 'momentum_tpu_torch.gui.gif',\n"
+        "        'momentum_tpu_torch.gui.rerun_vis', 'momentum_tpu_torch.gui.viser_vis'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "assert len(names) >= 30, names\n"
         "print('ok', len(names))\n")
@@ -100,6 +106,20 @@ def test_cpu_render_launches_no_kernel():
     assert raster.launches == before and fk_ops.launches == 0
 
 
+def test_cpu_scene_launches_no_kernel():
+    """A frame of config 7p's Phong scene and of its viewer on CPU tensors
+    takes the plain rasterizers: no K1, K4a or K4b launch."""
+    from momentum_tpu_torch.gui import render_motion
+
+    char, motion, cam = workloads.build_scene_clip(1, device="cpu")
+    before = dict(raster.launches)
+    imgs = workloads.make_scene_render(char, cam)(motion)
+    views = render_motion(char, motion, 640, 480, camera=cam, ground=True,
+                          skeleton_overlay=True)
+    assert imgs.shape == views.shape == (1, 480, 640, 3)
+    assert raster.launches == before and fk_ops.launches == 0
+
+
 def test_cpu_fullstack_launches_no_kernel():
     """The full-stack GN solve on CPU tensors takes the plain versions: no
     K1 or K2+K3 launch (K5a and K5b reach K2+K3's kernel)."""
@@ -126,6 +146,7 @@ def test_cpu_fullstack_launches_no_kernel():
     ("build_skinned_ik_problem", (4,)),
     ("build_glove_clip", (4,)),
     ("glove_character", ()),
+    ("build_scene_clip", (1,)),
 ])
 def test_workloads_default_to_the_card(monkeypatch, entry, args):
     """The workload entry points build on the card unless the caller asks for
@@ -137,9 +158,12 @@ def test_workloads_default_to_the_card(monkeypatch, entry, args):
 
 
 def _tensors(obj) -> list:
-    """The tensors held by a port object and the dataclasses in it."""
+    """The tensors held by a port object, the dataclasses and the tuples in
+    it."""
     if isinstance(obj, torch.Tensor):
         return [obj]
+    if isinstance(obj, tuple):
+        return [t for o in obj for t in _tensors(o)]
     if not dataclasses.is_dataclass(obj):
         return []
     return [t for f in dataclasses.fields(obj) for t in _tensors(getattr(obj, f.name))]
@@ -187,6 +211,10 @@ def _bridge_inputs():
                                                    projection=np.zeros((1, 3, 4), np.float32),
                                                    target=np.zeros((1, 2), np.float32),
                                                    near_clip=np.asarray(0.5), **one),
+        "phong_material_from_numpy": dict(diffuse_color=np.ones(3), specular_color=np.zeros(3),
+                                          specular_exponent=np.asarray(10.0),
+                                          emissive_color=np.zeros(3)),
+        "lights_from_numpy": [dict(position=np.zeros(3), color=np.ones(3), type=0)],
     }
 
 
@@ -275,6 +303,18 @@ _CONSTRUCTORS = {
     "create_linear_joint": lambda **kw: L.create_linear_joint(1, 3, 2, 3, 0.5, 0.0, **kw),
     "create_halfplane": lambda **kw: L.create_halfplane(1, 2, (0.6, 0.8), **kw),
     "create_ellipsoid": lambda **kw: L.create_ellipsoid(0, 1, np.zeros(3), np.eye(4), **kw),
+    # the renderer's builders from sizes and values
+    **{name: (lambda name: lambda **kw: getattr(R, name)(4, 3, **kw))(name)
+       for name in ("create_z_buffer", "create_rgb_buffer", "create_index_buffer")},
+    "PhongMaterial.create": lambda **kw: R.PhongMaterial.create(**kw),
+    "point_light": lambda **kw: R.point_light((0, 0, 1), **kw),
+    "directional_light": lambda **kw: R.directional_light((0, -1, 0), **kw),
+    "ambient_light": lambda **kw: R.ambient_light(**kw),
+    "default_lights": lambda **kw: R.default_lights((0.0, 0.0, 1.0), **kw),
+    "create_shadow_projection_matrix": lambda **kw: R.create_shadow_projection_matrix(
+        (0.3, -1.0, 0.2), **kw),
+    "create_camera_for_hand": lambda **kw: R.create_camera_for_hand(np.eye(4), 48, 64, **kw),
+    "auto_camera": lambda **kw: auto_camera(np.eye(3), 64, 48, **kw),
 }
 
 

@@ -426,15 +426,3 @@ def test_render_clip_overflow_tiles():
     assert passes[0]["camera"][4].numel() == 1200 and passes[0]["shadow"][4].numel() == 64
     assert camera == [1, 1, 1, 1, 1] + [0] * 5 + [2] + [0] * 21
     assert shadow == [0] * 11 + [1, 1, 1] + [0] * 11 + [1, 0, 1] + [0] * 4
-
-
-def test_only_the_planes_path_is_ported(chars):
-    _, char_t = chars
-    cam = camera_from_numpy(dict(fx=50.0, fy=50.0, cx=16.0, cy=16.0, image_width=32,
-                                 image_height=32,
-                                 eye_from_world=np.asarray([0, 0, 5, 0, 0, 0, 1, 1],
-                                                           np.float32)), device="cpu")
-    for method in ("windowed", "dense"):
-        with pytest.raises(NotImplementedError, match="M8"):
-            render.render_mesh(cam, char_t.mesh.vertices, char_t.mesh.faces, 32, 32,
-                               method=method)

@@ -64,13 +64,18 @@ momentum_tpu_torch/testing/workloads.py:
     of the first 32; the final error, the marker errors (mm) and the glove
     residuals.
 
-    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k,diffik,variants,4x,4ad,skinned,glove]
+  * config 7p, the pymomentum renderer's scene on config 7's clip at
+    640 × 480 (workloads.py's build_scene_clip): frames 0 and 1 of the
+    offline viewer and of the Phong scene, windowed (JAX's CPU "auto") and
+    through the planes kernel in interpret mode: coverage and mean colour.
+
+    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k,diffik,variants,4x,4ad,skinned,glove,7p]
         [--frames 1024] [--out-6s tools/jax_reference_6s.json]
         [--out-catalog tools/jax_reference_catalog.json] [--out-6k tools/jax_reference_6k.json]
         [--out-diffik tools/jax_reference_diffik.json] [--out-variants tools/jax_reference_variants.json]
         [--out-4x tools/jax_reference_4x.json] [--out-4ad tools/jax_reference_4ad.json]
         [--skinned-batch 256] [--out-skinned tools/jax_reference_skinned.json]
-        [--out-glove tools/jax_reference_glove.json]
+        [--out-glove tools/jax_reference_glove.json] [--out-7p tools/jax_reference_7p.json]
 
 Runs the JAX package on the CPU only (no part of momentum_tpu_torch); prints
 one JSON line per figure.
@@ -1155,8 +1160,100 @@ def glove(frames, seed=0, per_frame=32):
     return out
 
 
+SCENE = dict(width=640, height=480, supersample=2, bone_radius=0.02, locator_radius=0.012,
+             sphere_radius=0.05, sphere_level=1, dot_color=(0.1, 0.9, 0.2))
+
+
+def scene_clip(frames, seed=0):
+    """Config 7p's character, motion and camera: config 7's clip
+    (workloads.py::build_render_clip's numpy draws) with the camera framed
+    for 640 × 480."""
+    from momentum_tpu.rasterizer.utils import create_camera_for_body
+    from momentum_tpu.testing.fixtures import create_fullbody_character
+
+    char = create_fullbody_character()
+    rng = np.random.default_rng(seed)
+    steps = 0.02 * rng.normal(0, 1, (frames, char.num_model_parameters)).astype(np.float32)
+    motion = jnp.asarray(np.cumsum(steps, axis=0))
+    states = jax.vmap(char.skeleton_states)(motion)
+    return char, motion, create_camera_for_body(char, states, SCENE["height"], SCENE["width"])
+
+
+def scene_figures(image, ground_rgb):
+    """Mean coverage (the share of pixels that differ from the ground alone)
+    and the mean colour of those pixels."""
+    image = np.asarray(image)
+    covered = np.abs(image - np.asarray(ground_rgb)).max(-1) > 0
+    return dict(coverage=float(covered.mean()),
+                mean_color=[float(c) for c in image[covered].mean(0)])
+
+
+def config7p(seed=0, frames=(0, 1), clip_frames=32):
+    """Config 7p, the pymomentum renderer's scene on config 7's clip at
+    640 × 480 (workloads.py's build_scene_clip, make_scene_render and
+    gui.viewer.render_motion): for each of `frames`, the offline viewer's
+    frame (render_motion with the ground and the skeleton overlay; its
+    rasterizer is JAX's CPU "auto", windowed, and the planes kernel in
+    interpret mode) and the Phong scene's frame (render_mesh_phong at 2×
+    supersampling over the ground, the skeleton's cylinders, a sphere at the
+    root, the locators as dots, the label "FRAME i"; method windowed and
+    planes): coverage and mean colour (scene_figures)."""
+    from momentum_tpu.character.character_state import character_state
+    from momentum_tpu.gui.viewer import render_motion
+    from momentum_tpu.ops import raster_pallas
+    from momentum_tpu.rasterizer import (
+        rasterize_checkerboard, rasterize_circles, rasterize_skeleton, rasterize_spheres,
+        rasterize_text, render_mesh_phong)
+
+    w, h = SCENE["width"], SCENE["height"]
+    char, motion, cam = scene_clip(clip_frames, seed)
+    st = character_state(char.with_inverse_bind_pose(), motion[0], update_collision=False)
+    extent = float(np.abs(np.asarray(st.mesh_vertices)[:, [0, 2]]).max()) * 3.0 + 1.0
+    gz, gc = rasterize_checkerboard(cam, w, h, half_extent=extent, squares=10)
+    out = dict(config="7p", seed=seed, width=w, height=h, scene=SCENE, viewer={}, phong={})
+    available = raster_pallas.raster_pallas_available
+    for method in ("windowed", "planes"):
+        t0 = time.perf_counter()
+        # render_motion takes no method: its "auto" is planes where the kernel is available
+        raster_pallas.raster_pallas_available = (lambda: True) if method == "planes" \
+            else available
+        try:
+            views = render_motion(char, motion[:max(frames) + 1], w, h, camera=cam,
+                                  ground=True, skeleton_overlay=True)
+        finally:
+            raster_pallas.raster_pallas_available = available
+        out["viewer"][method] = {str(i): scene_figures(views[i], gc) for i in frames}
+        out["phong"][method] = {}
+        for i in frames:
+            st = character_state(char.with_inverse_bind_pose(), motion[i],
+                                 update_collision=False)
+            states = st.skeleton_state
+            root = np.asarray(states[0, :3])
+            ph = render_mesh_phong(cam, st.mesh_vertices, char.mesh.faces, w, h,
+                                   supersample=SCENE["supersample"], method=method)
+            win = ph["depth"] < gz
+            z, rgb = jnp.where(win, ph["depth"], gz), jnp.where(win[..., None], ph["color"], gc)
+            for layer in (rasterize_skeleton(cam, char.skeleton, states, w, h,
+                                             bone_radius=SCENE["bone_radius"], method=method),
+                          rasterize_spheres(cam, root, SCENE["sphere_radius"], w, h,
+                                            subdivision_level=SCENE["sphere_level"],
+                                            method=method)):
+                win = layer["depth"] < z
+                z, rgb = jnp.where(win, layer["depth"], z), jnp.where(win[..., None],
+                                                                     layer["color"], rgb)
+            z, rgb = rasterize_circles(cam, st.locator_positions, w, h,
+                                       radius=SCENE["locator_radius"],
+                                       fill_color=SCENE["dot_color"], z_buffer=z,
+                                       rgb_buffer=rgb)
+            image = rasterize_text(rgb, cam, f"FRAME {i}", root, scale=2)
+            out["phong"][method][str(i)] = dict(
+                scene_figures(image, gc), phong_mask=float(np.asarray(ph["mask"]).mean()))
+        out[f"{method}_s"] = time.perf_counter() - t0
+    return out
+
+
 CONFIGS = ("2", "2b", "4", "5", "5f", "6s", "catalog", "6k", "diffik", "variants", "4x",
-           "4ad", "skinned", "glove")
+           "4ad", "skinned", "glove", "7p")
 
 
 def main():
@@ -1195,7 +1292,7 @@ def main():
                          "(chip_smoke.py reads tools/jax_reference_4x.json)")
     ap.add_argument("--skinned-batch", type=int, default=256,
                     help="config SL's batch (the smoke holds the port's first 256 elements)")
-    for name in ("4ad", "skinned", "glove"):
+    for name in ("4ad", "skinned", "glove", "7p"):
         ap.add_argument(f"--out-{name}", default=None,
                         help=f"write config {name}'s figures to this JSON file (chip_smoke.py "
                              f"reads tools/jax_reference_{name}.json)")
@@ -1235,6 +1332,8 @@ def main():
         figures.append(skinned(args.skinned_batch))
     if "glove" in args.configs:
         figures.append(glove(args.tracking_frames))
+    if "7p" in args.configs:
+        figures.append(config7p())
     for fig in figures:
         if fig.get("config") == "6s":
             motion = fig.pop("per_frame_motion")
@@ -1246,7 +1345,8 @@ def main():
         for name, out in (("catalog", args.out_catalog), ("6k", args.out_6k),
                           ("diffik", args.out_diffik), ("variants", args.out_variants),
                           ("4x", args.out_4x), ("4ad", args.out_4ad),
-                          ("skinned", args.out_skinned), ("glove", args.out_glove)):
+                          ("skinned", args.out_skinned), ("glove", args.out_glove),
+                          ("7p", args.out_7p)):
             if fig.get("config") == name and out:
                 with open(out, "w") as f:
                     json.dump(dict(fig, device="jax cpu"), f, indent=1)
