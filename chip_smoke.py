@@ -103,7 +103,19 @@ then drives the port's paths through those kernels and checks their output:
     label): frames/s of each, frames 0-1's coverage and mean colour against
     JAX CPU's and against the CPU's render; the three passes held against
     the plain version; the dense and windowed rasterizers on the card
-    against the CPU's, and the three methods' face maps, ties aside.
+    against the CPU's, and the three methods' face maps, ties aside;
+  * config SC, SDF-collision IK at B = 2048 on the full-body rig: an
+    obstacle's and a ground slab's signed distance fields built by
+    mesh_to_sdf on the card (held against the same code on the CPU), LM 10
+    over the 80 markers, SdfCollision of all 612 vertices and VertexSdf on
+    the 32 lowest, analytic Jacobians through the LBS walk, K1 and K2+K3 at
+    (2048, 157): each module's median energy, conv_at_1e5, the obstacle's
+    penetration before and after, the support contacts of JAX CPU's solved
+    poses against JAX CPU's, and a joint-attached grid (its rows by forward
+    mode through K1) at B = 256; K1 held at B = 2048, K2+K3 at (2048, 157);
+  * config 5c, config 5's sequence solve held off a ground slab by
+    SdfCollisionSequence (forward mode through K1's jvp rule, SPIKE's steps
+    through K2+K3): the final error against JAX CPU's.
 
     python3 chip_smoke.py
 
@@ -304,6 +316,32 @@ SCENE_METHOD_AGREEMENT = 0.999  # dense, windowed and planes face maps on the co
 VERTEX_AD_JAX_CPU_FILE = "tools/jax_reference_4ad.json"
 VERTEX_AD_FACTOR = 2.0
 VERTEX_AD_ROWS_BATCH = 64
+# config SC (SDF-collision IK at B = 2048) and 5c (config 5 held off a
+# ground slab), against JAX CPU's (python tools/jax_reference.py --configs
+# sdf --out-sdf tools/jax_reference_sdf.json, which also writes JAX's solved
+# parameters to tools/jax_reference_sdf.npz): each module's median final
+# energy on the first 256 within 20% (or under 1e-8 of the total),
+# conv_at_1e5 within 0.01, nothing divergent; the support contacts of JAX's
+# solved poses, computed on the card: active masks equal, polygon areas
+# within 1e-3 relative; 5c's final error within 1e-2. mesh_to_sdf on the
+# card against the same code on the CPU: values within 1e-5 of the grid's
+# extent, signs equal on 99.9% of the voxels (the obstacle's 64³ × 1280-face
+# grid on every 8th voxel, the CPU's brute force taking ~50 s for all)
+SDF_JAX_CPU_FILE = "tools/jax_reference_sdf.json"
+SDF_JAX_CPU_ARRAYS = "tools/jax_reference_sdf.npz"
+SDF_HELD = 256
+SDF_VALUE_TOL = 1e-5
+SDF_SIGN_SHARE = 0.999
+SDF_CPU_STRIDE = 8
+SDF_AREA_RTOL = 1e-3
+SDF_AD_ROWS_BATCH = 64
+# the joint-attached rows are φ(v) − target, differences of distances of
+# ~1e-2 m at the warm starts, so the float32 rounding of the posed vertices
+# (~1e-7 m, K1 against the plain FK) is ~1e-5 of the largest row, and the
+# trilinear gradient jumps across a voxel face: 1e-4 of max|J| and of the
+# rows (measured 2.9e-5 and 1.4e-5 on one H100)
+SDF_AD_K1_RTOL = 1e-4
+SDF_SEQUENCE_RTOL = 1e-2
 
 
 def phase_device():
@@ -1183,10 +1221,10 @@ def phase_tracking(smi):
     return counts, numbers, fk_numbers, psd_numbers
 
 
-def _hold_ad_rows(solver_fn, x, label):
+def _hold_ad_rows(solver_fn, x, label, rtol=AD_K1_RTOL):
     """The forward-mode Jacobian of solver_fn's rows at x (B, P) with FK's
-    primal on K1 against the same with FK on fk_global_plain, to AD_K1_RTOL
-    of max|J|; K1's launches in the first."""
+    primal on K1 against the same with FK on fk_global_plain, to `rtol` of
+    max|J| (AD_K1_RTOL by default); K1's launches in the first."""
     from momentum_tpu_torch.ops import fk as fk_ops
     from momentum_tpu_torch.solver.gauss_newton import ad_jacobian
 
@@ -1208,8 +1246,8 @@ def _hold_ad_rows(solver_fn, x, label):
     print(f"forward-mode rows of {label} (B={x.shape[0]}, R={rk.shape[-1]}, P={x.shape[-1]}) "
           f"through K1 ({launches['kernel']} launches) against fk_global_plain "
           f"({launches['plain']}): max|ΔJ| {err:.3e} of max|J|, rows {row_err:.3e} (tol "
-          f"{AD_K1_RTOL:.0e})")
-    if not (err <= AD_K1_RTOL and row_err <= AD_K1_RTOL and launches["kernel"] >= 1
+          f"{rtol:.0e})")
+    if not (err <= rtol and row_err <= rtol and launches["kernel"] >= 1
             and launches["plain"] == 0):
         raise AssertionError(f"{label}: forward-mode rows through K1 disagree with the plain "
                              f"FK's ({err}, rows {row_err}) or launches {launches}")
@@ -1998,6 +2036,272 @@ def phase_vertex_ad(smi):
     return counts, numbers, psd_numbers
 
 
+def _hold_mesh_to_sdf(label, mesh, resolution, sign_method, stride, smi):
+    """One field by mesh_to_sdf on the card (its ms: the first build, and the
+    median of 3 more), held against the same code on the CPU on every
+    `stride`-th voxel (mesh_distances over those grid points): values
+    within SDF_VALUE_TOL of the grid's extent, signs equal on SDF_SIGN_SHARE
+    of them."""
+    from momentum_tpu_torch.axel import sdf as sdf_mod
+
+    vertices, faces = mesh
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        field = sdf_mod.mesh_to_sdf(vertices, faces, resolution, sign_method=sign_method,
+                                    device="cuda")
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    v_cpu = torch.as_tensor(vertices, dtype=torch.float32)
+    f_cpu = torch.as_tensor(faces).long()
+    origin, spacing, grid = sdf_mod.mesh_grid(v_cpu, resolution)
+    pick = torch.arange(0, grid.shape[0], stride)
+    dist, inside = sdf_mod.mesh_distances(grid[pick], v_cpu, f_cpu, sign_method)
+    cpu = torch.where(inside, -1.0, 1.0) * dist
+    card = field.values.reshape(-1)[pick.cuda()].cpu()
+    extent = float((field.spacing * (torch.tensor(resolution, device="cuda") - 1)).max())
+    err = float((card.abs() - cpu.abs()).abs().max()) / extent
+    signs = float((torch.sign(card) == torch.sign(cpu)).float().mean())
+    frame_err = max(float((field.origin.cpu() - origin).abs().max()),
+                    float((field.spacing.cpu() - spacing).abs().max()))
+    print(f"mesh_to_sdf {label} ({len(faces)} faces, {'x'.join(map(str, resolution))}, "
+          f"{sign_method}) on the card: {walls[0]:.1f} ms first, "
+          f"{statistics.median(walls[1:]):.1f} ms warm (median of 3) on {smi}; against the CPU "
+          f"on {len(pick)} voxels (every {stride}): max |value| difference {err:.3e} of the "
+          f"extent (tol {SDF_VALUE_TOL:.0e}), signs equal on {signs:.5f} (min "
+          f"{SDF_SIGN_SHARE}), origin/spacing {frame_err:.1e}")
+    if not (err <= SDF_VALUE_TOL and signs >= SDF_SIGN_SHARE and frame_err <= 1e-6):
+        raise AssertionError(f"mesh_to_sdf {label} on the card disagrees with the CPU: "
+                             f"{err}, signs {signs}, frame {frame_err}")
+    return dict(first_ms=walls[0], ms=statistics.median(walls[1:]), value_err=err,
+                sign_share=signs, voxels_held=len(pick))
+
+
+def _penetration_line(label, before, after, want=None):
+    """Print the obstacle's penetration before and after a solve (each
+    (fraction, per-element deepest depth)); → the figures."""
+    frac_b, depth_b = before
+    frac_a, depth_a = after
+    pen = depth_b > 0
+    med_b = float(np.median(depth_b[pen])) if pen.any() else 0.0
+    med_a = float(np.median(depth_a[pen])) if pen.any() else 0.0
+    print(f"  config SC penetration ({label}): {frac_b:.4f} of the elements have a vertex in "
+          f"the obstacle before, {frac_a:.4f} after; the deepest vertex's median depth over "
+          f"those {int(pen.sum())} {med_b * 1e3:.3f} mm before, {med_a * 1e3:.3f} mm after"
+          + ("" if want is None else
+             f" (JAX CPU {want['before_fraction']:.4f} → {want['after_fraction']:.4f}, "
+             f"{want['before_median_depth'] * 1e3:.3f} → "
+             f"{want['after_median_depth'] * 1e3:.3f} mm)"))
+    return dict(before_fraction=frac_b, after_fraction=frac_a, before_median_depth=med_b,
+                after_median_depth=med_a)
+
+
+def _hold_figures(config, held, full, want, batch):
+    """Each module's median final energy on the first elements against JAX
+    CPU's, conv_at_1e5 and the divergent counts; → the labels out of
+    tolerance, or raises on conv/divergence."""
+    floor = CATALOG_MEDIAN_FLOOR * want["median_energy"]["total"]
+    bad = []
+    for label, jax_med in want["median_energy"].items():
+        med = held["median_energy"][label]
+        ok = abs(med - jax_med) <= CATALOG_MEDIAN_RTOL * jax_med + floor
+        bad += [] if ok else [label]
+        print(f"  config {config} {label}: median final energy {med:.6e} on the first "
+              f"{held['batch']} (JAX CPU {jax_med:.6e}){'' if ok else ' OUT OF TOLERANCE'}; "
+              f"all {batch}: {full['median_energy'][label]:.6e}")
+    print(f"  config {config} conv_at_1e5 {held['conv_at_1e5']:.4f} on the first "
+          f"{held['batch']} (JAX CPU {want['conv_at_1e5']:.4f}), {full['conv_at_1e5']:.4f} on "
+          f"all {batch}; divergent {held['divergent']} / {full['divergent']} (JAX CPU "
+          f"{want['divergent']})")
+    if bad or abs(held["conv_at_1e5"] - want["conv_at_1e5"]) > CATALOG_CONV_SLACK \
+            or full["divergent"]:
+        raise AssertionError(f"config {config}: medians {bad} out of tolerance, conv_at_1e5 "
+                             f"{held['conv_at_1e5']} (JAX CPU {want['conv_at_1e5']}), or "
+                             f"divergent {full['divergent']}")
+
+
+def phase_sdf_collision(smi):
+    """Config SC: SDF-collision IK at B = 2048 on the full-body rig
+    (workloads.build_sdf_collision_problem): its three fields built by
+    mesh_to_sdf on the card (the 1280-face obstacle and the ground slab at
+    64³, the handle at 32³), each held against the CPU; LM 10 through
+    solve_ik over Position on the 80 locators, SdfCollision of all 612
+    vertices against the obstacle and VertexSdf holding the 32 lowest
+    vertices on the ground, both with analytic Jacobians through the LBS
+    walk; K1 every context, K2+K3 at (2048, 157). Solves/s (the median of 3
+    warm solves), the peak memory; the figures on the first 256 against
+    JAX CPU's and on all 2048; the obstacle's penetration before and after;
+    the support contacts of JAX's solved poses against JAX CPU's, and of
+    the port's own; the joint-attached grid (the handle on r_hand0, its rows
+    by forward mode) at B = 256 against JAX CPU's. Then K1 held at the
+    warm starts (B = 2048), K2+K3 at (2048, 157) on the path's normal
+    equations, the joint-attached rows through K1 against the plain FK's."""
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch.character import fk
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    want = _load_jax_cpu(SDF_JAX_CPU_FILE)
+    here = os.path.dirname(os.path.abspath(__file__))
+    jax_params = np.load(os.path.join(here, SDF_JAX_CPU_ARRAYS))["params"]
+    problem = w.build_sdf_collision_problem(w.SDF_BATCH, seed=SEED, device="cuda")
+    r = problem.recipe
+    fields = {label: _hold_mesh_to_sdf(label, (r[f"{label}_vertices"], r[f"{label}_faces"]),
+                                       res, method, stride, smi)
+              for label, res, method, stride in (
+                  ("obstacle", w.SDF_RESOLUTION, "winding", SDF_CPU_STRIDE),
+                  ("ground", w.SDF_RESOLUTION, "normal", 1),
+                  ("handle", w.SDF_HAND_RESOLUTION, "winding", 1))}
+    batch = problem.x0.shape[0]
+    before = w.sdf_penetration(problem, problem.x0)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = w.solve_catalog(problem)
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    walls = []
+    for _ in range(3):  # warm
+        t0 = time.perf_counter()
+        w.solve_catalog(problem)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    more = w.solve_catalog(problem, x0=res.params, iterations=w.CATALOG_MORE)
+    held = w.catalog_figures(problem, res.params, more.params, slice(0, SDF_HELD))
+    full = w.catalog_figures(problem, res.params, more.params)
+    print(f"config SC (SDF-collision IK, B={batch}, P={problem.x0.shape[-1]}, "
+          f"{sum(ef.num_rows() for _, ef in problem.modules)} rows, LM "
+          f"{w.CATALOG_ITERATIONS}): {batch / wall:.1f} solves/s (median wall {wall:.3f} s of "
+          f"3 warm runs) on {smi}; peak memory {peak_gb:.3f} GiB; kernel launches {counts}")
+    _hold_figures("SC", held, full, want, batch)
+    if any(n == 0 for n in counts.values()):
+        raise AssertionError(f"config SC did not run through every kernel: {counts}")
+    after = w.sdf_penetration(problem, res.params)
+    penetration = dict(
+        all=_penetration_line(f"all {batch}", before, after),
+        first_256=_penetration_line(
+            f"the first {SDF_HELD}",
+            w.sdf_penetration(problem, problem.x0, slice(0, SDF_HELD)),
+            w.sdf_penetration(problem, res.params, slice(0, SDF_HELD)), want["penetration"]))
+
+    # the support contacts on the card: JAX's solved poses held, the port's
+    # own reported beside
+    jp = torch.as_tensor(jax_params[:SDF_HELD], device="cuda")
+    active, areas = w.sdf_support_contacts(problem, jp, SDF_HELD)
+    want_active = np.asarray(want["contacts"]["active"], bool)
+    want_areas = np.asarray(want["contacts"]["areas"])
+    mask_diff = int((active != want_active).sum())
+    area_err = float(np.max(np.abs(areas - want_areas) / np.maximum(np.abs(want_areas), 1e-12)
+                            * (np.abs(areas - want_areas) > 1e-9)))
+    own_active, own_areas = w.sdf_support_contacts(problem, res.params[:SDF_HELD], SDF_HELD)
+    own_diff = int((own_active != want_active).sum())
+    print(f"  config SC support contacts on the card (plane y = {r['ground_top']:.4f}, margin "
+          f"{w.SDF_CONTACT_HEIGHT} m, {active.shape[1]} candidates an element) of JAX CPU's "
+          f"solved poses, first {SDF_HELD}: {int(active.sum())} active (JAX CPU "
+          f"{int(want_active.sum())}), {mask_diff} mask entries differ; polygon areas max rel. "
+          f"difference {area_err:.3e} (tol {SDF_AREA_RTOL:.0e}) over the "
+          f"{int((want_areas > 0).sum())} elements with a polygon (JAX CPU), median area "
+          f"{float(np.median(areas)):.6f} m²; of the port's own solved poses: "
+          f"{int(own_active.sum())} active, {own_diff} mask entries differ from JAX CPU's, "
+          f"median area {float(np.median(own_areas)):.6f} m²")
+    if mask_diff or not area_err <= SDF_AREA_RTOL:
+        raise AssertionError(f"config SC support contacts: {mask_diff} mask entries differ or "
+                             f"areas {area_err}")
+
+    # the joint-attached grid: forward-mode rows, B = 256
+    joint = w.sdf_joint_problem(problem)
+    _reset_counts()
+    res_j = w.solve_catalog(joint)
+    torch.cuda.synchronize()
+    joint_counts = _counts()
+    t0 = time.perf_counter()
+    w.solve_catalog(joint)
+    torch.cuda.synchronize()
+    joint_wall = time.perf_counter() - t0
+    more_j = w.solve_catalog(joint, x0=res_j.params, iterations=w.CATALOG_MORE)
+    fig_j = w.catalog_figures(joint, res_j.params, more_j.params)
+    print(f"config SC joint-attached grid (VertexSdf on {len(r['hand_index'])} finger vertices "
+          f"against the handle's field on r_hand0, forward mode, B={joint.x0.shape[0]}): "
+          f"{joint.x0.shape[0] / joint_wall:.1f} solves/s (warm wall {joint_wall:.3f} s); "
+          f"kernel launches {joint_counts}")
+    _hold_figures("SC joint-attached", fig_j, fig_j, want["joint_attached"], joint.x0.shape[0])
+    if any(n == 0 for n in joint_counts.values()):
+        raise AssertionError(f"config SC joint-attached grid: launches {joint_counts}")
+    n = SDF_AD_ROWS_BATCH
+    hand = joint.modules[1][1]
+    ad_fn = SkeletonSolverFunction(problem.char, (dataclasses.replace(
+        hand, target_distance=hand.target_distance[:n]),))
+    numbers = dict(solves_per_s=batch / wall, wall_s=wall, peak_memory_gib=peak_gb,
+                   first_256=held, all=full, launches=counts, penetration=penetration,
+                   fields=fields, contacts=dict(active=int(active.sum()), mask_diff=mask_diff,
+                                                area_rel_err=area_err, own_mask_diff=own_diff),
+                   joint_attached=dict(figures=fig_j, launches=joint_counts,
+                                       solves_per_s=joint.x0.shape[0] / joint_wall),
+                   ad_rows=_hold_ad_rows(ad_fn, joint.x0[:n].contiguous(),
+                                         "config SC's joint-attached VertexSdf",
+                                         rtol=SDF_AD_K1_RTOL))
+    skel = problem.char.skeleton
+    local = fk.local_skel_states(
+        skel, problem.char.parameter_transform.apply(problem.x0)).contiguous()
+    fk_numbers = _hold_fk(skel, local, "config SC's warm starts")
+    fn = SkeletonSolverFunction(problem.char, tuple(ef for _, ef in problem.modules))
+    a, b = fn.normal_equations(problem.x0)[:2]
+    damp = (0.01 * torch.clamp(a.diagonal(dim1=-2, dim2=-1), min=1e-12) + 1e-5).contiguous()
+    psd_numbers = _hold_psd_matrix(a.contiguous(), damp, b.contiguous(),
+                                   "config SC's normal equations at the warm starts")
+    return counts, joint_counts, numbers, fk_numbers, psd_numbers
+
+
+def phase_sdf_sequence(smi):
+    """Config 5c: config 5's sequence solve (16-joint test rig, F = 1024, GN
+    8) with SdfCollisionSequence on its 8 lowest rest vertices against a
+    ground slab's field (mesh_to_sdf at 64³ on the card): its rows by
+    forward mode through K1's jvp rule, SPIKE's Thomas steps through K2+K3.
+    Frames/s (median of 3 warm solves, the first counted), the final error
+    against JAX CPU's; K1 held at B = 1024 on its truths, K2+K3 on a SPIKE
+    forward step of the path."""
+    from momentum_tpu_torch.character import fk
+    from momentum_tpu_torch.testing.workloads import (
+        build_sdf_sequence_problem, make_sequence_solve)
+
+    want = _load_jax_cpu(SDF_JAX_CPU_FILE)["config5c"]
+    prob = build_sdf_sequence_problem(SEQUENCE_FRAMES, device="cuda")
+    fn = prob.fn
+    solve = make_sequence_solve(fn)
+    solve(prob.pf0, prob.u0)  # warm-up
+    _reset_counts()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = solve(prob.pf0, prob.u0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if len(walls) == 1:
+            counts = _counts()
+    wall = statistics.median(walls)
+    err = float(res.error)
+    print(f"config 5c (F={SEQUENCE_FRAMES}, config 5 with SdfCollisionSequence on "
+          f"{fn.sequence_errors[-1].vertex_index.numel()} vertices, GN {res.iterations}): "
+          f"{SEQUENCE_FRAMES / wall:.1f} frames/s (median wall {wall * 1e3:.1f} ms of 3) on "
+          f"{smi}; final error {err:.6e} (JAX CPU {want['error']:.6e}), iterations "
+          f"{res.iterations} (JAX CPU {want['iterations']}); kernel launches {counts}")
+    if not (abs(err / want["error"] - 1) <= SDF_SEQUENCE_RTOL
+            and bool(torch.isfinite(res.per_frame).all())
+            and all(n > 0 for n in counts.values())):
+        raise AssertionError(f"config 5c: final error {err} not within {SDF_SEQUENCE_RTOL} of "
+                             f"JAX CPU's {want['error']}, or launches {counts}")
+    skel = fn.character.skeleton
+    local = fk.local_skel_states(skel, fn.character.parameter_transform.apply(prob.gt))
+    p, nu = fn.num_per_frame, fn.num_universal
+    numbers = dict(frames_per_s=SEQUENCE_FRAMES / wall, error=err, iterations=res.iterations,
+                   launches=counts)
+    fk_numbers = _hold_fk(skel, local.contiguous(), "config 5c's frames")
+    psd_numbers = _hold_psd_matrix(*_sequence_systems(fn, prob.pf0, prob.u0, nu + 1 + 3 * p),
+                                   "config 5c's SPIKE forward step")
+    return counts, numbers, fk_numbers, psd_numbers
+
+
 def _frame_vertices(char, motion, frame=0):
     """The skinned vertices of frame `frame` of the clip."""
     from momentum_tpu_torch.testing.workloads import clip_vertices
@@ -2760,6 +3064,10 @@ def main():
     lap("glove")
     vad_counts, vad_numbers, vad_psd = phase_vertex_ad(smi)
     lap("vertex_ad")
+    sc_counts, sc_joint_counts, sc_numbers, sc_fk, sc_psd = phase_sdf_collision(smi)
+    lap("sdf_collision")
+    c5_counts, c5_numbers, c5_fk, c5_psd = phase_sdf_sequence(smi)
+    lap("sdf_sequence")
 
     from momentum_tpu_torch.testing.workloads import build_render_clip
 
@@ -2803,7 +3111,11 @@ def main():
              glove_launches={st: n["fk_global_kernel"] for st, n in glove_counts.items()},
              glove_B343=glove_fk, glove_ad_rows=glove_numbers.pop("ad_rows"),
              vertex_ad_launches=vad_counts["fk_global_kernel"],
-             vertex_ad_rows=vad_numbers.pop("ad_rows")),
+             vertex_ad_rows=vad_numbers.pop("ad_rows"),
+             sdf_collision_launches=sc_counts["fk_global_kernel"],
+             sdf_joint_launches=sc_joint_counts["fk_global_kernel"],
+             sdf_collision_B2048=sc_fk, sdf_joint_ad_rows=sc_numbers.pop("ad_rows"),
+             sdf_sequence_launches=c5_counts["fk_global_kernel"], sdf_sequence_B1024=c5_fk),
         dict(name="damped_chol_solve_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/psd_pallas.py:53",
@@ -2836,7 +3148,12 @@ def main():
                              for st, n in glove_counts.items()},
              **{f"glove_{shape}": nums for shape, nums in glove_psd.items()},
              vertex_ad_launches=vad_counts["damped_chol_solve_kernel"],
-             vertex_ad_256x165=vad_psd),
+             vertex_ad_256x165=vad_psd,
+             sdf_collision_launches=sc_counts["damped_chol_solve_kernel"],
+             sdf_joint_launches=sc_joint_counts["damped_chol_solve_kernel"],
+             sdf_collision_2048x157=sc_psd,
+             sdf_sequence_launches=c5_counts["damped_chol_solve_kernel"],
+             **{"sdf_sequence_{}x{}_k{}".format(*c5_psd["batch_n_k"]): c5_psd}),
         dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:55",
@@ -2878,7 +3195,8 @@ def main():
                       "configC": catalog_numbers, "config6k": kp_numbers,
                       "configD": dik_numbers, "variants": var_numbers,
                       "config4x": vx_numbers, "configSL": sl_numbers, "configG": glove_numbers,
-                      "config4ad": vad_numbers, "config7p": scene_numbers}))
+                      "config4ad": vad_numbers, "config7p": scene_numbers,
+                      "configSC": sc_numbers, "config5c": c5_numbers}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -53,6 +53,20 @@ vertex_{position,plane,normal,projection}_error_from_numpy keys:
     normal (C, 3) and above () for plane; target_position, target_normal
     (C, 3), source_normal_weight, target_normal_weight () for normal;
     projection (C, 3, 4), target (C, 2), near_clip () for projection
+sdf_from_numpy keys:
+    origin (3,), spacing (3,), values (nx, ny, nz) (a SignedDistanceField)
+triangle_grid_from_numpy keys:
+    cells (R, R, R, K) int32, origin (3,), cell_size (), resolution ()
+vertex_sdf_error_from_numpy keys:
+    the field under sdf_origin, sdf_spacing, sdf_values; vertex_index (C,),
+    target_distance (..., C), cweight (C,), weight (), sdf_parent (),
+    optional loss_alpha, loss_c
+sdf_collision_error_from_numpy keys:
+    sdf_origin, sdf_spacing, sdf_values, vertex_index (C,), cweight (C,),
+    weight (), optional loss_alpha, loss_c
+sdf_collision_sequence_error_from_numpy keys:
+    sdf_origin, sdf_spacing, sdf_values, vertex_index (C,), cweight (C,),
+    weight ()
 phong_material_from_numpy keys:
     diffuse_color, specular_color, emissive_color (3,), specular_exponent (),
     optional diffuse_texture, emissive_texture (Th, Tw, 3)
@@ -87,7 +101,9 @@ __all__ = ["character_from_numpy", "camera_from_numpy", "position_error_from_num
            "pose_prior_from_numpy", "vertex_position_error_from_numpy",
            "vertex_plane_error_from_numpy", "vertex_normal_error_from_numpy",
            "vertex_projection_error_from_numpy", "phong_material_from_numpy",
-           "lights_from_numpy"]
+           "lights_from_numpy", "sdf_from_numpy", "triangle_grid_from_numpy",
+           "vertex_sdf_error_from_numpy", "sdf_collision_error_from_numpy",
+           "sdf_collision_sequence_error_from_numpy"]
 
 _LIMIT_KEYS = tuple(f.name for f in dataclasses.fields(ParameterLimits))
 _COLLISION_KEYS = tuple(f.name for f in dataclasses.fields(CollisionGeometry))
@@ -291,3 +307,54 @@ def lights_from_numpy(lights, device="cuda") -> tuple:
     return tuple(Light(_t(d, "position", device).float(), _t(d, "color", device).float(),
                        int(d["type"]))
                  for d in lights)
+
+
+def sdf_from_numpy(d: dict, device="cuda", prefix: str = ""):
+    """A SignedDistanceField from origin, spacing and values (under
+    `prefix`, "sdf_" inside a module's dict)."""
+    from momentum_tpu_torch.axel.sdf import SignedDistanceField
+
+    device = resolve(device, "sdf_from_numpy")
+    return SignedDistanceField(**{k: _t(d, prefix + k, device).float()
+                                  for k in ("origin", "spacing", "values")})
+
+
+def triangle_grid_from_numpy(d: dict, device="cuda"):
+    from momentum_tpu_torch.axel.grid import TriangleGrid
+
+    device = resolve(device, "triangle_grid_from_numpy")
+    return TriangleGrid(cells=_t(d, "cells", device).to(torch.int32),
+                        origin=_t(d, "origin", device).float(),
+                        cell_size=_t(d, "cell_size", device).float(),
+                        resolution=int(d["resolution"]))
+
+
+def _sdf_error(cls, d, device, entry, **extra):
+    device = resolve(device, entry)
+    return cls(sdf=sdf_from_numpy(d, device, "sdf_"),
+               vertex_index=_t(d, "vertex_index", device).to(torch.int32),
+               cweight=_t(d, "cweight", device).float(), weight=_t(d, "weight", device).float(),
+               **{k: f(d, device) for k, f in extra.items()})
+
+
+def vertex_sdf_error_from_numpy(d: dict, device="cuda"):
+    from momentum_tpu_torch.errors.sdf import VertexSdfErrorFunction
+
+    return _sdf_error(VertexSdfErrorFunction, d, device, "vertex_sdf_error_from_numpy",
+                      target_distance=lambda d, dev: _t(d, "target_distance", dev).float(),
+                      sdf_parent=lambda d, dev: int(d["sdf_parent"]),
+                      loss=lambda d, dev: _loss(d))
+
+
+def sdf_collision_error_from_numpy(d: dict, device="cuda"):
+    from momentum_tpu_torch.errors.sdf import SdfCollisionErrorFunction
+
+    return _sdf_error(SdfCollisionErrorFunction, d, device, "sdf_collision_error_from_numpy",
+                      loss=lambda d, dev: _loss(d))
+
+
+def sdf_collision_sequence_error_from_numpy(d: dict, device="cuda"):
+    from momentum_tpu_torch.sequence.errors import SdfCollisionSequenceErrorFunction
+
+    return _sdf_error(SdfCollisionSequenceErrorFunction, d, device,
+                      "sdf_collision_sequence_error_from_numpy")

@@ -19,6 +19,8 @@ from momentum_tpu_torch.errors.limit import LimitErrorFunction  # noqa: F401
 from momentum_tpu_torch.errors.pose_prior import Mppca, PosePriorErrorFunction  # noqa: F401
 from momentum_tpu_torch.errors.position import (  # noqa: F401
     ModelParametersErrorFunction, OrientationErrorFunction, PositionErrorFunction)
+from momentum_tpu_torch.errors.sdf import (  # noqa: F401
+    SdfCollisionErrorFunction, VertexSdfErrorFunction)
 from momentum_tpu_torch.errors.skinned_locator import (  # noqa: F401
     SkinnedLocatorErrorFunction, SkinnedLocatorTriangleErrorFunction)
 from momentum_tpu_torch.errors.state import StateErrorFunction  # noqa: F401

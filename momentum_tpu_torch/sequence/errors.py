@@ -20,8 +20,8 @@ carry a window axis before their own (..., W, ...).
       window of R_refᵀ(p_src − p_ref)                              (window 2)
   VertexSequenceErrorFunction: per tracked vertex v₁ − v₀ on the posed
       mesh                                                         (window 2)
-  SdfCollisionSequenceErrorFunction needs axel's signed distance fields,
-      which the port has not yet (ROADMAP M9): its create raises.
+  SdfCollisionSequenceErrorFunction (sdf_collision_sequence_error_function.cpp):
+      per tracked vertex and frame of the window min(sdf(v), 0)   (window 2)
 
 `reads_states` marks the modules that read the skeleton states (False
 only for ModelParameters, which reads the model parameters alone), so the
@@ -287,15 +287,32 @@ class VertexSequenceErrorFunction(SequenceErrorFunction):
                    weight=_f32(weight, device))
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
 class SdfCollisionSequenceErrorFunction(SequenceErrorFunction):
     """Per-frame SDF penetration across the window
-    (sdf_collision_sequence_error_function.cpp). It samples axel's signed
-    distance fields, which come with ROADMAP M9."""
+    (sdf_collision_sequence_error_function.cpp): f = min(sdf(v), 0) for each
+    tracked vertex at each frame of the window. It has a residual only, so
+    its rows reach the solver by forward mode."""
+
+    sdf: object  # axel.SignedDistanceField
+    vertex_index: torch.Tensor  # (C,) int32
+    cweight: torch.Tensor
+    weight: torch.Tensor
 
     window = 2
     needs_mesh = True
 
+    def residual(self, character, ctxs: EvalContext) -> torch.Tensor:
+        v = ctxs.mesh_vertices.index_select(-2, self.vertex_index)  # (..., W, C, 3)
+        d = self.sdf.sample(v)
+        f = torch.minimum(d, d.new_zeros(()))
+        return (_scale(self.weight * self.cweight * 5e-3) * f).reshape(f.shape[:-2] + (-1,))
+
     @classmethod
-    def create(cls, sdf, vertex_index, cweight=None, weight=1.0):
-        raise NotImplementedError("SdfCollisionSequenceErrorFunction needs axel's signed "
-                                  "distance fields, which the port has not yet (ROADMAP M9)")
+    def create(cls, sdf, vertex_index, cweight=None, weight=1.0, device="cuda"):
+        device = resolve(device, "SdfCollisionSequenceErrorFunction.create")
+        vertex_index = np.asarray(vertex_index, np.int32)
+        n = vertex_index.shape[0]
+        return cls(sdf=sdf, vertex_index=torch.as_tensor(vertex_index, device=device),
+                   cweight=_f32(np.ones(n) if cweight is None else cweight, device),
+                   weight=_f32(weight, device))

@@ -133,13 +133,20 @@ class SequenceSolverFunction:
         return total
 
     def _window_contexts(self, ctxs: EvalContext, window: int) -> EvalContext:
-        """Sliding windows: leading axis F → (F-W+1, W)."""
+        """Sliding windows: leading axis F → (F-W+1, W). The rest mesh of a
+        rig without blend shapes (V, 3) has no frame axis and is shared by
+        every window (ROADMAP F24)."""
         f = self.num_frames
         idx = (torch.arange(f - window + 1)[:, None] + torch.arange(window)[None, :])
-        return EvalContext(**{
-            fld.name: (None if getattr(ctxs, fld.name) is None
-                       else getattr(ctxs, fld.name)[idx.to(ctxs.model_params.device)])
-            for fld in dataclasses.fields(ctxs)})
+        idx = idx.to(ctxs.model_params.device)
+
+        def windows(name, t):
+            if t is None or (name == "rest_vertices" and t.ndim == 2):
+                return t
+            return t[idx]
+
+        return EvalContext(**{fld.name: windows(fld.name, getattr(ctxs, fld.name))
+                              for fld in dataclasses.fields(ctxs)})
 
     def error(self, pf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         ctxs = self.frame_contexts(self.join(pf, u))

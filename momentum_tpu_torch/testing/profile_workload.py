@@ -1,7 +1,7 @@
 """Where the time of the port's workloads goes on one CUDA card.
 
     python -m momentum_tpu_torch.testing.profile_workload
-        [--workload ik|render|fullstack|vertex|sequence|tracking|catalog|keypoints|skinned|glove|scene|both]
+        [--workload ik|render|fullstack|vertex|sequence|tracking|catalog|keypoints|skinned|glove|scene|sdf|both]
         [--batch 2048]
         [--frames 1024] [--fullbody] [--out DIR]
 
@@ -50,6 +50,13 @@ over every rigid module of the catalog):
 for config SL (build_skinned_ik_problem + solve_catalog, LM 10 at B = 2048
 over the skinned-locator modules and the limits): the same layers as
 config C's (no module of config SL has an analytic Jacobian);
+for config SC (build_sdf_collision_problem + solve_catalog, LM 10 at
+B = 2048 over the markers, the obstacle's collision and the ground):
+  * each layer of one LM iteration timed alone with CUDA events
+    (sdf_layer_times: FK, skinning, SDF sample + gradient, the vertex
+    Jacobian, the marker rows, JᵀJ, K2+K3, the trial energy), the whole
+    iteration and the host's part, and the wall and device-busy share of
+    the solve;
 for config G (build_glove_clip: 343 frames, two 7-finger gloves):
   * the wall and device-busy share of the sequence solve and of per-frame
     tracking of its first 8 frames;
@@ -592,6 +599,61 @@ def catalog_layer_times(problem, lam: float = 0.01) -> dict:
     return times
 
 
+def sdf_layer_times(problem, lam: float = 0.01) -> dict:
+    """ms per call of each layer of one LM iteration of config SC (a
+    testing.workloads.SdfCollisionProblem) at its warm starts: the context's
+    FK (K1), the skinning (posed mesh and normals), the SDF sample and
+    gradient of both fields at their vertices, the vertex Jacobian (the LBS
+    walk of the 612 + 32 vertices, through the Jacobian context), the
+    marker rows and their model Jacobian, JᵀJ + Jᵀr of all rows, the damped
+    solve (K2+K3), the trial energy; the whole iteration (solve_ik, 1
+    iteration), and the host's part, the iteration less the layers."""
+    from momentum_tpu_torch.math.linalg import damped_psd_solve
+    from momentum_tpu_torch.solver import SkeletonSolverFunction, SolverOptions, solve_ik
+    from momentum_tpu_torch.solver.analytic_jacobian import (
+        make_jacobian_context, skinned_point_jacobian)
+
+    char, x = problem.char, problem.x0
+    (_, position), (_, collision), (_, floor) = problem.modules
+    fn = SkeletonSolverFunction(char, (position, collision, floor))
+    fk_only = SkeletonSolverFunction(char, (position,))
+    ctx = fn.context(x)
+    rows, jac = fn._rows_and_jacobian(ctx, fn.error_functions)
+    jt = jac.transpose(-1, -2)
+    jtj, jtr = jt @ jac, (jt @ rows[..., None])[..., 0]
+    damp = lam * torch.clamp(jtj.diagonal(dim1=-2, dim2=-1), min=1e-12) + 1e-5
+    verts = {ef: ctx.mesh_vertices.index_select(-2, ef.vertex_index) for ef in (collision, floor)}
+
+    def sample_and_gradient():
+        return [(ef.sdf.sample(v), ef.sdf.gradient(v)) for ef, v in verts.items()]
+
+    def vertex_jacobian():
+        jc = make_jacobian_context(char, ctx)
+        return [skinned_point_jacobian(jc, char, ctx, ef.vertex_index) for ef in verts]
+
+    fk_ms = event_ms(lambda: fk_only.context(x), reps=3)
+    times = {
+        "context: FK through K1": fk_ms,
+        "context: skinning (posed mesh and normals)":
+            event_ms(lambda: fn.context(x), reps=3) - fk_ms,
+        "SDF sample + gradient (both fields)": event_ms(sample_and_gradient, reps=3),
+        "vertex Jacobian (LBS walk of both modules' vertices)": event_ms(vertex_jacobian,
+                                                                         reps=3),
+        "marker rows + model Jacobian": event_ms(
+            lambda: fn._rows_and_jacobian(ctx, (position,)), reps=3),
+        "JtJ + Jtr": event_ms(lambda: (jt @ jac, jt @ rows[..., None]), reps=3),
+        "damped solve (K2+K3)": event_ms(lambda: damped_psd_solve(jtj, damp, jtr)),
+        "trial energy (FK through K1, skinning, every module)": event_ms(
+            lambda: fn.error(x), reps=3),
+    }
+    one = SolverOptions(max_iterations=1, regularization=1e-5)
+    whole = event_ms(lambda: solve_ik(fn, x, options=one, method="levenberg_marquardt"),
+                     reps=3)
+    times["host and the rest (the iteration less the layers)"] = whole - sum(times.values())
+    times["whole LM iteration (solve_ik, 1 iteration)"] = whole
+    return times
+
+
 def keypoint_layer_times(clip, keypoints, lam: float = 0.01) -> dict:
     """ms per call of each layer of one LM iteration of config 6k's batched
     pose solve (markers, limits and the four cameras' keypoint modules, all
@@ -691,7 +753,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload",
                     choices=("ik", "render", "fullstack", "vertex", "sequence", "tracking",
-                             "catalog", "keypoints", "skinned", "glove", "scene", "both"),
+                             "catalog", "keypoints", "skinned", "glove", "scene", "sdf",
+                             "both"),
                     default="both", help="both = ik and render")
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--frames", type=int, default=1024, help="the sequence's frame count")
@@ -800,6 +863,15 @@ def main():
         _wall_and_profile(lambda: solve_catalog(problem), card,
                           f"skinned-solve B={args.batch} (LM 10)", args.out, args.batch,
                           "solves/s")
+
+    if args.workload == "sdf":
+        from momentum_tpu_torch.testing.workloads import build_sdf_collision_problem, solve_catalog
+
+        problem = build_sdf_collision_problem(args.batch, seed=args.seed, device="cuda")
+        for name, ms in sdf_layer_times(problem).items():
+            print(f"sdf layer B={args.batch}: {name}: {ms:.4f} ms [{card}]")
+        _wall_and_profile(lambda: solve_catalog(problem), card,
+                          f"sdf-solve B={args.batch} (LM 10)", args.out, args.batch, "solves/s")
 
     if args.workload == "glove":
         from momentum_tpu_torch.testing.workloads import (

@@ -1660,3 +1660,256 @@ def glove_figures(clip: GloveClip, motion: torch.Tensor) -> dict:
     return dict(median_mm=float(np.median(err)), p90_mm=float(np.percentile(err, 90)),
                 glove_position_median_mm=float(np.median(np.concatenate(gp))),
                 glove_orientation_median_deg=float(np.median(np.concatenate(go))))
+
+
+# ---- config SC: SDF-collision IK; config 5c: config 5 held off a ground ----
+
+SDF_BATCH = 2048
+SDF_JOINT_BATCH = 256  # the joint-attached grid's cut: its rows come by forward mode
+SDF_RESOLUTION = (64, 64, 64)
+SDF_OBSTACLE_LEVEL = 3  # make_sphere(3): 1280 faces
+SDF_OBSTACLE_CENTER = (0.0, 0.8, 0.5)  # in front of the belly: ~28% of warm starts cut it
+SDF_OBSTACLE_RADIUS = 0.35
+SDF_COLLISION_WEIGHT = 1e3
+SDF_GROUND_VERTICES = 32
+# the truths' feet are up to ~0.3 m off the ground, so holding them at 0
+# conflicts with the markers: at weight 0.1 the LM 10 stops far from its
+# optimum (conv_at_1e5 0.19 on the CPU at B = 64; 0.0 at weight 100), at
+# 0.01 it converges (0.86) with the ground's rows and Jacobian still in
+SDF_GROUND_WEIGHT = 0.01
+# the slab's half width in x and z, and its depth: mesh_to_sdf pads each
+# axis by a tenth of its extent, so 8 m of depth puts 0.8 m of the grid
+# above the top, past the knees (0.56 m above the soles at rest)
+SDF_GROUND_HALF_EXTENT = 2.5
+SDF_GROUND_DEPTH = 8.0
+SDF_HAND = 36  # r_hand0: the joint-attached grid (a handle held in the right hand)
+SDF_HAND_FINGER = 40  # r_hand4: the held vertices are the rest mesh's nearest to it
+SDF_HAND_VERTICES = 16
+SDF_HAND_RESOLUTION = (32, 32, 32)
+SDF_HAND_WEIGHT = 100.0
+SDF_CONTACT_HEIGHT = 0.1  # the support contacts' margin above the ground (m)
+SDF_SEQUENCE_VERTICES = 8  # config 5c: the test rig's lowest rest vertices
+SDF_SEQUENCE_WEIGHT = 100.0
+
+
+def ground_slab(top: float, half_extent: float = SDF_GROUND_HALF_EXTENT,
+                depth: float = SDF_GROUND_DEPTH):
+    """A closed box (8 vertices, 12 faces wound outward) whose top face is
+    y = top, |x|, |z| ≤ half_extent, `depth` deep: (vertices (8, 3) float32,
+    faces (12, 3) int32)."""
+    h = half_extent
+    v = np.asarray([[x, y, z] for x in (-h, h) for y in (top - depth, top) for z in (-h, h)],
+                   np.float32)
+    # quads by corner index (x·4 + y·2 + z), each wound outward
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3)]
+    f = [[a, b, c] for a, b, c, _ in quads] + [[a, c, d] for a, _, c, d in quads]
+    return v, np.asarray(f, np.int32)
+
+
+def _rotate(q: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """v rotated by the unit quaternion q = (x, y, z, w), float64."""
+    u, w = q[..., :3], q[..., 3:]
+    t = 2.0 * np.cross(u, v)
+    return v + w * t + np.cross(u, t)
+
+
+def sdf_recipe(rest_vertices: np.ndarray, bind_states: np.ndarray) -> dict:
+    """Config SC's fixed inputs, numpy only, so that the port and
+    tools/jax_reference.py build identical ones from the full-body rig's
+    rest mesh (V, 3) and bind states (nJ, 8):
+
+      * the obstacle, make_sphere(SDF_OBSTACLE_LEVEL) scaled to
+        SDF_OBSTACLE_RADIUS at SDF_OBSTACLE_CENTER;
+      * the ground, ground_slab with its top at the rest mesh's lowest
+        height, and the SDF_GROUND_VERTICES lowest rest vertices (a stable
+        sort) it holds at distance 0;
+      * the handle held in the right hand: the SDF_HAND_VERTICES rest
+        vertices nearest r_hand4, and a capsule mesh in r_hand0's frame
+        along its local x through them, its radius 1 cm past the farthest
+        of them, so all lie inside its grid;
+      * the support contacts' capsules: config C's ten (catalog_recipe)
+        and one along each foot (foot0 → foot2)."""
+    from momentum_tpu_torch.rasterizer.primitives import make_capsule, make_sphere
+
+    rest = rest_vertices.astype(np.float64)
+    sv, sf = make_sphere(SDF_OBSTACLE_LEVEL)
+    obstacle = (sv.astype(np.float64) * SDF_OBSTACLE_RADIUS
+                + np.asarray(SDF_OBSTACLE_CENTER)).astype(np.float32)
+    top = float(rest[:, 1].min())
+    gv, gf = ground_slab(top)
+    finger = bind_states[SDF_HAND_FINGER, :3].astype(np.float64)
+    hand_vertices = np.argsort(np.linalg.norm(rest - finger, axis=-1), kind="stable")[
+        :SDF_HAND_VERTICES]
+    hb = bind_states[SDF_HAND].astype(np.float64)
+    q_inv = hb[3:7] * np.asarray([-1.0, -1.0, -1.0, 1.0])
+    local = _rotate(q_inv, rest[hand_vertices] - hb[:3]) / hb[7]
+    x0, x1 = float(local[:, 0].min()), float(local[:, 0].max())
+    axis_yz = local[:, 1:].mean(0)
+    radius = float(np.linalg.norm(local[:, 1:] - axis_yz, axis=-1).max()) + 0.01
+    cv, cf = make_capsule(radius, radius, x1 - x0, radius_subdivisions=12, cap_subdivisions=4)
+    handle = (cv.astype(np.float64) + np.asarray([x0, *axis_yz])).astype(np.float32)
+    r = catalog_recipe()
+    s = np.sqrt(0.5)
+    foot = [0.0, -0.5, -0.5, s]  # local x onto (0, −1, 1)/√2, the foot's direction
+    caps = dict(parent=np.concatenate([r["capsule_parent"], [28, 48]]).astype(np.int32),
+                transform=np.concatenate([r["capsule_transform"],
+                                          [[0.0, 0.0, 0.0] + foot + [1.0]] * 2]).astype(
+                                              np.float32),
+                radius=np.concatenate([r["capsule_radius"], [[0.04, 0.03]] * 2]).astype(
+                    np.float32),
+                length=np.concatenate([r["capsule_length"], [0.23, 0.23]]).astype(np.float32))
+    return dict(obstacle_vertices=obstacle, obstacle_faces=np.asarray(sf, np.int32),
+                ground_vertices=gv, ground_faces=gf, ground_top=top,
+                ground_index=np.argsort(rest[:, 1], kind="stable")[:SDF_GROUND_VERTICES]
+                .astype(np.int32),
+                hand_index=hand_vertices.astype(np.int32), handle_vertices=handle,
+                handle_faces=np.asarray(cf, np.int32), contact_capsules=caps)
+
+
+class SdfCollisionProblem(NamedTuple):
+    """Config SC on one device."""
+
+    char: object  # the full-body rig with the support contacts' capsules
+    modules: tuple  # (("position", ...), ("sdf_collision", ...), ("vertex_sdf", ...))
+    truth: torch.Tensor  # (B, 157)
+    x0: torch.Tensor  # (B, 157)
+    obstacle: object  # SignedDistanceField of the sphere (winding number)
+    ground: object  # SignedDistanceField of the slab (closest face's normal)
+    handle: object  # SignedDistanceField of the handle, in r_hand0's frame
+    plane: object  # SupportPlane of the ground's top
+    recipe: dict
+
+
+def build_sdf_collision_problem(batch: int = SDF_BATCH, seed: int = 0,
+                                device="cuda") -> SdfCollisionProblem:
+    """Config SC on `device` (the card unless the caller asks for the CPU):
+    the full-body rig, catalog_draws' truths and warm starts (truth +
+    N(0, 0.05)), and three modules: Position on the 80 locators with each
+    element's truth targets; SdfCollision of all 612 vertices against the
+    obstacle's field (mesh_to_sdf at 64³ by winding number, built on
+    `device`), weight SDF_COLLISION_WEIGHT; VertexSdf holding the 32 lowest
+    rest vertices at distance 0 from the ground slab's field (64³, by the
+    closest face's normal), weight SDF_GROUND_WEIGHT. Solved by
+    solve_catalog (LM 10)."""
+    from momentum_tpu_torch import errors as E
+    from momentum_tpu_torch.axel import mesh_to_sdf
+    from momentum_tpu_torch.character import CollisionGeometry
+    from momentum_tpu_torch.math.support_polygon import SupportPlane
+    from momentum_tpu_torch.testing.fixtures import create_fullbody_character
+
+    device = resolve(device, "build_sdf_collision_problem")
+    base = create_fullbody_character(device=device)
+    r = sdf_recipe(base.mesh.vertices.cpu().numpy(), base.bind_pose().cpu().numpy())
+    char = dataclasses.replace(base, collision=CollisionGeometry(
+        **{k: torch.as_tensor(v, device=device) for k, v in r["contact_capsules"].items()}))
+    obstacle = mesh_to_sdf(r["obstacle_vertices"], r["obstacle_faces"], SDF_RESOLUTION,
+                           sign_method="winding", device=device)
+    ground = mesh_to_sdf(r["ground_vertices"], r["ground_faces"], SDF_RESOLUTION,
+                         sign_method="normal", device=device)
+    handle = mesh_to_sdf(r["handle_vertices"], r["handle_faces"], SDF_HAND_RESOLUTION,
+                         sign_method="winding", device=device)
+    truth_np, x0_np = catalog_draws(batch, seed, char.num_model_parameters)
+    truth = torch.as_tensor(truth_np, device=device)
+    loc = char.locators
+    position = dataclasses.replace(
+        E.PositionErrorFunction.create(loc.parent.cpu().numpy(), loc.offset.cpu().numpy(),
+                                       np.zeros((loc.num_locators, 3)), device=device),
+        target=loc.world_positions(char.skeleton_states(truth)))
+    collision = E.SdfCollisionErrorFunction.create(
+        obstacle, np.arange(char.mesh.num_vertices), weight=SDF_COLLISION_WEIGHT, device=device)
+    floor = E.VertexSdfErrorFunction.create(ground, r["ground_index"], weight=SDF_GROUND_WEIGHT,
+                                            device=device)
+    return SdfCollisionProblem(
+        char=char, modules=(("position", position), ("sdf_collision", collision),
+                            ("vertex_sdf", floor)),
+        truth=truth, x0=torch.as_tensor(x0_np, device=device), obstacle=obstacle,
+        ground=ground, handle=handle,
+        plane=SupportPlane.create(offset=r["ground_top"], device=device), recipe=r)
+
+
+def sdf_joint_problem(problem: SdfCollisionProblem, batch: int = SDF_JOINT_BATCH):
+    """Config SC's joint-attached case on the first `batch` elements, as a
+    CatalogProblem: the position module, and VertexSdf on the recipe's
+    finger vertices against the handle's field attached to r_hand0
+    (sdf_parent ≥ 0, so its rows come by forward mode), each element's
+    target distances those of its truth pose, weight SDF_HAND_WEIGHT."""
+    from momentum_tpu_torch import errors as E
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    char, r = problem.char, problem.recipe
+    device = problem.x0.device
+    position = problem.modules[0][1]
+    position = dataclasses.replace(position, target=position.target[:batch])
+    hand = E.VertexSdfErrorFunction.create(problem.handle, r["hand_index"],
+                                           weight=SDF_HAND_WEIGHT, sdf_parent=SDF_HAND,
+                                           device=device)
+    truth = problem.truth[:batch]
+    ctx = SkeletonSolverFunction(char, (hand,)).context(truth)
+    target = problem.handle.sample(hand._to_sdf_space(ctx, hand._vertices(ctx)))
+    return CatalogProblem(char=char, modules=(
+        ("position", position), ("vertex_sdf_joint", dataclasses.replace(
+            hand, target_distance=target))),
+        truth=truth, x0=problem.x0[:batch].contiguous())
+
+
+def sdf_penetration(problem: SdfCollisionProblem, params: torch.Tensor, rows=slice(None)):
+    """(the fraction of elements `rows` with a vertex inside the obstacle,
+    each element's deepest penetration max(0, −min φ) (numpy)) at
+    `params`."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    collision = problem.modules[1][1]
+    ctx = SkeletonSolverFunction(problem.char, (collision,)).context(params[rows])
+    depth = torch.clamp(-problem.obstacle.sample(ctx.mesh_vertices).amin(-1), min=0.0)
+    depth = depth.cpu().numpy().astype(np.float64)
+    return float(np.mean(depth > 0)), depth
+
+
+def sdf_support_contacts(problem: SdfCollisionProblem, params: torch.Tensor, polygons: int = 0):
+    """The support contacts of the poses `params` (B, P) against the
+    ground's top plane, margin SDF_CONTACT_HEIGHT: (active (B, L + C) bool
+    numpy, the support polygons' areas of the first `polygons` elements
+    (float64, shoelace over the hull, 0 below three points))."""
+    from momentum_tpu_torch.character.support_contacts import (
+        support_contact_positions, support_polygon_from_contacts)
+
+    states = problem.char.skeleton_states(params)
+    _, active = support_contact_positions(problem.char, states, SDF_CONTACT_HEIGHT,
+                                          problem.plane)
+    areas = []
+    for i in range(polygons):
+        hull = support_polygon_from_contacts(problem.char, states[i], SDF_CONTACT_HEIGHT,
+                                             problem.plane).astype(np.float64)
+        areas.append(polygon_area(hull))
+    return active.cpu().numpy(), np.asarray(areas, np.float64)
+
+
+def polygon_area(hull: np.ndarray) -> float:
+    """The shoelace area of a CCW polygon (H, 2); 0 below three points."""
+    if len(hull) < 3:
+        return 0.0
+    x, y = hull[:, 0], hull[:, 1]
+    return float(0.5 * np.sum(x * np.roll(y, -1) - np.roll(x, -1) * y))
+
+
+def build_sdf_sequence_problem(frames: int = SEQUENCE_FRAMES, seed: int = 0,
+                               device="cuda") -> SequenceProblem:
+    """Config 5c on `device` (the card unless the caller asks for the CPU):
+    config 5's sequence problem (the 16-joint test rig) with
+    SdfCollisionSequence on its SDF_SEQUENCE_VERTICES lowest rest vertices
+    (a stable sort) against a ground slab under them (ground_slab, its top
+    at their lowest height, mesh_to_sdf at 64³ by the closest face's
+    normal), weight SDF_SEQUENCE_WEIGHT."""
+    from momentum_tpu_torch.axel import mesh_to_sdf
+    from momentum_tpu_torch.sequence import SdfCollisionSequenceErrorFunction
+
+    device = resolve(device, "build_sdf_sequence_problem")
+    prob = build_sequence_problem(frames, seed=seed, device=device)
+    rest = prob.fn.character.mesh.vertices.cpu().numpy()
+    gv, gf = ground_slab(float(rest[:, 1].min()))
+    ground = mesh_to_sdf(gv, gf, SDF_RESOLUTION, sign_method="normal", device=device)
+    sdf_seq = SdfCollisionSequenceErrorFunction.create(
+        ground, np.argsort(rest[:, 1], kind="stable")[:SDF_SEQUENCE_VERTICES],
+        weight=SDF_SEQUENCE_WEIGHT, device=device)
+    fn = dataclasses.replace(prob.fn, sequence_errors=prob.fn.sequence_errors + (sdf_seq,))
+    return prob._replace(fn=fn)

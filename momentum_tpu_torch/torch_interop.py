@@ -6,8 +6,7 @@ The JAX package bridges torch tensors into jitted JAX functions (dlpack,
 torch already, so each name is an `nn.Module` or a plain function whose
 gradients come from autograd: FK through K1's rules (ops/fk.py), and
 `solve_ik_torch` through the implicit-function-theorem backward of
-solver/diff_ik.py (K2+K3 on the card). `transform_pose` and
-`SdfColliderModule` wait for their modules (ROADMAP M9).
+solver/diff_ik.py (K2+K3 on the card). `transform_pose` waits for its module (ROADMAP M9).
 """
 
 from __future__ import annotations
@@ -20,13 +19,15 @@ from torch import nn
 
 from momentum_tpu_torch.character import fk
 from momentum_tpu_torch.character.skinning import skin_points
+from momentum_tpu_torch.math import skel_state as ss
 from momentum_tpu_torch.solver.gauss_newton import SolverOptions
 
 __all__ = ["Skeleton", "LinearBlendSkinning", "ParameterTransformModule",
            "InverseParameterTransformModule", "solve_ik_torch", "BlendShapeModule",
-           "ParameterLimitsModule", "solve_ik", "residual", "gradient", "jacobian",
-           "solve_sequence_ik", "get_solve_ik_statistics", "reset_solve_ik_statistics",
-           "get_gradient_statistics", "reset_gradient_statistics", "set_num_threads"]
+           "ParameterLimitsModule", "SdfColliderModule", "solve_ik", "residual", "gradient",
+           "jacobian", "solve_sequence_ik", "get_solve_ik_statistics",
+           "reset_solve_ik_statistics", "get_gradient_statistics",
+           "reset_gradient_statistics", "set_num_threads"]
 
 
 class Skeleton(nn.Module):
@@ -133,6 +134,28 @@ class ParameterLimitsModule(nn.Module):
         return {name: K_LIMIT_WEIGHT * ef.weight
                 * torch.sum(w * ef.loss.value(torch.sum(f * f, dim=-1)), dim=-1)
                 for name, (f, w) in zip(self._present, pieces)}
+
+
+class SdfColliderModule(nn.Module):
+    """Differentiable SDF evaluation of world points against a collider
+    rigidly attached to a joint (pymomentum/torch/sdf_collision.py
+    SDFCollider): the points go into the collider joint's frame through the
+    skeleton states, then are trilinearly sampled; autograd reaches both
+    inputs. A batched call's states (..., nJ, 8) take the points' own batch
+    (..., N, 3) (JAX's form holds unbatched only, ROADMAP F23)."""
+
+    def __init__(self, sdf, parent: int = -1):
+        super().__init__()
+        self.sdf = sdf
+        self.parent = parent
+
+    def forward(self, skel_states: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+        if self.parent >= 0:
+            frame = ss.inverse(skel_states[..., self.parent, :])[..., None, :]
+            points = ss.transform_points(frame, points)
+        return self.sdf.sample(points)
+
+    evaluate = forward
 
 
 def solve_ik_torch(build_solver_fn, x0: torch.Tensor, inputs: dict,

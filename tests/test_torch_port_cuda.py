@@ -1218,3 +1218,89 @@ def test_glove_sequence_on_the_card_matches_the_cpu():
     assert abs(card["error"] - cpu["error"]) <= 1e-2 * cpu["error"]
     for k in ("median_mm", "glove_position_median_mm", "glove_orientation_median_deg"):
         assert abs(card[k] - cpu[k]) <= 0.02 * cpu[k], (k, card, cpu)
+
+
+@pytest.fixture(scope="module")
+def sdf_problem():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return workloads.build_sdf_collision_problem(workloads.SDF_BATCH, seed=0, device="cuda")
+
+
+@pytest.mark.parametrize("label", ["obstacle", "ground", "handle"])
+def test_mesh_to_sdf_on_the_card_matches_the_cpu(sdf_problem, label):
+    """Config SC's three fields (the 1280-face obstacle by winding number and
+    the ground slab by the closest face's normal at 64³, the handle at 32³)
+    by mesh_to_sdf on the card against the same code on the CPU: values
+    within 1e-5 of the grid's extent, signs equal on 99.9% of the voxels."""
+    from momentum_tpu_torch.axel import mesh_to_sdf
+
+    r = sdf_problem.recipe
+    res = workloads.SDF_HAND_RESOLUTION if label == "handle" else workloads.SDF_RESOLUTION
+    method = "normal" if label == "ground" else "winding"
+    mesh = (r[f"{label}_vertices"], r[f"{label}_faces"])
+    card = mesh_to_sdf(*mesh, res, sign_method=method, device="cuda")
+    cpu = mesh_to_sdf(*mesh, res, sign_method=method, device="cpu")
+    torch.testing.assert_close(card.origin.cpu(), cpu.origin, rtol=0, atol=1e-6)
+    torch.testing.assert_close(card.spacing.cpu(), cpu.spacing, rtol=0, atol=1e-6)
+    extent = float((cpu.spacing * (torch.tensor(res) - 1)).max())
+    vc, vp = card.values.cpu(), cpu.values
+    assert float((vc.abs() - vp.abs()).abs().max()) <= 1e-5 * extent
+    assert float((torch.sign(vc) == torch.sign(vp)).float().mean()) >= 0.999
+
+
+def test_sdf_collision_ik_on_the_card_matches_plain(sdf_problem):
+    """Config SC at B = 2048 (LM 10) through K1 and K2+K3, against the same
+    solve on the card with both kernels' plain versions: each module's
+    median final energy within 20% (the IK rule), the elements' total
+    energies at a median relative difference under 1e-3, nothing
+    divergent."""
+    before = (fk_ops.launches, psd.launches)
+    res = workloads.solve_catalog(sdf_problem)
+    assert fk_ops.launches > before[0] and psd.launches > before[1]
+    real = fk_ops._fk_global_kernel, psd.damped_chol_solve
+    fk_ops._fk_global_kernel, psd.damped_chol_solve = (fk_ops.fk_global_plain,
+                                                       psd.damped_chol_solve_plain)
+    try:
+        before = (fk_ops.launches, psd.launches)
+        res_plain = workloads.solve_catalog(sdf_problem)
+        assert (fk_ops.launches, psd.launches) == before
+    finally:
+        fk_ops._fk_global_kernel, psd.damped_chol_solve = real
+    e = {k: v.cpu().numpy() for k, v in workloads.catalog_energies(
+        sdf_problem, res.params).items()}
+    e_plain = {k: v.cpu().numpy() for k, v in workloads.catalog_energies(
+        sdf_problem, res_plain.params).items()}
+    floor = 1e-8 * float(np.median(e_plain["total"]))
+    for k in e_plain:
+        a, b = float(np.median(e[k])), float(np.median(e_plain[k]))
+        assert abs(a - b) <= 0.2 * b + floor, (k, a, b)
+    rel = np.abs(e["total"] - e_plain["total"]) / e_plain["total"]
+    assert float(np.median(rel)) <= 1e-3
+    assert bool(torch.isfinite(res.params).all())
+
+
+def test_sdf_joint_attached_rows_through_k1_match_plain(sdf_problem):
+    """The joint-attached VertexSdf's forward-mode Jacobian (the handle's
+    grid on r_hand0) at B = 16, FK's primal through K1, against the same
+    with FK on the plain version, to 1e-4 of the largest row and entry
+    (chip_smoke.py's SDF_AD_K1_RTOL: the rows are differences of distances,
+    so the float32 rounding of the posed vertices is ~1e-5 of them)."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+    from momentum_tpu_torch.solver.gauss_newton import ad_jacobian
+
+    joint = workloads.sdf_joint_problem(sdf_problem, 16)
+    hand = joint.modules[1][1]
+    assert not hand.has_analytic_jacobian
+    fn = SkeletonSolverFunction(joint.char, (hand,))
+    before = fk_ops.launches
+    rows, jt = ad_jacobian(fn.residual, joint.x0)
+    assert fk_ops.launches > before
+    real = fk_ops._fk_global_kernel
+    fk_ops._fk_global_kernel = fk_ops.fk_global_plain
+    try:
+        rows_p, jt_p = ad_jacobian(fn.residual, joint.x0)
+    finally:
+        fk_ops._fk_global_kernel = real
+    torch.testing.assert_close(rows, rows_p, rtol=0, atol=1e-4 * float(rows_p.abs().max()))
+    torch.testing.assert_close(jt, jt_p, rtol=0, atol=1e-4 * float(jt_p.abs().max()))

@@ -66,6 +66,12 @@ def test_port_imports_no_jax():
         "        'momentum_tpu_torch.character.character_state', 'momentum_tpu_torch.gui',\n"
         "        'momentum_tpu_torch.gui.viewer', 'momentum_tpu_torch.gui.gif',\n"
         "        'momentum_tpu_torch.gui.rerun_vis', 'momentum_tpu_torch.gui.viser_vis'}\n"
+        "new |= {'momentum_tpu_torch.axel', 'momentum_tpu_torch.axel.sdf',\n"
+        "        'momentum_tpu_torch.axel.queries', 'momentum_tpu_torch.axel.grid',\n"
+        "        'momentum_tpu_torch.axel.ccd', 'momentum_tpu_torch.axel.hole_filling',\n"
+        "        'momentum_tpu_torch.axel.sdf_io', 'momentum_tpu_torch.errors.sdf',\n"
+        "        'momentum_tpu_torch.math.mesh_ops', 'momentum_tpu_torch.math.support_polygon',\n"
+        "        'momentum_tpu_torch.character.support_contacts'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "assert len(names) >= 30, names\n"
         "print('ok', len(names))\n")
@@ -147,6 +153,8 @@ def test_cpu_fullstack_launches_no_kernel():
     ("build_glove_clip", (4,)),
     ("glove_character", ()),
     ("build_scene_clip", (1,)),
+    ("build_sdf_collision_problem", (4,)),
+    ("build_sdf_sequence_problem", (4,)),
 ])
 def test_workloads_default_to_the_card(monkeypatch, entry, args):
     """The workload entry points build on the card unless the caller asks for
@@ -215,12 +223,67 @@ def _bridge_inputs():
                                           specular_exponent=np.asarray(10.0),
                                           emissive_color=np.zeros(3)),
         "lights_from_numpy": [dict(position=np.zeros(3), color=np.ones(3), type=0)],
+        "sdf_from_numpy": _SDF,
+        "triangle_grid_from_numpy": dict(cells=np.full((2, 2, 2, 1), -1, np.int32),
+                                         origin=np.zeros(3, np.float32),
+                                         cell_size=np.float32(0.5), resolution=2),
+        **{f"{name}_from_numpy": dict(
+            {f"sdf_{k}": v for k, v in _SDF.items()}, vertex_index=np.zeros(1, np.int32),
+            target_distance=np.zeros(1, np.float32), sdf_parent=-1, **one)
+           for name in ("vertex_sdf_error", "sdf_collision_error",
+                        "sdf_collision_sequence_error")},
+    }
+
+
+_SDF = dict(origin=np.zeros(3, np.float32), spacing=np.ones(3, np.float32),
+            values=np.zeros((2, 2, 2), np.float32))
+_TETRA = (np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float32),
+          np.asarray([[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]], np.int32))
+
+
+def _load_sdfs(load, **kw):
+    """A field written to a file and loaded again by `load`, as a tuple of
+    fields."""
+    import tempfile
+
+    from momentum_tpu_torch.axel import SignedDistanceField, sdf_io
+
+    sdf = SignedDistanceField.create(**_SDF, device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "f.msgpack"
+        if load is sdf_io.load_sdf_from_msgpack:
+            sdf_io.save_sdf_to_msgpack(sdf, path)
+            return (load(path, **kw),)
+        sdf_io.save_sdfs_to_msgpack({"a": sdf, "b": (sdf, "root")}, path)
+        return tuple(f for f, _ in load(path, **kw).values())
+
+
+def _sdf_constructors() -> dict:
+    from momentum_tpu_torch import axel
+    from momentum_tpu_torch.math.support_polygon import SupportPlane
+    from momentum_tpu_torch.sequence import SdfCollisionSequenceErrorFunction
+
+    field = axel.SignedDistanceField.create(**_SDF, device="cpu")
+    return {
+        "SignedDistanceField.create": lambda **kw: axel.SignedDistanceField.create(**_SDF, **kw),
+        "mesh_to_sdf": lambda **kw: axel.mesh_to_sdf(*_TETRA, (4, 4, 4), **kw),
+        "build_triangle_grid": lambda **kw: axel.build_triangle_grid(*_TETRA, 2, **kw),
+        "load_sdf_from_msgpack": lambda **kw: _load_sdfs(axel.load_sdf_from_msgpack, **kw),
+        "load_sdfs_from_msgpack": lambda **kw: _load_sdfs(axel.load_sdfs_from_msgpack, **kw),
+        "SupportPlane.create": lambda **kw: SupportPlane.create(**kw),
+        "VertexSdfErrorFunction.create": lambda **kw: E.VertexSdfErrorFunction.create(
+            field, [0], **kw),
+        "SdfCollisionErrorFunction.create": lambda **kw: E.SdfCollisionErrorFunction.create(
+            field, [0], **kw),
+        "SdfCollisionSequenceErrorFunction.create":
+            lambda **kw: SdfCollisionSequenceErrorFunction.create(field, [0], **kw),
     }
 
 
 # F12: the public constructors a problem is built from, each with small
 # arguments; called with no device they build on the card
 _CONSTRUCTORS = {
+    **_sdf_constructors(),
     "make_skeleton": lambda **kw: make_skeleton([-1, 0], **kw),
     "make_limits": lambda **kw: make_limits(minmax=[(0, -0.1, 0.1, 1.0)], **kw),
     "PositionErrorFunction.create": lambda **kw: PositionErrorFunction.create(

@@ -287,6 +287,13 @@ def test_sequence_module_matches_jax(name):
     if name == "model_parameters":
         jmod, tmod = (dataclasses.replace(jmod, pweight=jmod.pweight[:p]),
                       dataclasses.replace(tmod, pweight=tmod.pweight[:p]))
+    _hold_sequence_module(jfn, tfn, p, jmod, tmod)
+
+
+def _hold_sequence_module(jfn, tfn, p, jmod, tmod):
+    """The module's rows on every window and the objective's error and
+    gradient against JAX's, the module alone in the objective's sequence
+    errors."""
     jfn = dataclasses.replace(jfn, sequence_errors=(jmod,))
     tfn = dataclasses.replace(tfn, sequence_errors=(tmod,))
     (jpf, ju), (tpf, tu) = _start(jfn, tfn, p, seed=2)
@@ -308,8 +315,51 @@ def test_sequence_module_matches_jax(name):
 
 
 def test_sdf_collision_waits_for_axel():
-    with pytest.raises(NotImplementedError, match="M9"):
-        tse.SdfCollisionSequenceErrorFunction.create(None, [0])
+    """SdfCollisionSequenceErrorFunction, whose create raised until axel's
+    fields were ported, now samples one: a field under the 4-joint rig's
+    ribbon whose zero level crosses it, so some windows penetrate, held as
+    every sequence module is."""
+    from momentum_tpu.axel.sdf import SignedDistanceField as JSdf
+    from momentum_tpu_torch.axel.sdf import SignedDistanceField as TSdf
+
+    jfn, tfn, p = _sequence_problem(5, universal=(6,), sequence=())
+    nv = jfn.character.mesh.num_vertices
+    res = (6, 9, 5)
+    ys = np.linspace(-1.0, 3.0, res[1], dtype=np.float32)
+    values = np.broadcast_to((ys - 1.1)[None, :, None], res) + np.random.default_rng(3).normal(
+        0, 0.05, res)
+    grid = dict(origin=np.asarray([-1.5, -1.0, -1.0], np.float32),
+                spacing=np.asarray([0.6, 0.5, 0.5], np.float32),
+                values=np.asarray(values, np.float32))
+    index, cweight = [0, 3, 8, 12, nv - 1], [1.0, 0.5, 2.0, 1.0, 1.5]
+    jmod = jse.SdfCollisionSequenceErrorFunction.create(
+        JSdf(**{k: jnp.asarray(v) for k, v in grid.items()}), index, cweight, weight=3.0)
+    tmod = tse.SdfCollisionSequenceErrorFunction.create(
+        TSdf.create(**grid, device="cpu"), index, cweight, weight=3.0, device="cpu")
+    _hold_sequence_module(jfn, tfn, p, jmod, tmod)
+
+
+def test_f24_window_contexts_share_the_rest_mesh():
+    """ROADMAP F24: the frame contexts carry the rest mesh of a rig without
+    blend shapes once, (V, 3), and the window contexts indexed it by frame:
+    out of range once F > V (an IndexError on the CPU, a device assert on
+    the card). With 50 frames on the 4-joint rig (40 vertices) the vertex
+    sequence module's objective and gradient now equal JAX's, whose vmapped
+    frame contexts give every field a frame axis."""
+    jfn, tfn, p = _sequence_problem(50, universal=(6,), sequence=())
+    assert tfn.character.mesh.num_vertices < 50
+    jmod = jse.VertexSequenceErrorFunction.create([0, 5, 11, 39], weight=2.0)
+    tmod = tse.VertexSequenceErrorFunction.create([0, 5, 11, 39], weight=2.0, device="cpu")
+    jfn = dataclasses.replace(jfn, sequence_errors=(jmod,))
+    tfn = dataclasses.replace(tfn, sequence_errors=(tmod,))
+    (jpf, ju), (tpf, tu) = _start(jfn, tfn, p, seed=4)
+    ctx = tfn._window_contexts(tfn.frame_contexts(tfn.join(tpf, tu)), 2)
+    assert ctx.rest_vertices.shape == (40, 3) and ctx.mesh_vertices.shape[:2] == (49, 2)
+    np.testing.assert_allclose(float(tfn.error(tpf, tu)), float(jax.jit(jfn.error)(jpf, ju)),
+                               **MODULE_TOL)
+    for t, j in zip(tfn.gradient(tpf, tu), jax.jit(jfn.gradient)(jpf, ju)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(np.abs(np.asarray(j)).max())))
 
 
 def _check_solve(jres, tres, rtol=1e-3):

@@ -69,13 +69,24 @@ momentum_tpu_torch/testing/workloads.py:
     offline viewer and of the Phong scene, windowed (JAX's CPU "auto") and
     through the planes kernel in interpret mode: coverage and mean colour.
 
-    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k,diffik,variants,4x,4ad,skinned,glove,7p]
+  * config SC, SDF-collision IK (workloads.py::build_sdf_collision_problem:
+    its fields built by JAX's mesh_to_sdf from the same numpy meshes), each
+    element one vmapped solve: each module's median energy after LM 10,
+    conv_at_1e5, the divergent count, the obstacle's penetration before
+    and after, the support contacts and polygon areas of the solved poses,
+    and the joint-attached case, at --sdf-batch; with --out-sdf, JAX's
+    solved parameters beside the figures as <name>.npz; and config 5c
+    (workloads.py::build_sdf_sequence_problem) at --frames: the final
+    error.
+
+    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k,diffik,variants,4x,4ad,skinned,glove,7p,sdf]
         [--frames 1024] [--out-6s tools/jax_reference_6s.json]
         [--out-catalog tools/jax_reference_catalog.json] [--out-6k tools/jax_reference_6k.json]
         [--out-diffik tools/jax_reference_diffik.json] [--out-variants tools/jax_reference_variants.json]
         [--out-4x tools/jax_reference_4x.json] [--out-4ad tools/jax_reference_4ad.json]
         [--skinned-batch 256] [--out-skinned tools/jax_reference_skinned.json]
         [--out-glove tools/jax_reference_glove.json] [--out-7p tools/jax_reference_7p.json]
+        [--sdf-batch 256] [--out-sdf tools/jax_reference_sdf.json]
 
 Runs the JAX package on the CPU only (no part of momentum_tpu_torch); prints
 one JSON line per figure.
@@ -1252,8 +1263,284 @@ def config7p(seed=0, frames=(0, 1), clip_frames=32):
     return out
 
 
+# ---- config SC: SDF-collision IK; config 5c: config 5 held off a ground ----
+
+SDF_RESOLUTION = (64, 64, 64)
+SDF_OBSTACLE_LEVEL = 3
+SDF_OBSTACLE_CENTER = (0.0, 0.8, 0.5)
+SDF_OBSTACLE_RADIUS = 0.35
+SDF_COLLISION_WEIGHT = 1e3
+SDF_GROUND_VERTICES = 32
+SDF_GROUND_WEIGHT = 0.01
+SDF_GROUND_HALF_EXTENT = 2.5
+SDF_GROUND_DEPTH = 8.0
+SDF_HAND = 36
+SDF_HAND_FINGER = 40
+SDF_HAND_VERTICES = 16
+SDF_HAND_RESOLUTION = (32, 32, 32)
+SDF_HAND_WEIGHT = 100.0
+SDF_CONTACT_HEIGHT = 0.1
+SDF_SEQUENCE_VERTICES = 8
+SDF_SEQUENCE_WEIGHT = 100.0
+
+
+def ground_slab(top, half_extent=SDF_GROUND_HALF_EXTENT, depth=SDF_GROUND_DEPTH):
+    """workloads.py::ground_slab, the same numbers."""
+    h = half_extent
+    v = np.asarray([[x, y, z] for x in (-h, h) for y in (top - depth, top) for z in (-h, h)],
+                   np.float32)
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3)]
+    f = [[a, b, c] for a, b, c, _ in quads] + [[a, c, d] for a, _, c, d in quads]
+    return v, np.asarray(f, np.int32)
+
+
+def _rotate(q, v):
+    u, w = q[..., :3], q[..., 3:]
+    t = 2.0 * np.cross(u, v)
+    return v + w * t + np.cross(u, t)
+
+
+def sdf_recipe(rest_vertices, bind_states):
+    """workloads.py::sdf_recipe, the same numbers (the JAX package's
+    primitives)."""
+    from momentum_tpu.rasterizer.primitives import make_capsule, make_sphere
+
+    rest = rest_vertices.astype(np.float64)
+    sv, sf = make_sphere(SDF_OBSTACLE_LEVEL)
+    obstacle = (np.asarray(sv, np.float64) * SDF_OBSTACLE_RADIUS
+                + np.asarray(SDF_OBSTACLE_CENTER)).astype(np.float32)
+    top = float(rest[:, 1].min())
+    gv, gf = ground_slab(top)
+    finger = bind_states[SDF_HAND_FINGER, :3].astype(np.float64)
+    hand_vertices = np.argsort(np.linalg.norm(rest - finger, axis=-1), kind="stable")[
+        :SDF_HAND_VERTICES]
+    hb = bind_states[SDF_HAND].astype(np.float64)
+    q_inv = hb[3:7] * np.asarray([-1.0, -1.0, -1.0, 1.0])
+    local = _rotate(q_inv, rest[hand_vertices] - hb[:3]) / hb[7]
+    x0, x1 = float(local[:, 0].min()), float(local[:, 0].max())
+    axis_yz = local[:, 1:].mean(0)
+    radius = float(np.linalg.norm(local[:, 1:] - axis_yz, axis=-1).max()) + 0.01
+    cv, cf = make_capsule(radius, radius, x1 - x0, radius_subdivisions=12, cap_subdivisions=4)
+    handle = (np.asarray(cv, np.float64) + np.asarray([x0, *axis_yz])).astype(np.float32)
+    r = catalog_recipe()
+    s = np.sqrt(0.5)
+    foot = [0.0, -0.5, -0.5, s]
+    caps = dict(parent=np.concatenate([r["capsule_parent"], [28, 48]]).astype(np.int32),
+                transform=np.concatenate([r["capsule_transform"],
+                                          [[0.0, 0.0, 0.0] + foot + [1.0]] * 2]).astype(
+                                              np.float32),
+                radius=np.concatenate([r["capsule_radius"], [[0.04, 0.03]] * 2]).astype(
+                    np.float32),
+                length=np.concatenate([r["capsule_length"], [0.23, 0.23]]).astype(np.float32))
+    return dict(obstacle_vertices=obstacle, obstacle_faces=np.asarray(sf, np.int32),
+                ground_vertices=gv, ground_faces=gf, ground_top=top,
+                ground_index=np.argsort(rest[:, 1], kind="stable")[:SDF_GROUND_VERTICES]
+                .astype(np.int32),
+                hand_index=hand_vertices.astype(np.int32), handle_vertices=handle,
+                handle_faces=np.asarray(cf, np.int32), contact_capsules=caps)
+
+
+def sdf_problem(batch, seed=0):
+    """(character with the contact capsules, recipe, the obstacle, ground
+    and handle fields, truth, x0) of config SC, as
+    workloads.py::build_sdf_collision_problem builds them."""
+    from momentum_tpu.axel import mesh_to_sdf
+    from momentum_tpu.character.character import CollisionGeometry
+    from momentum_tpu.testing.fixtures import create_fullbody_character
+
+    base = create_fullbody_character()
+    r = sdf_recipe(np.asarray(base.mesh.vertices), np.asarray(base.bind_pose()))
+    char = dataclasses.replace(base, collision=CollisionGeometry(
+        **{k: jnp.asarray(v) for k, v in r["contact_capsules"].items()}))
+    fields = dict(
+        obstacle=mesh_to_sdf(r["obstacle_vertices"], r["obstacle_faces"], SDF_RESOLUTION,
+                             sign_method="winding"),
+        ground=mesh_to_sdf(r["ground_vertices"], r["ground_faces"], SDF_RESOLUTION,
+                           sign_method="normal"),
+        handle=mesh_to_sdf(r["handle_vertices"], r["handle_faces"], SDF_HAND_RESOLUTION,
+                           sign_method="winding"))
+    truth, x0 = catalog_draws(batch, seed, char.num_model_parameters)
+    return char, r, fields, truth, x0
+
+
+def sdf_modules(char, r, fields):
+    """(make(truth states) -> (position, collision, floor), make_joint(truth
+    params) -> (position, hand)) of config SC, per element."""
+    from momentum_tpu import errors as E
+    from momentum_tpu.solver import SkeletonSolverFunction
+
+    loc = char.locators
+    position = E.PositionErrorFunction.create(np.asarray(loc.parent), np.asarray(loc.offset),
+                                              np.zeros((loc.num_locators, 3)))
+    collision = E.SdfCollisionErrorFunction.create(
+        fields["obstacle"], np.arange(char.mesh.num_vertices), weight=SDF_COLLISION_WEIGHT)
+    floor = E.VertexSdfErrorFunction.create(fields["ground"], r["ground_index"],
+                                            weight=SDF_GROUND_WEIGHT)
+    hand = E.VertexSdfErrorFunction.create(fields["handle"], r["hand_index"],
+                                           weight=SDF_HAND_WEIGHT, sdf_parent=SDF_HAND)
+
+    def make(states):
+        return (dataclasses.replace(position, target=loc.world_positions(states)), collision,
+                floor)
+
+    def make_joint(theta):
+        ctx = SkeletonSolverFunction(char, (hand,)).context(theta)
+        v = jnp.take(ctx.mesh_vertices, hand.vertex_index, axis=-2)
+        target = hand.sdf.sample(hand._to_sdf_space(ctx, v))
+        return (dataclasses.replace(position, target=loc.world_positions(ctx.skel_states)),
+                dataclasses.replace(hand, target_distance=target))
+
+    return make, make_joint
+
+
+def _solve_chunks(char, make, truth_in, x0, iterations, more, chunk):
+    """Each element one vmapped LM solve (regularization 1e-5) of
+    `iterations`, then `more` from its result, `chunk` elements a call →
+    (params, per-module energies (B, M), energy after `more`)."""
+    from momentum_tpu.solver import SkeletonSolverFunction, SolverOptions
+    from momentum_tpu.solver.ik import solve_ik
+
+    def one(t, x):
+        efs = make(t)
+        fn = SkeletonSolverFunction(char, efs)
+        opts = SolverOptions(max_iterations=iterations, regularization=1e-5)
+        res = solve_ik(fn, x, None, opts, method="levenberg_marquardt")
+        res2 = solve_ik(fn, res.params, None, dataclasses.replace(opts, max_iterations=more),
+                        method="levenberg_marquardt")
+        ctx = fn.context(res.params)
+        return res.params, jnp.stack([ef.error(char, ctx) for ef in efs]), fn.error(res2.params)
+
+    run = jax.jit(jax.vmap(one))
+    outs = [run(truth_in[i:i + chunk], jnp.asarray(x0[i:i + chunk]))
+            for i in range(0, x0.shape[0], chunk)]
+    return tuple(np.concatenate([np.asarray(o[j]) for o in outs]) for j in range(3))
+
+
+def _figures(labels, per, longer):
+    per, longer = per.astype(np.float64), longer.astype(np.float64)
+    total = per.sum(axis=1)
+    finite = np.isfinite(total)
+    med = {lab: float(np.median(per[:, i])) for i, lab in enumerate(labels)}
+    med["total"] = float(np.median(total))
+    return dict(median_energy=med, conv_at_1e5=float(np.mean(finite & (total - longer <= 1e-5))),
+                divergent=int(np.sum(~finite)))
+
+
+def sdf_penetration(char, obstacle, params):
+    """Each element's deepest penetration max(0, −min φ) of its posed mesh
+    in the obstacle (float64)."""
+    from momentum_tpu.errors import SdfCollisionErrorFunction
+    from momentum_tpu.solver import SkeletonSolverFunction
+
+    ef = SdfCollisionErrorFunction.create(obstacle, np.arange(char.mesh.num_vertices))
+    fn = SkeletonSolverFunction(char, (ef,))
+
+    def deepest(x):
+        return jnp.maximum(-jnp.min(obstacle.sample(fn.context(x).mesh_vertices)), 0.0)
+
+    return np.asarray(jax.jit(jax.vmap(deepest))(jnp.asarray(params)), np.float64)
+
+
+def sdf_contacts(char, plane, params):
+    """(active (B, L + C), the support polygons' areas (B,)) of the poses
+    `params` against the ground plane, each element unbatched (JAX's
+    per-parent dedup holds unbatched only, ROADMAP F23)."""
+    from momentum_tpu.character.support_contacts import (
+        support_contact_positions, support_polygon_from_contacts)
+
+    states = jax.jit(jax.vmap(char.skeleton_states))(jnp.asarray(params))
+    active = jax.jit(jax.vmap(lambda st: support_contact_positions(
+        char, st, SDF_CONTACT_HEIGHT, plane)[1]))(states)
+    areas = []
+    for i in range(params.shape[0]):
+        hull = np.asarray(support_polygon_from_contacts(char, states[i], SDF_CONTACT_HEIGHT,
+                                                        plane), np.float64)
+        if len(hull) < 3:
+            areas.append(0.0)
+            continue
+        x, y = hull[:, 0], hull[:, 1]
+        areas.append(float(0.5 * np.sum(x * np.roll(y, -1) - np.roll(x, -1) * y)))
+    return np.asarray(active), np.asarray(areas, np.float64)
+
+
+def config_sc(batch, seed=0, iterations=10, more=20, chunk=32):
+    """Config SC at B = `batch` (workloads.py::build_sdf_collision_problem):
+    each element one vmapped LM 10 solve, then 20 more; each module's
+    median final energy, conv_at_1e5, the divergent count; the penetration
+    before and after; the support contacts and polygon areas on the solved
+    poses; the joint-attached case (the handle's field on r_hand0, rows by
+    forward mode) on the same elements; JAX's solved parameters go to the
+    arrays (the smoke computes the port's contacts on them)."""
+    from momentum_tpu.math.support_polygon import SupportPlane
+
+    t0 = time.perf_counter()
+    char, r, fields, truth, x0 = sdf_problem(batch, seed)
+    build_s = time.perf_counter() - t0
+    make, make_joint = sdf_modules(char, r, fields)
+    states = jax.jit(jax.vmap(char.skeleton_states))(jnp.asarray(truth))
+    params, per, longer = _solve_chunks(char, make, states, x0, iterations, more, chunk)
+    fig = _figures(("position", "sdf_collision", "vertex_sdf"), per, longer)
+    before = sdf_penetration(char, fields["obstacle"], x0)
+    after = sdf_penetration(char, fields["obstacle"], params)
+    pen = before > 0
+    plane = SupportPlane.create(offset=r["ground_top"])
+    active, areas = sdf_contacts(char, plane, params)
+    _, jper, jlonger = _solve_chunks(char, make_joint, jnp.asarray(truth), x0, iterations,
+                                     more, chunk)
+    fig.update(config="sdf", batch=batch, iterations=iterations, more=more,
+               penetration=dict(before_fraction=float(np.mean(pen)),
+                                after_fraction=float(np.mean(after > 0)),
+                                before_median_depth=float(np.median(before[pen])),
+                                after_median_depth=float(np.median(after[pen]))),
+               contacts=dict(active=active.astype(int).tolist(), areas=areas.tolist(),
+                             active_count=int(active.sum())),
+               joint_attached=_figures(("position", "vertex_sdf_joint"), jper, jlonger),
+               build_seconds=build_s, seconds=time.perf_counter() - t0)
+    return fig, dict(params=params)
+
+
+def config5c(frames, seed=0):
+    """Config 5c (workloads.py::build_sdf_sequence_problem): config 5's
+    sequence solve plus SdfCollisionSequence on the test rig's lowest rest
+    vertices against a ground slab's field; the final error."""
+    from momentum_tpu.axel import mesh_to_sdf
+    from momentum_tpu.errors import PositionErrorFunction
+    from momentum_tpu.sequence.errors import (
+        ModelParametersSequenceErrorFunction, SdfCollisionSequenceErrorFunction)
+    from momentum_tpu.sequence.solver import solve_sequence
+    from momentum_tpu.sequence.solver_function import SequenceSolverFunction
+    from momentum_tpu.solver import SolverOptions
+    from momentum_tpu.testing.fixtures import create_test_character
+
+    char = create_test_character(16)
+    p = char.num_model_parameters
+    rng = np.random.default_rng(seed)
+    gt = jnp.asarray(rng.uniform(-0.2, 0.2, (frames, p)), jnp.float32)
+    targets = jax.vmap(char.locators.world_positions)(jax.vmap(char.skeleton_states)(gt))
+    ef0 = PositionErrorFunction.create(
+        np.asarray(char.locators.parent), np.asarray(char.locators.offset),
+        np.zeros((char.locators.num_locators, 3)))
+    stacked = jax.vmap(lambda t: dataclasses.replace(ef0, target=t))(targets)
+    rest = np.asarray(char.mesh.vertices)
+    gv, gf = ground_slab(float(rest[:, 1].min()))
+    ground = mesh_to_sdf(gv, gf, SDF_RESOLUTION, sign_method="normal")
+    sdf_seq = SdfCollisionSequenceErrorFunction.create(
+        ground, np.argsort(rest[:, 1], kind="stable")[:SDF_SEQUENCE_VERTICES],
+        weight=SDF_SEQUENCE_WEIGHT)
+    smooth = ModelParametersSequenceErrorFunction.create(p, weight=0.1)
+    fn = SequenceSolverFunction.create(char, frames, per_frame_errors=(stacked,),
+                                       sequence_errors=(smooth, sdf_seq))
+    pf0, u0 = fn.split(jnp.zeros((frames, p)))
+    t0 = time.perf_counter()
+    res = jax.jit(lambda pf, u: solve_sequence(fn, pf, u, SolverOptions(max_iterations=8)))(
+        pf0, u0)
+    return dict(config="5c", frames=frames, error=float(res.error),
+                iterations=int(res.iterations), converged=bool(res.converged),
+                seconds=time.perf_counter() - t0)
+
+
 CONFIGS = ("2", "2b", "4", "5", "5f", "6s", "catalog", "6k", "diffik", "variants", "4x",
-           "4ad", "skinned", "glove", "7p")
+           "4ad", "skinned", "glove", "7p", "sdf")
 
 
 def main():
@@ -1292,7 +1579,9 @@ def main():
                          "(chip_smoke.py reads tools/jax_reference_4x.json)")
     ap.add_argument("--skinned-batch", type=int, default=256,
                     help="config SL's batch (the smoke holds the port's first 256 elements)")
-    for name in ("4ad", "skinned", "glove", "7p"):
+    ap.add_argument("--sdf-batch", type=int, default=256,
+                    help="config SC's batch (the smoke holds the port's first 256 elements)")
+    for name in ("4ad", "skinned", "glove", "7p", "sdf"):
         ap.add_argument(f"--out-{name}", default=None,
                         help=f"write config {name}'s figures to this JSON file (chip_smoke.py "
                              f"reads tools/jax_reference_{name}.json)")
@@ -1334,6 +1623,12 @@ def main():
         figures.append(glove(args.tracking_frames))
     if "7p" in args.configs:
         figures.append(config7p())
+    if "sdf" in args.configs:
+        fig, arrays = config_sc(args.sdf_batch)
+        fig["config5c"] = config5c(args.frames)
+        if args.out_sdf:
+            np.savez_compressed(os.path.splitext(args.out_sdf)[0] + ".npz", **arrays)
+        figures.append(fig)
     for fig in figures:
         if fig.get("config") == "6s":
             motion = fig.pop("per_frame_motion")
@@ -1346,10 +1641,13 @@ def main():
                           ("diffik", args.out_diffik), ("variants", args.out_variants),
                           ("4x", args.out_4x), ("4ad", args.out_4ad),
                           ("skinned", args.out_skinned), ("glove", args.out_glove),
-                          ("7p", args.out_7p)):
+                          ("7p", args.out_7p), ("sdf", args.out_sdf)):
             if fig.get("config") == name and out:
                 with open(out, "w") as f:
                     json.dump(dict(fig, device="jax cpu"), f, indent=1)
+        if fig.get("config") == "sdf":
+            fig = dict(fig, contacts={k: v for k, v in fig["contacts"].items()
+                                      if k != "active"})
         print(json.dumps(dict(fig, device="jax cpu")), flush=True)
     print(f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
 
