@@ -115,7 +115,16 @@ then drives the port's paths through those kernels and checks their output:
     mode through K1) at B = 256; K1 held at B = 2048, K2+K3 at (2048, 157);
   * config 5c, config 5's sequence solve held off a ground slab by
     SdfCollisionSequence (forward mode through K1's jvp rule, SPIKE's steps
-    through K2+K3): the final error against JAX CPU's.
+    through K2+K3): the final error against JAX CPU's;
+  * config U, retargeting and character surgery on the full-body rig with
+    one body a joint at B = 2048: U1 transform_pose by a 0.7 rad turn and a
+    4.3 m move (K1; FK of the result against the moved poses, their skinned
+    vertices, the 4×4 form of torch_interop.transform_pose), U2 inverse FK
+    (re-FK error; joint parameters against JAX CPU's), U3 IK on the rig
+    scaled by 1.15 with the bodies' centre of mass and U4 IK on the rig
+    simplified off its legs and feet (LM 10; K1, K2+K3 at (2048, 157) and
+    (2048, 115)): each module's median energy, conv_at_1e5 and U4's tables
+    against JAX CPU's; K1 held at U4's 37 joints, K2+K3 at (2048, 115).
 
     python3 chip_smoke.py
 
@@ -342,6 +351,38 @@ SDF_AD_ROWS_BATCH = 64
 # rows (measured 2.9e-5 and 1.4e-5 on one H100)
 SDF_AD_K1_RTOL = 1e-4
 SDF_SEQUENCE_RTOL = 1e-2
+# config U (retargeting and character surgery at B = 2048) against JAX CPU's
+# (python tools/jax_reference.py --configs utility --out-utility
+# tools/jax_reference_utility.json, which writes JAX's inverse-FK joint
+# parameters of the first 256 truths beside it as .npz): U1's FK of the
+# retargeted poses against the moved poses within 1e-4 m and 1e-4 rad (the
+# quaternions normalized, in float64), their skinned vertices within 1e-4 m,
+# the 4×4 form within 1e-5 of the skel_state form; JAX's transform_pose is
+# off by 2π on this move (ROADMAP F25), printed beside; U2's re-FK within
+# 1e-4 m and its joint parameters within 1e-5 of JAX CPU's (the truths keep
+# |ry| ≤ 0.3, away from the gimbal branch); U3 and U4 config C's holds on the
+# first 256, each module's median after LM 10 within UTILITY_MEDIAN_RTOL and
+# after LM UTILITY_EARLY within UTILITY_EARLY_RTOL; U4's tables (joint
+# parents, parameter names and transform, every limit table, locator
+# parents, mesh faces) equal to JAX CPU's
+UTILITY_JAX_CPU_FILE = "tools/jax_reference_utility.json"
+UTILITY_JAX_CPU_ARRAYS = "tools/jax_reference_utility.npz"
+UTILITY_HELD = 256
+UTILITY_FK_TOL = 1e-4
+UTILITY_FORM_TOL = 1e-5
+UTILITY_JP_TOL = 1e-5
+# The limits on U3's and U4's medians, from tools/utility_spread.py on one
+# H100 (B = 256, JAX CPU's five seeds of tools/jax_reference_utility.json).
+# Near LM 10 both solves still converge linearly, an iteration cutting the
+# median energy by ~40% toward ~1e-9 m², and two float32 implementations
+# part there: after LM 10 the port's medians land up to 28% from JAX CPU's
+# with the kernels, 22% with both kernels' plain versions on the card, 11%
+# on the CPU; a solve one iteration short (LM 9) lands 50% to 106% off.
+# After LM 3 (medians ~1e-4) every variant lands within 0.44%; the centre of
+# mass held by masses off by N(0, 1e-3) lands 1.8% to 11% off.
+UTILITY_MEDIAN_RTOL = 0.35
+UTILITY_EARLY = 3
+UTILITY_EARLY_RTOL = 0.01
 
 
 def phase_device():
@@ -2097,15 +2138,15 @@ def _penetration_line(label, before, after, want=None):
                 after_median_depth=med_a)
 
 
-def _hold_figures(config, held, full, want, batch):
+def _hold_figures(config, held, full, want, batch, rtol=CATALOG_MEDIAN_RTOL):
     """Each module's median final energy on the first elements against JAX
-    CPU's, conv_at_1e5 and the divergent counts; → the labels out of
-    tolerance, or raises on conv/divergence."""
+    CPU's (within `rtol`, or CATALOG_MEDIAN_FLOOR of the median total),
+    conv_at_1e5 and the divergent counts; raises on any of them."""
     floor = CATALOG_MEDIAN_FLOOR * want["median_energy"]["total"]
     bad = []
     for label, jax_med in want["median_energy"].items():
         med = held["median_energy"][label]
-        ok = abs(med - jax_med) <= CATALOG_MEDIAN_RTOL * jax_med + floor
+        ok = abs(med - jax_med) <= rtol * jax_med + floor
         bad += [] if ok else [label]
         print(f"  config {config} {label}: median final energy {med:.6e} on the first "
               f"{held['batch']} (JAX CPU {jax_med:.6e}){'' if ok else ' OUT OF TOLERANCE'}; "
@@ -2119,6 +2160,28 @@ def _hold_figures(config, held, full, want, batch):
         raise AssertionError(f"config {config}: medians {bad} out of tolerance, conv_at_1e5 "
                              f"{held['conv_at_1e5']} (JAX CPU {want['conv_at_1e5']}), or "
                              f"divergent {full['divergent']}")
+
+
+def _hold_early(stage, sub, want):
+    """Each module's median energy after LM UTILITY_EARLY on the first
+    UTILITY_HELD elements within UTILITY_EARLY_RTOL of JAX CPU's → the
+    medians; raises otherwise."""
+    import momentum_tpu_torch.testing.workloads as w
+
+    res = w.solve_catalog(sub, iterations=UTILITY_EARLY)
+    early = {k: float(np.median(v[:UTILITY_HELD].cpu().numpy().astype(np.float64)))
+             for k, v in w.catalog_energies(sub, res.params).items()}
+    jax_early = want["early_median_energy"]
+    bad = [k for k in jax_early if abs(early[k] - jax_early[k]) > UTILITY_EARLY_RTOL
+           * jax_early[k]]
+    print(f"  config {stage} after LM {UTILITY_EARLY} on the first {UTILITY_HELD}: "
+          + "; ".join(f"{k} median {early[k]:.6e} (JAX CPU {jax_early[k]:.6e})"
+                      for k in jax_early)
+          + f" (tol {UTILITY_EARLY_RTOL:.0%}){' OUT OF TOLERANCE' if bad else ''}")
+    if bad:
+        raise AssertionError(f"config {stage}: medians {bad} after LM {UTILITY_EARLY} out of "
+                             f"tolerance")
+    return early
 
 
 def phase_sdf_collision(smi):
@@ -2299,6 +2362,146 @@ def phase_sdf_sequence(smi):
     fk_numbers = _hold_fk(skel, local.contiguous(), "config 5c's frames")
     psd_numbers = _hold_psd_matrix(*_sequence_systems(fn, prob.pf0, prob.u0, nu + 1 + 3 * p),
                                    "config 5c's SPIKE forward step")
+    return counts, numbers, fk_numbers, psd_numbers
+
+
+def _walls(run, n=3):
+    """The median wall (s) of n calls of run, each synchronized."""
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls)
+
+
+def phase_character_utilities(smi):
+    """Config U (workloads.build_utility_problem) at B = 2048 on the
+    full-body rig with one body a joint. U1: transform_pose of the truths by
+    the config's move, poses/s (median of 3 warm calls), FK of the result
+    against the moved poses, the skinned vertices, the 4×4 form on the first
+    256; U2: inverse FK of FK(joint parameters), states/s, the re-FK error,
+    the local round trip, the first 256 against JAX CPU's; U3: LM 10 on the
+    rig scaled by 1.15 (Position and CenterOfMass.from_physical_properties),
+    U4: LM 10 on the simplified rig; each solves/s and config C's holds
+    against JAX CPU's (the medians within UTILITY_MEDIAN_RTOL), the medians
+    after LM UTILITY_EARLY against JAX CPU's; U4's tables against JAX CPU's. Then K1 held at U4's
+    kept joints (B = 2048), K2+K3 at (2048, P') on U4's normal equations."""
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch import compat, torch_interop
+    from momentum_tpu_torch.character import fk
+    from momentum_tpu_torch.math import skel_state as ss
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    want = _load_jax_cpu(UTILITY_JAX_CPU_FILE)
+    here = os.path.dirname(os.path.abspath(__file__))
+    jax_jp = np.load(os.path.join(here, UTILITY_JAX_CPU_ARRAYS))["joint_parameters"]
+    prob = w.build_utility_problem(w.UTILITY_BATCH, seed=SEED, device="cuda")
+    batch = prob.truth.shape[0]
+    counts, numbers = {}, {}
+
+    # U1: retarget
+    w.retarget(prob, prob.truth)  # warm-up
+    _reset_counts()
+    moved = w.retarget(prob, prob.truth)
+    torch.cuda.synchronize()
+    counts["U1"] = _counts()
+    wall = _walls(lambda: w.retarget(prob, prob.truth))
+    fig = w.retarget_figures(prob, prob.truth, moved)
+    head = prob.truth[:UTILITY_HELD]
+    by_matrix = torch_interop.transform_pose(prob.char, head, ss.to_matrix(prob.xform))
+    form_err = float((by_matrix - moved[:UTILITY_HELD]).abs().max())
+    print(f"config U1 retarget (transform_pose, B={batch}, turn {w.UTILITY_TURN} rad about y, "
+          f"shift {w.UTILITY_SHIFT} m): {batch / wall:.1f} poses/s (median wall "
+          f"{wall * 1e3:.2f} ms of 3) on {smi}; FK of the result against the moved poses: "
+          f"max position error {fig['max_position_error']:.3e} m, max rotation error "
+          f"{fig['max_rotation_error']:.3e} rad (tol {UTILITY_FK_TOL:.0e}); skinned vertices "
+          f"{fig['max_vertex_error']:.3e} m; the 4x4 form on the first {UTILITY_HELD} "
+          f"{form_err:.3e} from the skel_state form (tol {UTILITY_FORM_TOL:.0e}); JAX CPU's "
+          f"transform_pose on this move: max position error "
+          f"{want['u1']['max_position_error']:.6f} m (ROADMAP F25), "
+          f"{want['u1']['max_position_error_inside_pi']:.3e} m on a move inside pi; "
+          f"kernel launches {counts['U1']}")
+    if not (fig["max_position_error"] <= UTILITY_FK_TOL and fig["max_rotation_error"]
+            <= UTILITY_FK_TOL and fig["max_vertex_error"] <= UTILITY_FK_TOL
+            and form_err <= UTILITY_FORM_TOL and counts["U1"]["fk_global_kernel"] > 0):
+        raise AssertionError(f"config U1: {fig}, 4x4 form {form_err}, launches {counts['U1']}")
+    numbers["U1"] = dict(poses_per_s=batch / wall, wall_ms=wall * 1e3, form_error=form_err,
+                         **fig)
+
+    # U2: inverse FK
+    _reset_counts()
+    jp_back, fig = w.inverse_fk_figures(prob, prob.truth)
+    torch.cuda.synchronize()
+    counts["U2"] = _counts()
+    states = compat.model_parameters_to_skeleton_state(prob.char, prob.truth)
+    wall = _walls(lambda: compat.skeleton_state_to_joint_parameters(prob.char, states))
+    jp_err = float(np.abs(jp_back[:UTILITY_HELD].cpu().numpy() - jax_jp).max())
+    print(f"config U2 inverse FK (B={batch}): {batch / wall:.1f} states/s (median wall "
+          f"{wall * 1e3:.2f} ms of 3) on {smi}; re-FK max position error "
+          f"{fig['max_refk_position_error']:.3e} m (tol {UTILITY_FK_TOL:.0e}); joint "
+          f"parameters {fig['max_joint_parameter_error']:.3e} from the forward ones, "
+          f"{fig['max_local_joint_parameter_error']:.3e} through the local states; the first "
+          f"{UTILITY_HELD} against JAX CPU's {jp_err:.3e} (tol {UTILITY_JP_TOL:.0e}); kernel "
+          f"launches {counts['U2']}")
+    if not (fig["max_refk_position_error"] <= UTILITY_FK_TOL and jp_err <= UTILITY_JP_TOL
+            and counts["U2"]["fk_global_kernel"] > 0):
+        raise AssertionError(f"config U2: {fig}, against JAX CPU {jp_err}")
+    numbers["U2"] = dict(states_per_s=batch / wall, wall_ms=wall * 1e3, jax_cpu_error=jp_err,
+                         **fig)
+
+    # U3 and U4: IK on the scaled and the simplified rig
+    pp = prob.scaled.char.physical_properties
+    digest = dict(mass=w.array_digest(pp.mass.cpu().numpy()),
+                  scaled_inertia=w.array_digest(pp.inertia.cpu().numpy()))
+    print(f"config U3 bodies on the scaled rig: total mass {float(pp.total_mass()):.4f} kg "
+          f"(preserve_mass), tables {'equal to' if digest == want['bodies'] else 'DIFFER FROM'}"
+          f" JAX CPU's")
+    if digest != want["bodies"]:
+        raise AssertionError(f"config U3: the bodies differ from JAX CPU's: {digest}")
+    tables = w.simplified_tables(prob.simplified.char)
+    bad = [k for k in tables if tables[k] != want["u4"]["tables"][k]]
+    print(f"config U4 simplified rig: {prob.simplified.char.num_joints} joints, "
+          f"{prob.simplified.x0.shape[-1]} parameters, {tables['num_vertices']} vertices, "
+          f"{prob.simplified.char.locators.num_locators} locators; tables (joint parents, "
+          f"parameter names and transform, {len(tables['limits'])} limit tables, locator "
+          f"parents, mesh faces) {'equal to JAX CPU' if not bad else 'DIFFER: ' + str(bad)}")
+    if bad:
+        raise AssertionError(f"config U4: tables {bad} differ from JAX CPU's")
+    for stage, sub, key in (("U3", prob.scaled, "u3"), ("U4", prob.simplified, "u4")):
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = w.solve_catalog(sub)
+        torch.cuda.synchronize()
+        counts[stage] = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall = _walls(lambda: w.solve_catalog(sub))
+        more = w.solve_catalog(sub, x0=res.params, iterations=w.CATALOG_MORE)
+        held = w.catalog_figures(sub, res.params, more.params, slice(0, UTILITY_HELD))
+        full = w.catalog_figures(sub, res.params, more.params)
+        print(f"config {stage} ({'scaled' if stage == 'U3' else 'simplified'} IK, B={batch}, "
+              f"P={sub.x0.shape[-1]}, {sum(ef.num_rows() for _, ef in sub.modules)} rows, LM "
+              f"{w.CATALOG_ITERATIONS}): {batch / wall:.1f} solves/s (median wall {wall:.3f} s "
+              f"of 3 warm runs) on {smi}; peak memory {peak_gb:.3f} GiB; kernel launches "
+              f"{counts[stage]}")
+        _hold_figures(stage, held, full, want[key], batch, rtol=UTILITY_MEDIAN_RTOL)
+        held["early_median_energy"] = _hold_early(stage, sub, want[key])
+        if any(n == 0 for n in counts[stage].values()):
+            raise AssertionError(f"config {stage} did not run through every kernel: "
+                                 f"{counts[stage]}")
+        numbers[stage] = dict(solves_per_s=batch / wall, wall_s=wall, peak_memory_gib=peak_gb,
+                              first_256=held, all=full)
+    numbers["launches"] = counts
+    simple = prob.simplified
+    skel = simple.char.skeleton
+    local = fk.local_skel_states(skel, simple.char.parameter_transform.apply(simple.x0))
+    fk_numbers = _hold_fk(skel, local.contiguous(), "config U4's kept joints")
+    fn = SkeletonSolverFunction(simple.char, tuple(ef for _, ef in simple.modules))
+    a, b = fn.normal_equations(simple.x0)[:2]
+    damp = (0.01 * torch.clamp(a.diagonal(dim1=-2, dim2=-1), min=1e-12) + 1e-5).contiguous()
+    psd_numbers = _hold_psd_matrix(a.contiguous(), damp, b.contiguous(),
+                                   "config U4's normal equations at the warm starts")
     return counts, numbers, fk_numbers, psd_numbers
 
 
@@ -3068,6 +3271,8 @@ def main():
     lap("sdf_collision")
     c5_counts, c5_numbers, c5_fk, c5_psd = phase_sdf_sequence(smi)
     lap("sdf_sequence")
+    u_counts, u_numbers, u_fk, u_psd = phase_character_utilities(smi)
+    lap("character_utilities")
 
     from momentum_tpu_torch.testing.workloads import build_render_clip
 
@@ -3115,7 +3320,9 @@ def main():
              sdf_collision_launches=sc_counts["fk_global_kernel"],
              sdf_joint_launches=sc_joint_counts["fk_global_kernel"],
              sdf_collision_B2048=sc_fk, sdf_joint_ad_rows=sc_numbers.pop("ad_rows"),
-             sdf_sequence_launches=c5_counts["fk_global_kernel"], sdf_sequence_B1024=c5_fk),
+             sdf_sequence_launches=c5_counts["fk_global_kernel"], sdf_sequence_B1024=c5_fk,
+             utility_launches={st: n["fk_global_kernel"] for st, n in u_counts.items()},
+             utility_U4_B2048=u_fk),
         dict(name="damped_chol_solve_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/psd_pallas.py:53",
@@ -3153,7 +3360,9 @@ def main():
              sdf_joint_launches=sc_joint_counts["damped_chol_solve_kernel"],
              sdf_collision_2048x157=sc_psd,
              sdf_sequence_launches=c5_counts["damped_chol_solve_kernel"],
-             **{"sdf_sequence_{}x{}_k{}".format(*c5_psd["batch_n_k"]): c5_psd}),
+             **{"sdf_sequence_{}x{}_k{}".format(*c5_psd["batch_n_k"]): c5_psd},
+             utility_launches={st: n["damped_chol_solve_kernel"] for st, n in u_counts.items()},
+             **{"utility_{}x{}".format(*u_psd["batch_n_k"][:2]): u_psd}),
         dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:55",
@@ -3196,7 +3405,8 @@ def main():
                       "configD": dik_numbers, "variants": var_numbers,
                       "config4x": vx_numbers, "configSL": sl_numbers, "configG": glove_numbers,
                       "config4ad": vad_numbers, "config7p": scene_numbers,
-                      "configSC": sc_numbers, "config5c": c5_numbers}))
+                      "configSC": sc_numbers, "config5c": c5_numbers,
+                      "configU": u_numbers}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

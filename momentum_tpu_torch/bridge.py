@@ -10,16 +10,20 @@ character_from_numpy keys (shapes as in momentum_tpu):
     joint_parent (nJ,) int32, pre_rotation (nJ, 4), translation_offset (nJ, 3),
     transform (nJ*7, P), offsets (nJ*7,), optional parameter_names (P,) str,
     optional parameter_sets (a dict of name -> index array),
+    optional pose_constraints (a dict of name -> ((parameter index, value), ...)),
     the limit tables of ParameterLimits under their field names
     (minmax_index (M,), minmax_bounds (M, 2), ..., ellipsoid_weight (E,)),
     a record type whose tables are absent having no records,
     optional locator_parent (L,), locator_offset (L, 3), locator_weight (L,),
-    and with them optional locator_names (L,) str; optional joint_names
-    (nJ,) str;
+    and with them optional locator_names (L,) str, locator_locked (L, 3),
+    locator_limit_weight (L, 3), locator_limit_origin (L, 3),
+    locator_attached_to_skin (L,), locator_skin_offset (L,); optional
+    joint_names (nJ,) str; optional name and metadata (str);
     optional mesh_vertices (V, 3), mesh_faces (F, 3) int32, and with them
     optional mesh_normals (V, 3), mesh_texcoords (T, 2),
-    mesh_texcoord_faces (F, 3), mesh_colors (V, 3), mesh_lines (a sequence
-    of index arrays); skin_index (V, 8), skin_weight (V, 8),
+    mesh_texcoord_faces (F, 3), mesh_colors (V, 3), mesh_confidence (V,),
+    mesh_lines and mesh_texcoord_lines (sequences of index arrays);
+    skin_index (V, 8), skin_weight (V, 8),
     inverse_bind_pose (nJ, 8);
     optional blend_shape_base (V, 3), blend_shape_vectors (K, V, 3),
     blend_shape_param_index (K,) and the same three for
@@ -31,7 +35,13 @@ character_from_numpy keys (shapes as in momentum_tpu):
     optional skinned_locator_parents (S, K), skinned_locator_skin_weights
     (S, K), skinned_locator_rest_position (S, 3), and with them optional
     skinned_locator_names (S,) str and skinned_locator_param_index (3S,)
-    (−1: no parameter)
+    (−1: no parameter);
+    optional body_joint_index (B,), body_mass (B,),
+    body_center_of_mass_offset (B, 3), body_inertia (B, 3, 3),
+    body_inertia_rotation (B, 4), and with them optional body_joint_names
+    (B,) str (a PhysicalProperties)
+covariance_from_numpy keys:
+    a (k, n), sigma () (a LowRankCovarianceMatrix)
 camera_from_numpy keys:
     fx, fy, cx, cy (), image_width, image_height (), eye_from_world (8,),
     and for a distorted model k and p: k (6,) with p (4,) an OpenCV camera,
@@ -88,15 +98,17 @@ from momentum_tpu_torch.camera import (
     Camera, OpenCVFisheyeIntrinsics, OpenCVIntrinsics, PinholeIntrinsics)
 from momentum_tpu_torch.character import (
     BlendShape, Character, CollisionGeometry, Locators, Mesh, ParameterLimits,
-    ParameterTransform, Skeleton, SkinnedLocators, SkinWeights, make_limits)
+    ParameterTransform, PhysicalProperties, Skeleton, SkinnedLocators, SkinWeights,
+    make_limits)
 from momentum_tpu_torch.device import resolve
 from momentum_tpu_torch.errors import (
     LimitErrorFunction, Mppca, OrientationErrorFunction, PosePriorErrorFunction,
     PositionErrorFunction, VertexNormalErrorFunction, VertexPlaneErrorFunction,
     VertexPositionErrorFunction, VertexProjectionErrorFunction)
+from momentum_tpu_torch.math.covariance import LowRankCovarianceMatrix
 from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
 
-__all__ = ["character_from_numpy", "camera_from_numpy", "position_error_from_numpy",
+__all__ = ["character_from_numpy", "covariance_from_numpy", "camera_from_numpy", "position_error_from_numpy",
            "orientation_error_from_numpy", "limit_error_from_numpy",
            "pose_prior_from_numpy", "vertex_position_error_from_numpy",
            "vertex_plane_error_from_numpy", "vertex_normal_error_from_numpy",
@@ -168,6 +180,20 @@ def _skinned_locators(d, device):
     return sl, None if index is None else tuple(int(i) for i in np.asarray(index))
 
 
+def _bodies(d, device):
+    if "body_joint_index" not in d:
+        return None
+    return PhysicalProperties(
+        joint_index=_t(d, "body_joint_index", device).to(torch.int32),
+        **{k: _t(d, f"body_{k}", device) for k in ("mass", "center_of_mass_offset", "inertia",
+                                                   "inertia_rotation")},
+        joint_names=_names(d, "body_joint_names"))
+
+
+def _lines(d, key, device) -> tuple:
+    return tuple(torch.as_tensor(np.array(line), device=device) for line in d.get(key, ()))
+
+
 def character_from_numpy(d: dict, device="cuda") -> Character:
     device = resolve(device, "character_from_numpy")
     skeleton = Skeleton(joint_parent=_t(d, "joint_parent", device).to(torch.int32),
@@ -178,14 +204,19 @@ def character_from_numpy(d: dict, device="cuda") -> Character:
         transform=_t(d, "transform", device), offsets=_t(d, "offsets", device),
         names=tuple(str(n) for n in d.get("parameter_names", ())),
         parameter_sets={k: tuple(int(i) for i in np.asarray(v))
-                        for k, v in d.get("parameter_sets", {}).items()})
+                        for k, v in d.get("parameter_sets", {}).items()},
+        pose_constraints={k: tuple((int(i), float(x)) for i, x in v)
+                          for k, v in d.get("pose_constraints", {}).items()})
     limits = _limits(d, device)
     locators = None
     if "locator_parent" in d:
         locators = Locators(parent=_t(d, "locator_parent", device).to(torch.int32),
                             offset=_t(d, "locator_offset", device),
                             weight=_t(d, "locator_weight", device),
-                            names=_names(d, "locator_names"))
+                            names=_names(d, "locator_names"),
+                            **{k: _opt(d, f"locator_{k}", device) for k in (
+                                "locked", "limit_weight", "limit_origin", "attached_to_skin",
+                                "skin_offset")})
     mesh = skin = inverse_bind_pose = None
     if "mesh_vertices" in d:
         mesh = Mesh(vertices=_t(d, "mesh_vertices", device),
@@ -194,8 +225,9 @@ def character_from_numpy(d: dict, device="cuda") -> Character:
                     texcoords=_opt(d, "mesh_texcoords", device),
                     texcoord_faces=_opt(d, "mesh_texcoord_faces", device),
                     colors=_opt(d, "mesh_colors", device),
-                    lines=tuple(torch.as_tensor(np.array(line), device=device)
-                                for line in d.get("mesh_lines", ())))
+                    confidence=_opt(d, "mesh_confidence", device),
+                    lines=_lines(d, "mesh_lines", device),
+                    texcoord_lines=_lines(d, "mesh_texcoord_lines", device))
     if "skin_index" in d:
         skin = SkinWeights(index=_t(d, "skin_index", device).to(torch.int32),
                            weight=_t(d, "skin_weight", device))
@@ -211,7 +243,14 @@ def character_from_numpy(d: dict, device="cuda") -> Character:
                      face_expression_blend_shape=face,
                      face_expression_param_index=face_index,
                      collision=_collision(d, device), skinned_locators=skinned,
-                     skinned_locator_param_index=skinned_index)
+                     skinned_locator_param_index=skinned_index,
+                     physical_properties=_bodies(d, device), name=str(d.get("name", "")),
+                     metadata=str(d.get("metadata", "")))
+
+
+def covariance_from_numpy(d: dict, device="cuda") -> LowRankCovarianceMatrix:
+    return LowRankCovarianceMatrix.create(np.float32(d["sigma"]), np.asarray(d["a"]),
+                                          device=resolve(device, "covariance_from_numpy"))
 
 
 def camera_from_numpy(d: dict, device="cuda") -> Camera:

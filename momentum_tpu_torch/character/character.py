@@ -10,6 +10,7 @@ import dataclasses
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from momentum_tpu_torch.character import fk
@@ -20,15 +21,17 @@ from momentum_tpu_torch.character.skeleton import Skeleton
 from momentum_tpu_torch.character.skinning import SkinWeights
 from momentum_tpu_torch.math import skel_state as ss
 
-__all__ = ["Mesh", "Locators", "SkinnedLocators", "CollisionGeometry", "Character"]
+__all__ = ["Mesh", "Locators", "SkinnedLocators", "Character", "CollisionGeometry",
+           "PhysicalProperties"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """Triangle mesh (math/mesh.h): vertices (V, 3), faces (F, 3) int32,
     and the optional per-vertex normals, texcoords (with per-face texcoord
-    indices, or None when `faces` indexes them), colours, and polylines (a
-    tuple of index tensors)."""
+    indices, or None when `faces` indexes them), colours, per-vertex
+    confidence, and polylines and their texcoord polylines (tuples of index
+    tensors)."""
 
     vertices: torch.Tensor
     faces: torch.Tensor
@@ -36,11 +39,29 @@ class Mesh:
     texcoords: Optional[torch.Tensor] = None
     texcoord_faces: Optional[torch.Tensor] = None
     colors: Optional[torch.Tensor] = None
+    confidence: Optional[torch.Tensor] = None
     lines: tuple = ()
+    texcoord_lines: tuple = ()
 
     @property
     def num_vertices(self) -> int:
         return self.vertices.shape[0]
+
+    # pymomentum.geometry.Mesh's spellings (mesh_pybind.cpp)
+    @property
+    def n_vertices(self) -> int:
+        return self.vertices.shape[0]
+
+    @property
+    def n_faces(self) -> int:
+        return self.faces.shape[0]
+
+    def self_intersections(self, chunk: int = 256) -> np.ndarray:
+        """(N, 2) index pairs of intersecting faces that share no vertex
+        (mesh_pybind self_intersections → intersection.h)."""
+        from momentum_tpu_torch.math.mesh_ops import intersect_mesh_brute_force
+
+        return intersect_mesh_brute_force(self.vertices, self.faces, chunk=chunk)
 
     def with_updated_normals(self) -> "Mesh":
         """The mesh with area-weighted vertex normals recomputed (mesh.h
@@ -53,12 +74,19 @@ class Mesh:
 @dataclasses.dataclass(frozen=True, eq=False)
 class Locators:
     """Markers attached to joints: offset in the parent-joint frame
-    (character/locator.h)."""
+    (character/locator.h), with the optional per-axis lock flags, the
+    calibration pull of limit_weight toward limit_origin, and the
+    skin-derived flags and offsets (locator.h:21-46); None reads as zeros."""
 
     parent: torch.Tensor  # (L,) int32
     offset: torch.Tensor  # (L, 3)
     weight: torch.Tensor  # (L,)
     names: tuple = ()
+    locked: Optional[torch.Tensor] = None  # (L, 3) 0/1
+    limit_weight: Optional[torch.Tensor] = None  # (L, 3)
+    limit_origin: Optional[torch.Tensor] = None  # (L, 3)
+    attached_to_skin: Optional[torch.Tensor] = None  # (L,) 0/1
+    skin_offset: Optional[torch.Tensor] = None  # (L,)
 
     @property
     def num_locators(self) -> int:
@@ -99,6 +127,41 @@ class SkinnedLocators:
         return torch.sum(self.skin_weights[..., None] * pts, dim=-2)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class PhysicalProperties:
+    """Per-joint mass bodies in SoA form (character/joint.h:88-114
+    JointPhysicalProperties, character.h:66): mass (kg), the centre-of-mass
+    offset in the joint's frame, the inertia about the body's centre of mass
+    in its inertia frame, and that frame's rotation into the joint's
+    (quaternion x, y, z, w). `joint_names` is what a remap goes by;
+    `joint_index` resolves it (joint.h:92-98)."""
+
+    joint_index: torch.Tensor  # (B,) int32
+    mass: torch.Tensor  # (B,)
+    center_of_mass_offset: torch.Tensor  # (B, 3)
+    inertia: torch.Tensor  # (B, 3, 3)
+    inertia_rotation: torch.Tensor  # (B, 4)
+    joint_names: tuple = ()
+
+    @property
+    def num_bodies(self) -> int:
+        return self.joint_index.shape[0]
+
+    def total_mass(self) -> torch.Tensor:
+        return torch.sum(self.mass)
+
+    def com_constraint(self, num_joints: int):
+        """(masses (nJ,), local offsets (nJ, 3)): each joint's summed mass and
+        the mass-weighted mean of its bodies' offsets, for the centre-of-mass
+        error (center_of_mass_error_function.cpp:46); zero where a joint has
+        no body."""
+        idx = self.joint_index.long()
+        masses = self.mass.new_zeros(num_joints).index_add(0, idx, self.mass)
+        weighted = self.mass.new_zeros(num_joints, 3).index_add(
+            0, idx, self.mass[:, None] * self.center_of_mass_offset)
+        return masses, weighted / torch.clamp(masses, min=1e-12)[:, None]
+
+
 # CollisionPrimitiveType (collision_geometry.h:22-26)
 PRIMITIVE_TAPERED_CAPSULE = 0
 PRIMITIVE_ELLIPSOID = 1
@@ -123,6 +186,10 @@ class CollisionGeometry:
 
     @property
     def num_capsules(self) -> int:
+        return self.parent.shape[0]
+
+    @property
+    def num_primitives(self) -> int:
         return self.parent.shape[0]
 
     def primitive_types(self) -> torch.Tensor:
@@ -162,6 +229,10 @@ class Character:
     # (L, 3) table flattened, -1 where a locator has none
     # (parameter_transform.h:94-95 skinnedLocatorParameters)
     skinned_locator_param_index: Optional[tuple] = None
+    # per-joint mass bodies (character.h:66)
+    physical_properties: Optional[PhysicalProperties] = None
+    # free-form metadata (character_pybind with_metadata)
+    metadata: str = ""
 
     @property
     def num_joints(self) -> int:
@@ -194,8 +265,140 @@ class Character:
             return self
         return dataclasses.replace(self, inverse_bind_pose=ss.inverse(self.bind_pose()))
 
+    # functional with_* updates (character_pybind with_mesh_and_skin_weights
+    # etc.): each returns a new Character
+    def with_mesh_and_skin_weights(self, mesh: Mesh, skin_weights: SkinWeights) -> "Character":
+        return dataclasses.replace(self, mesh=mesh, skin_weights=skin_weights,
+                                   inverse_bind_pose=None).with_inverse_bind_pose()
+
+    def with_locators(self, locators: Locators) -> "Character":
+        return dataclasses.replace(self, locators=locators)
+
     def with_collision_geometry(self, collision: CollisionGeometry) -> "Character":
         return dataclasses.replace(self, collision=collision)
+
+    def with_parameter_limits(self, limits: ParameterLimits) -> "Character":
+        return dataclasses.replace(self, limits=limits)
+
+    def with_name(self, name: str) -> "Character":
+        return dataclasses.replace(self, name=name)
+
+    def with_metadata(self, metadata: str) -> "Character":
+        """The character with a free-form metadata string (character_pybind
+        with_metadata)."""
+        return dataclasses.replace(self, metadata=metadata)
+
+    def clone(self) -> "Character":
+        """A copy (the fields are shared: every operation returns a new
+        Character)."""
+        return dataclasses.replace(self)
+
+    @property
+    def has_mesh(self) -> bool:
+        """Both a mesh and skin weights (character_pybind.cpp:431-435)."""
+        return self.mesh is not None and self.skin_weights is not None
+
+    def skel_states(self, model_params: torch.Tensor) -> torch.Tensor:
+        """The pybind spelling of skeleton_states: (..., P) → (..., nJ, 8)."""
+        return self.skeleton_states(model_params)
+
+    def rebind_skin(self) -> "Character":
+        """The inverse bind pose from the rest skeleton, if the character has
+        none (character_pybind rebind_skin → initInverseBindPose)."""
+        return self.with_inverse_bind_pose()
+
+    def pose_mesh(self, model_params: torch.Tensor) -> torch.Tensor:
+        """Posed mesh vertices (..., V, 3): linear blend skinning, after the
+        blend shapes where the rig drives them (Character.pose_mesh)."""
+        from momentum_tpu_torch.compat import skin_points_from_model_parameters
+
+        return skin_points_from_model_parameters(self, model_params)
+
+    skin_points = pose_mesh
+
+    def apply_model_param_limits(self, model_params: torch.Tensor) -> torch.Tensor:
+        """Model parameters clamped into their MinMax ranges (character_pybind
+        apply_model_param_limits; with duplicate records the write order is
+        unspecified)."""
+        lim = self.limits
+        if lim is None or lim.minmax_index.shape[0] == 0:
+            return model_params
+        idx = lim.minmax_index.long()
+        vals = model_params.index_select(-1, idx)
+        clamped = torch.minimum(torch.maximum(vals, lim.minmax_bounds[:, 0]),
+                                lim.minmax_bounds[:, 1])
+        out = model_params.clone()
+        out[..., idx] = clamped
+        return out
+
+    def find_locators(self, names) -> torch.Tensor:
+        """int32 indices of the named locators (character_pybind
+        find_locators); KeyError on a name it lacks."""
+        if self.locators is None:
+            raise KeyError("character has no locators")
+        lookup = {n: i for i, n in enumerate(self.locators.names)}
+        try:
+            idx = [lookup[n] for n in names]
+        except KeyError as e:
+            raise KeyError(f"unknown locator {e.args[0]!r}") from None
+        return torch.as_tensor(idx, dtype=torch.int32, device=self.locators.parent.device)
+
+    def scaled(self, scale: float, mass_scale: str = "preserve_mass") -> "Character":
+        from momentum_tpu_torch.character.utility import scale_character
+
+        return scale_character(self, scale, mass_scale)
+
+    def transformed(self, xform: torch.Tensor) -> "Character":
+        from momentum_tpu_torch.character.utility import transform_character
+
+        return transform_character(self, xform)
+
+    def simplify(self, enabled_params=None) -> "Character":
+        from momentum_tpu_torch.character.utility import simplify
+
+        return simplify(self, enabled_params)
+
+    def bake_blend_shape(self, coefficients: torch.Tensor) -> "Character":
+        """Blend-shape coefficients baked into the rest mesh, the basis and
+        its parameter index dropped (character.h bake)."""
+        from momentum_tpu_torch.character.utility import bake_blend_shape
+
+        return bake_blend_shape(self, coefficients)
+
+    def simplify_skeleton(self, enabled_joint_indices) -> "Character":
+        """Only the listed joints and their ancestors kept
+        (character_pybind simplify_skeleton)."""
+        from momentum_tpu_torch.character.utility import simplify_skeleton
+
+        mask = np.zeros(self.num_joints, bool)
+        mask[np.asarray(enabled_joint_indices, np.int64)] = True
+        return simplify_skeleton(self, mask)
+
+    def simplify_parameter_transform(self, enabled_parameters) -> "Character":
+        """The rig reduced to the enabled model parameters (a boolean mask;
+        character_pybind simplify_parameter_transform)."""
+        from momentum_tpu_torch.character.utility import simplify_parameter_transform
+
+        return simplify_parameter_transform(self, np.asarray(enabled_parameters, bool))
+
+    def joints_for_parameters(self, active_parameters) -> list:
+        """Joint indices driven by the given parameters (a boolean mask or
+        an index list; character_pybind joints_for_parameters)."""
+        from momentum_tpu_torch.character.utility import parameters_to_active_joints
+
+        arr = np.asarray(active_parameters)
+        if arr.dtype != bool:
+            mask = np.zeros(self.num_model_parameters, bool)
+            mask[arr.astype(np.int64)] = True
+        else:
+            mask = arr
+        active = parameters_to_active_joints(self.parameter_transform, mask)
+        return [int(j) for j in np.nonzero(active)[0]]
+
+    def parameters_for_joints(self, joint_indices) -> np.ndarray:
+        """Boolean mask of the parameters that drive the given joints
+        (character_pybind parameters_for_joints)."""
+        return self.parameter_transform.parameters_for_joints(joint_indices)
 
     def with_skinned_locators(self, skinned_locators: SkinnedLocators) -> "Character":
         return dataclasses.replace(self, skinned_locators=skinned_locators)

@@ -13,9 +13,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from momentum_tpu_torch.character.skeleton import PARAMS_PER_JOINT
 from momentum_tpu_torch.device import resolve
 
-__all__ = ["ParameterLimits", "make_limits", "concat_limits", "create_minmax",
+__all__ = ["ParameterLimits", "make_limits", "make_empty_limits",
+           "remap_limits_model_parameters", "map_limits", "concat_limits", "create_minmax",
            "create_minmax_joint", "create_linear", "create_linear_joint", "create_halfplane",
            "create_ellipsoid"]
 
@@ -139,6 +141,97 @@ def make_limits(minmax=None, minmax_joint=None, linear=None, linear_joint=None,
         ellipsoid_mat=f(mats, (-1, 4, 4)),
         ellipsoid_inv=f([np.linalg.inv(m) for m in mats], (-1, 4, 4)),
         ellipsoid_weight=f([e[4] for e in ell]))
+
+
+def make_empty_limits(device="cuda") -> ParameterLimits:
+    """A table with no records, on the card unless the caller asks for the CPU."""
+    return make_limits(device=resolve(device, "make_empty_limits"))
+
+
+def _host(limits: ParameterLimits) -> dict:
+    return {f.name: getattr(limits, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(ParameterLimits)}
+
+
+def _on(limits: ParameterLimits, tables: dict) -> ParameterLimits:
+    """`limits` with `tables` (numpy) replaced, on its device, in its dtypes."""
+    return dataclasses.replace(limits, **{
+        k: torch.as_tensor(np.ascontiguousarray(v), dtype=getattr(limits, k).dtype,
+                           device=getattr(limits, k).device) for k, v in tables.items()})
+
+
+def remap_limits_model_parameters(limits: ParameterLimits, keep) -> ParameterLimits:
+    """The records after a subset of the model parameters, `keep` (P,) bool
+    (subsetParameterTransform's limit remap): the model-parameter indices
+    renumbered, a record whose parameter was dropped given weight 0 and
+    index 0."""
+    keep = np.asarray(keep, bool)
+    old_to_new = np.zeros(keep.shape[0], np.int64)
+    old_to_new[keep] = np.arange(int(keep.sum()))
+    h = _host(limits)
+
+    def remap(idx, *weights):
+        c = np.clip(idx, 0, keep.shape[0] - 1)
+        ok = keep[c]
+        return [np.where(ok, old_to_new[c], 0)] + [np.where(ok, w, 0.0) for w in weights]
+
+    mm_idx, mm_w = remap(h["minmax_index"], h["minmax_weight"])
+    lr, lw = remap(h["linear_ref"], h["linear_weight"])
+    lt, lw2 = remap(h["linear_tgt"], lw)
+    h1, hw = remap(h["halfplane_idx1"], h["halfplane_weight"])
+    h2, hw2 = remap(h["halfplane_idx2"], hw)
+    return _on(limits, dict(minmax_index=mm_idx, minmax_weight=mm_w, linear_ref=lr,
+                            linear_tgt=lt, linear_weight=lw2, halfplane_idx1=h1,
+                            halfplane_idx2=h2, halfplane_weight=hw2))
+
+
+def map_limits(limits: ParameterLimits, joint_map, param_map) -> ParameterLimits:
+    """The records sent through an old → new joint map and model-parameter
+    map (-1: dropped), a record with an index that maps to nothing dropped
+    (mapParameterLimits, character_utility.cpp:193-254). MinMaxJoint and
+    LinearJoint records remap the joint part of their flat joint-parameter
+    index through `joint_map`, as momentum_tpu's do."""
+    joint_map = np.asarray(joint_map, np.int64)
+    param_map = np.asarray(param_map, np.int64)
+    h = _host(limits)
+    out = {}
+
+    def take(keep, prefix, fields, **indices):
+        out.update(indices)
+        out.update({f"{prefix}_{f}": h[f"{prefix}_{f}"][keep] for f in fields})
+
+    mm = param_map[h["minmax_index"]]
+    keep = mm >= 0
+    take(keep, "minmax", ("bounds", "weight"), minmax_index=mm[keep])
+
+    mj = h["minmax_joint_index"].astype(np.int64)
+    jm = joint_map[mj // PARAMS_PER_JOINT]
+    keep = jm >= 0
+    take(keep, "minmax_joint", ("bounds", "weight", "passive"),
+         minmax_joint_index=(jm * PARAMS_PER_JOINT + mj % PARAMS_PER_JOINT)[keep])
+
+    mr, mt = param_map[h["linear_ref"]], param_map[h["linear_tgt"]]
+    keep = (mr >= 0) & (mt >= 0)
+    take(keep, "linear", ("scale", "offset", "range", "weight"),
+         linear_ref=mr[keep], linear_tgt=mt[keep])
+
+    ljr, ljt = (h[k].astype(np.int64) for k in ("linear_joint_ref", "linear_joint_tgt"))
+    jr, jt = joint_map[ljr // PARAMS_PER_JOINT], joint_map[ljt // PARAMS_PER_JOINT]
+    keep = (jr >= 0) & (jt >= 0)
+    take(keep, "linear_joint", ("scale", "offset", "range", "weight"),
+         linear_joint_ref=(jr * PARAMS_PER_JOINT + ljr % PARAMS_PER_JOINT)[keep],
+         linear_joint_tgt=(jt * PARAMS_PER_JOINT + ljt % PARAMS_PER_JOINT)[keep])
+
+    m1, m2 = param_map[h["halfplane_idx1"]], param_map[h["halfplane_idx2"]]
+    keep = (m1 >= 0) & (m2 >= 0)
+    take(keep, "halfplane", ("normal", "offset", "weight"), halfplane_idx1=m1[keep],
+         halfplane_idx2=m2[keep])
+
+    ep, ef = joint_map[h["ellipsoid_parent"]], joint_map[h["ellipsoid_frame_parent"]]
+    keep = (ep >= 0) & (ef >= 0)
+    take(keep, "ellipsoid", ("point_offset", "mat", "inv", "weight"),
+         ellipsoid_parent=ep[keep], ellipsoid_frame_parent=ef[keep])
+    return _on(limits, out)
 
 
 def concat_limits(a: ParameterLimits, b: ParameterLimits) -> ParameterLimits:

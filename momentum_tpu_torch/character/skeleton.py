@@ -54,6 +54,92 @@ class Skeleton:
         """(nJ,) int32 host copy of joint_parent."""
         return self.joint_parent.cpu().numpy().astype(np.int32)
 
+    def joint_index(self, name: str) -> int:
+        return self.joint_names.index(name)
+
+    # ---- pymomentum.geometry.Skeleton's spellings (skeleton_pybind.cpp:109-260),
+    # host numpy ----
+
+    @property
+    def size(self) -> int:
+        return self.num_joints
+
+    def __len__(self) -> int:
+        return self.num_joints
+
+    @property
+    def joint_parents(self) -> np.ndarray:
+        """(nJ,) parent indices, -1 for roots."""
+        return self.parents_np.copy()
+
+    @property
+    def pre_rotations(self) -> np.ndarray:
+        """(nJ, 4) pre-rotation quaternions (x, y, z, w)."""
+        return self.pre_rotation.detach().cpu().numpy()
+
+    @property
+    def offsets(self) -> np.ndarray:
+        """(nJ, 3) translation offsets."""
+        return self.translation_offset.detach().cpu().numpy()
+
+    def get_parent(self, joint_index: int) -> int:
+        """A joint's parent, -1 for a root."""
+        return int(self.parents_np[joint_index])
+
+    def get_child_joints(self, root_joint_index: int, recursive: bool = True) -> list:
+        """The joints under `root_joint_index` (itself excluded); with
+        recursive=False its direct children only."""
+        parents = self.parents_np
+        if not recursive:
+            return [int(j) for j in np.nonzero(parents == root_joint_index)[0]]
+        out = np.zeros(len(parents), bool)
+        out[root_joint_index] = True
+        for j in range(len(parents)):  # parents come before their children
+            if parents[j] != INVALID_INDEX and out[parents[j]]:
+                out[j] = True
+        out[root_joint_index] = False
+        return [int(j) for j in np.nonzero(out)[0]]
+
+    @property
+    def upper_body_joints(self) -> list:
+        """'b_spine0' and the joints under it (skeleton_pybind.cpp:201-206)."""
+        if "b_spine0" not in self.joint_names:
+            raise ValueError("skeleton has no 'b_spine0' joint")
+        root = self.joint_names.index("b_spine0")
+        return [root] + self.get_child_joints(root, recursive=True)
+
+    def is_ancestor(self, joint_index: int, ancestor_joint_index: int) -> bool:
+        """Whether `ancestor_joint_index` is `joint_index` or one of its
+        ancestors (skeleton.h isAncestor, inclusive)."""
+        parents = self.parents_np
+        a = joint_index
+        while a != INVALID_INDEX:
+            if a == ancestor_joint_index:
+                return True
+            a = int(parents[a])
+        return False
+
+    def common_ancestor(self, a: int, b: int) -> int:
+        """The nearest joint that is an ancestor-or-self of both, -1 if none."""
+        parents = self.parents_np
+        chain = set()
+        x = a
+        while x != INVALID_INDEX:
+            chain.add(x)
+            x = int(parents[x])
+        x = b
+        while x != INVALID_INDEX:
+            if x in chain:
+                return x
+            x = int(parents[x])
+        return INVALID_INDEX
+
+    def validate(self) -> None:
+        """Raise unless every joint's parent comes before it."""
+        for j, p in enumerate(self.parents_np):
+            if p != INVALID_INDEX and p >= j:
+                raise ValueError(f"skeleton not topologically sorted: joint {j} has parent {p}")
+
     def ancestor_matrix(self) -> np.ndarray:
         """Boolean (nJ, nJ): out[a, j] iff a is j's ancestor-or-self."""
         parents = self.parents_np

@@ -123,6 +123,17 @@ class CenterOfMassErrorFunction(ErrorFunction):
                    projection_d=_f32(projection_d, device), weight=_f32(weight, device),
                    project_to_plane=project_to_plane)
 
+    @classmethod
+    def from_physical_properties(cls, character, target, **kw):
+        """The centre-of-mass constraint of the character's bodies
+        (character.h:66 physicalProperties): each body's mass at its local
+        centre-of-mass offset (center_of_mass_error_function.cpp:46)."""
+        pp = character.physical_properties
+        if pp is None or pp.num_bodies == 0:
+            raise ValueError("character has no physical properties")
+        return cls.create(pp.joint_index.cpu().numpy(), pp.mass.cpu().numpy(), target,
+                          offsets=pp.center_of_mass_offset.cpu().numpy(), **kw)
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class HeightErrorFunction(_ScalarRow):

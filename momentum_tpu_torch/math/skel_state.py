@@ -15,8 +15,15 @@ import torch
 
 from momentum_tpu_torch.math import quaternion as quat
 
-__all__ = ["identity", "split", "join", "from_translation", "multiply", "inverse",
-           "transform_points", "rotate_vectors", "to_matrix", "blend"]
+__all__ = ["identity", "check", "split", "join", "from_translation", "from_quaternion",
+           "from_scale", "multiply", "inverse", "transform_points", "rotate_vectors",
+           "to_matrix", "from_matrix", "blend", "slerp", "multiply_assume_normalized",
+           "transform_points_assume_normalized"]
+
+
+def check(s: torch.Tensor) -> None:
+    if s.shape[-1] != 8:
+        raise ValueError(f"expected last dim 8 for skel_state, got {tuple(s.shape)}")
 
 
 def identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
@@ -28,8 +35,7 @@ def identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
 
 def split(s: torch.Tensor):
     """-> (t (..., 3), q (..., 4), scale (..., 1))."""
-    if s.shape[-1] != 8:
-        raise ValueError(f"expected last dim 8 for skel_state, got {tuple(s.shape)}")
+    check(s)
     return s[..., 0:3], s[..., 3:7], s[..., 7:8]
 
 
@@ -44,6 +50,19 @@ def join(t: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 def from_translation(t: torch.Tensor) -> torch.Tensor:
     q = quat.identity(t.shape[:-1], dtype=t.dtype, device=t.device)
     return join(t, q, torch.ones(t.shape[:-1] + (1,), dtype=t.dtype, device=t.device))
+
+
+def from_quaternion(q: torch.Tensor) -> torch.Tensor:
+    return join(q.new_zeros(q.shape[:-1] + (3,)), q, q.new_ones(q.shape[:-1] + (1,)))
+
+
+def from_scale(s: torch.Tensor) -> torch.Tensor:
+    """A pure scale; `s` is (..., 1), or (...,) when its last dim is not 1."""
+    if s.shape[-1] != 1:
+        s = s[..., None]
+    batch = s.shape[:-1]
+    return join(s.new_zeros(batch + (3,)),
+                quat.identity(batch, dtype=s.dtype, device=s.device), s)
 
 
 def multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -81,6 +100,19 @@ def to_matrix(a: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+def from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """The inverse of to_matrix for (..., 4, 4) matrices [s·R | t] of uniform
+    scale: s the real cube root of the linear part's determinant, R the
+    linear part divided by max(s, 1e-12), as momentum_tpu's (so a mirrored
+    matrix, det < 0, keeps its negative s and its R is the linear part over
+    1e-12)."""
+    lin = m[..., :3, :3]
+    det = torch.linalg.det(lin)
+    s = torch.sign(det) * torch.abs(det) ** (1.0 / 3.0)
+    q = quat.from_rotation_matrix(lin / torch.clamp(s, min=1e-12)[..., None, None])
+    return join(m[..., :3, 3], q, s[..., None])
+
+
 def blend(states: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:
     """Weighted blend over the second-to-last axis: t and s averaged linearly,
     q by `quaternion.blend`."""
@@ -90,3 +122,21 @@ def blend(states: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Te
     t, q, s = split(states)
     return join((t * w[..., None]).sum(dim=-2), quat.blend(q, w),
                 (s * w[..., None]).sum(dim=-2))
+
+
+def slerp(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
+    """Interpolate: t linearly, q by quaternion.slerp, s in log space."""
+    ta, qa, sa = split(a)
+    tb, qb, sb = split(b)
+    tt = torch.as_tensor(t, dtype=a.dtype, device=a.device)
+    if tt.ndim == a.ndim - 1:
+        tt = tt[..., None]
+    log_s = (1.0 - tt) * torch.log(torch.clamp(sa, min=1e-12)) \
+        + tt * torch.log(torch.clamp(sb, min=1e-12))
+    return join((1.0 - tt) * ta + tt * tb, quat.slerp(qa, qb, tt), torch.exp(log_s))
+
+
+# pymomentum/skel_state.py's *_assume_normalized names: multiply composes the
+# quaternions without normalizing, so they are the same functions
+multiply_assume_normalized = multiply
+transform_points_assume_normalized = transform_points

@@ -1,7 +1,7 @@
 """Where the time of the port's workloads goes on one CUDA card.
 
     python -m momentum_tpu_torch.testing.profile_workload
-        [--workload ik|render|fullstack|vertex|sequence|tracking|catalog|keypoints|skinned|glove|scene|sdf|both]
+        [--workload ik|render|fullstack|vertex|sequence|tracking|catalog|keypoints|skinned|glove|scene|sdf|retarget|both]
         [--batch 2048]
         [--frames 1024] [--fullbody] [--out DIR]
 
@@ -57,6 +57,14 @@ B = 2048 over the markers, the obstacle's collision and the ground):
     Jacobian, the marker rows, JᵀJ, K2+K3, the trial energy), the whole
     iteration and the host's part, and the wall and device-busy share of
     the solve;
+for config U (build_utility_problem at B = 2048, --workload retarget):
+  * each layer of U1's transform_pose timed alone with CUDA events
+    (retarget_layer_times: the parameter transform with the passive
+    limits, FK, the roots' update, inverse FK, the pseudo-inverse's map;
+    its first call, the host SVD, apart), the whole call and the host's
+    part, and the wall and device-busy
+    share of U1; for U3 (the scaled rig) and U4 (the simplified rig) config
+    C's layers and the wall and device-busy share of each solve;
 for config G (build_glove_clip: 343 frames, two 7-finger gloves):
   * the wall and device-busy share of the sequence solve and of per-frame
     tracking of its first 8 frames;
@@ -562,10 +570,6 @@ def catalog_layer_times(problem, lam: float = 0.01) -> dict:
     analytic = [ef for ef in dense if ef.has_analytic_jacobian]
     ad = [ef for ef in dense if not ef.has_analytic_jacobian]
     ctx = fn.context(x)
-    rows, jac = fn._rows_and_jacobian(ctx, dense)
-    jt = jac.transpose(-1, -2)
-    jtj, jtr = jt @ jac, (jt @ rows[..., None])[..., 0]
-    damp = lam * torch.clamp(jtj.diagonal(dim1=-2, dim2=-1), min=1e-12) + 1e-5
     p = x.shape[-1]
 
     def direct_normal():
@@ -577,17 +581,28 @@ def catalog_layer_times(problem, lam: float = 0.01) -> dict:
             acc = ef.accumulate_normal(char, ctx, jc, char.parameter_transform.transform, acc)
         return acc
 
+    if dense:
+        rows, jac = fn._rows_and_jacobian(ctx, dense)
+        jt = jac.transpose(-1, -2)
+        jtj, jtr = jt @ jac, (jt @ rows[..., None])[..., 0]
+    else:  # every module adds its normal equations directly (config U4)
+        jtj, jtr = direct_normal()[:2]
+    damp = lam * torch.clamp(jtj.diagonal(dim1=-2, dim2=-1), min=1e-12) + 1e-5
+
     times = {"context (FK through K1)": event_ms(lambda: fn.context(x), reps=3)}
     if analytic:
         times["analytic Jacobians (blockwise, through the parameter transform)"] = event_ms(
             lambda: fn._rows_and_jacobian(ctx, analytic), reps=3)
+    if ad:
+        times["AD Jacobian (forward mode, FK through K1)"] = event_ms(
+            lambda: fn._rows_and_jacobian(ctx, ad), reps=3)
+    if direct:
+        times["direct normal equations (" + ", ".join(type(ef).__name__ for ef in direct)
+              + ")"] = event_ms(direct_normal, reps=3)
+    if dense:
+        times["JtJ + Jtr of the dense rows"] = event_ms(
+            lambda: (jt @ jac, jt @ rows[..., None]), reps=3)
     times.update({
-        "AD Jacobian (forward mode, FK through K1)": event_ms(
-            lambda: fn._rows_and_jacobian(ctx, ad), reps=3),
-        "direct normal equations (" + ", ".join(type(ef).__name__ for ef in direct) + ")":
-            event_ms(direct_normal, reps=3),
-        "JtJ + Jtr of the dense rows": event_ms(lambda: (jt @ jac, jt @ rows[..., None]),
-                                                reps=3),
         "damped solve (K2+K3)": event_ms(lambda: damped_psd_solve(jtj, damp, jtr)),
         "trial energy (FK through K1 + every module)": event_ms(lambda: fn.error(x), reps=3),
     })
@@ -651,6 +666,47 @@ def sdf_layer_times(problem, lam: float = 0.01) -> dict:
                      reps=3)
     times["host and the rest (the iteration less the layers)"] = whole - sum(times.values())
     times["whole LM iteration (solve_ik, 1 iteration)"] = whole
+    return times
+
+
+def retarget_layer_times(problem) -> dict:
+    """ms per call of each layer of config U's U1 (transform_pose of the
+    problem's truths, testing.workloads.UtilityProblem): the parameter
+    transform with the passive limits, FK (K1), the roots' update, inverse
+    FK, the map back to model parameters through the pseudo-inverse; the
+    whole call, and the host's part, the call less the layers. Beside them,
+    outside the sum, the pseudo-inverse's first call on a transform (the
+    host numpy SVD, which every later call reuses)."""
+    from momentum_tpu_torch.character import fk
+    from momentum_tpu_torch.character.inverse_fk import joint_parameters_from_skeleton_states
+    from momentum_tpu_torch.math import skel_state as ss
+    from momentum_tpu_torch.testing.workloads import retarget
+
+    char, x, xf = problem.char, problem.truth, problem.xform
+    pt, skel = char.parameter_transform, char.skeleton
+    jp = char.limits.apply_passive(pt.apply(x))
+    states = fk.global_skel_states(skel, jp)
+    roots = torch.nonzero(skel.joint_parent < 0)[:, 0]
+
+    def root_update():
+        return states.index_copy(-2, roots, ss.multiply(xf, states.index_select(-2, roots)))
+
+    moved = root_update()
+    pinv = pt.pinv()
+    delta = joint_parameters_from_skeleton_states(skel, moved) - jp
+    times = {
+        "parameter transform + passive limits": event_ms(
+            lambda: char.limits.apply_passive(pt.apply(x))),
+        "FK (K1)": event_ms(lambda: fk.global_skel_states(skel, jp)),
+        "root update": event_ms(root_update),
+        "inverse FK": event_ms(lambda: joint_parameters_from_skeleton_states(skel, moved)),
+        "pinv map to model parameters": event_ms(lambda: x + delta @ pinv.T),
+    }
+    whole = event_ms(lambda: retarget(problem, x), reps=3)
+    times["host and the rest (the call less the layers)"] = whole - sum(times.values())
+    times["whole transform_pose"] = whole
+    times["pseudo-inverse's first call on a transform (host SVD; not in the sum)"] = event_ms(
+        lambda: dataclasses.replace(pt).pinv(), reps=3)
     return times
 
 
@@ -754,7 +810,7 @@ def main():
     ap.add_argument("--workload",
                     choices=("ik", "render", "fullstack", "vertex", "sequence", "tracking",
                              "catalog", "keypoints", "skinned", "glove", "scene", "sdf",
-                             "both"),
+                             "retarget", "both"),
                     default="both", help="both = ik and render")
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--frames", type=int, default=1024, help="the sequence's frame count")
@@ -872,6 +928,22 @@ def main():
             print(f"sdf layer B={args.batch}: {name}: {ms:.4f} ms [{card}]")
         _wall_and_profile(lambda: solve_catalog(problem), card,
                           f"sdf-solve B={args.batch} (LM 10)", args.out, args.batch, "solves/s")
+
+    if args.workload == "retarget":
+        from momentum_tpu_torch.testing.workloads import (
+            build_utility_problem, retarget, solve_catalog)
+
+        problem = build_utility_problem(args.batch, seed=args.seed, device="cuda")
+        for name, ms in retarget_layer_times(problem).items():
+            print(f"retarget layer B={args.batch}: {name}: {ms:.4f} ms [{card}]")
+        _wall_and_profile(lambda: retarget(problem, problem.truth), card,
+                          f"retarget B={args.batch} (U1)", args.out, args.batch, "poses/s")
+        for tag, sub in (("scaled", problem.scaled), ("simplified", problem.simplified)):
+            for name, ms in catalog_layer_times(sub).items():
+                print(f"{tag} layer B={args.batch}: {name}: {ms:.4f} ms [{card}]")
+            _wall_and_profile(lambda: solve_catalog(sub), card,
+                              f"{tag}-solve B={args.batch} (LM 10)", args.out, args.batch,
+                              "solves/s")
 
     if args.workload == "glove":
         from momentum_tpu_torch.testing.workloads import (

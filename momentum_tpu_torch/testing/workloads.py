@@ -1913,3 +1913,227 @@ def build_sdf_sequence_problem(frames: int = SEQUENCE_FRAMES, seed: int = 0,
         weight=SDF_SEQUENCE_WEIGHT, device=device)
     fn = dataclasses.replace(prob.fn, sequence_errors=prob.fn.sequence_errors + (sdf_seq,))
     return prob._replace(fn=fn)
+
+
+# ---- config U: retargeting and character surgery on the full-body rig ----
+
+UTILITY_BATCH = 2048
+UTILITY_INTEROP = 256  # the 4×4 form of torch_interop.transform_pose runs on these
+UTILITY_TURN = 0.7  # U1's move: a turn about y (rad) ...
+UTILITY_SHIFT = (4.0, 0.0, -1.5)  # ... and a shift (m) across a capture volume
+UTILITY_SCALE = 1.15  # U3: the subject 15% taller than the rig
+UTILITY_TOTAL_MASS = 70.0  # kg over the bodies, split by bone length
+UTILITY_COM_WEIGHT = 1.0
+UTILITY_DROPPED = ("_leg", "_foot")  # U4: the joints whose parameters are disabled
+
+
+class UtilityProblem(NamedTuple):
+    """Config U on one device."""
+
+    char: object  # the full-body rig with one body per joint
+    xform: torch.Tensor  # (8,) U1's move
+    truth: torch.Tensor  # (B, 157)
+    x0: torch.Tensor  # (B, 157)
+    scaled: CatalogProblem  # U3: the rig scaled, markers and centre of mass
+    simplified: CatalogProblem  # U4: the legs and feet dropped, markers on the kept joints
+    enabled: np.ndarray  # (157,) bool: U4's enabled parameters
+
+
+def utility_bodies(parents: np.ndarray, offsets: np.ndarray) -> dict:
+    """Config U's bodies, numpy only, so that the port and
+    tools/jax_reference.py build identical ones from the rig's parents (nJ,)
+    and translation offsets (nJ, 3): one body a joint along its bone (its
+    first child's offset; a leaf's own offset), UTILITY_TOTAL_MASS split by
+    bone length, the centre of mass at the bone's middle, a thin rod's
+    inertia m·L²/12·(I − ûûᵀ) about it, the inertia frame the joint's."""
+    parents = np.asarray(parents, np.int64)
+    offsets = np.asarray(offsets, np.float64)
+    nj = len(parents)
+    bone = offsets.copy()
+    for j in range(nj - 1, 0, -1):  # the first child's offset wins
+        bone[parents[j]] = offsets[j]
+    length = np.linalg.norm(bone, axis=-1)
+    mass = UTILITY_TOTAL_MASS * length / length.sum()
+    u = bone / np.maximum(length, 1e-12)[:, None]
+    inertia = (mass * length ** 2 / 12.0)[:, None, None] * (np.eye(3) - u[:, :, None]
+                                                             * u[:, None, :])
+    return dict(joint_index=np.arange(nj, dtype=np.int32), mass=mass.astype(np.float32),
+                center_of_mass_offset=(0.5 * bone).astype(np.float32),
+                inertia=inertia.astype(np.float32),
+                inertia_rotation=np.tile(np.asarray([0.0, 0.0, 0.0, 1.0], np.float32), (nj, 1)))
+
+
+def utility_xform() -> np.ndarray:
+    """U1's move as an (8,) skel_state: UTILITY_TURN about y, UTILITY_SHIFT."""
+    half = 0.5 * UTILITY_TURN
+    return np.asarray([*UTILITY_SHIFT, 0.0, np.sin(half), 0.0, np.cos(half), 1.0], np.float32)
+
+
+def utility_enabled(parameter_names, dropped=UTILITY_DROPPED) -> np.ndarray:
+    """U4's enabled parameters: all but those of joints named with `dropped`."""
+    return np.asarray([not any(d in n for d in dropped) for n in parameter_names], bool)
+
+
+def utility_character(device="cuda"):
+    """The full-body rig with config U's bodies (utility_bodies)."""
+    from momentum_tpu_torch.character import PhysicalProperties
+    from momentum_tpu_torch.testing.fixtures import create_fullbody_character
+
+    device = resolve(device, "utility_character")
+    char = create_fullbody_character(device=device)
+    skel = char.skeleton
+    bodies = utility_bodies(skel.parents_np, skel.translation_offset.cpu().numpy())
+    return dataclasses.replace(char, physical_properties=PhysicalProperties(
+        **{k: torch.as_tensor(v, device=device) for k, v in bodies.items()},
+        joint_names=skel.joint_names))
+
+
+def center_of_mass(char, states: torch.Tensor) -> torch.Tensor:
+    """(..., 3) centre of mass of the character's bodies under global states."""
+    pp = char.physical_properties
+    from momentum_tpu_torch.math import skel_state as ss
+
+    pos = ss.transform_points(states.index_select(-2, pp.joint_index.long()),
+                              pp.center_of_mass_offset)
+    return torch.einsum("...ji,j->...i", pos, pp.mass) / pp.mass.sum()
+
+
+def simplified_character(char, enabled: np.ndarray):
+    """U4's rig: the mesh reduced to the vertices whose largest weight is on
+    a joint the enabled parameters keep (compat.reduce_mesh_to_bones, done
+    before the surgery: after it every influence lies on a kept joint), then
+    `simplify` to those joints."""
+    from momentum_tpu_torch import compat
+    from momentum_tpu_torch.character.utility import parameters_to_active_joints, simplify
+
+    active = parameters_to_active_joints(char.parameter_transform, enabled)
+    active[0] = True
+    return simplify(compat.reduce_mesh_to_bones(char, np.nonzero(active)[0]), enabled)
+
+
+def build_utility_problem(batch: int = UTILITY_BATCH, seed: int = 0,
+                          device="cuda") -> UtilityProblem:
+    """Config U on `device` (the card unless the caller asks for the CPU):
+    the full-body rig with one body a joint (utility_character),
+    catalog_draws' truths and warm starts (truth + N(0, 0.05)), U1's move,
+    and the two solve problems of solve_catalog (LM 10):
+
+      * U3: the rig scaled by UTILITY_SCALE (scale_character,
+        "preserve_mass"); Position on its 80 locators and
+        CenterOfMass.from_physical_properties, their targets those of each
+        element's truth on the scaled rig;
+      * U4: simplified_character with every parameter enabled but the legs'
+        and feet's; Position on the locators it keeps, the targets of each
+        element's truth (its kept parameters)."""
+    from momentum_tpu_torch import errors as E
+
+    device = resolve(device, "build_utility_problem")
+    char = utility_character(device)
+    truth_np, x0_np = catalog_draws(batch, seed, char.num_model_parameters)
+    truth = torch.as_tensor(truth_np, device=device)
+    x0 = torch.as_tensor(x0_np, device=device)
+
+    def markers(rig, t):
+        loc = rig.locators
+        return dataclasses.replace(
+            E.PositionErrorFunction.create(loc.parent.cpu().numpy(), loc.offset.cpu().numpy(),
+                                           np.zeros((loc.num_locators, 3)), device=device),
+            target=loc.world_positions(rig.skeleton_states(t)))
+
+    scaled = char.scaled(UTILITY_SCALE, "preserve_mass")
+    com = dataclasses.replace(
+        E.CenterOfMassErrorFunction.from_physical_properties(
+            scaled, np.zeros(3), weight=UTILITY_COM_WEIGHT, device=device),
+        target=center_of_mass(scaled, scaled.skeleton_states(truth)))
+    enabled = utility_enabled(char.parameter_transform.names)
+    simple = simplified_character(char, enabled)
+    cols = torch.as_tensor([char.parameter_transform.names.index(n)
+                            for n in simple.parameter_transform.names], device=device)
+    truth_s = truth.index_select(1, cols)
+    return UtilityProblem(
+        char=char, xform=torch.as_tensor(utility_xform(), device=device), truth=truth, x0=x0,
+        scaled=CatalogProblem(char=scaled, modules=(("position", markers(scaled, truth)),
+                                                    ("center_of_mass", com)),
+                              truth=truth, x0=x0),
+        simplified=CatalogProblem(char=simple, modules=(("position", markers(simple, truth_s)),),
+                                  truth=truth_s, x0=x0.index_select(1, cols).contiguous()),
+        enabled=enabled)
+
+
+def retarget(problem: UtilityProblem, params: torch.Tensor) -> torch.Tensor:
+    """U1: transform_pose of `params` (B, P) by the problem's move."""
+    from momentum_tpu_torch.character.transform_pose import transform_pose
+
+    return transform_pose(problem.char, params, problem.xform)
+
+
+def retarget_figures(problem: UtilityProblem, params: torch.Tensor,
+                     moved: torch.Tensor) -> dict:
+    """U1's holds in float64: compare_skeleton_states of FK(moved) against
+    xform·FK(params) (max and mean position and rotation error; the
+    quaternions normalized first, since FK's float32 products leave their
+    norms ~1e-6 off 1, which the angle 2·acos|q·q'| reads as ~3e-3 rad), and
+    the largest distance between the skinned vertices of `moved` and those
+    of `params` moved by xform."""
+    from momentum_tpu_torch import compat
+    from momentum_tpu_torch.math import quaternion as quat, skel_state as ss
+
+    def unit(states):
+        return torch.cat([states[..., :3], quat.normalize(states[..., 3:7]), states[..., 7:]],
+                         dim=-1)
+
+    char, xf = problem.char, problem.xform
+    got = unit(char.skeleton_states(moved).double())
+    want = unit(ss.multiply(xf.double(), char.skeleton_states(params).double()))
+    cmp = {k: float(v) for k, v in compat.compare_skeleton_states(got, want).items()}
+    skin_new = compat.skin_points_from_model_parameters(char, moved).double()
+    skin_old = ss.transform_points(xf.double(),
+                                   compat.skin_points_from_model_parameters(char, params).double())
+    cmp["max_vertex_error"] = float(torch.linalg.vector_norm(skin_new - skin_old, dim=-1).max())
+    return cmp
+
+
+def inverse_fk_figures(problem: UtilityProblem, params: torch.Tensor) -> dict:
+    """U2: (joint parameters by inverse FK of FK(params), and in float64 the
+    largest re-FK position error, the largest joint-parameter error against
+    the forward ones, and the same through the local states
+    (model_parameters_to_local_skeleton_state and back))."""
+    from momentum_tpu_torch import compat
+
+    char = problem.char
+    jp = char.parameter_transform.apply(params)
+    states = compat.joint_parameters_to_skeleton_state(char, jp)
+    jp_back = compat.skeleton_state_to_joint_parameters(char, states)
+    again = compat.joint_parameters_to_skeleton_state(char, jp_back)
+    local = compat.model_parameters_to_local_skeleton_state(char, params)
+    jp_local = compat.local_skeleton_state_to_joint_parameters(char, local)
+    return jp_back, dict(
+        max_refk_position_error=float(torch.linalg.vector_norm(
+            again[..., :3].double() - states[..., :3].double(), dim=-1).max()),
+        max_joint_parameter_error=float((jp_back.double() - jp.double()).abs().max()),
+        max_local_joint_parameter_error=float((jp_local.double() - jp.double()).abs().max()))
+
+
+def array_digest(a) -> str:
+    """sha256 of an array's bytes, little-endian float32 or int32 (the
+    tables config U holds equal to JAX CPU's)."""
+    import hashlib
+
+    a = np.asarray(a)
+    a = a.astype("<f4") if a.dtype.kind == "f" else a.astype("<i4")
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def simplified_tables(char) -> dict:
+    """U4's rig as the tables config U holds equal to JAX CPU's: the joint
+    parents, locator parents and parameter names as lists; the transform,
+    every limit table and the mesh faces by array_digest."""
+    lim = char.limits
+    return dict(joint_parents=char.skeleton.parents_np.tolist(),
+                locator_parents=char.locators.parent.cpu().numpy().tolist(),
+                parameter_names=list(char.parameter_transform.names),
+                transform=array_digest(char.parameter_transform.transform.cpu().numpy()),
+                limits={f.name: array_digest(getattr(lim, f.name).cpu().numpy())
+                        for f in dataclasses.fields(lim)},
+                mesh_faces=array_digest(char.mesh.faces.cpu().numpy()),
+                num_vertices=int(char.mesh.num_vertices))

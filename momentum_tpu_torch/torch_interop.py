@@ -6,7 +6,7 @@ The JAX package bridges torch tensors into jitted JAX functions (dlpack,
 torch already, so each name is an `nn.Module` or a plain function whose
 gradients come from autograd: FK through K1's rules (ops/fk.py), and
 `solve_ik_torch` through the implicit-function-theorem backward of
-solver/diff_ik.py (K2+K3 on the card). `transform_pose` waits for its module (ROADMAP M9).
+solver/diff_ik.py (K2+K3 on the card).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ __all__ = ["Skeleton", "LinearBlendSkinning", "ParameterTransformModule",
            "ParameterLimitsModule", "SdfColliderModule", "solve_ik", "residual", "gradient",
            "jacobian", "solve_sequence_ik", "get_solve_ik_statistics",
            "reset_solve_ik_statistics", "get_gradient_statistics",
-           "reset_gradient_statistics", "set_num_threads"]
+           "reset_gradient_statistics", "set_num_threads", "transform_pose"]
 
 
 class Skeleton(nn.Module):
@@ -194,6 +194,17 @@ def gradient(build_solver_fn, params: torch.Tensor, inputs: dict) -> torch.Tenso
 def jacobian(build_solver_fn, params: torch.Tensor, inputs: dict):
     """(rows (..., R), d rows/dθ (..., R, P)) of an IK problem at `params`."""
     return build_solver_fn(dict(inputs)).residual_and_jacobian(params)
+
+
+def transform_pose(character, model_params: torch.Tensor, xform: torch.Tensor) -> torch.Tensor:
+    """Model parameters rigidly retargeted by a world transform (solver_pybind
+    transform_pose → transform_pose.h:19): `xform` an (8,) skel_state or a
+    (4, 4) matrix [s·R | t]."""
+    from momentum_tpu_torch.character.transform_pose import transform_pose as impl
+
+    if xform.shape[-2:] == (4, 4):
+        xform = ss.from_matrix(xform)
+    return impl(character, model_params, xform)
 
 
 def solve_sequence_ik(build_sequence_fn, per_frame_params: torch.Tensor,

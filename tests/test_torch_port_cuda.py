@@ -1304,3 +1304,73 @@ def test_sdf_joint_attached_rows_through_k1_match_plain(sdf_problem):
         fk_ops._fk_global_kernel = real
     torch.testing.assert_close(rows, rows_p, rtol=0, atol=1e-4 * float(rows_p.abs().max()))
     torch.testing.assert_close(jt, jt_p, rtol=0, atol=1e-4 * float(jt_p.abs().max()))
+
+
+@pytest.fixture(scope="module")
+def utility_problem():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return workloads.build_utility_problem(workloads.UTILITY_BATCH, device="cuda")
+
+
+def test_retarget_on_the_card_is_fk_consistent(utility_problem):
+    """Config U's U1 at B = 2048: transform_pose of the truths by the config's
+    move (a translation past π units, ROADMAP F25) through K1; FK of the
+    result equals the moved poses within 1e-4 m and 1e-4 rad, their skinned
+    vertices too; the 4×4 form equals the skel_state form; the result is
+    the CPU's within 1e-4."""
+    from momentum_tpu_torch import torch_interop
+    from momentum_tpu_torch.math import skel_state as ss
+
+    prob = utility_problem
+    before = fk_ops.launches
+    moved = workloads.retarget(prob, prob.truth)
+    assert fk_ops.launches > before
+    fig = workloads.retarget_figures(prob, prob.truth, moved)
+    assert fig["max_position_error"] <= 1e-4 and fig["max_rotation_error"] <= 1e-4, fig
+    assert fig["max_vertex_error"] <= 1e-4, fig
+    head = prob.truth[:workloads.UTILITY_INTEROP]
+    by_matrix = torch_interop.transform_pose(prob.char, head, ss.to_matrix(prob.xform))
+    torch.testing.assert_close(by_matrix, moved[:head.shape[0]], rtol=0, atol=1e-4)
+    cpu = workloads.build_utility_problem(64, device="cpu")
+    torch.testing.assert_close(moved[:64].cpu(), workloads.retarget(cpu, cpu.truth), rtol=0,
+                               atol=1e-4)
+
+
+def test_simplified_ik_on_the_card_matches_plain(utility_problem):
+    """Config U's U4 at B = 2048 (LM on the simplified rig, K1 at its 37
+    joints, K2+K3 at (2048, 115)) against the same solve with both kernels'
+    plain versions. After LM 3, where the energies (~1e-4) stand far above
+    float32 roundoff: the medians within 1%, the elements' energies at a
+    median relative difference under 5e-3 (tools/utility_spread.py on one
+    H100: 0.25% and 1.9e-3 to 2.2e-3 at B = 256). After LM 10 (~4e-10, an
+    iteration still cutting them by ~40%): the medians within 20%, the
+    elements at a median relative difference under 0.2 (4.5e-2 to 7.8e-2;
+    a solve one iteration short lands 0.53 to 0.61 off), nothing divergent.
+    K1 at the kept joint count against its plain version."""
+    prob = utility_problem.simplified
+    skel = prob.char.skeleton
+    local = fk.local_skel_states(skel, prob.char.parameter_transform.apply(prob.x0))
+    torch.testing.assert_close(fk_ops.fk_global(skel, local.contiguous()),
+                               fk_ops.fk_global_plain(skel, local), rtol=0, atol=2e-5)
+
+    def total(iterations):
+        res = workloads.solve_catalog(prob, iterations=iterations)
+        return workloads.catalog_energies(prob, res.params)["total"].cpu().numpy().astype(
+            np.float64)
+
+    before = (fk_ops.launches, psd.launches)
+    e = {it: total(it) for it in (3, 10)}
+    assert fk_ops.launches > before[0] and psd.launches > before[1]
+    real = fk_ops._fk_global_kernel, psd.damped_chol_solve
+    fk_ops._fk_global_kernel, psd.damped_chol_solve = (fk_ops.fk_global_plain,
+                                                       psd.damped_chol_solve_plain)
+    try:
+        e_plain = {it: total(it) for it in (3, 10)}
+    finally:
+        fk_ops._fk_global_kernel, psd.damped_chol_solve = real
+    for it, (median_tol, element_tol) in ((3, (0.01, 5e-3)), (10, (0.2, 0.2))):
+        got, want = e[it], e_plain[it]
+        assert bool(np.isfinite(got).all())
+        assert abs(np.median(got) - np.median(want)) <= median_tol * np.median(want)
+        assert float(np.median(np.abs(got - want) / want)) <= element_tol

@@ -64,8 +64,16 @@ def test_quaternion_ops_match_jax(rng):
 
 
 def test_euler_orders_other_than_zyx_are_refused():
-    with pytest.raises(NotImplementedError):
-        tquat.euler_to_quaternion(torch.zeros(3), "XYZ")
+    """The orders other than ZYX were refused until the port took them all
+    (ROADMAP M9 part 2); each is now JAX's, and an axis name that is not
+    X, Y or Z is refused (a KeyError, as in JAX)."""
+    ang = np.random.default_rng(3).uniform(-3, 3, (8, 3)).astype(np.float32)
+    for order in ("XYZ", "XZY", "YXZ", "YZX", "ZXY"):
+        np.testing.assert_allclose(
+            tquat.euler_to_quaternion(torch.as_tensor(ang), order).numpy(),
+            np.asarray(jquat.euler_to_quaternion(jnp.asarray(ang), order)), **MATH_TOL)
+    with pytest.raises(KeyError):
+        tquat.euler_to_quaternion(torch.zeros(3), "XYW")
 
 
 def test_skel_state_ops_match_jax(rng):

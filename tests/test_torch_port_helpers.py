@@ -18,15 +18,19 @@ LIMIT_KEYS = (
     "halfplane_normal", "halfplane_offset", "halfplane_weight", "ellipsoid_parent",
     "ellipsoid_frame_parent", "ellipsoid_point_offset", "ellipsoid_mat", "ellipsoid_inv",
     "ellipsoid_weight")
+LOCATOR_OPTIONAL = ("locked", "limit_weight", "limit_origin", "attached_to_skin", "skin_offset")
+BODY_KEYS = ("joint_index", "mass", "center_of_mass_offset", "inertia", "inertia_rotation")
 COLLISION_KEYS = ("parent", "transform", "radius", "length", "ptype", "ellipsoid_radii",
                   "box_half_extents")
 
 
 def character_to_numpy(char, names: bool = False) -> dict:
     """The arrays of a Character (JAX or port) that bridge.character_from_numpy
-    reads, as numpy: every limit table, the collision geometry's and the
-    skinned locators' (with their names and parameter index); with `names`,
-    the joints', parameters' and locators' names too."""
+    reads, as numpy: every limit table, the collision geometry's, the
+    skinned locators' (with their names and parameter index), the locators'
+    optional fields and the bodies'; with `names`, the joints', parameters',
+    locators' and bodies' names too, the parameter sets, pose constraints,
+    name and metadata."""
     d = dict(
         joint_parent=char.skeleton.joint_parent,
         pre_rotation=char.skeleton.pre_rotation,
@@ -42,11 +46,17 @@ def character_to_numpy(char, names: bool = False) -> dict:
         d.update(locator_parent=char.locators.parent,
                  locator_offset=char.locators.offset,
                  locator_weight=char.locators.weight)
+        for k in LOCATOR_OPTIONAL:
+            if getattr(char.locators, k, None) is not None:
+                d[f"locator_{k}"] = getattr(char.locators, k)
     if char.mesh is not None:
         d.update(mesh_vertices=char.mesh.vertices, mesh_faces=char.mesh.faces)
-        for k in ("normals", "texcoords", "texcoord_faces", "colors"):
-            if getattr(char.mesh, k) is not None:
+        for k in ("normals", "texcoords", "texcoord_faces", "colors", "confidence"):
+            if getattr(char.mesh, k, None) is not None:
                 d[f"mesh_{k}"] = getattr(char.mesh, k)
+    pp = getattr(char, "physical_properties", None)
+    if pp is not None:
+        d.update({f"body_{k}": getattr(pp, k) for k in BODY_KEYS})
     if char.skin_weights is not None:
         d.update(skin_index=char.skin_weights.index, skin_weight=char.skin_weights.weight)
     if char.inverse_bind_pose is not None:
@@ -70,11 +80,23 @@ def character_to_numpy(char, names: bool = False) -> dict:
         out["skinned_locator_names"] = list(sl.names)
     if names:
         out["joint_names"] = list(char.skeleton.joint_names)
+        if pp is not None and pp.joint_names:
+            out["body_joint_names"] = list(pp.joint_names)
+        if char.parameter_transform.parameter_sets:
+            out["parameter_sets"] = {k: np.asarray(v, np.int64) for k, v in
+                                     char.parameter_transform.parameter_sets.items()}
+        if getattr(char.parameter_transform, "pose_constraints", None):
+            out["pose_constraints"] = dict(char.parameter_transform.pose_constraints)
+        for k in ("name", "metadata"):
+            if getattr(char, k, ""):
+                out[k] = getattr(char, k)
         out["parameter_names"] = list(char.parameter_transform.names)
         if char.locators is not None:
             out["locator_names"] = list(char.locators.names)
-    if char.mesh is not None and char.mesh.lines:
-        out["mesh_lines"] = [to_numpy(line) for line in char.mesh.lines]
+    if char.mesh is not None:
+        for k in ("lines", "texcoord_lines"):
+            if getattr(char.mesh, k, ()):
+                out[f"mesh_{k}"] = [to_numpy(line) for line in getattr(char.mesh, k)]
     return out
 
 

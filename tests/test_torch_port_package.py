@@ -11,11 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from momentum_tpu_torch import bridge
+from momentum_tpu_torch import bridge, compat
 from momentum_tpu_torch import errors as E
 from momentum_tpu_torch.camera import (
     Camera, OpenCVFisheyeIntrinsics, OpenCVIntrinsics, PinholeIntrinsics)
-from momentum_tpu_torch.character import limits as L, make_limits, make_skeleton
+from momentum_tpu_torch.character import (
+    limits as L, make_empty_limits, make_identity_transform, make_limits, make_skeleton)
+from momentum_tpu_torch.math.covariance import LowRankCovarianceMatrix
+from momentum_tpu_torch.utils.random import GlobalRandom
 from momentum_tpu_torch.errors import (
     CenterOfMassErrorFunction, FloorErrorFunction, HeightErrorFunction, LimitErrorFunction,
     ModelParametersErrorFunction, Mppca, OrientationErrorFunction, PlaneErrorFunction,
@@ -72,6 +75,14 @@ def test_port_imports_no_jax():
         "        'momentum_tpu_torch.axel.sdf_io', 'momentum_tpu_torch.errors.sdf',\n"
         "        'momentum_tpu_torch.math.mesh_ops', 'momentum_tpu_torch.math.support_polygon',\n"
         "        'momentum_tpu_torch.character.support_contacts'}\n"
+        "new |= {'momentum_tpu_torch.compat', 'momentum_tpu_torch.utils',\n"
+        "        'momentum_tpu_torch.utils.logging', 'momentum_tpu_torch.utils.progress',\n"
+        "        'momentum_tpu_torch.utils.profiling', 'momentum_tpu_torch.utils.random',\n"
+        "        'momentum_tpu_torch.math.trs', 'momentum_tpu_torch.math.covariance',\n"
+        "        'momentum_tpu_torch.math.coordinate_system',\n"
+        "        'momentum_tpu_torch.character.inverse_fk',\n"
+        "        'momentum_tpu_torch.character.transform_pose',\n"
+        "        'momentum_tpu_torch.character.texture_classification'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "assert len(names) >= 30, names\n"
         "print('ok', len(names))\n")
@@ -170,6 +181,8 @@ def _tensors(obj) -> list:
     it."""
     if isinstance(obj, torch.Tensor):
         return [obj]
+    if isinstance(obj, torch.Generator):
+        return [torch.empty(0, device=obj.device)]
     if isinstance(obj, tuple):
         return [t for o in obj for t in _tensors(o)]
     if not dataclasses.is_dataclass(obj):
@@ -190,6 +203,7 @@ def _bridge_inputs():
     one = dict(cweight=np.ones(1, np.float32), weight=np.float32(1.0))
     return {
         "character_from_numpy": rig,
+        "covariance_from_numpy": dict(a=np.ones((1, 3), np.float32), sigma=np.float32(0.5)),
         "camera_from_numpy": dict(fx=50.0, fy=50.0, cx=16.0, cy=16.0, image_width=32,
                                   image_height=32,
                                   eye_from_world=np.asarray([0, 0, 5, 0, 0, 0, 1, 1], np.float32)),
@@ -311,6 +325,22 @@ _CONSTRUCTORS = {
     "CenterOfMassErrorFunction.create": lambda **kw: CenterOfMassErrorFunction.create(
         [0], [1.0], np.zeros(3), **kw),
     "HeightErrorFunction.create": lambda **kw: HeightErrorFunction.create(1.7, **kw),
+    "CenterOfMassErrorFunction.from_physical_properties":
+        lambda **kw: CenterOfMassErrorFunction.from_physical_properties(
+            workloads.utility_character(device="cpu"), np.zeros(3), **kw),
+    "build_utility_problem": lambda **kw: workloads.build_utility_problem(2, **kw),
+    "utility_character": lambda **kw: workloads.utility_character(**kw),
+    "LowRankCovarianceMatrix.create": lambda **kw: LowRankCovarianceMatrix.create(
+        0.5, np.ones((1, 3)), **kw),
+    "make_identity_transform": lambda **kw: make_identity_transform(2, **kw),
+    "make_empty_limits": lambda **kw: make_empty_limits(**kw),
+    "GlobalRandom.key": lambda **kw: GlobalRandom(3).key(**kw),
+    "compat.find_closest_points": lambda **kw: compat.find_closest_points(
+        np.zeros((2, 3)), np.ones((3, 3)), **kw),
+    "compat.find_closest_points_on_mesh": lambda **kw: compat.find_closest_points_on_mesh(
+        np.zeros((2, 3)), np.eye(3), np.asarray([[0, 1, 2]]), **kw),
+    "compat.compute_vertex_normals": lambda **kw: compat.compute_vertex_normals(
+        np.eye(3), np.asarray([[0, 1, 2]]), **kw),
     **{f"{name}.create": (lambda name: lambda **kw: getattr(E, name).create(
         [0], np.zeros((1, 3)), np.asarray([[0, 0, 1]]), np.ones((1, 3)), **kw))(name)
        for name in ("AimDistErrorFunction", "AimDirErrorFunction")},

@@ -79,7 +79,18 @@ momentum_tpu_torch/testing/workloads.py:
     (workloads.py::build_sdf_sequence_problem) at --frames: the final
     error.
 
-    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k,diffik,variants,4x,4ad,skinned,glove,7p,sdf]
+  * config U, retargeting and character surgery (the recipe of
+    workloads.py::build_utility_problem) at --utility-batch: U1,
+    transform_pose by the config's move (its largest FK position error,
+    ROADMAP F25); U2, inverse FK's joint parameters (to <name>.npz); U3,
+    IK on the rig scaled by 1.15 with the bodies' centre of mass, and U4,
+    IK on the rig simplified to the parameters off the legs and feet, each
+    element one vmapped solve: each module's median energy after LM 3
+    (far above float32 roundoff) and after LM 10, conv_at_1e5, the
+    divergent count; U4's tables; with --utility-seeds, U3's and U4's
+    figures on those seeds' draws too.
+
+    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k,diffik,variants,4x,4ad,skinned,glove,7p,sdf,utility]
         [--frames 1024] [--out-6s tools/jax_reference_6s.json]
         [--out-catalog tools/jax_reference_catalog.json] [--out-6k tools/jax_reference_6k.json]
         [--out-diffik tools/jax_reference_diffik.json] [--out-variants tools/jax_reference_variants.json]
@@ -87,6 +98,7 @@ momentum_tpu_torch/testing/workloads.py:
         [--skinned-batch 256] [--out-skinned tools/jax_reference_skinned.json]
         [--out-glove tools/jax_reference_glove.json] [--out-7p tools/jax_reference_7p.json]
         [--sdf-batch 256] [--out-sdf tools/jax_reference_sdf.json]
+        [--utility-batch 256] [--utility-seeds 1 2 3 4] [--out-utility tools/jax_reference_utility.json]
 
 Runs the JAX package on the CPU only (no part of momentum_tpu_torch); prints
 one JSON line per figure.
@@ -1539,8 +1551,176 @@ def config5c(frames, seed=0):
                 seconds=time.perf_counter() - t0)
 
 
+# ---- config U: retargeting and character surgery ----
+
+UTILITY_TURN = 0.7
+UTILITY_SHIFT = (4.0, 0.0, -1.5)
+UTILITY_SCALE = 1.15
+UTILITY_TOTAL_MASS = 70.0
+UTILITY_COM_WEIGHT = 1.0
+UTILITY_DROPPED = ("_leg", "_foot")
+UTILITY_EARLY = 3  # LM iterations of the early medians
+
+
+def utility_bodies(parents, offsets):
+    """workloads.py::utility_bodies, the same numbers."""
+    parents = np.asarray(parents, np.int64)
+    offsets = np.asarray(offsets, np.float64)
+    nj = len(parents)
+    bone = offsets.copy()
+    for j in range(nj - 1, 0, -1):
+        bone[parents[j]] = offsets[j]
+    length = np.linalg.norm(bone, axis=-1)
+    mass = UTILITY_TOTAL_MASS * length / length.sum()
+    u = bone / np.maximum(length, 1e-12)[:, None]
+    inertia = (mass * length ** 2 / 12.0)[:, None, None] * (np.eye(3) - u[:, :, None]
+                                                             * u[:, None, :])
+    return dict(joint_index=np.arange(nj, dtype=np.int32), mass=mass.astype(np.float32),
+                center_of_mass_offset=(0.5 * bone).astype(np.float32),
+                inertia=inertia.astype(np.float32),
+                inertia_rotation=np.tile(np.asarray([0.0, 0.0, 0.0, 1.0], np.float32), (nj, 1)))
+
+
+def utility_xform():
+    """workloads.py::utility_xform."""
+    half = 0.5 * UTILITY_TURN
+    return np.asarray([*UTILITY_SHIFT, 0.0, np.sin(half), 0.0, np.cos(half), 1.0], np.float32)
+
+
+def array_digest(a):
+    """workloads.py::array_digest."""
+    import hashlib
+
+    a = np.asarray(a)
+    a = a.astype("<f4") if a.dtype.kind == "f" else a.astype("<i4")
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def utility_problem():
+    """(the rig with config U's bodies, the scaled rig, the simplified rig,
+    U4's kept parameter columns) as workloads.py::build_utility_problem
+    builds them."""
+    from momentum_tpu import compat
+    from momentum_tpu.character.character import PhysicalProperties
+    from momentum_tpu.character.utility import (
+        parameters_to_active_joints, scale_character, simplify)
+    from momentum_tpu.testing.fixtures import create_fullbody_character
+
+    base = create_fullbody_character()
+    bodies = utility_bodies(np.asarray(base.skeleton.joint_parent),
+                            np.asarray(base.skeleton.translation_offset))
+    char = dataclasses.replace(base, physical_properties=PhysicalProperties(
+        **{k: jnp.asarray(v) for k, v in bodies.items()},
+        joint_names=base.skeleton.joint_names))
+    scaled = scale_character(char, UTILITY_SCALE, "preserve_mass")
+    names = char.parameter_transform.names
+    enabled = np.asarray([not any(d in n for d in UTILITY_DROPPED) for n in names], bool)
+    active = np.asarray(parameters_to_active_joints(char.parameter_transform, enabled))
+    active[0] = True
+    simple = simplify(compat.reduce_mesh_to_bones(char, np.nonzero(active)[0]), enabled)
+    cols = np.asarray([names.index(n) for n in simple.parameter_transform.names])
+    return char, scaled, simple, cols
+
+
+def utility_tables(char):
+    """workloads.py::simplified_tables on a JAX character."""
+    lim = char.limits
+    return dict(joint_parents=np.asarray(char.skeleton.joint_parent).tolist(),
+                locator_parents=np.asarray(char.locators.parent).tolist(),
+                parameter_names=list(char.parameter_transform.names),
+                transform=array_digest(char.parameter_transform.transform),
+                limits={f.name: array_digest(getattr(lim, f.name))
+                        for f in dataclasses.fields(lim)},
+                mesh_faces=array_digest(char.mesh.faces),
+                num_vertices=int(char.mesh.num_vertices))
+
+
+def utility_solves(scaled, simple, cols, truth, x0, iterations=10, more=20, chunk=32):
+    """U3's and U4's figures (each element one vmapped solve) from the
+    draws `truth`, `x0`: _figures of LM `iterations` then `more`, and each
+    module's median energy after LM UTILITY_EARLY."""
+    from momentum_tpu import errors as E
+    from momentum_tpu.math import skel_state as ss
+
+    def com_of(rig, st):
+        pp = rig.physical_properties
+        pos = ss.transform_points(jnp.take(st, pp.joint_index, axis=-2), pp.center_of_mass_offset)
+        return jnp.einsum("...ji,j->...i", pos, pp.mass) / jnp.sum(pp.mass)
+
+    def markers(rig):
+        loc = rig.locators
+        return E.PositionErrorFunction.create(np.asarray(loc.parent), np.asarray(loc.offset),
+                                              np.zeros((loc.num_locators, 3)))
+
+    pos_s = markers(scaled)
+    com = E.CenterOfMassErrorFunction.from_physical_properties(scaled, np.zeros(3),
+                                                               weight=UTILITY_COM_WEIGHT)
+
+    def make_scaled(st):
+        return (dataclasses.replace(pos_s, target=scaled.locators.world_positions(st)),
+                dataclasses.replace(com, target=com_of(scaled, st)))
+
+    pos_4 = markers(simple)
+
+    def make_simple(st):
+        return (dataclasses.replace(pos_4, target=simple.locators.world_positions(st)),)
+
+    truth_4 = jnp.asarray(truth[:, cols])
+    out = []
+    for rig, make, labels, t, x in (
+            (scaled, make_scaled, ("position", "center_of_mass"), jnp.asarray(truth), x0),
+            (simple, make_simple, ("position",), truth_4, np.ascontiguousarray(x0[:, cols]))):
+        states = jax.jit(jax.vmap(rig.skeleton_states))(t)
+        _, per, longer = _solve_chunks(rig, make, states, x, iterations, more, chunk)
+        _, early, longer_early = _solve_chunks(rig, make, states, x, UTILITY_EARLY, 0, chunk)
+        out.append(dict(_figures(labels, per, longer), early_median_energy=_figures(
+            labels, early, longer_early)["median_energy"]))
+    return tuple(out)
+
+
+def utility(batch, seed=0, iterations=10, more=20, chunk=32, seeds=()):
+    """Config U at B = `batch`: U1's largest FK position error of JAX's
+    transform_pose on the config's move (F25) and on a move inside π; U2's
+    joint parameters; U3's and U4's figures (utility_solves), and the same
+    on each of `seeds`' draws; U4's tables."""
+    from momentum_tpu.character.inverse_fk import joint_parameters_from_skeleton_states
+    from momentum_tpu.character.transform_pose import transform_pose
+    from momentum_tpu.math import skel_state as ss
+
+    t0 = time.perf_counter()
+    char, scaled, simple, cols = utility_problem()
+    truth, x0 = catalog_draws(batch, seed, char.num_model_parameters)
+    fk = jax.jit(jax.vmap(char.skeleton_states))
+    states = fk(jnp.asarray(truth))
+
+    def move_error(xf):
+        moved = jax.jit(lambda t: transform_pose(char, t, xf))(jnp.asarray(truth))
+        want = ss.multiply(xf, states)
+        return float(jnp.max(jnp.linalg.norm(fk(moved)[..., :3] - want[..., :3], axis=-1)))
+
+    xform = jnp.asarray(utility_xform())
+    inside = xform.at[:3].set(jnp.asarray([1.0, 0.0, -0.5]))
+    u1 = dict(max_position_error=move_error(xform),
+              max_position_error_inside_pi=move_error(inside))
+    jp = np.asarray(jax.jit(lambda s: joint_parameters_from_skeleton_states(char.skeleton, s))(
+        states))
+    u3, u4 = utility_solves(scaled, simple, cols, truth, x0, iterations, more, chunk)
+    u4["tables"] = utility_tables(simple)
+    more_seeds = {}
+    for s in seeds:
+        t_s, x_s = catalog_draws(batch, s, char.num_model_parameters)
+        more_seeds[str(s)] = dict(zip(("u3", "u4"), utility_solves(
+            scaled, simple, cols, t_s, x_s, iterations, more, chunk)))
+    fig = dict(config="utility", batch=batch, seed=seed, iterations=iterations, more=more,
+               early_iterations=UTILITY_EARLY, u1=u1, u3=u3, u4=u4, seeds=more_seeds,
+               bodies=dict(mass=array_digest(char.physical_properties.mass),
+                           scaled_inertia=array_digest(scaled.physical_properties.inertia)),
+               seconds=time.perf_counter() - t0)
+    return fig, dict(joint_parameters=jp)
+
+
 CONFIGS = ("2", "2b", "4", "5", "5f", "6s", "catalog", "6k", "diffik", "variants", "4x",
-           "4ad", "skinned", "glove", "7p", "sdf")
+           "4ad", "skinned", "glove", "7p", "sdf", "utility")
 
 
 def main():
@@ -1581,7 +1761,12 @@ def main():
                     help="config SL's batch (the smoke holds the port's first 256 elements)")
     ap.add_argument("--sdf-batch", type=int, default=256,
                     help="config SC's batch (the smoke holds the port's first 256 elements)")
-    for name in ("4ad", "skinned", "glove", "7p", "sdf"):
+    ap.add_argument("--utility-batch", type=int, default=256,
+                    help="config U's batch (the smoke holds the port's first 256 elements)")
+    ap.add_argument("--utility-seeds", type=int, nargs="*", default=[],
+                    help="config U: U3's and U4's figures on these seeds' draws too "
+                         "(tools/utility_spread.py holds the port's against them)")
+    for name in ("4ad", "skinned", "glove", "7p", "sdf", "utility"):
         ap.add_argument(f"--out-{name}", default=None,
                         help=f"write config {name}'s figures to this JSON file (chip_smoke.py "
                              f"reads tools/jax_reference_{name}.json)")
@@ -1629,6 +1814,11 @@ def main():
         if args.out_sdf:
             np.savez_compressed(os.path.splitext(args.out_sdf)[0] + ".npz", **arrays)
         figures.append(fig)
+    if "utility" in args.configs:
+        fig, arrays = utility(args.utility_batch, seeds=args.utility_seeds)
+        if args.out_utility:
+            np.savez_compressed(os.path.splitext(args.out_utility)[0] + ".npz", **arrays)
+        figures.append(fig)
     for fig in figures:
         if fig.get("config") == "6s":
             motion = fig.pop("per_frame_motion")
@@ -1641,7 +1831,8 @@ def main():
                           ("diffik", args.out_diffik), ("variants", args.out_variants),
                           ("4x", args.out_4x), ("4ad", args.out_4ad),
                           ("skinned", args.out_skinned), ("glove", args.out_glove),
-                          ("7p", args.out_7p), ("sdf", args.out_sdf)):
+                          ("7p", args.out_7p), ("sdf", args.out_sdf),
+                          ("utility", args.out_utility)):
             if fig.get("config") == name and out:
                 with open(out, "w") as f:
                     json.dump(dict(fig, device="jax cpu"), f, indent=1)
