@@ -124,7 +124,14 @@ then drives the port's paths through those kernels and checks their output:
     scaled by 1.15 with the bodies' centre of mass and U4 IK on the rig
     simplified off its legs and feet (LM 10; K1, K2+K3 at (2048, 157) and
     (2048, 115)): each module's median energy, conv_at_1e5 and U4's tables
-    against JAX CPU's; K1 held at U4's 37 joints, K2+K3 at (2048, 115).
+    against JAX CPU's; K1 held at U4's 37 joints, K2+K3 at (2048, 115);
+  * the multi-process paths on two gloo ranks sharing the card: config 5fs
+    (config 5f through solve_sequence_sharded, 512 frames a rank), a
+    window-3 sequence whose frames pad, IKs (solve_ik_sharded at B = 2048)
+    and sharded tracking of config 6s's clip, each held against the
+    single-device port solve on the same inputs and 5fs against JAX CPU's
+    final error; K1 and K2+K3 launched on each rank, K2+K3 held at the
+    widest system of a rank's SPIKE step, K1 at a rank's 512 frames.
 
     python3 chip_smoke.py
 
@@ -383,6 +390,31 @@ UTILITY_JP_TOL = 1e-5
 UTILITY_MEDIAN_RTOL = 0.35
 UTILITY_EARLY = 3
 UTILITY_EARLY_RTOL = 0.01
+
+# phase_sharded: config 5fs (config 5f through solve_sequence_sharded), the
+# window-3 sequence, IKs and sharded tracking, on 2 gloo ranks that share
+# the one card. 5fs is held as config 5f (its final error within
+# SEQUENCE_RTOL of JAX CPU's) and to the single-device port solve's
+# iteration count; its parameters are not held (null directions drift,
+# ROADMAP F5). The window-3 sequence (q = 2) at a frame count that pads on
+# 2 ranks, its error within SHARDED_ERROR_RTOL of the single-device port
+# solve's (the CPU tests' tolerance between the two). IKs: the driver's IK
+# at B = 2048 by solve_ik_sharded (tests/test_parallel_batch.py's options),
+# conv@1e-5 within 0.01 and the median Σr² within 1% of solve_ik's on the
+# same inputs; tracking config 6s's clip cut to 342 frames with the
+# hierarchical stage's batched settings (LM 10 + 5 on the worst 64), its
+# per-frame marker error's median within 2% and p90 within 5% of
+# track_poses_batched's
+SHARDED_RANKS = 2
+SHARDED_TIMEOUT = 400.0
+SHARDED_ACCEL_FRAMES = 254  # 254 = 2 ranks × q 2 × 63 + 2: two padding frames
+SHARDED_ACCEL_ITERATIONS = 4
+SHARDED_ERROR_RTOL = 1e-3
+SHARDED_IK_OPTIONS = dict(max_iterations=10, regularization=1e-6, energy_from_residual=True)
+SHARDED_CONV_SLACK = 0.01
+SHARDED_MEDIAN_RTOL = 0.01
+SHARDED_TRACK_FRAMES = 342
+SHARDED_TRACK_MEDIAN_RTOL, SHARDED_TRACK_P90_RTOL = 0.02, 0.05
 
 
 def phase_device():
@@ -3213,6 +3245,337 @@ def phase_f9(char, cam, motion):
         raise AssertionError(f"F9: a face map differs from the plain version's: {same}")
 
 
+class _RegionTimer:
+    """Wraps module functions to time each call: the host's clock around a
+    synchronized call and CUDA events on the current stream. Times are
+    exclusive: a region's excludes the wrapped regions called inside it
+    (the collectives within the assembly count as collectives)."""
+
+    def __init__(self):
+        self.host, self.device, self._stack, self._saved = {}, {}, [], []
+
+    def wrap(self, module, attr, label):
+        real = getattr(module, attr)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            self._stack.append([0.0, 0.0])
+            t0 = time.perf_counter()
+            start.record()
+            out = real(*args, **kwargs)
+            end.record()
+            torch.cuda.synchronize()
+            host, dev = time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+            nested_host, nested_dev = self._stack.pop()
+            if self._stack:
+                self._stack[-1][0] += host
+                self._stack[-1][1] += dev
+            self.host[label] = self.host.get(label, 0.0) + host - nested_host
+            self.device[label] = self.device.get(label, 0.0) + max(dev - nested_dev, 0.0)
+            return out
+
+        self._saved.append((module, attr, real))
+        setattr(module, attr, timed)
+
+    def restore(self):
+        for module, attr, real in reversed(self._saved):
+            setattr(module, attr, real)
+        self._saved = []
+
+
+def _sharded_rank(rank, world):
+    """One rank of phase_sharded on cuda:0: config 5fs (its launches, walls,
+    result), a GN iteration's split, the widest K2+K3 system of the solve
+    (rank 0), the window-3 sequence, IKs and sharded tracking. Returns CPU
+    tensors and plain values."""
+    import torch.distributed as dist
+
+    import momentum_tpu_torch.parallel.collectives as C
+    import momentum_tpu_torch.sequence.sharded as S
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch.ops import psd
+    from momentum_tpu_torch.parallel import solve_ik_sharded, track_poses_sharded
+    from momentum_tpu_torch.sequence import AccelerationSequenceErrorFunction
+    from momentum_tpu_torch.solver import SkeletonSolverFunction, SolverOptions
+
+    torch.cuda.set_device(0)
+    out, counts = {}, {}
+
+    def synced_wall(run):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        dist.barrier()
+        return res, time.perf_counter() - t0
+
+    # ---- config 5fs: the main path, counted ----
+    prob = w.build_sequence_problem(SEQUENCE_FRAMES, fullbody=True, device="cuda")
+    opts = SolverOptions(max_iterations=SEQUENCE_ITERATIONS_JAX_CPU)
+
+    def solve():
+        return S.solve_sequence_sharded(prob.fn, prob.pf0, prob.u0, options=opts)
+
+    solve()  # warm-up
+    _reset_counts()
+    res, wall = synced_wall(solve)
+    counts["5fs"] = _counts()
+    walls = [wall] + [synced_wall(solve)[1] for _ in range(2)]
+    out["5fs"] = dict(per_frame=res.per_frame.cpu(), universal=res.universal.cpu(),
+                      error=float(res.error), iterations=res.iterations,
+                      converged=bool(res.converged), walls=walls)
+
+    # ---- a GN iteration's split, two iterations timed region by region ----
+    timer = _RegionTimer()
+    for module, attr, label in (
+            (S, "_local_normal_equations", "assembly"),
+            (S, "block_tridiag_solve", "local SPIKE (K2+K3)"), (S, "_lu_solve", "interface LU"),
+            (S, "_sharded_error", "energy"), (S, "_sharded_step", "rest of the step"),
+            (C, "shift", "collectives"), (C, "all_reduce_sum", "collectives"),
+            (C, "all_reduce_max", "collectives"), (C, "all_gather", "collectives")):
+        timer.wrap(module, attr, label)
+    try:
+        two = SolverOptions(max_iterations=2)
+        _, wall2 = synced_wall(lambda: S.solve_sequence_sharded(prob.fn, prob.pf0, prob.u0,
+                                                                options=two))
+    finally:
+        timer.restore()
+    out["split"] = dict(host=timer.host, device=timer.device, iterations=2, wall=wall2)
+
+    # ---- the widest K2+K3 system of an iteration (rank 0 returns it) ----
+    seen, real = [], psd.damped_chol_solve
+
+    def record(a, damp, b):
+        if b.ndim == 3 and (not seen or b.shape[-1] > seen[0][2].shape[-1]):
+            seen[:] = [(a.cpu(), damp.cpu(), b.cpu())]
+        return real(a, damp, b)
+
+    psd.damped_chol_solve = record
+    try:
+        S.solve_sequence_sharded(prob.fn, prob.pf0, prob.u0, options=SolverOptions(max_iterations=1))
+    finally:
+        psd.damped_chol_solve = real
+    if rank == 0:
+        out["widest"] = seen[0]
+    del prob
+
+    # ---- the window-3 sequence, padded ----
+    acc = w.build_sequence_problem(SHARDED_ACCEL_FRAMES, fullbody=True, device="cuda")
+    nj = acc.fn.character.skeleton.num_joints
+    fn = dataclasses.replace(acc.fn, sequence_errors=acc.fn.sequence_errors + (
+        AccelerationSequenceErrorFunction.create(nj, weight=0.5, device="cuda"),))
+    n_it = SHARDED_ACCEL_ITERATIONS
+    _reset_counts()
+    res = S.solve_sequence_sharded(fn, acc.pf0, acc.u0, options=SolverOptions(
+        max_iterations=n_it, min_iterations=n_it))
+    torch.cuda.synchronize()
+    counts["window3"] = _counts()
+    out["window3"] = dict(error=float(res.error), iterations=res.iterations,
+                          finite=bool(torch.isfinite(res.per_frame).all()))
+    del acc, fn
+
+    # ---- IKs ----
+    char, ef0, targets, x0 = w.build_fullbody_ik_problem(BATCH, seed=SEED, device="cuda")
+    ik_fn = SkeletonSolverFunction(char, (dataclasses.replace(ef0, target=targets),))
+    _reset_counts()
+    res, wall = synced_wall(lambda: solve_ik_sharded(
+        ik_fn, x0, options=SolverOptions(**SHARDED_IK_OPTIONS)))
+    counts["iks"] = _counts()
+    out["iks"] = dict(params=res.params.cpu(), error=res.error.cpu(), wall=wall)
+    del char, ef0, targets, x0, ik_fn
+
+    # ---- tracking ----
+    clip = w.build_tracking_clip(w.TRACKING_FRAMES, seed=SEED, device="cuda")
+    markers = dataclasses.replace(clip.markers,
+                                  positions=clip.markers.positions[:SHARDED_TRACK_FRAMES],
+                                  occluded=clip.markers.occluded[:SHARDED_TRACK_FRAMES])
+    cfg = dataclasses.replace(w._tracking_configs()[1], refine=(10, 5, 64))
+    _reset_counts()
+    res, wall = synced_wall(lambda: track_poses_sharded(clip.char, markers, config=cfg,
+                                                        initial=clip.seed_params))
+    counts["tracking"] = _counts()
+    out["tracking"] = dict(motion=res.motion.cpu(), errors=res.errors.cpu(), wall=wall)
+    out["counts"] = counts
+    return out
+
+
+def _sharded_references():
+    """The single-device port solves phase_sharded holds the ranks against,
+    on the same inputs: config 5f, the window-3 sequence, IK and tracking."""
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch.character import fk
+    from momentum_tpu_torch.sequence import AccelerationSequenceErrorFunction, solve_sequence
+    from momentum_tpu_torch.solver import SkeletonSolverFunction, SolverOptions, solve_ik
+    from momentum_tpu_torch.tracking import track_poses_batched
+
+    ref = {}
+    prob = w.build_sequence_problem(SEQUENCE_FRAMES, fullbody=True, device="cuda")
+    res = w.make_sequence_solve(prob.fn)(prob.pf0, prob.u0)
+    ref["5f"] = dict(per_frame=res.per_frame.cpu(), error=float(res.error),
+                     iterations=res.iterations)
+    skel = prob.fn.character.skeleton
+    ref["local"] = fk.local_skel_states(
+        skel, prob.fn.character.parameter_transform.apply(prob.gt)).contiguous()
+    ref["skel"] = skel
+    acc = w.build_sequence_problem(SHARDED_ACCEL_FRAMES, fullbody=True, device="cuda")
+    nj = acc.fn.character.skeleton.num_joints
+    fn = dataclasses.replace(acc.fn, sequence_errors=acc.fn.sequence_errors + (
+        AccelerationSequenceErrorFunction.create(nj, weight=0.5, device="cuda"),))
+    n_it = SHARDED_ACCEL_ITERATIONS
+    res = solve_sequence(fn, acc.pf0, acc.u0, SolverOptions(max_iterations=n_it,
+                                                             min_iterations=n_it))
+    ref["window3"] = dict(error=float(res.error), iterations=res.iterations)
+    char, ef0, targets, x0 = w.build_fullbody_ik_problem(BATCH, seed=SEED, device="cuda")
+    ik_fn = SkeletonSolverFunction(char, (dataclasses.replace(ef0, target=targets),))
+    res = solve_ik(ik_fn, x0, None, SolverOptions(**SHARDED_IK_OPTIONS), "levenberg_marquardt")
+    ref["iks"] = dict(params=res.params.cpu(), error=res.error.cpu())
+    clip = w.build_tracking_clip(w.TRACKING_FRAMES, seed=SEED, device="cuda")
+    markers = dataclasses.replace(clip.markers,
+                                  positions=clip.markers.positions[:SHARDED_TRACK_FRAMES],
+                                  occluded=clip.markers.occluded[:SHARDED_TRACK_FRAMES])
+    cfg = dataclasses.replace(w._tracking_configs()[1], refine=(10, 5, 64))
+    res = track_poses_batched(clip.char, markers, cfg, initial=clip.seed_params)
+    ref["tracking"] = dict(motion=res.motion.cpu(), errors=res.errors.cpu())
+    ref["clip"] = (clip.char, markers)
+    return ref
+
+
+def _frame_marker_errors_mm(char, markers, motion):
+    """(F,) each frame's mean distance (mm) of its visible markers."""
+    from momentum_tpu_torch.tracking.tracker import _match_locators
+
+    li, mi = _match_locators(char, markers)
+    world = char.locators.world_positions(char.skeleton_states(motion.cuda())).cpu().numpy()
+    pos, occ = markers.positions.cpu().numpy(), markers.occluded.cpu().numpy()
+    dist = np.linalg.norm(world[:, li] - pos[:, mi], axis=-1)
+    vis = ~occ[:, mi]
+    return (dist * vis).sum(axis=1) / np.maximum(vis.sum(axis=1), 1)
+
+
+def phase_sharded(smi):
+    """The port's multi-process paths on the card: two gloo ranks (spawned,
+    joined within SHARDED_TIMEOUT) share cuda:0 and run config 5fs
+    (config 5f through solve_sequence_sharded: 512 frames a rank, SPIKE
+    with 16 parts on each, the interface system on both), the window-3
+    sequence at a frame count that pads, IKs at B = 2048 (1024 a rank) and
+    sharded tracking of config 6s's clip; the single-device port solves
+    on the same inputs afterwards. Holds: 5fs's final error against JAX
+    CPU's and its iterations against the single-device solve's; the
+    window-3 error; IKs' conv@1e-5 and median; tracking's marker error;
+    K1 and K2+K3 launched on each rank; K2+K3 held at the shard's widest
+    system, K1 at a rank's 512 frames."""
+    from momentum_tpu_torch.testing.distributed import Ranks
+
+    t0 = time.perf_counter()
+    with Ranks(SHARDED_RANKS, _sharded_rank, timeout=SHARDED_TIMEOUT) as ranks:
+        got = ranks.results()
+    ranks_s = time.perf_counter() - t0
+    ref = _sharded_references()
+    r0 = got[0]
+    for r, g in enumerate(got):
+        if any(n == 0 for part in g["counts"].values() for n in part.values()):
+            raise AssertionError(f"rank {r} did not run every kernel on every path: "
+                                 f"{g['counts']}")
+        if g["5fs"]["error"] != r0["5fs"]["error"] or not torch.equal(
+                g["5fs"]["per_frame"], r0["5fs"]["per_frame"]):
+            raise AssertionError(f"rank {r}'s 5fs result differs from rank 0's")
+
+    # ---- 5fs ----
+    s5, f5 = r0["5fs"], ref["5f"]
+    wall = statistics.median(s5["walls"])
+    want = SEQUENCE_ERROR_JAX_CPU["5f"]
+    gap = s5["error"] / f5["error"] - 1
+    dparam = float((s5["per_frame"] - f5["per_frame"]).abs().max())
+    print(f"config 5fs (F={SEQUENCE_FRAMES} on {SHARDED_RANKS} gloo ranks sharing one card, "
+          f"GN {s5['iterations']}): {SEQUENCE_FRAMES / wall:.1f} frames/s (median wall "
+          f"{wall * 1e3:.1f} ms of {len(s5['walls'])}; both ranks on one card: the speed of a "
+          f"correctness run, not a scaling figure) on {smi}; final error {s5['error']:.6e} "
+          f"(JAX CPU {want:.6e}; single-device port {f5['error']:.6e}, relative gap "
+          f"{gap:.3e}), iterations {s5['iterations']} (single-device {f5['iterations']}); "
+          f"largest |Δ per-frame parameter| against the single-device solve {dparam:.3e} "
+          f"(not held: null directions drift, F5)")
+    if not (abs(s5["error"] / want - 1) <= SEQUENCE_RTOL
+            and s5["iterations"] == f5["iterations"]):
+        raise AssertionError(f"config 5fs: error {s5['error']} against JAX CPU's {want}, "
+                             f"iterations {s5['iterations']} against {f5['iterations']}")
+    if not bool(torch.isfinite(s5["per_frame"]).all()):
+        raise AssertionError("config 5fs: parameters not finite")
+
+    # ---- a GN iteration's split ----
+    split = r0["split"]
+    n_it = split["iterations"]
+    parts = ("assembly", "collectives", "local SPIKE (K2+K3)", "interface LU", "energy",
+             "rest of the step")
+    print("config 5fs, a GN iteration on rank 0, exclusive times (host clock around "
+          "synchronized calls / CUDA events, ms): " + ", ".join(
+              f"{k} {split['host'].get(k, 0.0) / n_it * 1e3:.2f} / "
+              f"{split['device'].get(k, 0.0) / n_it * 1e3:.2f}" for k in parts)
+          + f"; the iteration {split['wall'] / n_it * 1e3:.2f} wall")
+
+    # ---- window 3 ----
+    w3, w3r = r0["window3"], ref["window3"]
+    rel = abs(w3["error"] / w3r["error"] - 1)
+    print(f"window-3 sequence (5f rig, F={SHARDED_ACCEL_FRAMES}, q=2, padded to "
+          f"{-(-SHARDED_ACCEL_FRAMES // 4) * 4} on {SHARDED_RANKS} ranks, GN "
+          f"{w3['iterations']}): error {w3['error']:.6e}, single-device {w3r['error']:.6e}, "
+          f"relative {rel:.3e} (tol {SHARDED_ERROR_RTOL:.0e})")
+    if not (w3["finite"] and rel <= SHARDED_ERROR_RTOL
+            and w3["iterations"] == w3r["iterations"]):
+        raise AssertionError(f"window-3 sequence: {w3} against {w3r}")
+
+    # ---- IKs ----
+    ik, ikr = r0["iks"], ref["iks"]
+    e, er = ik["error"].numpy(), ikr["error"].numpy()
+    conv, conv_r = float(np.mean(e < 1e-5)), float(np.mean(er < 1e-5))
+    med, med_r = float(np.nanmedian(e)), float(np.nanmedian(er))
+    dp = float((ik["params"] - ikr["params"]).abs().max())
+    print(f"IKs (B={BATCH}, {BATCH // SHARDED_RANKS} a rank, LM 10): conv@1e-5 {conv:.4f} "
+          f"(solve_ik {conv_r:.4f}), median sum-r2 {med:.4e} (solve_ik {med_r:.4e}), "
+          f"largest |Δparams| {dp:.3e}; {BATCH / ik['wall']:.0f} solves/s (one card for both "
+          f"ranks)")
+    if not (abs(conv - conv_r) <= SHARDED_CONV_SLACK
+            and abs(med / med_r - 1) <= SHARDED_MEDIAN_RTOL):
+        raise AssertionError(f"IKs: conv {conv} / {conv_r}, median {med} / {med_r}")
+
+    # ---- tracking ----
+    char, markers = ref["clip"]
+    fe = _frame_marker_errors_mm(char, markers, r0["tracking"]["motion"])
+    fr = _frame_marker_errors_mm(char, markers, ref["tracking"]["motion"])
+    print(f"sharded tracking (config 6s's clip, {SHARDED_TRACK_FRAMES} frames, LM 10 + 5 on "
+          f"the clip's worst 64): per-frame marker error median {np.median(fe):.4f} mm / p90 "
+          f"{np.percentile(fe, 90):.4f} (track_poses_batched {np.median(fr):.4f} / "
+          f"{np.percentile(fr, 90):.4f}); largest per-frame difference "
+          f"{np.abs(fe - fr).max():.3e} mm; {SHARDED_TRACK_FRAMES / r0['tracking']['wall']:.1f} "
+          f"frames/s")
+    if not (abs(np.median(fe) / np.median(fr) - 1) <= SHARDED_TRACK_MEDIAN_RTOL
+            and abs(np.percentile(fe, 90) / np.percentile(fr, 90) - 1)
+            <= SHARDED_TRACK_P90_RTOL):
+        raise AssertionError("sharded tracking's marker errors disagree with "
+                             "track_poses_batched's")
+
+    # ---- kernels at the shard's shapes ----
+    a, damp, b = (t.cuda() for t in r0["widest"])
+    psd_numbers = _hold_psd_matrix(a, damp, b, "config 5fs's widest SPIKE step on a rank")
+    fk_numbers = _hold_fk(ref["skel"], ref["local"][:SEQUENCE_FRAMES // SHARDED_RANKS],
+                          "config 5fs's frames on a rank")
+    launches = {f"rank{r}": g["counts"] for r, g in enumerate(got)}
+    print(f"phase_sharded: {time.perf_counter() - t0:.1f} s (ranks {ranks_s:.1f} s); "
+          f"launches {launches}")
+    numbers = dict(frames_per_s=SEQUENCE_FRAMES / wall, error=s5["error"],
+                   single_device_error=f5["error"], relative_gap=gap,
+                   max_abs_param_diff=dparam, iterations=s5["iterations"],
+                   split_ms={k: [split["host"].get(k, 0.0) / n_it * 1e3,
+                                 split["device"].get(k, 0.0) / n_it * 1e3] for k in parts},
+                   window3=dict(error=w3["error"], single_device=w3r["error"]),
+                   iks=dict(conv_at_1e5=conv, median=med, solve_ik_conv=conv_r,
+                            solve_ik_median=med_r, max_abs_param_diff=dp),
+                   tracking=dict(median_mm=float(np.median(fe)),
+                                 batched_median_mm=float(np.median(fr))))
+    return launches, numbers, fk_numbers, psd_numbers
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -3273,6 +3636,8 @@ def main():
     lap("sdf_sequence")
     u_counts, u_numbers, u_fk, u_psd = phase_character_utilities(smi)
     lap("character_utilities")
+    sh_counts, sh_numbers, sh_fk, sh_psd = phase_sharded(smi)
+    lap("sharded")
 
     from momentum_tpu_torch.testing.workloads import build_render_clip
 
@@ -3322,7 +3687,10 @@ def main():
              sdf_collision_B2048=sc_fk, sdf_joint_ad_rows=sc_numbers.pop("ad_rows"),
              sdf_sequence_launches=c5_counts["fk_global_kernel"], sdf_sequence_B1024=c5_fk,
              utility_launches={st: n["fk_global_kernel"] for st, n in u_counts.items()},
-             utility_U4_B2048=u_fk),
+             utility_U4_B2048=u_fk,
+             sharded_launches={r: {part: n["fk_global_kernel"] for part, n in c.items()}
+                               for r, c in sh_counts.items()},
+             sharded_B512=sh_fk),
         dict(name="damped_chol_solve_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/psd_pallas.py:53",
@@ -3362,7 +3730,10 @@ def main():
              sdf_sequence_launches=c5_counts["damped_chol_solve_kernel"],
              **{"sdf_sequence_{}x{}_k{}".format(*c5_psd["batch_n_k"]): c5_psd},
              utility_launches={st: n["damped_chol_solve_kernel"] for st, n in u_counts.items()},
-             **{"utility_{}x{}".format(*u_psd["batch_n_k"][:2]): u_psd}),
+             **{"utility_{}x{}".format(*u_psd["batch_n_k"][:2]): u_psd},
+             sharded_launches={r: {part: n["damped_chol_solve_kernel"] for part, n in c.items()}
+                               for r, c in sh_counts.items()},
+             **{"sharded_{}x{}_k{}".format(*sh_psd["batch_n_k"]): sh_psd}),
         dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:55",
@@ -3406,7 +3777,7 @@ def main():
                       "config4x": vx_numbers, "configSL": sl_numbers, "configG": glove_numbers,
                       "config4ad": vad_numbers, "config7p": scene_numbers,
                       "configSC": sc_numbers, "config5c": c5_numbers,
-                      "configU": u_numbers}))
+                      "configU": u_numbers, "config5fs": sh_numbers}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

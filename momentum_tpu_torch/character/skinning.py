@@ -35,6 +35,17 @@ class SkinWeights:
     def num_vertices(self) -> int:
         return self.index.shape[0]
 
+    @property
+    def max_influences_per_vertex(self) -> int:
+        """kMaxSkinJoints (skin_weights.h:19): the padded influence width."""
+        return self.index.shape[1]
+
+    @property
+    def num_joints(self) -> int:
+        """The highest joint index with a nonzero weight, plus 1."""
+        used = self.index[self.weight > 0]
+        return int(used.max()) + 1 if used.numel() else 0
+
     def to_dense(self, num_joints: int) -> torch.Tensor:
         """(V, num_joints) dense weight matrix (pybind to_dense)."""
         if num_joints <= 0:

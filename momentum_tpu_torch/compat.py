@@ -15,7 +15,8 @@ import torch
 from momentum_tpu_torch.character import fk
 from momentum_tpu_torch.character.inverse_fk import (
     joint_parameters_from_local_skel_states, joint_parameters_from_skeleton_states)
-from momentum_tpu_torch.character.skinning import skin_points
+from momentum_tpu_torch.character.skinning import (  # noqa: F401
+    apply_ssd, skin_points, skinning_matrices)
 from momentum_tpu_torch.device import resolve
 from momentum_tpu_torch.math import skel_state as ss
 

@@ -19,6 +19,7 @@ writing .mppca files comes with the IO port (ROADMAP M10).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -83,6 +84,28 @@ class Mppca:
         sq = 0.5 * torch.einsum("...kd,kde,...ke->...k", diff, self.cinv, diff)
         return torch.max(self.rpre - sq, dim=-1).values
 
+    def get_mixture(self, i_model: int):
+        """(pi, mu, W, sigma2) of component `i_model`, recovered from the
+        stored covariance in numpy float64 (pymomentum Mppca.get_mixture,
+        momentum_geometry.cpp:526-583): sigma² is the smallest covariance
+        eigenvalue, W's columns the eigenvectors above it scaled by the
+        square roots of the remainders (those past 1e-4), and pi comes back
+        out of Rpre."""
+        if not 0 <= i_model < self.num_components:
+            raise IndexError(f"component {i_model} out of range")
+        cinv = self.cinv[i_model].detach().cpu().double().numpy()
+        d = cinv.shape[0]
+        evals_inv, evecs = np.linalg.eigh(cinv)  # ascending in Cinv
+        c_eigs = 1.0 / evals_inv  # descending covariance eigenvalues
+        sigma2 = float(c_eigs[-1])
+        lam = c_eigs - sigma2
+        below = np.flatnonzero(lam < 1e-4)
+        rank = int(below[0]) if below.size else d
+        w = evecs[:, :rank] * np.sqrt(np.maximum(lam[:rank], 0.0))[None, :]
+        c_logdet = float(-np.sum(np.log(evals_inv)))
+        log_pi = float(self.rpre[i_model]) + 0.5 * c_logdet + 0.5 * d * np.log(2.0 * np.pi)
+        return float(np.exp(log_pi)), self.mu[i_model].detach().cpu().numpy(), w, sigma2
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class PosePriorErrorFunction(ErrorFunction):
@@ -100,15 +123,18 @@ class PosePriorErrorFunction(ErrorFunction):
     def has_normal_contrib(self) -> bool:
         return self.sub_jtj is not None
 
-    def _valid(self):
-        """(prior dims that map to a parameter, their parameter indices)."""
+    @functools.cached_property
+    def _selection(self):
+        """S, the static dim → parameter selection, as its nonzero pairs:
+        (prior dims that map to a parameter, their parameter indices), built
+        once for each module."""
         idx = np.asarray(self.param_index, np.int64)
         dims = np.flatnonzero(idx >= 0)
         dev = self.prior.mu.device
         return (torch.as_tensor(dims, device=dev), torch.as_tensor(idx[dims], device=dev))
 
     def _sub_params(self, model_params: torch.Tensor) -> torch.Tensor:
-        dims, params = self._valid()
+        dims, params = self._selection
         x = model_params.new_zeros(model_params.shape[:-1] + (self.prior.dim,))
         x[..., dims] = model_params.index_select(-1, params)
         return x
@@ -135,6 +161,21 @@ class PosePriorErrorFunction(ErrorFunction):
     def num_rows(self) -> int:
         return self.prior.dim
 
+    has_analytic_jacobian = True
+
+    def jacobian(self, character, ctx: EvalContext, jc):
+        """rows = c·L*·d*, J_model = c·L*·S with c = √(½·kW·w) and S the
+        selection: column j of L* lands on parameter param_index[j], an
+        unmapped dimension nowhere (pose_prior_error_function.cpp:181-195).
+        No joint-space rows: (rows, None, J_model)."""
+        best, d_best, _ = self._best(ctx.model_params)
+        coef = torch.sqrt(0.5 * K_POSE_PRIOR_WEIGHT * self.weight)
+        l_best = coef * self.prior.l[best]  # (..., d, d)
+        rows = torch.einsum("...de,...e->...d", l_best, d_best)
+        dims, params = self._selection
+        j_model = l_best.new_zeros(l_best.shape[:-1] + ctx.model_params.shape[-1:])
+        return rows, None, j_model.index_add(-1, params, l_best.index_select(-1, dims))
+
     def accumulate_normal(self, character, ctx: EvalContext, jc, pt_mat, acc):
         """With J = coef·L*·S constant per selected component, JᵀJ =
         coef²·SᵀCinv*S is a gather from the per-component table and
@@ -149,7 +190,7 @@ class PosePriorErrorFunction(ErrorFunction):
         cinvd_all = torch.einsum("kde,...e->...kd", self.prior.cinv, d_best)
         cinvd = torch.gather(cinvd_all, -2, best[..., None, None].expand(
             best.shape + (1, cinvd_all.shape[-1])))[..., 0, :]
-        dims, params = self._valid()
+        dims, params = self._selection
         jtr.index_add_(-1, params, coef2 * cinvd[..., dims])
         sq.add_(2.0 * coef2 * sq_best)  # Σ rows² = coef²·d*ᵀCinv*d*
         return acc

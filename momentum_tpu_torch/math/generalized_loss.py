@@ -83,3 +83,8 @@ class GeneralizedLoss:
         a = self.alpha
         d = abs(a - 2.0)
         return 0.5 * ic2 * torch.pow(s / d + 1.0, 0.5 * a - 1.0)
+
+    def sqrt_deriv(self, sqr_error: torch.Tensor) -> torch.Tensor:
+        """sqrt(deriv): the GN row scale (joint_error_function-inl.h scales
+        the rows by sqrt(w·ρ'))."""
+        return torch.sqrt(torch.clamp(self.deriv(sqr_error), min=0.0))

@@ -63,6 +63,8 @@ from momentum_tpu_torch.character.limits import (
 from momentum_tpu_torch.character.parameter_transform import (
     ParameterTransform as TPT, make_identity_transform as tidentity)
 from momentum_tpu_torch.character.skeleton import Skeleton as TSkeleton, make_skeleton
+from momentum_tpu_torch.character.skinning import SkinWeights as TSkinWeights
+from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss as TGeneralizedLoss
 from momentum_tpu_torch.character.texture_classification import (
     classify_triangles_by_texture as tclassify, split_mesh_by_texture_region as tsplit)
 from momentum_tpu_torch.character.transform_pose import transform_pose as ttransform_pose
@@ -315,7 +317,9 @@ M10_MEMBERS = {"load_gltf", "load_gltf_with_motion", "load_fbx", "load_fbx_with_
                "load_fbx_with_motion_from_bytes", "load_legacy_json_from_bytes",
                "load_legacy_json_from_string", "load_motion_timestamps", "save",
                "save_gltf_from_skel_states", "save_with_skel_states", "to_gltf",
-               "to_legacy_json_string"}
+               "to_legacy_json_string",
+               # Mppca's .mppca file members (io/pose_prior.py)
+               "load", "to_bytes", "from_bytes"}
 
 
 def _members(cls):
@@ -324,17 +328,45 @@ def _members(cls):
     return names
 
 
+def _error_module_classes():
+    """(JAX class, the port's class of that name or None) for every public
+    class of every module of momentum_tpu/errors/."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import momentum_tpu.errors as jerrors
+
+    pairs = []
+    for info in pkgutil.iter_modules(jerrors.__path__):
+        jmod = importlib.import_module(f"momentum_tpu.errors.{info.name}")
+        tmod = importlib.import_module(f"momentum_tpu_torch.errors.{info.name}")
+        for name, cls in inspect.getmembers(jmod, inspect.isclass):
+            if cls.__module__ == jmod.__name__ and not name.startswith("_"):
+                pairs.append((cls, getattr(tmod, name, None)))
+    return pairs
+
+
+_ERROR_CLASSES = _error_module_classes()
+
+
 @pytest.mark.parametrize("pair", [(JCharacter, TCharacter), (JPT, TPT),
                                   ("Skeleton", TSkeleton), (JLocators, TLocators),
-                                  ("Mesh", TMesh), (JPP, TPP)],
+                                  ("Mesh", TMesh), (JPP, TPP), ("SkinWeights", TSkinWeights),
+                                  ("GeneralizedLoss", TGeneralizedLoss)] + _ERROR_CLASSES,
                          ids=["Character", "ParameterTransform", "Skeleton", "Locators", "Mesh",
-                              "PhysicalProperties"])
+                              "PhysicalProperties", "SkinWeights", "GeneralizedLoss"]
+                         + [j.__name__ for j, _ in _ERROR_CLASSES])
 def test_class_members_are_jax_members(pair):
     from momentum_tpu.character.character import Mesh as JMesh
     from momentum_tpu.character.skeleton import Skeleton as JSkeleton
+    from momentum_tpu.character.skinning import SkinWeights as JSkinWeights
+    from momentum_tpu.math.generalized_loss import GeneralizedLoss as JGeneralizedLoss
 
     jcls, tcls = pair
-    jcls = {"Skeleton": JSkeleton, "Mesh": JMesh}.get(jcls, jcls)
+    jcls = {"Skeleton": JSkeleton, "Mesh": JMesh, "SkinWeights": JSkinWeights,
+            "GeneralizedLoss": JGeneralizedLoss}.get(jcls, jcls)
+    assert tcls is not None, f"the port has no {jcls.__name__}"
     # prefix_schedule: the TPU lifting schedule, on ROADMAP's "Do not port" list
     missing = _members(jcls) - _members(tcls) - M10_MEMBERS - {"prefix_schedule"}
     assert not missing
@@ -716,6 +748,14 @@ def test_replace_skeleton_hierarchy(case):
 def test_compat_names_are_jax_names():
     m10 = {"load_markers", "load_markers_from_bytes", "load_motion"}
     assert set(tcompat.__all__) == set(jcompat.__all__) - m10
+    # the module's other public functions and classes too (JAX's compat
+    # imports apply_ssd and skinning_matrices from the skinning module)
+    import types
+
+    public = {n for n in dir(jcompat) if not n.startswith("_")
+              and not isinstance(getattr(jcompat, n), types.ModuleType)}
+    missing = {n for n in public - m10 if not hasattr(tcompat, n)}
+    assert not missing, sorted(missing)
 
 
 @pytest.mark.parametrize("name", [
@@ -966,3 +1006,42 @@ def test_config_u3_shaped_solve_matches_jax():
     assert moving.any() and not moving.all()
     np.testing.assert_allclose(e_t[moving], e_j[moving], rtol=1e-3)
     assert e_t[~moving].max() < 1e-10
+
+
+# ---- the name gaps closed with the sharded slice ----
+
+def test_skin_weights_members_match_jax(rigs):
+    j, t = rigs
+    assert t.skin_weights.max_influences_per_vertex == j.skin_weights.max_influences_per_vertex
+    assert t.skin_weights.num_joints == j.skin_weights.num_joints
+
+
+@pytest.mark.parametrize("alpha", [2.0, 1.0, 0.0, -1e9, 0.5, 3.0])
+def test_generalized_loss_sqrt_deriv_matches_jax(alpha):
+    from momentum_tpu.math.generalized_loss import GeneralizedLoss as JGeneralizedLoss
+
+    sq = np.linspace(0.0, 9.0, 37).astype(np.float32)
+    want = np.asarray(JGeneralizedLoss(alpha, 1.5).sqrt_deriv(jnp.asarray(sq)))
+    got = TGeneralizedLoss(alpha, 1.5).sqrt_deriv(torch.as_tensor(sq)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_mppca_get_mixture_matches_jax():
+    """The mixture recovered from the stored covariance: pi, mu, sigma² and
+    W up to each column's sign (an eigenvector's)."""
+    from momentum_tpu.errors.pose_prior import Mppca as JMppca
+    from momentum_tpu_torch.errors import Mppca as TMppca
+
+    rng = np.random.default_rng(9)
+    args = dict(pi=np.asarray([0.6, 0.4]), mu=rng.normal(0, 0.3, (2, 5)),
+                w_list=[rng.normal(0, 0.6, (5, 2)) for _ in range(2)],
+                sigma2=np.asarray([0.2, 0.5]))
+    jm, tm = JMppca.from_components(**args), TMppca.from_components(**args, device="cpu")
+    for i in range(2):
+        (pj, mj, wj, sj), (pt, mt, wt, st) = jm.get_mixture(i), tm.get_mixture(i)
+        assert wt.shape == wj.shape == (5, 2)
+        np.testing.assert_allclose([pt, st], [pj, sj], rtol=1e-6)
+        np.testing.assert_array_equal(mt, np.asarray(mj))
+        np.testing.assert_allclose(np.abs(wt), np.abs(wj), rtol=1e-6, atol=1e-7)
+    with pytest.raises(IndexError):
+        tm.get_mixture(2)

@@ -1374,3 +1374,45 @@ def test_simplified_ik_on_the_card_matches_plain(utility_problem):
         assert bool(np.isfinite(got).all())
         assert abs(np.median(got) - np.median(want)) <= median_tol * np.median(want)
         assert float(np.median(np.abs(got - want) / want)) <= element_tol
+
+
+SHARDED_FRAMES = 160  # 80 frames a rank; the single-device solve takes SPIKE
+
+
+def _sharded_sequence_rank(rank, world):
+    """One rank of test_sharded_sequence_on_the_card: a 5f-shaped sequence
+    through solve_sequence_sharded on cuda:0, the rank's launches counted."""
+    from momentum_tpu_torch.sequence.sharded import solve_sequence_sharded
+    from momentum_tpu_torch.solver import SolverOptions
+
+    torch.cuda.set_device(0)
+    prob = workloads.build_sequence_problem(SHARDED_FRAMES, fullbody=True, device="cuda")
+    before = (fk_ops.launches, psd.launches)
+    res = solve_sequence_sharded(prob.fn, prob.pf0, prob.u0,
+                                 options=SolverOptions(max_iterations=4, min_iterations=4))
+    return dict(error=float(res.error), iterations=res.iterations,
+                finite=bool(torch.isfinite(res.per_frame).all()),
+                launches=(fk_ops.launches - before[0], psd.launches - before[1]))
+
+
+def test_sharded_sequence_on_the_card():
+    """Two gloo ranks sharing the card solve config 5f's problem at F = 160
+    by solve_sequence_sharded: each launches K1 and K2+K3, both return the
+    same energy, within 1e-3 of the single-device solve's (the CPU tests'
+    tolerance between the two), after as many iterations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from momentum_tpu_torch.sequence import solve_sequence
+    from momentum_tpu_torch.solver import SolverOptions
+    from momentum_tpu_torch.testing.distributed import Ranks
+
+    with Ranks(2, _sharded_sequence_rank, timeout=300) as ranks:
+        got = ranks.results()
+    prob = workloads.build_sequence_problem(SHARDED_FRAMES, fullbody=True, device="cuda")
+    ref = solve_sequence(prob.fn, prob.pf0, prob.u0,
+                         SolverOptions(max_iterations=4, min_iterations=4))
+    assert got[0]["error"] == got[1]["error"]
+    for g in got:
+        assert g["finite"] and g["iterations"] == ref.iterations
+        assert g["launches"][0] > 0 and g["launches"][1] > 0
+        assert abs(g["error"] / float(ref.error) - 1) <= 1e-3

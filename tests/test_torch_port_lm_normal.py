@@ -92,7 +92,9 @@ def test_lm_masked_normal_equations_match_jax(stack):
     rj = jax_solve_ik(jfn(tg, qt), jnp.asarray(x0), jnp.asarray(mask), JOpts(**opts),
                       method="levenberg_marquardt")
     fn = tfn(tg, qt)
-    assert fn.has_structured_modules and not fn.fully_analytic
+    # every module of the stack has an analytic Jacobian, the pose prior's
+    # too since F26, as in JAX: the normal equations still take the solve
+    assert fn.has_structured_modules and fn.fully_analytic == jfn(tg, qt).fully_analytic
     rt = solve_ik(fn, torch.as_tensor(x0), torch.as_tensor(mask), SolverOptions(**opts),
                   method="levenberg_marquardt")
     frozen = mask == 0

@@ -83,6 +83,9 @@ def test_port_imports_no_jax():
         "        'momentum_tpu_torch.character.inverse_fk',\n"
         "        'momentum_tpu_torch.character.transform_pose',\n"
         "        'momentum_tpu_torch.character.texture_classification'}\n"
+        "new |= {'momentum_tpu_torch.parallel', 'momentum_tpu_torch.parallel.batch',\n"
+        "        'momentum_tpu_torch.parallel.collectives', 'momentum_tpu_torch.sequence.sharded',\n"
+        "        'momentum_tpu_torch.testing.distributed'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "assert len(names) >= 30, names\n"
         "print('ok', len(names))\n")
