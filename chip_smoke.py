@@ -131,7 +131,17 @@ then drives the port's paths through those kernels and checks their output:
     and sharded tracking of config 6s's clip, each held against the
     single-device port solve on the same inputs and 5fs against JAX CPU's
     final error; K1 and K2+K3 launched on each rank, K2+K3 held at the
-    widest system of a rank's SPIKE step, K1 at a rank's 512 frames.
+    widest system of a rank's SPIKE step, K1 at a rank's 512 frames;
+  * config IO, the file layer (momentum_tpu_torch/io): the full-body rig
+    with bodies, a 1024-frame motion and markers through .glb, and its
+    .model, .locators, legacy JSON, .mppca and .mmo, loaded onto the card
+    and held to what was written; JAX's reference files
+    (tools/jax_reference_io) read onto the card and held to what JAX's
+    loaders gave; the 1024 frames' skeleton states loaded by FK on K1; the
+    main path's IK on the loaded rig (K1, K2+K3) against the in-memory rig;
+    config 6s's clip through a .trc file, tracked hierarchically (K1,
+    K2+K3 at (343, 73)) against the in-memory clip's run; each format's
+    save and load times and bytes.
 
     python3 chip_smoke.py
 
@@ -415,6 +425,21 @@ SHARDED_CONV_SLACK = 0.01
 SHARDED_MEDIAN_RTOL = 0.01
 SHARDED_TRACK_FRAMES = 342
 SHARDED_TRACK_MEDIAN_RTOL, SHARDED_TRACK_P90_RTOL = 0.02, 0.05
+
+# phase_io, config IO: the file layer on the card. The round trips hold
+# integers and names equal and floats bit for bit (every format stores
+# float32 or its exact decimal); the tables a loader computes by FK (the
+# inverse bind pose, skeleton states) within FK_TOL. The IK on the loaded
+# rig is the same arithmetic as on the in-memory rig: conv@1e-5 within
+# IO_CONV_SLACK and the median Σr² within IO_MEDIAN_RTOL (bit equality is
+# printed). Tracking the .trc take (positions rounded to the TRC's 5
+# decimals) within 2% / 5% of the in-memory clip's marker errors.
+IO_FRAMES = 1024
+IO_REPEATS = 3
+IO_SEED = 17
+IO_CONV_SLACK = 0.01
+IO_MEDIAN_RTOL = 0.01
+IO_TRACK_MEDIAN_RTOL, IO_TRACK_P90_RTOL = 0.02, 0.05
 
 
 def phase_device():
@@ -2671,21 +2696,30 @@ def _hold_raster(label, kernel, sv, faces, w, h, kw):
 
 def phase_clip_passes(char, cam, motion):
     """Every K4b pass of the clip (32 camera and 32 shadow passes): the
-    overflow tiles of each, and the sum of their bounds."""
+    overflow tiles of each, the sum of their bounds, and the sum of the
+    plain version's scans of them (one call each, CUDA events)."""
     from momentum_tpu_torch.ops import raster
     from momentum_tpu_torch.testing.workloads import render_clip_passes
 
     counts = {"camera": [], "shadow": []}
-    bound_ms = 0.0
-    for frame in render_clip_passes(char, cam, motion):
+    bound_ms = plain_ms = 0.0
+    passes = render_clip_passes(char, cam, motion)
+    raster._raster_plain(*passes[0]["camera"], 128, False)  # warm-up
+    for frame in passes:
         for name, args in frame.items():
             counts[name].append(int(args[4].sum()))
             covered = int((raster._raster_kernel(*args, False)["face"] >= 0).sum())
             bound_ms += _raster_bound(*args, covered)[0]["bound_ms"]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            raster._raster_plain(*args, 128, False)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms += start.elapsed_time(end)
     print(f"K4b overflow tiles per frame of the clip: camera {counts['camera']} (of 1200 "
           f"tiles), shadow {counts['shadow']} (of 64); the 64 passes' bounds sum to "
-          f"{bound_ms:.4f} ms")
-    return dict(overflow_tiles=counts, bound_ms=bound_ms)
+          f"{bound_ms:.4f} ms, their plain scans to {plain_ms:.4f} ms")
+    return dict(overflow_tiles=counts, bound_ms=bound_ms, plain_ms=plain_ms)
 
 
 def phase_render_clip(char, cam, motion, smi):
@@ -3576,6 +3610,265 @@ def phase_sharded(smi):
     return launches, numbers, fk_numbers, psd_numbers
 
 
+def _timed(run, repeats=1):
+    """(result of the last call, median wall in s) of `run`, each call
+    ending in a synchronize."""
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, statistics.median(walls)
+
+
+def phase_io(smi, tracking_numbers):
+    """Config IO, the file layer on the card (momentum_tpu_torch/io): the
+    full-body rig with config U's bodies written to .glb with a 1024-frame
+    motion, its markers, an identity and timestamps, and loaded onto the
+    card, every member held to the written one (integers and names equal,
+    floats bit for bit, the inverse bind pose recomputed by K1 within
+    FK_TOL); its .model, .locators, legacy JSON, the full stack's .mppca and
+    the .mmo round-tripped the same way; every file of tools/jax_reference_io
+    read onto the card and held against what JAX's loaders gave
+    (jax_reference_io.npz); the 1024 frames' skeleton states written as
+    animation channels and loaded by FK on K1 (median of IO_REPEATS, within
+    FK_TOL); the main path's IK at B = 2048 on the loaded rig against the same
+    solve on the in-memory rig (conv@1e-5 within IO_CONV_SLACK, median Σr²
+    within IO_MEDIAN_RTOL); config 6s's clip written as .trc, read back
+    through compat.load_markers and tracked by track_clip_hierarchical
+    (K1, K2+K3 at (343, 73)), its marker errors within 2% / 5% of the
+    in-memory clip's run (phase_tracking's hierarchical stage, same rig,
+    identity and settings); the committed take's real-format .c3d equal to
+    its .trc to the TRC's 5 decimals. Each format's save and load times and
+    bytes."""
+    import pathlib
+    import shutil
+
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch import compat, io as tio
+    from momentum_tpu_torch.character import Character
+    from momentum_tpu_torch.device import to_host
+    from momentum_tpu_torch.io import character_io, legacy_json, locators, pose_prior
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", "io_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = lambda name: os.path.join(out_dir, name)  # noqa: E731
+    counts, numbers, files = {}, {}, {}
+
+    def record(fmt, name, save, load):
+        """Save and load one format; its times and bytes."""
+        _, save_s = _timed(save)
+        loaded, load_s = _timed(load)
+        size = os.path.getsize(path(name))
+        files[fmt] = dict(save_ms=save_s * 1e3, load_ms=load_s * 1e3, bytes=size)
+        print(f"config IO {fmt}: save {save_s * 1e3:.2f} ms, load onto the card "
+              f"{load_s * 1e3:.2f} ms, {size} bytes")
+        return loaded
+
+    def hold(label, got, want, tol=0.0):
+        bad = w.io_mismatches(got, want, tol)
+        print(f"config IO {label}: {len(want)} tables held"
+              + (f"; MISMATCHED {bad}" if bad else ""))
+        if bad:
+            raise AssertionError(f"config IO {label}: tables differ: {bad}")
+
+    # 1. the rig with its bodies and a 1024-frame motion, round-tripped
+    char, ef0, targets, x0 = w.build_fullbody_ik_problem(BATCH, seed=SEED, device="cuda")
+    char = dataclasses.replace(char, physical_properties=w.utility_character(
+        device="cuda").physical_properties)
+    # a take-like motion: every parameter amp·sin(4πt + phase) over the
+    # 1024 frames, amp U(0.05, 0.3), phase U(0, 2π)
+    rng = np.random.default_rng(IO_SEED)
+    p = char.num_model_parameters
+    t = np.linspace(0.0, 1.0, IO_FRAMES)[:, None]
+    motion = torch.as_tensor((rng.uniform(0.05, 0.3, p) * np.sin(
+        4 * np.pi * t + rng.uniform(0, 2 * np.pi, p))).astype(np.float32), device="cuda")
+    states = char.skeleton_states(motion)
+    from momentum_tpu_torch.tracking import MarkerSequence
+
+    markers = MarkerSequence(positions=char.locators.world_positions(states),
+                             occluded=torch.as_tensor(rng.random((IO_FRAMES, 80)) < 0.05,
+                                                      device="cuda"),
+                             names=char.locators.names)
+    identity = torch.as_tensor(rng.normal(0, 0.01, char.num_joints * 7).astype(np.float32),
+                               device="cuda")
+    stamps = 1_000_000 + 8_333 * np.arange(IO_FRAMES, dtype=np.int64)
+    loaded, got_motion, fps, got_markers = record(
+        "glb (rig, 1024 frames, markers)", "rig.glb",
+        lambda: tio.save_character_glb(path("rig.glb"), char, motion=motion, fps=120.0,
+                                       markers=markers, identity=identity, timestamps=stamps),
+        lambda: tio.load_character_glb(path("rig.glb"), return_markers=True, device="cuda"))
+    if loaded.skeleton.joint_parent.device.type != "cuda" or not got_motion.is_cuda:
+        raise AssertionError("config IO: the loaded rig is not on the card")
+    ibp = float((loaded.inverse_bind_pose - char.inverse_bind_pose).abs().max())
+    hold("glb rig round trip (inverse bind pose max|d| "
+         f"{ibp:.3e}, bit-equal {ibp == 0.0})", w.character_tables(loaded, "c"),
+         w.character_tables(char, "c"), FK_TOL)
+    lm_motion, lm_names, lm_identity, lm_joints = compat.load_motion(path("rig.glb"))
+    hold("glb motion, markers, identity, timestamps",
+         {"motion": to_host(got_motion), "positions": to_host(got_markers.positions),
+          "occluded": to_host(got_markers.occluded), "names": np.asarray(got_markers.names),
+          "fps": np.asarray(fps), "load_motion": lm_motion, "identity": lm_identity,
+          "joints": np.asarray(lm_joints), "params": np.asarray(lm_names),
+          "stamps": Character.load_motion_timestamps(path("rig.glb"))},
+         {"motion": to_host(motion), "positions": to_host(markers.positions),
+          "occluded": to_host(markers.occluded), "names": np.asarray(markers.names),
+          "fps": np.asarray(120.0), "load_motion": to_host(motion),
+          "identity": to_host(identity), "joints": np.asarray(char.skeleton.joint_names),
+          "params": np.asarray(char.parameter_transform.names), "stamps": stamps})
+    pt, limits = record(
+        "model", "rig.model",
+        lambda: pathlib.Path(path("rig.model")).write_text(tio.write_model_definition(
+            char.parameter_transform, char.skeleton, char.limits)),
+        lambda: tio.load_model_definition(path("rig.model"), loaded.skeleton))
+    keep = ("transform", "offsets", "parameter_names", "parameter_sets") + w.IO_LIMIT_KEYS
+    sub = lambda c: {k: v for k, v in w.character_tables(c, "m").items()  # noqa: E731
+                     if k.split(".", 1)[1] in keep}
+    hold(".model round trip", sub(dataclasses.replace(char, parameter_transform=pt,
+                                                     limits=limits)), sub(char))
+    loc = record("locators", "rig.locators", lambda: locators.save_locators(
+        path("rig.locators"), char), lambda: tio.load_locators(path("rig.locators"), loaded))
+    hold(".locators round trip", {k: to_host(getattr(loc, k)) for k in (
+        "parent", "offset", "weight")} | {"names": np.asarray(loc.names)},
+        {k: to_host(getattr(char.locators, k)) for k in ("parent", "offset", "weight")}
+        | {"names": np.asarray(char.locators.names)})
+    legacy = record("legacy json", "rig.json",
+                    lambda: legacy_json.save_legacy_json(path("rig.json"), char),
+                    lambda: tio.load_legacy_json(path("rig.json"), device="cuda"))
+    skel_keys = ("joint_parent", "pre_rotation", "translation_offset", "joint_names",
+                 "locator_parent", "locator_offset", "locator_weight", "locator_names")
+    sub = lambda c: {k: v for k, v in w.character_tables(c, "j").items()  # noqa: E731
+                     if k.split(".", 1)[1] in skel_keys}
+    hold("legacy json round trip", sub(legacy), sub(char))
+    prior = w.fullstack_modules(char, "cuda")[3].prior
+    got_prior = record("mppca", "stack.mppca",
+                       lambda: pose_prior.save_mppca(path("stack.mppca"), prior),
+                       lambda: tio.load_mppca(path("stack.mppca"), device="cuda"))
+    hold(".mppca round trip (L recomputed in float64 on the host)",
+         {k: to_host(getattr(got_prior, k)) for k in ("mu", "cinv", "rpre")},
+         {k: to_host(getattr(prior, k)) for k in ("mu", "cinv", "rpre")})
+    mmo = record("mmo (1024 frames)", "rig.mmo",
+                 lambda: character_io.save_character(path("rig.mmo"), char, motion=motion),
+                 lambda: tio.load_mmo(path("rig.mmo")))
+    hold(".mmo round trip", {"poses": mmo[0], "names": np.asarray(mmo[2])},
+         {"poses": to_host(motion), "names": np.asarray(char.parameter_transform.names)})
+
+    # 2. the files JAX wrote, read onto the card
+    ref_dir = os.path.join(here, w.IO_REFERENCE_DIR)
+    want = dict(np.load(os.path.join(ref_dir, "jax_reference_io.npz")))
+    got, read_s = _timed(lambda: w.io_reference_loads(ref_dir, device="cuda"))
+    hold(f"JAX's {len(os.listdir(ref_dir)) - 1} reference files read in {read_s:.2f} s "
+         f"(FK-computed tables within {FK_TOL:.0e})", got, want, FK_TOL)
+
+    # 3. skeleton-state loading (K1): FK over every frame of the file
+    record("glb (1024 frames of skeleton states)", "states.glb",
+           lambda: char.save_gltf_from_skel_states(path("states.glb"), states, fps=120.0),
+           lambda: Character.load_gltf_with_skel_states(path("states.glb"), fps=120.0,
+                                                        device="cuda"))
+    _reset_counts()
+    # at the file's own 120 Hz: the rate inferred from the float32 key times
+    # is 120.001831 and drifts off the keys (ROADMAP F27)
+    (_, got_states, _), load_s = _timed(lambda: Character.load_gltf_with_skel_states(
+        path("states.glb"), fps=120.0, device="cuda"), IO_REPEATS)
+    counts["state_load"] = {k: n // IO_REPEATS for k, n in _counts().items()}
+    err = float((got_states - states).abs().max())
+    print(f"config IO skeleton-state load (F = {IO_FRAMES}, nJ = {char.num_joints}): "
+          f"{IO_FRAMES / load_s:.0f} frames/s (median of {IO_REPEATS}, "
+          f"{load_s * 1e3:.1f} ms) on {smi}; max|states - written| {err:.3e} "
+          f"(tol {FK_TOL:.0e}); kernel launches a load {counts['state_load']}")
+    if not (err <= FK_TOL and counts["state_load"]["fk_global_kernel"] >= 1):
+        raise AssertionError(f"config IO: skeleton states {err} off or K1 not launched")
+    numbers["state_load"] = dict(frames_per_s=IO_FRAMES / load_s, ms=load_s * 1e3,
+                                 max_abs_err=err, launches=counts["state_load"])
+
+    # 4. the main path's IK on the loaded rig against the in-memory rig
+    from momentum_tpu_torch.testing.workloads import make_solve_batch
+
+    runs = {}
+    for name, rig in (("in_memory", char), ("loaded", loaded)):
+        solve = make_solve_batch(rig, ef0, BATCH)
+        solve(targets, x0)  # warm-up
+        _reset_counts()
+        res, wall = _timed(lambda: solve(targets, x0))
+        counts[f"ik_{name}"] = _counts()
+        e = res.error.cpu().numpy()
+        runs[name] = dict(conv=float(np.mean(e < 1e-5)), median=float(np.nanmedian(e)),
+                          solves_per_s=BATCH / wall, params=res.params)
+    a, b = runs["loaded"], runs["in_memory"]
+    same = bool(torch.equal(a["params"], b["params"]))
+    print(f"config IO IK on the loaded rig (B = {BATCH}, LM 5 + 6 on 128): conv@1e-5 "
+          f"{a['conv']:.4f} (in memory {b['conv']:.4f}), median sum-r2 {a['median']:.4e} "
+          f"({b['median']:.4e}), parameters bit-equal {same}; {a['solves_per_s']:.0f} "
+          f"solves/s on {smi}; kernel launches {counts['ik_loaded']}")
+    if not (abs(a["conv"] - b["conv"]) <= IO_CONV_SLACK
+            and abs(a["median"] - b["median"]) <= IO_MEDIAN_RTOL * b["median"]
+            and all(n > 0 for n in counts["ik_loaded"].values())):
+        raise AssertionError(f"config IO: IK on the loaded rig {a} against {b}")
+    numbers["ik"] = dict(conv_at_1e5=a["conv"], median=a["median"],
+                         in_memory_conv_at_1e5=b["conv"], in_memory_median=b["median"],
+                         bit_equal=same, solves_per_s=a["solves_per_s"])
+
+    # 5. config 6s's clip through a .trc file, tracked
+    clip = w.build_tracking_clip(w.TRACKING_FRAMES, seed=SEED, device="cuda")
+    raw = tio.RawMarkerData(np.where(to_host(clip.markers.occluded)[..., None], np.nan,
+                                     to_host(clip.markers.positions)),
+                            to_host(clip.markers.occluded), clip.markers.names, 120.0)
+    take = record("trc (343 frames x 41 markers)", "take.trc",
+                  lambda: tio.save_trc(path("take.trc"), raw),
+                  lambda: compat.load_markers(path("take.trc"))[0].to_marker_sequence(
+                      device="cuda"))
+    with open(os.path.join(here, TRACKING_JAX_CPU_FILE)) as f:
+        jax_cpu = json.load(f)
+    rig = dataclasses.replace(clip.char, locators=dataclasses.replace(
+        clip.char.locators, offset=torch.as_tensor(jax_cpu["locator_offsets"], device="cuda")))
+    jax_identity = torch.as_tensor(jax_cpu["identity"], device="cuda")
+    _reset_counts()
+    hier, wall = _timed(lambda: w.track_clip_hierarchical(rig, take, jax_identity))
+    counts["tracking"] = _counts()
+    d = w.clip_marker_errors_mm(rig, take, hier.motion)
+    med, p90 = float(np.median(d)), float(np.percentile(d, 90))
+    ref = tracking_numbers["hierarchical"]
+    print(f"config IO tracking of the .trc take (343 frames, hierarchical): "
+          f"{w.TRACKING_FRAMES / wall:.2f} frames/s on {smi}; marker error median {med:.4f} mm "
+          f"(in memory {ref['median_mm']:.4f}), p90 {p90:.4f} mm ({ref['p90_mm']:.4f}); "
+          f"kernel launches {counts['tracking']}")
+    if not (bool(torch.isfinite(hier.motion).all())
+            and abs(med - ref["median_mm"]) <= IO_TRACK_MEDIAN_RTOL * ref["median_mm"]
+            and abs(p90 - ref["p90_mm"]) <= IO_TRACK_P90_RTOL * ref["p90_mm"]
+            and all(n > 0 for n in counts["tracking"].values())):
+        raise AssertionError(f"config IO: tracking of the .trc take {med} / {p90} against {ref}")
+    numbers["tracking"] = dict(frames_per_s=w.TRACKING_FRAMES / wall, median_mm=med,
+                               p90_mm=p90, in_memory_median_mm=ref["median_mm"],
+                               in_memory_p90_mm=ref["p90_mm"])
+    trc = tio.load_markers(os.path.join(ref_dir, "take.trc"))[0]
+    c3d, c3d_s = _timed(lambda: tio.load_markers(os.path.join(ref_dir, "take_real.c3d"))[0])
+    vis = ~trc.occluded
+    printed = np.asarray([float(f"{v:.5f}") for v in c3d.positions[vis].reshape(-1)],
+                         np.float32)
+    if not (np.array_equal(c3d.occluded, trc.occluded)
+            and np.array_equal(printed, trc.positions[vis].reshape(-1))):
+        raise AssertionError("config IO: the committed .c3d's positions are not its .trc's")
+    print(f"config IO c3d (64 frames, real points): read {c3d_s * 1e3:.2f} ms, "
+          f"{os.path.getsize(os.path.join(ref_dir, 'take_real.c3d'))} bytes; positions equal "
+          f"the .trc's to its 5 decimals")
+    numbers["files"] = files
+    shutil.rmtree(out_dir)
+
+    # the kernels at the phase's shapes: K1 at the load's 1024 frames, K2+K3
+    # at the .trc take's batched LM step
+    from momentum_tpu_torch.character import fk
+
+    local = fk.local_skel_states(loaded.skeleton,
+                                 loaded.parameter_transform.apply(motion)).contiguous()
+    fk_numbers = _hold_fk(loaded.skeleton, local, f"config IO's state load, B = {IO_FRAMES}")
+    _, every = _tracking_systems(rig, take, jax_identity, hier.motion)
+    psd_numbers = _hold_psd_matrix(*every, "config IO, the .trc take's batched LM step")
+    return counts, numbers, fk_numbers, psd_numbers
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -3613,6 +3906,8 @@ def main():
     lap("sequence_accel")
     track_counts, track_numbers, track_fk, track_psd = phase_tracking(smi)
     lap("tracking")
+    io_counts, io_numbers, io_fk, io_psd = phase_io(smi, track_numbers)
+    lap("io")
     catalog_counts, catalog_numbers, catalog_psd = phase_catalog(smi)
     lap("catalog")
     kp_counts, kp_numbers, kp_psd = phase_keypoints(smi)
@@ -3690,7 +3985,9 @@ def main():
              utility_U4_B2048=u_fk,
              sharded_launches={r: {part: n["fk_global_kernel"] for part, n in c.items()}
                                for r, c in sh_counts.items()},
-             sharded_B512=sh_fk),
+             sharded_B512=sh_fk,
+             io_launches={part: n["fk_global_kernel"] for part, n in io_counts.items()},
+             io_B1024=io_fk),
         dict(name="damped_chol_solve_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/psd_pallas.py:53",
@@ -3733,7 +4030,9 @@ def main():
              **{"utility_{}x{}".format(*u_psd["batch_n_k"][:2]): u_psd},
              sharded_launches={r: {part: n["damped_chol_solve_kernel"] for part, n in c.items()}
                                for r, c in sh_counts.items()},
-             **{"sharded_{}x{}_k{}".format(*sh_psd["batch_n_k"]): sh_psd}),
+             **{"sharded_{}x{}_k{}".format(*sh_psd["batch_n_k"]): sh_psd},
+             io_launches={part: n["damped_chol_solve_kernel"] for part, n in io_counts.items()},
+             **{"io_{}x{}".format(*io_psd["batch_n_k"][:2]): io_psd}),
         dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:55",
@@ -3777,7 +4076,7 @@ def main():
                       "config4x": vx_numbers, "configSL": sl_numbers, "configG": glove_numbers,
                       "config4ad": vad_numbers, "config7p": scene_numbers,
                       "configSC": sc_numbers, "config5c": c5_numbers,
-                      "configU": u_numbers, "config5fs": sh_numbers}))
+                      "configU": u_numbers, "config5fs": sh_numbers, "configIO": io_numbers}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

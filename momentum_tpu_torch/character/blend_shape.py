@@ -1,7 +1,7 @@
 """Blend shapes: shape = base + Σ w_i · shapeVector_i, after
 momentum_tpu/character/blend_shape.py (blend_shape_base.h:15-61,
 blend_shape.h:19-63). The basis is stored as (K, V, 3); applying it is one
-matmul. Loading and saving a basis come with the IO (ROADMAP M10).
+matmul. io/shape.py loads and saves a basis.
 """
 
 from __future__ import annotations

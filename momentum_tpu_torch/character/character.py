@@ -452,3 +452,153 @@ class Character:
             sel[torch.arange(len(pidx), device=device), index] = 1.0
             out.append((basis, index, sel))
         return tuple(out)
+
+    # ---- the file members (character_pybind.cpp:139-260, 719-1100): thin
+    # delegations to momentum_tpu_torch.io; the loaders build on `device`,
+    # the card unless the caller asks for the CPU ----
+
+    @classmethod
+    def load_gltf(cls, path, device="cuda") -> "Character":
+        from momentum_tpu_torch.io.gltf import load_character_glb
+
+        return load_character_glb(str(path), device=device)[0]
+
+    @classmethod
+    def load_gltf_with_motion(cls, path, device="cuda"):
+        """→ (Character, motion (F, P) or None, fps)."""
+        from momentum_tpu_torch.io.gltf import load_character_glb
+
+        return load_character_glb(str(path), device=device)
+
+    @classmethod
+    def load_gltf_from_bytes(cls, gltf_bytes, device="cuda") -> "Character":
+        from momentum_tpu_torch.io.gltf import load_character_glb
+
+        return load_character_glb(bytes(gltf_bytes), device=device)[0]
+
+    @classmethod
+    def load_gltf_with_motion_from_bytes(cls, gltf_bytes, device="cuda"):
+        from momentum_tpu_torch.io.gltf import load_character_glb
+
+        return load_character_glb(bytes(gltf_bytes), device=device)
+
+    @classmethod
+    def load_gltf_with_skel_states(cls, path, fps: float = None, device="cuda"):
+        """→ (Character, skel_states (F, nJ, 8) or None, fps), the states by
+        FK on `device`. fps=None samples at the file's own keyframe rate."""
+        from momentum_tpu_torch.io.gltf import load_character_glb_with_skel_states
+
+        return load_character_glb_with_skel_states(path, fps, device=device)
+
+    @classmethod
+    def load_gltf_with_skel_states_from_bytes(cls, gltf_bytes, fps: float = None,
+                                              device="cuda"):
+        from momentum_tpu_torch.io.gltf import load_character_glb_with_skel_states
+
+        return load_character_glb_with_skel_states(bytes(gltf_bytes), fps, device=device)
+
+    @classmethod
+    def load_legacy_json(cls, path, device="cuda") -> "Character":
+        from momentum_tpu_torch.io.legacy_json import load_legacy_json
+
+        return load_legacy_json(str(path), device=device)
+
+    @classmethod
+    def load_legacy_json_from_bytes(cls, json_bytes, device="cuda") -> "Character":
+        from momentum_tpu_torch.io.legacy_json import load_legacy_json
+
+        return load_legacy_json(bytes(json_bytes).decode("utf-8"), device=device)
+
+    @classmethod
+    def load_legacy_json_from_string(cls, json_string: str, device="cuda") -> "Character":
+        from momentum_tpu_torch.io.legacy_json import load_legacy_json
+
+        return load_legacy_json(json_string, device=device)
+
+    @staticmethod
+    def load_motion_timestamps(gltf_filename):
+        """Per-frame timestamps stored alongside GLB motion (gltf_io.h:57)."""
+        from momentum_tpu_torch.io.gltf import load_motion_timestamps
+
+        return load_motion_timestamps(gltf_filename)
+
+    def save_gltf(self, path, motion=None, fps: float = 120.0, markers=None) -> None:
+        from momentum_tpu_torch.io.gltf import save_character_glb
+
+        save_character_glb(str(path), self, motion=motion, fps=fps, markers=markers)
+
+    def save_legacy_json(self, path) -> None:
+        from momentum_tpu_torch.io.legacy_json import save_legacy_json
+
+        save_legacy_json(str(path), self)
+
+    def save(self, path, motion=None, fps: float = 120.0) -> None:
+        """Save in the format implied by the extension (character_pybind
+        save → character_io.h saveCharacter dispatch)."""
+        from momentum_tpu_torch.io.character_io import save_character
+
+        save_character(str(path), self, motion=motion, fps=fps)
+
+    def save_gltf_from_skel_states(self, path, skel_states, fps: float = 120.0) -> None:
+        """Save with motion given as GLOBAL skeleton states, exported as
+        standard glTF animation channels (character_pybind
+        save_gltf_from_skel_states → GltfBuilder)."""
+        from momentum_tpu_torch.io.gltf_builder import GltfBuilder
+
+        GltfBuilder().add_character(self).add_skeleton_states(skel_states).set_fps(
+            fps).save(str(path))
+
+    def save_with_skel_states(self, path, skel_states, fps: float = 120.0) -> None:
+        """Extension-dispatched save with skeleton-state motion: .glb/.gltf
+        via animation channels (character_pybind save_with_skel_states);
+        .usd* and .fbx come with ROADMAP M10 part 2."""
+        import os as _os
+
+        from momentum_tpu_torch.io.character_io import _part_2, character_format
+
+        ext = _os.path.splitext(str(path))[1].lower()
+        if ext in (".glb", ".gltf"):
+            self.save_gltf_from_skel_states(path, skel_states, fps)
+        elif ext in (".usd", ".usda", ".usdc", ".fbx"):
+            raise _part_2(character_format(path))
+        else:
+            raise ValueError(f"unsupported extension {ext!r}")
+
+    def to_gltf(self, fps: float = 120.0, motion=None) -> dict:
+        """The character as a glTF document dictionary (character_pybind
+        to_gltf 'dictionary form')."""
+        import json as _json
+        import struct as _struct
+
+        from momentum_tpu_torch.io.gltf import _character_glb_bytes
+
+        data = _character_glb_bytes(self, motion=motion, fps=fps)
+        json_len = _struct.unpack_from("<I", data, 12)[0]
+        return _json.loads(data[20:20 + json_len])
+
+    def to_legacy_json_string(self) -> str:
+        """The legacy full-character JSON as a string (character_pybind
+        to_legacy_json_string)."""
+        from momentum_tpu_torch.io.legacy_json import legacy_json_text
+
+        return legacy_json_text(self)
+
+    def load_locators(self, source) -> "Character":
+        """The character with locators from a .locators file (path, bytes
+        or JSON text) on its device (character_pybind load_locators)."""
+        from momentum_tpu_torch.io.locators import load_locators
+
+        return dataclasses.replace(self, locators=load_locators(source, self))
+
+    def save_locators(self, path, space: str = "local") -> None:
+        from momentum_tpu_torch.io.locators import save_locators
+
+        save_locators(str(path), self, space)
+
+    def load_model_definition(self, source) -> "Character":
+        """The character with its parameter transform and limits replaced from
+        a .model/.cfg definition (path or text), on its device."""
+        from momentum_tpu_torch.io.model_definition import load_model_definition
+
+        pt, limits = load_model_definition(source, self.skeleton)
+        return dataclasses.replace(self, parameter_transform=pt, limits=limits)

@@ -2,7 +2,7 @@
 momentum_tpu/compat.py: the array operations of `pymomentum.geometry`
 (geometry_pybind.cpp:159-268, array_*.cpp) under their names, batched over
 leading dims. FK runs through K1 for CUDA tensors. The loaders of markers
-and motions read files and come with the IO (ROADMAP M10).
+and motions read their files through momentum_tpu_torch/io.
 """
 
 from __future__ import annotations
@@ -51,6 +51,9 @@ __all__ = [
     "reduce_mesh_by_vertices",
     "classify_triangles_by_texture",
     "split_mesh_by_texture_region",
+    "load_markers",
+    "load_markers_from_bytes",
+    "load_motion",
     "is_fbxsdk_available",
 ]
 
@@ -376,6 +379,30 @@ def split_mesh_by_texture_region(*args, **kwargs):
         split_mesh_by_texture_region as impl)
 
     return impl(*args, **kwargs)
+
+
+def load_markers(path, main_subject_only=True, up="y"):
+    """pymomentum.geometry.load_markers (geometry_pybind.cpp:970): one
+    io.RawMarkerData a subject; `.to_marker_sequence()` puts one on the
+    card."""
+    from momentum_tpu_torch.io.markers import load_markers as _impl
+
+    return _impl(path, main_subject_only=main_subject_only, up=up)
+
+
+def load_markers_from_bytes(data, format, main_subject_only=True, up="y"):
+    """pymomentum.geometry.load_markers_from_bytes."""
+    from momentum_tpu_torch.io.markers import load_markers_from_bytes as _impl
+
+    return _impl(data, format, main_subject_only=main_subject_only, up=up)
+
+
+def load_motion(gltf_filename):
+    """pymomentum.geometry.load_motion: motion-only GLB read →
+    (motion, parameter_names, identity, joint_names) as numpy."""
+    from momentum_tpu_torch.io.gltf import load_motion_glb
+
+    return load_motion_glb(gltf_filename)
 
 
 def is_fbxsdk_available() -> bool:

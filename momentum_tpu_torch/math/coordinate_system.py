@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from momentum_tpu_torch.device import resolve
+
 __all__ = [
     "UP_X", "UP_Y", "UP_Z",
     "HAND_LEFT", "HAND_RIGHT",
@@ -68,10 +70,12 @@ def _axes(up: str, hand: str) -> np.ndarray:
 
 
 def permutation_matrix(src: CoordinateSystem, dst: CoordinateSystem,
-                       device=None) -> torch.Tensor:
-    """The signed permutation P with v_dst = P · v_src (float32)."""
+                       device="cuda") -> torch.Tensor:
+    """The signed permutation P with v_dst = P · v_src (float32), on
+    `device` (the card unless the caller asks for the CPU)."""
     p = _axes(dst.up, dst.hand) @ _axes(src.up, src.hand).T
-    return torch.as_tensor(p, dtype=torch.float32, device=device)
+    return torch.as_tensor(p, dtype=torch.float32,
+                           device=resolve(device, "permutation_matrix"))
 
 
 def change_vector(v: torch.Tensor, src: CoordinateSystem,

@@ -2137,3 +2137,131 @@ def simplified_tables(char) -> dict:
                         for f in dataclasses.fields(lim)},
                 mesh_faces=array_digest(char.mesh.faces.cpu().numpy()),
                 num_vertices=int(char.mesh.num_vertices))
+
+
+# ---- config IO: the file layer (momentum_tpu_torch/io) ----
+
+IO_REFERENCE_DIR = "tools/jax_reference_io"  # python tools/jax_reference.py --configs io
+IO_LIMIT_KEYS = (
+    "minmax_index", "minmax_bounds", "minmax_weight", "minmax_joint_index",
+    "minmax_joint_bounds", "minmax_joint_weight", "minmax_joint_passive", "linear_ref",
+    "linear_tgt", "linear_scale", "linear_offset", "linear_range", "linear_weight",
+    "linear_joint_ref", "linear_joint_tgt", "linear_joint_scale", "linear_joint_offset",
+    "linear_joint_range", "linear_joint_weight", "halfplane_idx1", "halfplane_idx2",
+    "halfplane_normal", "halfplane_offset", "halfplane_weight", "ellipsoid_parent",
+    "ellipsoid_frame_parent", "ellipsoid_point_offset", "ellipsoid_mat", "ellipsoid_inv",
+    "ellipsoid_weight")
+# the tables a loader computes by FK rather than reads: held within a
+# tolerance, every other table bit for bit
+IO_COMPUTED_KEYS = ("inverse_bind_pose", "states")
+
+
+def character_tables(char, prefix: str) -> dict:
+    """A character's tables as host numpy arrays under `prefix.`: skeleton,
+    parameter transform (its sets and pose presets as JSON), every limit
+    table, locators, mesh, skin, inverse bind pose and bodies, with their
+    names (tools/jax_reference.py::io_tables gives the same keys for a JAX
+    character)."""
+    import json
+
+    from momentum_tpu_torch.device import to_host
+
+    sk, pt, lo = char.skeleton, char.parameter_transform, char.locators
+    d = dict(joint_parent=sk.joint_parent, pre_rotation=sk.pre_rotation,
+             translation_offset=sk.translation_offset, joint_names=list(sk.joint_names),
+             transform=pt.transform, offsets=pt.offsets, parameter_names=list(pt.names),
+             parameter_sets=json.dumps({k: list(v) for k, v in pt.parameter_sets.items()}),
+             pose_constraints=json.dumps({k: [list(p) for p in v]
+                                          for k, v in pt.pose_constraints.items()}))
+    d.update({k: getattr(char.limits, k) for k in IO_LIMIT_KEYS})
+    if lo is not None:
+        d.update(locator_parent=lo.parent, locator_offset=lo.offset, locator_weight=lo.weight,
+                 locator_names=list(lo.names))
+    if char.mesh is not None:
+        d.update(mesh_vertices=char.mesh.vertices, mesh_faces=char.mesh.faces)
+        if char.mesh.normals is not None:
+            d.update(mesh_normals=char.mesh.normals)
+    if char.skin_weights is not None:
+        d.update(skin_index=char.skin_weights.index, skin_weight=char.skin_weights.weight)
+    if char.inverse_bind_pose is not None:
+        d.update(inverse_bind_pose=char.inverse_bind_pose)
+    pp = char.physical_properties
+    if pp is not None:
+        d.update(body_joint_index=pp.joint_index, body_mass=pp.mass,
+                 body_center_of_mass_offset=pp.center_of_mass_offset,
+                 body_inertia=pp.inertia, body_inertia_rotation=pp.inertia_rotation,
+                 body_joint_names=list(pp.joint_names))
+    return {f"{prefix}.{k}": np.asarray(to_host(v)) for k, v in d.items()}
+
+
+def io_reference_loads(directory: str, device="cuda") -> dict:
+    """What the port's loaders give for each file of `directory` (written by
+    python tools/jax_reference.py --configs io), loaded onto `device` (the
+    card unless the caller asks for the CPU), under the keys of
+    jax_reference_io.npz."""
+    import os
+
+    from momentum_tpu_torch import io as tio
+    from momentum_tpu_torch.device import to_host
+    from momentum_tpu_torch.io.gltf import load_character_glb_with_skel_states
+
+    device = resolve(device, "io_reference_loads")
+    path = lambda name: os.path.join(directory, name)  # noqa: E731
+    out = {}
+    char, motion, fps, markers = tio.load_character_glb(path("fullbody.glb"),
+                                                        return_markers=True, device=device)
+    out.update(character_tables(char, "glb"))
+    lm_motion, lm_names, lm_identity, lm_joints = tio.load_motion(path("fullbody.glb"))
+    out.update({"glb.motion": to_host(motion), "glb.fps": np.asarray(fps),
+                "glb.marker_positions": to_host(markers.positions),
+                "glb.marker_occluded": to_host(markers.occluded),
+                "glb.marker_names": np.asarray(list(markers.names)),
+                "glb.timestamps": tio.gltf.load_motion_timestamps(path("fullbody.glb")),
+                "glb.load_motion": lm_motion, "glb.load_motion_names": np.asarray(lm_names),
+                "glb.identity": lm_identity, "glb.identity_joint_names": np.asarray(lm_joints)})
+    got, states, fps = load_character_glb_with_skel_states(path("fullbody_skel_states.glb"),
+                                                           device=device)
+    out.update(character_tables(got, "skel"))
+    out.update({"skel.states": to_host(states), "skel.fps": np.asarray(fps)})
+    pt, limits = tio.load_model_definition(path("fullbody.model"), char.skeleton)
+    keep = ("transform", "offsets", "parameter_names", "parameter_sets",
+            "pose_constraints") + IO_LIMIT_KEYS
+    out.update({k: v for k, v in character_tables(dataclasses.replace(
+        char, parameter_transform=pt, limits=limits), "model").items()
+        if k.split(".", 1)[1] in keep})
+    loc = tio.load_locators(path("fullbody.locators"), char)
+    out.update({f"locators.{k}": to_host(getattr(loc, k)) for k in (
+        "parent", "offset", "weight", "locked", "limit_weight", "limit_origin",
+        "attached_to_skin", "skin_offset")})
+    out["locators.names"] = np.asarray(list(loc.names))
+    out.update(character_tables(tio.load_legacy_json(path("fullbody.json"), device=device),
+                                "json"))
+    mp = tio.load_mppca(path("fullstack.mppca"), device=device)
+    out.update({f"mppca.{k}": to_host(getattr(mp, k)) for k in ("mu", "cinv", "l", "rpre")})
+    out["mppca.names"] = np.asarray(list(mp.names))
+    poses, scale, pnames, jnames = tio.load_mmo(path("fullbody.mmo"))
+    out.update({"mmo.poses": poses, "mmo.scale": scale,
+                "mmo.parameter_names": np.asarray(pnames), "mmo.joint_names": np.asarray(jnames)})
+    for key, name in (("trc", "take.trc"), ("c3d_real", "take_real.c3d"),
+                      ("c3d_integer", "take_integer.c3d")):
+        raw = tio.load_markers(path(name))[0]
+        out.update({f"{key}.positions": raw.positions, f"{key}.occluded": raw.occluded,
+                    f"{key}.names": np.asarray(raw.names), f"{key}.fps": np.asarray(raw.fps)})
+    return out
+
+
+def io_mismatches(got: dict, want: dict, computed_tol: float) -> list:
+    """The keys on which two io table dicts differ: missing on either side,
+    a dtype kind or shape apart, or values not equal bit for bit (NaN equal
+    to NaN) — within `computed_tol` for IO_COMPUTED_KEYS."""
+    bad = sorted(set(got) ^ set(want))
+    for k in sorted(set(got) & set(want)):
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        if a.dtype.kind != b.dtype.kind or a.shape != b.shape:
+            bad.append(k)
+        elif k.rsplit(".", 1)[-1] in IO_COMPUTED_KEYS:
+            if not np.allclose(a, b, rtol=0.0, atol=computed_tol):
+                bad.append(k)
+        elif not np.array_equal(a, b, equal_nan=a.dtype.kind == "f"):
+            bad.append(k)
+    return bad

@@ -2,7 +2,7 @@
 momentum_tpu/tracking/process_markers.py (marker_tracking/process_markers.h):
 `calibrate_markers` (process_markers.cpp:132) and `process_markers` (:202).
 `process_marker_file` and `save_motion` read and write C3D, FBX and GLB
-files and wait for the port's IO (ROADMAP M10)."""
+files and come with the FBX part of the port's IO (ROADMAP M10 part 2)."""
 
 from __future__ import annotations
 

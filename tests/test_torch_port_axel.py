@@ -56,6 +56,7 @@ from momentum_tpu_torch.character import support_contacts as tsc
 from momentum_tpu_torch.math import mesh_ops as tmo, support_polygon as tsp
 
 from test_torch_port_helpers import character_to_numpy
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 GRAD_TOL = 1e-5
 EXTENT_TOL = 1e-5

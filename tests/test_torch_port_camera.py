@@ -19,6 +19,7 @@ from momentum_tpu import camera as jcam
 from momentum_tpu_torch import bridge, camera as tcam
 
 from test_torch_port_helpers import camera_to_numpy
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 PX = dict(rtol=1e-5, atol=1e-3)
 

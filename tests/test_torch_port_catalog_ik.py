@@ -12,17 +12,18 @@ to 5% or 1e-8 of the median total (a converged term's float32 roundoff).
 
 import pathlib
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from momentum_tpu_torch.testing import workloads
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "tools"))
 import jax_reference  # noqa: E402
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 BATCH = 16
 
@@ -51,17 +52,9 @@ def test_recipes_are_the_tools():
                                                      workloads.catalog_draws(16, 0, 157)))
 
 
-@pytest.fixture(scope="module")
-def solved():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        problem = workloads.build_catalog_ik_problem(BATCH, device="cpu")
-        res = workloads.solve_catalog(problem)
-        port = {k: v.numpy().astype(np.float64)
-                for k, v in workloads.catalog_energies(problem, res.params).items()}
-    finally:
-        torch.set_num_threads(threads)
+def _jax_catalog_energies():
+    """JAX's per-module energies of config C's LM at B = BATCH, each
+    element one vmapped solve (tools/jax_reference.py's recipe)."""
     from momentum_tpu.solver import SkeletonSolverFunction, SolverOptions
     from momentum_tpu.solver.ik import solve_ik
 
@@ -83,6 +76,20 @@ def solved():
     for i, label in enumerate(labels):
         ref[label] = ref.get(label, 0.0) + per[:, i]
     ref["total"] = per.sum(axis=1)
+    return ref
+
+
+@pytest.fixture(scope="module")
+def solved():
+    """The port's solve (on one torch thread, the module's) and JAX's (in a
+    thread meanwhile: XLA runs outside the GIL)."""
+    with ThreadPoolExecutor(1) as pool:
+        jax_run = pool.submit(_jax_catalog_energies)
+        problem = workloads.build_catalog_ik_problem(BATCH, device="cpu")
+        res = workloads.solve_catalog(problem)
+        port = {k: v.numpy().astype(np.float64)
+                for k, v in workloads.catalog_energies(problem, res.params).items()}
+        ref = jax_run.result()
     return problem, port, ref
 
 

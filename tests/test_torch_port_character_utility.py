@@ -74,6 +74,7 @@ from momentum_tpu_torch.solver import (
     SkeletonSolverFunction as TFn, SolverOptions as TOpts, solve_ik as tsolve_ik)
 from momentum_tpu_torch.testing import workloads as twork
 from test_torch_port_helpers import LIMIT_KEYS, character_to_numpy, jax_fullbody_character
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "tools"))
 import jax_reference  # noqa: E402
@@ -308,18 +309,9 @@ def test_f25_jax_transform_pose_wraps_root_translation():
 
 # ---- Character, ParameterTransform, Skeleton, Locators, Mesh, PhysicalProperties ----
 
-M10_MEMBERS = {"load_gltf", "load_gltf_with_motion", "load_fbx", "load_fbx_with_motion",
-               "load_urdf", "load_legacy_json", "save_gltf", "save_fbx",
-               "save_fbx_with_joint_params", "save_legacy_json", "load_locators",
-               "save_locators", "load_model_definition", "load_gltf_from_bytes",
-               "load_gltf_with_motion_from_bytes", "load_gltf_with_skel_states",
-               "load_gltf_with_skel_states_from_bytes", "load_fbx_from_bytes",
-               "load_fbx_with_motion_from_bytes", "load_legacy_json_from_bytes",
-               "load_legacy_json_from_string", "load_motion_timestamps", "save",
-               "save_gltf_from_skel_states", "save_with_skel_states", "to_gltf",
-               "to_legacy_json_string",
-               # Mppca's .mppca file members (io/pose_prior.py)
-               "load", "to_bytes", "from_bytes"}
+M10_MEMBERS = {"load_fbx", "load_fbx_with_motion", "load_fbx_from_bytes",
+               "load_fbx_with_motion_from_bytes", "save_fbx", "save_fbx_with_joint_params",
+               "load_urdf"}
 
 
 def _members(cls):
@@ -746,7 +738,7 @@ def test_replace_skeleton_hierarchy(case):
 # ---- compat ----
 
 def test_compat_names_are_jax_names():
-    m10 = {"load_markers", "load_markers_from_bytes", "load_motion"}
+    m10 = set()
     assert set(tcompat.__all__) == set(jcompat.__all__) - m10
     # the module's other public functions and classes too (JAX's compat
     # imports apply_ssd and skinning_matrices from the skinning module)

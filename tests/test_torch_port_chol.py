@@ -12,6 +12,7 @@ import torch
 
 from momentum_tpu.ops.chol_pallas import chol_solve_pallas, chol_solve_pallas_blocked
 from momentum_tpu_torch.ops import chol
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 ATOL = 3e-6  # tests/test_chol_pallas.py, on x / max|x|
 

@@ -53,6 +53,23 @@ def test_fk_kernel_matches_plain(cuda_problem):
                                    rtol=0, atol=2e-5)
 
 
+def test_fk_kernel_on_a_loaded_rig(cuda_problem):
+    """FK of the rig written to .glb and loaded onto the card through K1:
+    the plain version's states, and the in-memory rig's, at 2e-5."""
+    from momentum_tpu_torch.io.gltf import _character_glb_bytes, load_character_glb
+
+    char, _, _, x0 = cuda_problem
+    loaded, motion, _ = load_character_glb(_character_glb_bytes(char, motion=x0[:64]))
+    assert loaded.skeleton.joint_parent.device.type == "cuda" and motion.is_cuda
+    local = fk.local_skel_states(loaded.skeleton, loaded.parameter_transform.apply(motion))
+    before = fk_ops.launches
+    out = fk_ops.fk_global(loaded.skeleton, local.contiguous())
+    assert fk_ops.launches == before + 1
+    torch.testing.assert_close(out, fk_ops.fk_global_plain(loaded.skeleton, local),
+                               rtol=0, atol=2e-5)
+    torch.testing.assert_close(out, char.skeleton_states(x0[:64]), rtol=0, atol=2e-5)
+
+
 @pytest.mark.parametrize("batch", [1, 3, 4, 5, 32, 37, 2048])
 def test_fk_kernel_batch_sizes(cuda_problem, batch):
     """Four elements of 64 joint slots per block: ragged last blocks (1, 3,

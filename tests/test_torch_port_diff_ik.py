@@ -47,6 +47,7 @@ from momentum_tpu_torch.testing.fixtures import create_test_character
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "tools"))
 import jax_reference  # noqa: E402
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 B = 3
 OPTS = dict(max_iterations=40, regularization=1e-6)

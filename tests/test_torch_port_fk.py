@@ -21,6 +21,7 @@ from momentum_tpu_torch.math import quaternion as tquat, skel_state as tss
 from momentum_tpu_torch.ops import fk as fk_ops
 
 from test_torch_port_helpers import jax_fullbody_character, port_fullbody_character
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 MATH_TOL = dict(rtol=1e-6, atol=1e-6)
 FK_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -21,6 +21,7 @@ flips on these inputs).
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +49,7 @@ from test_torch_port_helpers import (
     character_to_numpy, jax_fullbody_character, jax_fullstack_modules,
     orientation_error_to_numpy, port_fullbody_character,
     port_fullstack_modules as _port_modules)
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 ROW_ATOL = 1e-5
 ENERGY_RTOL = 1e-5
@@ -317,6 +319,15 @@ def test_unported_solver_options_raise(stack):
     # (started past its limit) already differs by 6.5e-3 between the
     # packages, along near-null directions (ROADMAP F5)
     base = dict(max_iterations=3)
+    searched = ((dict(do_line_search=True), "gauss_newton"), ({}, "gradient_descent"))
+
+    def jax_side():
+        return [np.asarray(jfn.error(jax_solve_ik(
+            jfn, jnp.asarray(x), None, JaxSolverOptions(**base, **kw), method=method).params))
+            for kw, method in searched]
+
+    pool = ThreadPoolExecutor(1)  # JAX's solves meanwhile: XLA runs outside the GIL
+    jax_run = pool.submit(jax_side)
     chol = solve_gauss_newton(fn.residual, fn.error, xt, options=SolverOptions(**base),
                               normal_fn=fn.normal_equations)
     qr = solve_gauss_newton(fn.residual, fn.error, xt,
@@ -331,14 +342,13 @@ def test_unported_solver_options_raise(stack):
                               normal_fn=fn.normal_equations)
     assert hist.param_history.shape == (3,) + xt.shape
     torch.testing.assert_close(hist.param_history[-1], hist.params, rtol=0, atol=0)
-    for kw, method in ((dict(do_line_search=True), "gauss_newton"), ({}, "gradient_descent")):
+    with pool:
+        jax_errors = jax_run.result()
+    for (kw, method), want in zip(searched, jax_errors):
         rt = solve_ik(fn, xt, options=SolverOptions(**base, **kw), method=method)
-        rj = jax_solve_ik(jfn, jnp.asarray(x), None, JaxSolverOptions(**base, **kw),
-                          method=method)
         # three float32 iterates of each package; element 0 moves most
         # (measured 3.3e-3 apart after the line-searched GN)
-        np.testing.assert_allclose(fn.error(rt.params).numpy(),
-                                   np.asarray(jfn.error(rj.params)), rtol=1e-2, err_msg=method)
+        np.testing.assert_allclose(fn.error(rt.params).numpy(), want, rtol=1e-2, err_msg=method)
     lm = solve_ik(fn, xt, options=SolverOptions(store_history=True, **base),
                   method="levenberg_marquardt")
     assert lm.error_history.shape == (3, 3) and lm.lambda_final.shape == (3,)

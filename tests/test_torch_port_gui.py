@@ -32,6 +32,7 @@ from momentum_tpu_torch.gui import viser_vis as tvv
 
 from test_torch_port_helpers import (
     camera_to_numpy, character_to_numpy, jax_fullbody_character, port_fullbody_character)
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 T = torch.as_tensor
 

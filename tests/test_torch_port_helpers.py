@@ -6,6 +6,21 @@ comparison."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for a test module: its CPU work is many small ops
+    beside XLA's thread pool, and the suite runs several workers on the
+    machine's cores, where more threads a worker only contend (imported
+    into a module, it applies to that module's tests)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 # the limit tables of a ParameterLimits (the same field names in both packages)
@@ -259,3 +274,69 @@ def tile_edge_scene(name: str):
     verts = np.concatenate([tris, z[..., None]], -1).reshape(-1, 3)
     faces = np.arange(len(verts), dtype=np.int32).reshape(-1, 3)
     return verts.astype(np.float32), faces, w, h
+
+
+def io_jax_rig(num_joints: int = 5):
+    """A small JAX rig with every table the file layer writes: the test
+    character's mesh, skin, locators (with their optional fields) and
+    collision capsules, bodies one a joint, all seven limit record types,
+    parameter sets and pose presets."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from momentum_tpu.character.character import PhysicalProperties
+    from momentum_tpu.character.limits import make_limits
+    from momentum_tpu.testing.fixtures import create_test_character
+    from momentum_tpu_torch.testing.workloads import utility_bodies
+
+    base = create_test_character(num_joints)
+    skel = base.skeleton
+    nj, p = skel.num_joints, base.num_model_parameters
+    rng = np.random.default_rng(31)
+    loc = base.locators
+    n = loc.num_locators
+    locators = dataclasses.replace(
+        loc, locked=jnp.asarray(rng.integers(0, 2, (n, 3)).astype(np.float32)),
+        limit_weight=jnp.asarray(np.where(rng.random((n, 3)) < 0.5, 0.0,
+                                          rng.uniform(0, 1, (n, 3))).astype(np.float32)),
+        limit_origin=loc.offset,
+        attached_to_skin=jnp.asarray(rng.integers(0, 2, n).astype(np.float32)),
+        skin_offset=jnp.asarray(np.where(rng.random(n) < 0.5, 0.0,
+                                         rng.uniform(0, 0.1, n)).astype(np.float32)))
+    ell = np.eye(4, dtype=np.float32)
+    ell[:3, :3] = np.diag([0.5, 0.3, 0.4])
+    ell[:3, 3] = [0.2, 0.0, 0.1]
+    limits = make_limits(
+        minmax=[(1, -1.0, 1.0, 1.0), (7, -0.5, 0.5, 2.0), (p - 1, -0.3, 0.3, 1.0)],
+        minmax_joint=[(1, 3, -0.3, 0.3, 1.0, False), (2, 4, -0.2, 0.2, 1.0, True)],
+        linear=[(7, 8, 0.5, 0.1, -1.0, 1.0, 1.0)],
+        linear_joint=[(1 * 7 + 3, (nj - 1) * 7 + 3, 0.5, 0.0,
+                       -float(np.finfo(np.float32).max), float(np.finfo(np.float32).max),
+                       1.0)],
+        halfplane=[(7, 8, 0.6, 0.8, -0.1, 1.0)],
+        ellipsoid=[(nj - 1, 0, np.asarray([0.1, 0.0, 0.0], np.float32), ell, 1.0)])
+    bodies = utility_bodies(np.asarray(skel.joint_parent), np.asarray(skel.translation_offset))
+    pt = dataclasses.replace(base.parameter_transform,
+                             parameter_sets={"scaling": (6,), "arms": (7, 8)},
+                             pose_constraints={"rest": ((7, 0.0), (8, 0.25))})
+    return dataclasses.replace(
+        base, parameter_transform=pt, locators=locators, limits=limits,
+        physical_properties=PhysicalProperties(
+            **{k: jnp.asarray(v) for k, v in bodies.items()}, joint_names=skel.joint_names))
+
+
+def port_of(jchar):
+    """A JAX character carried into the port through bridge.py, on the CPU."""
+    from momentum_tpu_torch.bridge import character_from_numpy
+
+    return character_from_numpy(character_to_numpy(jchar, names=True), device="cpu")
+
+
+def assert_io_tables_equal(got: dict, want: dict, computed_tol: float = 1e-6):
+    """Two dicts of io tables (workloads.character_tables and the like)
+    equal bit for bit, the FK-computed ones within computed_tol."""
+    from momentum_tpu_torch.testing.workloads import io_mismatches
+
+    bad = io_mismatches(got, want, computed_tol)
+    assert not bad, bad

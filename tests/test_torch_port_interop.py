@@ -43,6 +43,7 @@ from momentum_tpu_torch.testing import workloads
 from momentum_tpu_torch.testing.fixtures import create_test_character
 
 from test_torch_port_helpers import character_to_numpy
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "tools"))
 import jax_reference  # noqa: E402

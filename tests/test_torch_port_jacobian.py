@@ -24,6 +24,7 @@ from momentum_tpu_torch.solver import SkeletonSolverFunction as TFn
 
 from test_torch_port_helpers import (
     jax_fullbody_character, port_fullbody_character, position_error_to_numpy)
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B = 8

@@ -21,6 +21,7 @@ from momentum_tpu.math import linalg as jlinalg
 from momentum_tpu.ops.psd_pallas import psd_solve_pallas
 from momentum_tpu_torch.math import linalg as tlinalg
 from momentum_tpu_torch.ops import psd
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 RELRES_TOL = 1e-4
 

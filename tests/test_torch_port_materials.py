@@ -28,6 +28,7 @@ from momentum_tpu_torch import bridge
 from momentum_tpu_torch.rasterizer import materials as tm
 
 from test_torch_port_rasterizer import scene  # noqa: F401  (module fixture)
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 T = torch.as_tensor
 

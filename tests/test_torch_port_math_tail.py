@@ -30,6 +30,7 @@ from momentum_tpu_torch.math import (
     coordinate_system as tcs, covariance as tcov, quaternion as tq, skel_state as tss,
     trs as ttrs)
 from momentum_tpu_torch.utils import random as trandom
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 TOL = 1e-6
 
@@ -341,7 +342,7 @@ def test_coordinate_system_changes(i):
     for dst in SYSTEMS:
         js, jd = (jcs.CoordinateSystem(c.up, c.hand, c.unit) for c in (src, dst))
         assert tcs.scale_factor(src, dst) == jcs.scale_factor(js, jd)
-        np.testing.assert_array_equal(tcs.permutation_matrix(src, dst).numpy(),
+        np.testing.assert_array_equal(tcs.permutation_matrix(src, dst, device="cpu").numpy(),
                                       np.asarray(jcs.permutation_matrix(js, jd)))
         _close(tcs.change_vector(T(v), src, dst), jcs.change_vector(J(v), js, jd), 1e-5)
         _close(tcs.change_matrix(T(r), src, dst), jcs.change_matrix(J(r), js, jd))

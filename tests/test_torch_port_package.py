@@ -28,6 +28,7 @@ from momentum_tpu_torch.ops import fk as fk_ops, psd, raster
 from momentum_tpu_torch.testing import fixtures, workloads
 from momentum_tpu_torch import rasterizer as R, tracking
 from momentum_tpu_torch.gui import auto_camera
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -86,6 +87,9 @@ def test_port_imports_no_jax():
         "new |= {'momentum_tpu_torch.parallel', 'momentum_tpu_torch.parallel.batch',\n"
         "        'momentum_tpu_torch.parallel.collectives', 'momentum_tpu_torch.sequence.sharded',\n"
         "        'momentum_tpu_torch.testing.distributed'}\n"
+        "new |= {f'momentum_tpu_torch.io.{m}' for m in ('_physical', 'limits_json', 'locators',\n"
+        "        'model_definition', 'legacy_json', 'gltf', 'gltf_builder', 'pose_prior',\n"
+        "        'shape', 'markers', 'motion', 'obj', 'character_io')} | {'momentum_tpu_torch.io'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "assert len(names) >= 30, names\n"
         "print('ok', len(names))\n")
@@ -275,6 +279,74 @@ def _load_sdfs(load, **kw):
         return tuple(f for f, _ in load(path, **kw).values())
 
 
+def _permutation_matrix(**kw):
+    from momentum_tpu_torch.math.coordinate_system import (
+        CoordinateSystem, permutation_matrix)
+
+    return permutation_matrix(CoordinateSystem(), CoordinateSystem(up="z"), **kw)
+
+
+def _in_file(suffix: str, data: bytes, load):
+    """`load` of a file holding `data`."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / f"f{suffix}"
+        path.write_bytes(data)
+        return load(str(path))
+
+
+def _io_loaders() -> dict:
+    """The file layer's loaders, each on a small file the port writes from
+    a CPU build of the test rig."""
+    from momentum_tpu_torch import io as tio
+    from momentum_tpu_torch.character import BlendShape, Character
+    from momentum_tpu_torch.errors import Mppca
+    from momentum_tpu_torch.io import gltf, legacy_json, pose_prior, shape
+
+    rig = fixtures.create_test_character(4, device="cpu")
+    motion = torch.zeros(2, rig.num_model_parameters)
+    glb = gltf._character_glb_bytes(rig, motion=motion)
+    text = legacy_json.legacy_json_text(rig)
+    prior = pose_prior.mppca_to_bytes(Mppca.from_components(
+        pi=[1.0], mu=np.zeros((1, 2)), w_list=[np.ones((2, 1))], sigma2=[1.0], device="cpu"))
+    basis = BlendShape(base_shape=torch.zeros(3, 3), shape_vectors=torch.ones(2, 3, 3))
+
+    def blend_bytes():
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            shape.save_blend_shape(pathlib.Path(tmp) / "b.bin", basis)
+            return (pathlib.Path(tmp) / "b.bin").read_bytes()
+
+    raw = tio.RawMarkerData(np.zeros((2, 3, 3), np.float32), np.zeros((2, 3), bool),
+                            ["a", "b", "c"], 120.0)
+    return {
+        "load_character_glb": lambda **kw: tio.load_character_glb(glb, **kw),
+        "load_character_glb_with_skel_states":
+            lambda **kw: gltf.load_character_glb_with_skel_states(glb, **kw),
+        "load_all_characters_glb": lambda **kw: tuple(tio.load_all_characters_glb(glb, **kw)),
+        "Character.load_gltf_from_bytes": lambda **kw: Character.load_gltf_from_bytes(glb, **kw),
+        "Character.load_gltf_with_skel_states_from_bytes":
+            lambda **kw: Character.load_gltf_with_skel_states_from_bytes(glb, **kw),
+        "load_legacy_json": lambda **kw: tio.load_legacy_json(text, **kw),
+        "Character.load_legacy_json_from_string":
+            lambda **kw: Character.load_legacy_json_from_string(text, **kw),
+        "load_full_character": lambda **kw: _in_file(
+            ".json", text.encode(), lambda p: tio.load_full_character(p, **kw)),
+        "load_mppca": lambda **kw: _in_file(".mppca", prior,
+                                            lambda p: tio.load_mppca(p, **kw)),
+        "Mppca.from_bytes": lambda **kw: Mppca.from_bytes(prior, **kw),
+        "load_blend_shape": lambda **kw: _in_file(
+            ".bin", blend_bytes(), lambda p: shape.load_blend_shape(p, **kw)),
+        "load_blend_shape_base": lambda **kw: _in_file(
+            ".bin", blend_bytes(), lambda p: shape.load_blend_shape_base(p, **kw)),
+        "RawMarkerData.to_marker_sequence": lambda **kw: raw.to_marker_sequence(**kw),
+        "GltfBuilder.add_mesh": lambda **kw: tio.GltfBuilder().add_mesh(
+            np.eye(3), [[0, 1, 2]], **kw)._entries[0]["character"],
+    }
+
+
 def _sdf_constructors() -> dict:
     from momentum_tpu_torch import axel
     from momentum_tpu_torch.math.support_polygon import SupportPlane
@@ -301,6 +373,7 @@ def _sdf_constructors() -> dict:
 # arguments; called with no device they build on the card
 _CONSTRUCTORS = {
     **_sdf_constructors(),
+    **_io_loaders(),
     "make_skeleton": lambda **kw: make_skeleton([-1, 0], **kw),
     "make_limits": lambda **kw: make_limits(minmax=[(0, -0.1, 0.1, 1.0)], **kw),
     "PositionErrorFunction.create": lambda **kw: PositionErrorFunction.create(
@@ -336,6 +409,7 @@ _CONSTRUCTORS = {
     "LowRankCovarianceMatrix.create": lambda **kw: LowRankCovarianceMatrix.create(
         0.5, np.ones((1, 3)), **kw),
     "make_identity_transform": lambda **kw: make_identity_transform(2, **kw),
+    "permutation_matrix": lambda **kw: _permutation_matrix(**kw),
     "make_empty_limits": lambda **kw: make_empty_limits(**kw),
     "GlobalRandom.key": lambda **kw: GlobalRandom(3).key(**kw),
     "compat.find_closest_points": lambda **kw: compat.find_closest_points(

@@ -35,6 +35,7 @@ from momentum_tpu_torch.solver.gauss_newton import ad_jacobian
 from test_torch_port_helpers import (
     jax_fullbody_character, jax_fullstack_modules, port_fullbody_character,
     port_fullstack_modules)
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 JAC_TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -30,6 +30,7 @@ from momentum_tpu_torch.bridge import camera_from_numpy
 
 from test_torch_port_helpers import (
     camera_to_numpy, jax_fullbody_character, port_fullbody_character)
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 from test_torch_port_rasterizer import _assert_render
 
 T = torch.as_tensor

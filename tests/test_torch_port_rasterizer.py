@@ -30,6 +30,7 @@ from momentum_tpu_torch.bridge import camera_from_numpy
 from momentum_tpu_torch.rasterizer import render as tr
 
 from test_torch_port_helpers import camera_to_numpy, jax_fullbody_character
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 T = torch.as_tensor
 
@@ -290,7 +291,7 @@ def test_render_signatures_are_jax(name, scene):
     s = scene
     verts, faces = T(s["verts"]), T(s["faces"])
     values = dict(camera=s["cam_t"], vertices=verts, faces=faces, width=s["w"],
-                  height=s["h"], vertex_normals=None, light_dir=tr.LIGHT_DIR, chunk=16,
+                  height=s["h"], vertex_normals=None, light_dir=tr.LIGHT_DIR, chunk=1000,
                   method="dense", extra_vertex_attrs=None, resolution=32,
                   shadow_resolution=32, shadow_bias=5e-2)
     args = [values[n] for n in st.parameters]

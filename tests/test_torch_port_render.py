@@ -30,6 +30,7 @@ from momentum_tpu_torch.rasterizer import render
 from test_torch_port_helpers import (
     TILE_EDGE_SCENES, camera_to_numpy, character_to_numpy, jax_fullbody_character,
     port_fullbody_character, tile_edge_scene, to_numpy)
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 T = torch.as_tensor
 

@@ -56,6 +56,7 @@ from momentum_tpu_torch.testing.fixtures import create_test_character
 from momentum_tpu_torch.tracking import track_poses_batched
 
 import torch_port_sharded_ranks as ranks_side
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 WORLDS = (1, 2, 4)
 JOIN_TIMEOUT = 240.0
@@ -230,7 +231,6 @@ def test_sequence_world1_matches_solve_sequence(runs, name):
     port, _, inputs = runs
     case = inputs["sequence"][name]
     fn = ranks_side.sequence_function(case)
-    torch.set_num_threads(1)
     ref = solve_sequence(fn, torch.zeros(case["frames"], fn.num_per_frame),
                          torch.zeros(fn.num_universal), SolverOptions(**case["options"]))
     got = port[1][0]["sequence"][name]

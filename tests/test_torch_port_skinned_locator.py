@@ -34,6 +34,7 @@ Tolerances, each with what this file measured:
 import dataclasses
 import pathlib
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -310,13 +311,16 @@ def test_config_sl_matches_the_tool():
     recipe: the skinned-locator tables and the triangle recipe equal, each
     module's median final energy within 20%, conv_at_1e5 within one
     element, get_locator_error of the first 8 within 2%, nothing
-    divergent."""
-    prob = twork.build_skinned_ik_problem(16, device="cpu")
-    res = twork.solve_catalog(prob)
-    more = twork.solve_catalog(prob, x0=res.params, iterations=20)
-    got = twork.catalog_figures(prob, res.params, more.params)
-    err = tlocerr(prob.char, twork.skinned_marker_sequence(prob, 8), res.params[:8])
-    want = jax_reference.skinned(16, chunk=16, frames=8)
+    divergent. The tool runs in a thread meanwhile (XLA runs outside the
+    GIL)."""
+    with ThreadPoolExecutor(1) as pool:
+        tool = pool.submit(jax_reference.skinned, 16, chunk=16, frames=8)
+        prob = twork.build_skinned_ik_problem(16, device="cpu")
+        res = twork.solve_catalog(prob)
+        more = twork.solve_catalog(prob, x0=res.params, iterations=20)
+        got = twork.catalog_figures(prob, res.params, more.params)
+        err = tlocerr(prob.char, twork.skinned_marker_sequence(prob, 8), res.params[:8])
+        want = tool.result()
     sl, tables = prob.char.skinned_locators, want["tables"]
     np.testing.assert_array_equal(sl.parents.numpy(), tables["parents"])
     np.testing.assert_allclose(sl.skin_weights.numpy(), tables["skin_weights"], atol=TABLE_TOL)

@@ -33,6 +33,7 @@ from momentum_tpu_torch.character.utility import (
 
 from test_torch_port_helpers import (
     character_to_numpy, jax_fullbody_character, port_fullbody_character)
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 B = 4

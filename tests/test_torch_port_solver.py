@@ -32,6 +32,7 @@ from momentum_tpu_torch.testing import workloads as twork
 from momentum_tpu_torch.testing.fixtures import create_fullbody_character
 
 from test_torch_port_helpers import character_to_numpy, jax_fullbody_character
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 B = 64
 

@@ -46,6 +46,7 @@ from momentum_tpu_torch.testing.fixtures import create_test_character
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "tools"))
 import jax_reference  # noqa: E402
+from test_torch_port_helpers import one_torch_thread  # noqa: F401
 
 PARAM_ATOL = 2e-4
 ERR_RTOL = 1e-3

@@ -90,7 +90,16 @@ momentum_tpu_torch/testing/workloads.py:
     divergent count; U4's tables; with --utility-seeds, U3's and U4's
     figures on those seeds' draws too.
 
-    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k,diffik,variants,4x,4ad,skinned,glove,7p,sdf,utility]
+  * io, the file layer's reference files (--out-io, default
+    tools/jax_reference_io/): the full-body rig with config U's bodies as
+    .glb (8 frames of motion, a marker sequence, an identity and
+    timestamps), the same rig's 8 frames' skeleton states by GltfBuilder,
+    its .model, .locators and legacy .json, the full stack's MPPCA as
+    .mppca, the 8 frames as .mmo, and the first 64 frames of config 6s's
+    clip as .trc and as real and integer .c3d (tools/c3d_writer.py); beside
+    them jax_reference_io.npz, what JAX's loaders return for each file.
+
+    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k,diffik,variants,4x,4ad,skinned,glove,7p,sdf,utility,io]
         [--frames 1024] [--out-6s tools/jax_reference_6s.json]
         [--out-catalog tools/jax_reference_catalog.json] [--out-6k tools/jax_reference_6k.json]
         [--out-diffik tools/jax_reference_diffik.json] [--out-variants tools/jax_reference_variants.json]
@@ -99,6 +108,7 @@ momentum_tpu_torch/testing/workloads.py:
         [--out-glove tools/jax_reference_glove.json] [--out-7p tools/jax_reference_7p.json]
         [--sdf-batch 256] [--out-sdf tools/jax_reference_sdf.json]
         [--utility-batch 256] [--utility-seeds 1 2 3 4] [--out-utility tools/jax_reference_utility.json]
+        [--out-io tools/jax_reference_io]
 
 Runs the JAX package on the CPU only (no part of momentum_tpu_torch); prints
 one JSON line per figure.
@@ -1719,8 +1729,177 @@ def utility(batch, seed=0, iterations=10, more=20, chunk=32, seeds=()):
     return fig, dict(joint_parameters=jp)
 
 
+# ---- io: the file layer's reference files ----
+
+IO_FRAMES = 8  # the rig's motion in the .glb, the skeleton states and the .mmo
+IO_TAKE_FRAMES = 64  # config 6s's first frames in the .trc and .c3d files
+IO_FPS = 30.0
+IO_SEED = 17
+IO_LIMIT_KEYS = (
+    "minmax_index", "minmax_bounds", "minmax_weight", "minmax_joint_index",
+    "minmax_joint_bounds", "minmax_joint_weight", "minmax_joint_passive", "linear_ref",
+    "linear_tgt", "linear_scale", "linear_offset", "linear_range", "linear_weight",
+    "linear_joint_ref", "linear_joint_tgt", "linear_joint_scale", "linear_joint_offset",
+    "linear_joint_range", "linear_joint_weight", "halfplane_idx1", "halfplane_idx2",
+    "halfplane_normal", "halfplane_offset", "halfplane_weight", "ellipsoid_parent",
+    "ellipsoid_frame_parent", "ellipsoid_point_offset", "ellipsoid_mat", "ellipsoid_inv",
+    "ellipsoid_weight")
+
+
+def io_tables(char, prefix):
+    """workloads.py::character_tables on a JAX character, each key under
+    `prefix`."""
+    sk, pt, lo = char.skeleton, char.parameter_transform, char.locators
+    d = dict(joint_parent=sk.joint_parent, pre_rotation=sk.pre_rotation,
+             translation_offset=sk.translation_offset, joint_names=list(sk.joint_names),
+             transform=pt.transform, offsets=pt.offsets, parameter_names=list(pt.names),
+             parameter_sets=json.dumps({k: list(v) for k, v in pt.parameter_sets.items()}),
+             pose_constraints=json.dumps({k: [list(p) for p in v]
+                                          for k, v in pt.pose_constraints.items()}))
+    d.update({k: getattr(char.limits, k) for k in IO_LIMIT_KEYS})
+    if lo is not None:
+        d.update(locator_parent=lo.parent, locator_offset=lo.offset, locator_weight=lo.weight,
+                 locator_names=list(lo.names))
+    if char.mesh is not None:
+        d.update(mesh_vertices=char.mesh.vertices, mesh_faces=char.mesh.faces)
+        if char.mesh.normals is not None:
+            d.update(mesh_normals=char.mesh.normals)
+    if char.skin_weights is not None:
+        d.update(skin_index=char.skin_weights.index, skin_weight=char.skin_weights.weight)
+    if char.inverse_bind_pose is not None:
+        d.update(inverse_bind_pose=char.inverse_bind_pose)
+    pp = char.physical_properties
+    if pp is not None:
+        d.update(body_joint_index=pp.joint_index, body_mass=pp.mass,
+                 body_center_of_mass_offset=pp.center_of_mass_offset,
+                 body_inertia=pp.inertia, body_inertia_rotation=pp.inertia_rotation,
+                 body_joint_names=list(pp.joint_names))
+    return {f"{prefix}.{k}": np.asarray(v) for k, v in d.items()}
+
+
+def io_character():
+    """The full-body rig with config U's bodies (workloads.py::utility_character)."""
+    from momentum_tpu.character.character import PhysicalProperties
+    from momentum_tpu.testing.fixtures import create_fullbody_character
+
+    base = create_fullbody_character()
+    bodies = utility_bodies(np.asarray(base.skeleton.joint_parent),
+                            np.asarray(base.skeleton.translation_offset))
+    return dataclasses.replace(base, physical_properties=PhysicalProperties(
+        **{k: jnp.asarray(v) for k, v in bodies.items()}, joint_names=base.skeleton.joint_names))
+
+
+def io_draws(num_params, num_markers, num_joints):
+    """(motion (8, P), marker occlusion (8, M), identity (nJ·7,),
+    timestamps (8,)) of the reference .glb, numpy from IO_SEED."""
+    rng = np.random.default_rng(IO_SEED)
+    motion = rng.uniform(-0.3, 0.3, (IO_FRAMES, num_params)).astype(np.float32)
+    occluded = rng.random((IO_FRAMES, num_markers)) < 0.1
+    identity = rng.normal(0.0, 0.01, num_joints * 7).astype(np.float32)
+    timestamps = 1_000_000 + 33_333 * np.arange(IO_FRAMES, dtype=np.int64)
+    return motion, occluded, identity, timestamps
+
+
+def io_take():
+    """The first IO_TAKE_FRAMES frames of config 6s's clip (JAX's FK on the
+    CMU rig): (positions (F, 41, 3) mm, NaN where occluded, occluded, names)."""
+    from momentum_tpu.tracking.cmu import create_cmu_character
+
+    char = create_cmu_character()
+    motion, noise, occluded = tracking_clip_draws(343, 0, char.num_model_parameters,
+                                                  char.locators.num_locators)
+    states = jax.vmap(char.skeleton_states)(jnp.asarray(motion[:IO_TAKE_FRAMES]))
+    pos = np.asarray(jax.vmap(char.locators.world_positions)(states)) + noise[:IO_TAKE_FRAMES]
+    occ = occluded[:IO_TAKE_FRAMES]
+    return (np.where(occ[..., None], np.nan, pos).astype(np.float32), occ,
+            list(char.locators.names))
+
+
+def io_files(out_dir):
+    """Write the io reference files into out_dir and return what JAX's
+    loaders give for each (the arrays of jax_reference_io.npz)."""
+    from momentum_tpu import io as jio
+    from momentum_tpu.io.gltf import load_character_glb_with_skel_states
+    from momentum_tpu.io.markers import RawMarkerData
+    from momentum_tpu.tracking import MarkerSequence
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from c3d_writer import save_c3d
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = lambda name: os.path.join(out_dir, name)  # noqa: E731
+    char = io_character()
+    pt, nj = char.parameter_transform, char.skeleton.num_joints
+    motion, occ, identity, timestamps = io_draws(char.num_model_parameters,
+                                                 char.locators.num_locators, nj)
+    states = jax.vmap(char.skeleton_states)(jnp.asarray(motion))
+    marker_pos = np.asarray(jax.vmap(char.locators.world_positions)(states))
+    markers = MarkerSequence(positions=jnp.asarray(np.where(occ[..., None], 0.0, marker_pos)),
+                             occluded=jnp.asarray(occ), names=tuple(char.locators.names))
+    jio.save_character_glb(path("fullbody.glb"), char, motion=motion, fps=IO_FPS,
+                           markers=markers, identity=identity, timestamps=timestamps)
+    jio.GltfBuilder().add_character(char).add_skeleton_states(states).set_fps(IO_FPS).save(
+        path("fullbody_skel_states.glb"))
+    with open(path("fullbody.model"), "w") as f:
+        f.write(jio.write_model_definition(pt, char.skeleton, char.limits))
+    jio.save_locators(path("fullbody.locators"), char)
+    jio.save_legacy_json(path("fullbody.json"), char)
+    jio.save_mppca(path("fullstack.mppca"), fullstack_modules(char)[3].prior)
+    jio.save_mmo(path("fullbody.mmo"), motion, np.zeros(nj, np.float32), list(pt.names),
+                 list(char.skeleton.joint_names))
+    take_pos, take_occ, take_names = io_take()
+    jio.save_trc(path("take.trc"), RawMarkerData(take_pos, take_occ, take_names, 120.0))
+    for fmt in ("real", "integer"):
+        save_c3d(path(f"take_{fmt}.c3d"), take_pos, take_occ, take_names, rate=120.0,
+                 point_format=fmt)
+
+    out = {}
+    got, got_motion, fps, got_markers = jio.load_character_glb(path("fullbody.glb"),
+                                                               return_markers=True)
+    out.update(io_tables(got, "glb"))
+    lm_motion, lm_names, lm_identity, lm_joints = jio.load_motion(path("fullbody.glb"))
+    out.update({"glb.motion": np.asarray(got_motion), "glb.fps": np.asarray(fps),
+                "glb.marker_positions": np.asarray(got_markers.positions),
+                "glb.marker_occluded": np.asarray(got_markers.occluded),
+                "glb.marker_names": np.asarray(list(got_markers.names)),
+                "glb.timestamps": np.asarray(jio.gltf.load_motion_timestamps(
+                    path("fullbody.glb"))),
+                "glb.load_motion": lm_motion, "glb.load_motion_names": np.asarray(lm_names),
+                "glb.identity": lm_identity, "glb.identity_joint_names": np.asarray(lm_joints)})
+    got, got_states, fps = load_character_glb_with_skel_states(path("fullbody_skel_states.glb"))
+    out.update(io_tables(got, "skel"))
+    out.update({"skel.states": np.asarray(got_states), "skel.fps": np.asarray(fps)})
+    mpt, mlim = jio.load_model_definition(path("fullbody.model"), char.skeleton)
+    keep = ("transform", "offsets", "parameter_names", "parameter_sets",
+            "pose_constraints") + IO_LIMIT_KEYS
+    out.update({k: v for k, v in io_tables(dataclasses.replace(
+        char, parameter_transform=mpt, limits=mlim), "model").items()
+        if k.split(".", 1)[1] in keep})
+    loc = jio.load_locators(path("fullbody.locators"), char)
+    out.update({f"locators.{k}": np.asarray(getattr(loc, k)) for k in (
+        "parent", "offset", "weight", "locked", "limit_weight", "limit_origin",
+        "attached_to_skin", "skin_offset")})
+    out["locators.names"] = np.asarray(list(loc.names))
+    out.update(io_tables(jio.load_legacy_json(path("fullbody.json")), "json"))
+    mp = jio.load_mppca(path("fullstack.mppca"))
+    out.update({f"mppca.{k}": np.asarray(getattr(mp, k)) for k in ("mu", "cinv", "l", "rpre")})
+    out["mppca.names"] = np.asarray(list(mp.names))
+    poses, scale, pnames, jnames = jio.load_mmo(path("fullbody.mmo"))
+    out.update({"mmo.poses": poses, "mmo.scale": scale, "mmo.parameter_names":
+                np.asarray(pnames), "mmo.joint_names": np.asarray(jnames)})
+    for key, name in (("trc", "take.trc"), ("c3d_real", "take_real.c3d"),
+                      ("c3d_integer", "take_integer.c3d")):
+        raw = jio.load_markers(path(name))[0]
+        out.update({f"{key}.positions": raw.positions, f"{key}.occluded": raw.occluded,
+                    f"{key}.names": np.asarray(raw.names), f"{key}.fps": np.asarray(raw.fps)})
+    np.savez_compressed(path("jax_reference_io.npz"), **out)
+    sizes = {f: os.path.getsize(path(f)) for f in sorted(os.listdir(out_dir))}
+    return dict(config="io", files=sizes, total_bytes=sum(sizes.values()),
+                arrays=len(out))
+
+
 CONFIGS = ("2", "2b", "4", "5", "5f", "6s", "catalog", "6k", "diffik", "variants", "4x",
-           "4ad", "skinned", "glove", "7p", "sdf", "utility")
+           "4ad", "skinned", "glove", "7p", "sdf", "utility", "io")
 
 
 def main():
@@ -1770,6 +1949,10 @@ def main():
         ap.add_argument(f"--out-{name}", default=None,
                         help=f"write config {name}'s figures to this JSON file (chip_smoke.py "
                              f"reads tools/jax_reference_{name}.json)")
+    ap.add_argument("--out-io", default="tools/jax_reference_io",
+                    help="write the io reference files and jax_reference_io.npz into this "
+                         "directory (chip_smoke.py and tests/test_torch_port_io.py read "
+                         "tools/jax_reference_io/)")
     args = ap.parse_args()
     args.configs = [c for arg in args.configs for c in arg.split(",") if c]
     if not set(args.configs) <= set(CONFIGS):
@@ -1819,6 +2002,8 @@ def main():
         if args.out_utility:
             np.savez_compressed(os.path.splitext(args.out_utility)[0] + ".npz", **arrays)
         figures.append(fig)
+    if "io" in args.configs:
+        figures.append(io_files(args.out_io))
     for fig in figures:
         if fig.get("config") == "6s":
             motion = fig.pop("per_frame_motion")
