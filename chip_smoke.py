@@ -141,7 +141,17 @@ then drives the port's paths through those kernels and checks their output:
     main path's IK on the loaded rig (K1, K2+K3) against the in-memory rig;
     config 6s's clip through a .trc file, tracked hierarchically (K1,
     K2+K3 at (343, 73)) against the in-memory clip's run; each format's
-    save and load times and bytes.
+    save and load times and bytes;
+  * config IO2, the file layer's second part: JAX's FBX, USD, BVH and URDF
+    files (tools/jax_reference_io2) read onto the card and held to what
+    JAX's loaders gave; the full-body rig with a 1024-frame motion through
+    .fbx, .usda, .usdc and .bvh; its 1024 frames' global states through
+    save_with_skel_states to .usda and .fbx and back by FK on K1; the
+    marker-file pipeline, process_marker_file on config 6s's clip as .trc
+    and the CMU rig as .usda + .model (calibration and per-frame tracking,
+    K1, K2+K3 at (1, 73)) to .fbx, .bvh and .glb, against process_markers
+    on the in-memory clip, and the process-markers CLI in a subprocess on
+    the same files; each format's save and load times and bytes.
 
     python3 chip_smoke.py
 
@@ -440,6 +450,21 @@ IO_SEED = 17
 IO_CONV_SLACK = 0.01
 IO_MEDIAN_RTOL = 0.01
 IO_TRACK_MEDIAN_RTOL, IO_TRACK_P90_RTOL = 0.02, 0.05
+
+# phase_io2, config IO2: the file layer's second part and the marker-file
+# pipeline. The round trips hold what each format carries at the precision
+# it stores (stated beside each hold); the skeleton states written through
+# save_with_skel_states (inverse FK in float32, the pseudo-inverse for USD)
+# and loaded back by FK within IO2_STATES_TOL. The pipeline runs on config
+# 6s's first IO2_PIPELINE_FRAMES frames (three runs of it at once: the
+# call, the in-memory run and the CLI with its call); its marker errors
+# within IO_TRACK_MEDIAN_RTOL / IO_TRACK_P90_RTOL of the in-memory run's
+IO2_PIPELINE_FRAMES = 128
+IO2_CLI_ITERATIONS = 15
+IO2_CLI_OPTIONS = ("--calib-frames", "10", "--major-iter", "2", "--max-iter",
+                   str(IO2_CLI_ITERATIONS), "--method", "levenberg_marquardt")
+IO2_WORKER_TIMEOUT = 600.0
+IO2_STATES_TOL = FK_TOL  # both ends by FK in float32 (K1 and plain agree to FK_TOL)
 
 
 def phase_device():
@@ -3869,6 +3894,436 @@ def phase_io(smi, tracking_numbers):
     return counts, numbers, fk_numbers, psd_numbers
 
 
+def _io2_configs(cli_settings=False):
+    """(tracking, calibration) configs of config IO2's pipeline: phase_tracking's
+    (config 6's LM settings, workloads._tracking_configs), or with
+    cli_settings those the process-markers CLI builds from
+    IO2_CLI_OPTIONS (LM, IO2_CLI_ITERATIONS for both, regularization 0.05)."""
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch.tracking import CalibrationConfig, TrackingConfig
+
+    if not cli_settings:
+        calibration, tracking, _ = w._tracking_configs()
+        return tracking, calibration
+    lm = "levenberg_marquardt"
+    return (TrackingConfig(max_iter=IO2_CLI_ITERATIONS, method=lm, regularization=0.05),
+            CalibrationConfig(calib_frames=10, major_iter=2, max_iter=IO2_CLI_ITERATIONS,
+                              method=lm, regularization=0.05))
+
+
+def _io2_worker(kind, out_dir, device):
+    """One of config IO2's pipeline runs in a process of its own, beside
+    the main process's process_marker_file call and the CLI: "in_memory",
+    process_markers on the in-memory CMU rig and clip (cut to
+    IO2_PIPELINE_FRAMES) with phase_tracking's settings, its motion and
+    marker errors to in_memory.npz; "cli_call", process_marker_file on the
+    phase's files with the CLI's settings, to call.mmo."""
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch.tracking import MarkerSequence, process_marker_file, process_markers
+
+    path = lambda name: os.path.join(out_dir, name)  # noqa: E731
+    t0 = time.perf_counter()
+    if kind == "in_memory":
+        clip = w.build_tracking_clip(w.TRACKING_FRAMES, seed=SEED, device=device)
+        n = IO2_PIPELINE_FRAMES
+        markers = MarkerSequence(clip.markers.positions[:n], clip.markers.occluded[:n],
+                                 clip.markers.names)
+        result, _, _ = process_markers(clip.char, clip.seed_params, markers, *_io2_configs(),
+                                       calibrate=True)
+        d = w.clip_marker_errors_mm(clip.char, markers, result.motion)
+        np.savez(path("in_memory.npz"), motion=result.motion.cpu().numpy(),
+                 median_mm=np.median(d), p90_mm=np.percentile(d, 90),
+                 wall_s=time.perf_counter() - t0)
+    elif kind == "cli_call":
+        process_marker_file(path("take.trc"), path("call.mmo"), *_io2_configs(True),
+                            character_path=path("cmu.usda"), model_path=path("cmu.model"),
+                            calibrate=True, device=device)
+    else:
+        raise ValueError(kind)
+
+
+def _dense_skin(char):
+    """(V, nJ) skin weights of a character, whatever the order of each
+    vertex's influences."""
+    sw = char.skin_weights
+    d = torch.zeros(char.mesh.num_vertices, char.num_joints, device=sw.weight.device)
+    return d.scatter_add_(1, sw.index.long(), sw.weight)
+
+
+def _hold_bvh(label, got_c, got_jp, char, jp, translation_tol):
+    """A BVH load against the written rig and joint parameters: the
+    hierarchy and names (the loaded rig has an end site under each leaf,
+    interleaved in the file's depth-first order), the offsets within 1e-6
+    (printed to 6 decimals), the roots' translations within
+    `translation_tol` and every joint rotation's matrix within 1e-6 (degrees
+    printed to 6 decimals, the ZYX angles re-extracted in float32; past
+    |ry| = π/2 the loader picks the other triple of the same rotation).
+    BVH has no pre-rotations and no scale. → the three max|d|."""
+    from momentum_tpu_torch.math import quaternion as quat
+
+    names = list(got_c.skeleton.joint_names)
+    perm = [names.index(nm) for nm in char.skeleton.joint_names]
+    parents = char.skeleton.parents_np
+    got_parents = got_c.skeleton.parents_np
+    if any(got_parents[perm[j]] != (perm[p] if p >= 0 else -1) for j, p in enumerate(parents)):
+        raise AssertionError(f"config IO2 {label}: the hierarchy differs")
+    idx = torch.as_tensor(perm, device=got_jp.device)
+    got7 = got_jp.reshape(got_jp.shape[0], -1, 7).index_select(1, idx)
+    jp7 = jp.reshape(jp.shape[0], -1, 7)
+    roots = torch.as_tensor(parents < 0, device=got_jp.device)
+    e_off = _io2_held(f"{label} offsets", got_c.skeleton.translation_offset.index_select(0, idx),
+                      char.skeleton.translation_offset, 1e-6)
+    e_tr = _io2_held(f"{label} root translations", got7[:, roots, :3], jp7[:, roots, :3],
+                     translation_tol)
+    def rot(x):
+        return quat.to_rotation_matrix(quat.euler_to_quaternion(x[..., 3:6], order="ZYX"))
+
+    e_rot = _io2_held(f"{label} rotations", rot(got7), rot(jp7), 1e-6)
+    return e_off, e_tr, e_rot
+
+
+def _io2_held(label, got, want, atol, rtol=0.0):
+    """max|got - want| (float64, NaN equal to NaN), raising past
+    atol + rtol·|want|."""
+    got = np.asarray(torch.as_tensor(got).detach().cpu(), np.float64)
+    want = np.asarray(torch.as_tensor(want).detach().cpu(), np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"config IO2 {label}: shape {got.shape} against {want.shape}")
+    both = np.isnan(got) & np.isnan(want)
+    diff = np.where(both, 0.0, np.abs(got - want))
+    err = float(np.max(diff)) if diff.size else 0.0
+    if not np.all(diff <= atol + rtol * np.abs(np.where(both, 0.0, want))):
+        raise AssertionError(f"config IO2 {label}: max|d| {err} past {atol} + {rtol}|x|")
+    return err
+
+
+def phase_io2(smi):
+    """Config IO2, the file layer's second part on the card (FBX, USD, URDF,
+    BVH) and the marker-file pipeline: JAX's files of
+    tools/jax_reference_io2 read onto the card and held against what JAX's
+    loaders gave; the full-body rig with its bodies and a 1024-frame motion
+    round-tripped through .fbx, .usda, .usdc and .bvh, every member each
+    format carries held to the written one (FbxBuilder's bytes save_fbx's);
+    the 1024 frames' global states through save_with_skel_states (inverse
+    FK, the pseudo-inverse) to .usda and .fbx and loaded back by FK on K1 at
+    B = 1024; config 6s's clip (cut to IO2_PIPELINE_FRAMES) written as .trc
+    with the CMU rig as .usda + .model through process_marker_file
+    (calibration, per-frame tracking: K1, K2+K3 at (1, 73)) to .fbx, the
+    result saved to .bvh and by save_motion to .glb, each read back to the
+    result, its marker errors against process_markers on the in-memory rig
+    and clip (a worker process); the CLI in a subprocess on the same files
+    to .mmo, its motion the same call's with the CLI's settings (a worker
+    process). Each format's save and load times and bytes."""
+    import pathlib
+    import shutil
+    import subprocess
+    import sys
+
+    import momentum_tpu_torch.testing.workloads as w
+    from momentum_tpu_torch import io as tio
+    from momentum_tpu_torch.character import fk
+    from momentum_tpu_torch.device import to_host
+    from momentum_tpu_torch.io import usd
+    from momentum_tpu_torch.tracking import (
+        MarkerSequence, app_utils, process_marker_file, save_motion)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", "io2_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    path = lambda name: os.path.join(out_dir, name)  # noqa: E731
+    counts, numbers, files = {}, {}, {}
+    t_phase = time.perf_counter()
+
+    def record(fmt, name, save, load):
+        _, save_s = _timed(save)
+        loaded, load_s = _timed(load)
+        size = os.path.getsize(path(name))
+        files[fmt] = dict(save_ms=save_s * 1e3, load_ms=load_s * 1e3, bytes=size)
+        print(f"config IO2 {fmt}: save {save_s * 1e3:.2f} ms, load onto the card "
+              f"{load_s * 1e3:.2f} ms, {size} bytes")
+        return loaded
+
+    def hold_tables(label, got, want, tol=0.0, computed=()):
+        bad = w.io_mismatches(got, want, tol, computed)
+        print(f"config IO2 {label}: {len(want)} tables held" + (f"; MISMATCHED {bad}" if bad
+                                                                  else ""))
+        if bad:
+            raise AssertionError(f"config IO2 {label}: tables differ: {bad}")
+
+    # 0. the pipeline's files and its two worker processes, started first:
+    # they run while this process does the rest (each process ~8 s to reach
+    # the card; the runs are bound by the host's dispatch)
+    clip = w.build_tracking_clip(w.TRACKING_FRAMES, seed=SEED, device="cuda")
+    n = IO2_PIPELINE_FRAMES
+    markers = MarkerSequence(clip.markers.positions[:n], clip.markers.occluded[:n],
+                             clip.markers.names)
+    occ = to_host(markers.occluded)
+    tio.save_trc(path("take.trc"), tio.RawMarkerData(
+        np.where(occ[..., None], np.nan, to_host(markers.positions)), occ,
+        list(markers.names), 120.0))
+    cmu = clip.char
+    tio.save_usda(path("cmu.usda"), cmu)
+    pathlib.Path(path("cmu.model")).write_text(tio.write_model_definition(
+        cmu.parameter_transform, cmu.skeleton, cmu.limits))
+    pathlib.Path(path("identity.json")).write_text(json.dumps(to_host(clip.seed_params)
+                                                              .tolist()))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([here, os.environ.get("PYTHONPATH", "")]))
+    cli_args = ["--markers", path("take.trc"), "--character", path("cmu.usda"), "--model",
+                path("cmu.model"), "--out", path("cli.mmo"), *IO2_CLI_OPTIONS]
+    procs = {
+        "cli": subprocess.Popen([sys.executable, "-m",
+                                 "momentum_tpu_torch.tracking.process_markers_app", *cli_args],
+                                cwd=here, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True),
+        **{kind: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--io2-worker",
+                                   kind, out_dir, "cuda"], cwd=here, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+           for kind in ("in_memory", "cli_call")}}
+    try:
+        # 1. JAX's files, read onto the card
+        ref_dir = os.path.join(here, w.IO2_REFERENCE_DIR)
+        want = dict(np.load(os.path.join(ref_dir, "jax_reference_io2.npz")))
+        got, read_s = _timed(lambda: w.io2_reference_loads(ref_dir, device="cuda"))
+        hold_tables(f"JAX's {len(os.listdir(ref_dir)) - 1} reference files read in {read_s:.2f} s "
+                    f"(FK-computed tables, the USD rest poses, the BVH motion within "
+                    f"{FK_TOL:.0e})", got, want, FK_TOL, w.IO2_COMPUTED)
+
+        # 2. the full-body rig with its bodies and a 1024-frame take-like
+        # motion through each format, written and loaded by the port
+        char = w.utility_character(device="cuda")
+        rng = np.random.default_rng(IO_SEED)
+        p = char.num_model_parameters
+        t = np.linspace(0.0, 1.0, IO_FRAMES)[:, None]
+        motion = torch.as_tensor((rng.uniform(0.05, 0.3, p) * np.sin(
+            4 * np.pi * t + rng.uniform(0, 2 * np.pi, p))).astype(np.float32), device="cuda")
+        jp = char.parameter_transform.apply(motion)
+        states = char.skeleton_states(motion)
+        tables = w.character_tables(char, "c")
+        rest = ("c.pre_rotation", "c.translation_offset")
+
+        loaded, got_jp, _ = record(
+            "fbx (rig, 1024 frames)", "rig.fbx",
+            lambda: tio.save_fbx(path("rig.fbx"), char, motion=motion, fps=120.0),
+            lambda: tio.load_fbx_with_motion(path("rig.fbx"), fps=120.0, device="cuda"))
+        if not (loaded.skeleton.joint_parent.is_cuda and got_jp.is_cuda):
+            raise AssertionError("config IO2: the loaded FBX rig is not on the card")
+        got_t = w.character_tables(loaded, "c")
+        # FBX stores the pre-rotations as XYZ Euler degrees (float32 on the
+        # way out): held within FK_TOL; the skin as clusters, held as the
+        # dense (V, nJ) weights; no parameter transform, limits or locators
+        e_pre = _io2_held("fbx pre-rotations", got_t["c.pre_rotation"], tables["c.pre_rotation"],
+                          FK_TOL)
+        keep = ("c.joint_parent", "c.joint_names", "c.translation_offset", "c.mesh_vertices",
+                "c.mesh_faces", "c.inverse_bind_pose") + tuple(
+                    k for k in tables if k.startswith("c.body_"))
+        hold_tables("fbx rig round trip", {k: got_t[k] for k in keep},
+                    {k: tables[k] for k in keep}, FK_TOL)
+
+        e_skin = _io2_held("fbx skin weights", _dense_skin(loaded), _dense_skin(char), 1e-6)
+        # joint parameters through float32 curves: rotations (as degrees) and
+        # scales (as 2^s) within 1e-6 plus 2 ulps of float32 relative (a
+        # tracked angle may wind to tens of radians); translations are
+        # written with the rest offset added, so within 1e-6 plus 2 ulps of
+        # float32 at the largest t + offset
+        tr = (jp.reshape(IO_FRAMES, -1, 7)[..., :3] + char.skeleton.translation_offset)
+        t_tol = 1e-6 + 2.0 ** -22 * float(tr.abs().max())
+        jp7, got7 = jp.reshape(IO_FRAMES, -1, 7), got_jp.reshape(IO_FRAMES, -1, 7)
+        e_fbx = max(_io2_held("fbx translations", got7[..., :3], jp7[..., :3], t_tol),
+                    _io2_held("fbx rotations and scales", got7[..., 3:], jp7[..., 3:], 1e-6,
+                              2.4e-7))
+        builder = tio.FbxBuilder().add_character(char).add_motion(motion, fps=120.0).to_bytes()
+        if builder != pathlib.Path(path("rig.fbx")).read_bytes():
+            raise AssertionError("config IO2: FbxBuilder.to_bytes differs from save_fbx's bytes")
+        print(f"config IO2 fbx round trip: pre-rotations max|d| {e_pre:.3e}, skin {e_skin:.3e}, "
+              f"joint parameters {e_fbx:.3e} (translations tol {t_tol:.1e}); "
+              f"FbxBuilder.to_bytes equal to save_fbx's")
+
+        # USD carries no limits, parameter sets or pose presets, and its skin
+        # as each vertex's influences sorted by weight (held as the dense
+        # weights); the rest pose comes from the rest matrices by from_matrix
+        # (FK_TOL); usda writes floats with 8 significant digits (a float32
+        # needs 9): its floats within 2e-7 relative, usdc's bit for bit
+        skip = rest + ("c.parameter_sets", "c.pose_constraints", "c.skin_index",
+                       "c.skin_weight") + tuple(f"c.{k}" for k in w.IO_LIMIT_KEYS)
+        for ext in ("usda", "usdc"):
+            got_c, got_m = record(f"{ext} (rig, 1024 frames)", f"rig.{ext}",
+                                  lambda: tio.save_usd(path(f"rig.{ext}"), char, motion=motion,
+                                                       fps=120.0),
+                                  lambda: tio.load_usd(path(f"rig.{ext}"), device="cuda"))
+            got_t = w.character_tables(got_c, "c")
+            missing = set(tables) - set(got_t) - {"c.mesh_normals"}
+            if missing:
+                raise AssertionError(f"config IO2: {ext} lost {sorted(missing)}")
+            e_rest = max(_io2_held(f"{ext} rest pose", got_t[k], tables[k], FK_TOL)
+                         for k in rest)
+            common = [k for k in tables if k in got_t and k not in skip]
+            rtol = 2e-7 if ext == "usda" else 0.0
+            text = [k for k in common if rtol and np.asarray(tables[k]).dtype.kind == "f"
+                    and k != "c.inverse_bind_pose"]
+            e_text = max([_io2_held(f"{ext} {k}", got_t[k], tables[k], 0.0, rtol)
+                          for k in text] + [_io2_held(f"{ext} motion", got_m, motion, 0.0, rtol),
+                                            _io2_held(f"{ext} skin weights", _dense_skin(got_c),
+                                                      _dense_skin(char), 0.0, rtol)])
+            hold_tables(f"{ext} rig round trip", {k: got_t[k] for k in common if k not in text},
+                        {k: tables[k] for k in common if k not in text}, FK_TOL)
+            print(f"config IO2 {ext} round trip: rest pose max|d| {e_rest:.3e}, floats, skin "
+                  f"and motion {e_text:.3e} (rtol {rtol:.0e})")
+
+        got_c, got_jp, _ = record(
+            "bvh (rig, 1024 frames)", "rig.bvh",
+            lambda: tio.save_bvh(path("rig.bvh"), char, jp, fps=120.0),
+            lambda: tio.load_bvh(path("rig.bvh"), device="cuda"))
+        # BVH carries the hierarchy, the offsets and, per frame, the roots'
+        # translations and every joint's ZYX rotation (no pre-rotations, no
+        # scale), printed to 6 decimals: offsets and translations within
+        # 5e-7 plus float32 rounding, the rotations (degrees printed to 6
+        # decimals, the Euler angles re-extracted in float32) within 1e-6
+        e_off, e_tr, e_rot = _hold_bvh("bvh", got_c, got_jp, char, jp, 1e-6)
+        print(f"config IO2 bvh round trip: offsets max|d| {e_off:.3e}, root translations "
+              f"{e_tr:.3e}, rotations {e_rot:.3e}; {got_c.num_joints - char.num_joints} end "
+              f"sites")
+
+        # 3. the 1024 frames' global states through save_with_skel_states
+        # and back by FK (K1 at B = 1024)
+        numbers["skel_states"] = {}
+        for ext in (".usda", ".fbx"):
+            name = f"states{ext}"
+            _, save_s = _timed(lambda: char.save_with_skel_states(path(name), states, fps=120.0))
+            if ext == ".usda":
+                def load():
+                    return usd.load_character_with_skel_states(path(name), device="cuda")[1]
+            else:
+                def load():
+                    c, j, _ = tio.load_fbx_with_motion(path(name), fps=120.0, device="cuda")
+                    return fk.global_skel_states(c.skeleton, j)
+            # one timed load: parsing the 10 MB .usda takes seconds on the host
+            _reset_counts()
+            got_s, load_s = _timed(load)
+            k = f"state_load_{ext[1:]}"
+            counts[k] = _counts()
+            err_t = float((got_s[..., :3] - states[..., :3]).abs().max())
+            err_r = float((got_s[..., 3:] - states[..., 3:]).abs().max())
+            print(f"config IO2 skeleton states through {ext} (F = {IO_FRAMES}): save "
+                  f"{save_s * 1e3:.1f} ms, {os.path.getsize(path(name))} bytes; load "
+                  f"{IO_FRAMES / load_s:.0f} frames/s ({load_s * 1e3:.1f} ms) on {smi}; "
+                  f"max|d| translations {err_t:.3e} m, "
+                  f"rotations and scales {err_r:.3e} (tol {IO2_STATES_TOL:.0e}); kernel "
+                  f"launches a load {counts[k]}")
+            if not (max(err_t, err_r) <= IO2_STATES_TOL and counts[k]["fk_global_kernel"] >= 1):
+                raise AssertionError(f"config IO2: skeleton states through {ext} "
+                                     f"{err_t} / {err_r} off, or K1 not launched")
+            numbers["skel_states"][ext[1:]] = dict(
+                frames_per_s=IO_FRAMES / load_s, load_ms=load_s * 1e3, save_ms=save_s * 1e3,
+                max_abs_err_translation=err_t, max_abs_err_rotation_scale=err_r,
+                launches=counts[k])
+        fk_local = fk.local_skel_states(char.skeleton, jp).contiguous()
+
+        # 4. the marker-file pipeline: the CMU rig from .usda + .model, the
+        # .trc take, calibration and per-frame tracking, to .fbx
+        tracking, calibration = _io2_configs()
+        _reset_counts()
+        result, wall = _timed(lambda: process_marker_file(
+            path("take.trc"), path("take.fbx"), tracking, calibration,
+            character_path=path("cmu.usda"), model_path=path("cmu.model"),
+            identity_path=path("identity.json"), calibrate=True, device="cuda"))
+        counts["pipeline"] = _counts()
+        rig, identity = app_utils.load_character_with_identity(
+            path("cmu.usda"), path("cmu.model"), path("identity.json"), device="cuda")
+        d = w.clip_marker_errors_mm(rig, markers, result.motion)
+        med, p90 = float(np.median(d)), float(np.percentile(d, 90))
+        print(f"config IO2 process_marker_file (.trc {n} frames x 41 markers, CMU rig from "
+              f".usda + .model, calibration + per-frame tracking, to .fbx): {n / wall:.2f} "
+              f"frames/s (wall {wall:.2f} s) on {smi}; marker error median {med:.4f} mm, p90 "
+              f"{p90:.4f} mm; kernel launches {counts['pipeline']}")
+        if not (bool(torch.isfinite(result.motion).all())
+                and all(v > 0 for v in counts["pipeline"].values())):
+            raise AssertionError(f"config IO2: the pipeline's motion is not finite or a kernel "
+                                 f"was not launched: {counts['pipeline']}")
+        pt = rig.parameter_transform
+        rjp = pt.apply(result.motion)
+        rjp7 = rjp.reshape(n, -1, 7)
+        tr = rjp7[..., :3] + rig.skeleton.translation_offset
+        t_tol = 1e-6 + 2.0 ** -22 * float(tr.abs().max())
+        _, fbx_jp, _ = tio.load_fbx_with_motion(path("take.fbx"), fps=120.0, device="cuda")
+        fbx7 = fbx_jp.reshape(n, -1, 7)
+        e_fbx = max(_io2_held("pipeline .fbx translations", fbx7[..., :3], rjp7[..., :3], t_tol),
+                    _io2_held("pipeline .fbx rotations and scales", fbx7[..., 3:],
+                              rjp7[..., 3:], 1e-6, 2.4e-7))
+        tio.save_bvh(path("take.bvh"), rig, rjp, fps=120.0)
+        bvh_c, bvh_jp, _ = tio.load_bvh(path("take.bvh"), device="cuda")
+        # the CMU rig is in mm: its root translations (to 2000 mm) printed to
+        # 6 decimals, then rounded to float32
+        roots = torch.as_tensor(rig.skeleton.parents_np < 0, device="cuda")
+        b_tol = 1e-6 + 2.0 ** -23 * float(rjp7[:, roots, :3].abs().max())
+        e_bvh = max(_hold_bvh("pipeline .bvh", bvh_c, bvh_jp, rig, rjp, b_tol))
+        scaling = torch.as_tensor(pt.scaling_parameters, device="cuda")
+        ident = torch.where(scaling, result.motion[0], torch.zeros_like(result.motion[0]))
+        save_motion(path("take.glb"), rig, ident, result.motion, markers, fps=120.0)
+        glb_m, glb_names, glb_identity, _ = tio.load_motion(path("take.glb"))
+        stripped = torch.where(scaling, torch.zeros_like(result.motion), result.motion)
+        e_glb = max(_io2_held("pipeline .glb motion", glb_m, stripped, 1e-6),
+                    _io2_held("pipeline .glb identity", glb_identity, pt.apply(ident), 1e-6))
+        print(f"config IO2 pipeline outputs read back: .fbx joint parameters max|d| "
+              f"{e_fbx:.3e} (translations tol {t_tol:.1e}), .bvh {e_bvh:.3e} (root translations "
+              f"tol {b_tol:.1e}), .glb (save_motion, identity split out) {e_glb:.3e}")
+
+        # the in-memory run and the CLI, from their processes
+        outs = {}
+        for kind, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=IO2_WORKER_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+                raise AssertionError(f"config IO2: the {kind} process ran past "
+                                     f"{IO2_WORKER_TIMEOUT} s")
+            outs[kind] = out
+            if proc.returncode != 0:
+                raise AssertionError(f"config IO2: the {kind} process exited "
+                                     f"{proc.returncode}:\n{err[-4000:]}")
+        mem = dict(np.load(path("in_memory.npz")))
+        ref_med, ref_p90 = float(mem["median_mm"]), float(mem["p90_mm"])
+        print(f"config IO2 pipeline against process_markers on the in-memory rig and clip "
+              f"(another process, {float(mem['wall_s']):.1f} s): median {med:.4f} mm "
+              f"({ref_med:.4f}), p90 {p90:.4f} mm ({ref_p90:.4f}); motion max|d| "
+              f"{float(np.abs(to_host(result.motion) - mem['motion']).max()):.3e}")
+        if not (abs(med - ref_med) <= IO_TRACK_MEDIAN_RTOL * ref_med
+                and abs(p90 - ref_p90) <= IO_TRACK_P90_RTOL * ref_p90):
+            raise AssertionError(f"config IO2: marker errors {med} / {p90} against the "
+                                 f"in-memory run's {ref_med} / {ref_p90}")
+        cli_motion, _, cli_names, _ = tio.load_mmo(path("cli.mmo"))
+        call_motion = tio.load_mmo(path("call.mmo"))[0]
+        same = bool(np.array_equal(cli_motion, call_motion))
+        cli_d = w.clip_marker_errors_mm(rig, markers, torch.as_tensor(cli_motion, device="cuda"))
+        print(f"config IO2 CLI (python -m momentum_tpu_torch.tracking.process_markers_app "
+              f"{' '.join(IO2_CLI_OPTIONS)}): exit 0, .mmo {cli_motion.shape} loads, motion "
+              f"bit-equal to process_marker_file's with the CLI's settings {same}; marker error "
+              f"median {float(np.median(cli_d)):.4f} mm; its lines: "
+              + " | ".join(outs["cli"].strip().splitlines()))
+        if not (same and list(cli_names) == list(rig.parameter_transform.names)):
+            raise AssertionError("config IO2: the CLI's motion is not the call's")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+    numbers.update(files=files, pipeline=dict(
+        frames=n, frames_per_s=n / wall, wall_s=wall, median_mm=med, p90_mm=p90,
+        in_memory_median_mm=ref_med, in_memory_p90_mm=ref_p90, launches=counts["pipeline"],
+        cli_bit_equal=same), phase_s=time.perf_counter() - t_phase)
+    # the kernels at the phase's shapes: K1 at the state loads' 1024 frames,
+    # K2+K3 at the pipeline's per-frame step (1, 73)
+    fk_numbers = _hold_fk(char.skeleton, fk_local, f"config IO2's state loads, B = {IO_FRAMES}")
+    one, _ = _tracking_systems(rig, MarkerSequence(markers.positions[:2], markers.occluded[:2],
+                                                   markers.names), identity, result.motion[:2])
+    psd_numbers = _hold_psd_matrix(*one, "config IO2, the pipeline's per-frame LM step")
+    shutil.rmtree(out_dir)
+    print(f"config IO2: {time.perf_counter() - t_phase:.1f} s")
+    return counts, numbers, fk_numbers, psd_numbers
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -3908,6 +4363,8 @@ def main():
     lap("tracking")
     io_counts, io_numbers, io_fk, io_psd = phase_io(smi, track_numbers)
     lap("io")
+    io2_counts, io2_numbers, io2_fk, io2_psd = phase_io2(smi)
+    lap("io2")
     catalog_counts, catalog_numbers, catalog_psd = phase_catalog(smi)
     lap("catalog")
     kp_counts, kp_numbers, kp_psd = phase_keypoints(smi)
@@ -3987,7 +4444,9 @@ def main():
                                for r, c in sh_counts.items()},
              sharded_B512=sh_fk,
              io_launches={part: n["fk_global_kernel"] for part, n in io_counts.items()},
-             io_B1024=io_fk),
+             io_B1024=io_fk,
+             io2_launches={part: n["fk_global_kernel"] for part, n in io2_counts.items()},
+             io2_B1024=io2_fk),
         dict(name="damped_chol_solve_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/psd_pallas.py:53",
@@ -4032,7 +4491,10 @@ def main():
                                for r, c in sh_counts.items()},
              **{"sharded_{}x{}_k{}".format(*sh_psd["batch_n_k"]): sh_psd},
              io_launches={part: n["damped_chol_solve_kernel"] for part, n in io_counts.items()},
-             **{"io_{}x{}".format(*io_psd["batch_n_k"][:2]): io_psd}),
+             **{"io_{}x{}".format(*io_psd["batch_n_k"][:2]): io_psd},
+             io2_launches={part: n["damped_chol_solve_kernel"]
+                           for part, n in io2_counts.items()},
+             **{"io2_{}x{}".format(*io2_psd["batch_n_k"][:2]): io2_psd}),
         dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:55",
@@ -4076,11 +4538,17 @@ def main():
                       "config4x": vx_numbers, "configSL": sl_numbers, "configG": glove_numbers,
                       "config4ad": vad_numbers, "config7p": scene_numbers,
                       "configSC": sc_numbers, "config5c": c5_numbers,
-                      "configU": u_numbers, "config5fs": sh_numbers, "configIO": io_numbers}))
+                      "configU": u_numbers, "config5fs": sh_numbers, "configIO": io_numbers,
+                      "configIO2": io2_numbers}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:2] == ["--io2-worker"]:
+        _io2_worker(*sys.argv[2:5])
+    else:
+        main()

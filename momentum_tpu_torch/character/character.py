@@ -498,6 +498,37 @@ class Character:
         return load_character_glb_with_skel_states(bytes(gltf_bytes), fps, device=device)
 
     @classmethod
+    def load_fbx(cls, path, device="cuda") -> "Character":
+        from momentum_tpu_torch.io.fbx import load_fbx
+
+        return load_fbx(str(path), device=device)
+
+    @classmethod
+    def load_fbx_with_motion(cls, path, fps: float = 120.0, device="cuda"):
+        """→ (Character, motion (F, nJ·7), fps) on `device`."""
+        from momentum_tpu_torch.io.fbx import load_fbx_with_motion
+
+        return load_fbx_with_motion(str(path), fps, device=device)
+
+    @classmethod
+    def load_fbx_from_bytes(cls, fbx_bytes, device="cuda", **kwargs) -> "Character":
+        from momentum_tpu_torch.io.fbx import load_fbx
+
+        return load_fbx(bytes(fbx_bytes), device=device, **kwargs)
+
+    @classmethod
+    def load_fbx_with_motion_from_bytes(cls, fbx_bytes, fps: float = 120.0, device="cuda"):
+        from momentum_tpu_torch.io.fbx import load_fbx_with_motion
+
+        return load_fbx_with_motion(bytes(fbx_bytes), fps, device=device)
+
+    @classmethod
+    def load_urdf(cls, path, device="cuda") -> "Character":
+        from momentum_tpu_torch.io.urdf import load_urdf
+
+        return load_urdf(str(path), device=device)
+
+    @classmethod
     def load_legacy_json(cls, path, device="cuda") -> "Character":
         from momentum_tpu_torch.io.legacy_json import load_legacy_json
 
@@ -527,6 +558,16 @@ class Character:
 
         save_character_glb(str(path), self, motion=motion, fps=fps, markers=markers)
 
+    def save_fbx(self, path, motion=None, fps: float = 120.0) -> None:
+        from momentum_tpu_torch.io.fbx_writer import save_fbx
+
+        save_fbx(str(path), self, motion=motion, fps=fps)
+
+    def save_fbx_with_joint_params(self, path, joint_params=None, fps: float = 120.0) -> None:
+        from momentum_tpu_torch.io.fbx_writer import save_fbx_with_joint_params
+
+        save_fbx_with_joint_params(str(path), self, joint_params, fps=fps)
+
     def save_legacy_json(self, path) -> None:
         from momentum_tpu_torch.io.legacy_json import save_legacy_json
 
@@ -550,17 +591,29 @@ class Character:
 
     def save_with_skel_states(self, path, skel_states, fps: float = 120.0) -> None:
         """Extension-dispatched save with skeleton-state motion: .glb/.gltf
-        via animation channels (character_pybind save_with_skel_states);
-        .usd* and .fbx come with ROADMAP M10 part 2."""
+        via animation channels, .usd* via UsdSkel, .fbx via inverse FK to
+        joint curves (character_pybind save_with_skel_states). The inverse FK
+        runs on the character's device."""
         import os as _os
-
-        from momentum_tpu_torch.io.character_io import _part_2, character_format
 
         ext = _os.path.splitext(str(path))[1].lower()
         if ext in (".glb", ".gltf"):
             self.save_gltf_from_skel_states(path, skel_states, fps)
-        elif ext in (".usd", ".usda", ".usdc", ".fbx"):
-            raise _part_2(character_format(path))
+        elif ext in (".usd", ".usda", ".usdc"):
+            from momentum_tpu_torch.io.usd import save_character_from_skel_states
+
+            save_character_from_skel_states(path, self, skel_states, fps)
+        elif ext == ".fbx":
+            from momentum_tpu_torch.character.inverse_fk import (
+                joint_parameters_from_skeleton_states)
+            from momentum_tpu_torch.io.fbx_writer import save_fbx_with_joint_params
+
+            states = torch.as_tensor(skel_states, dtype=torch.float32).to(
+                self.skeleton.translation_offset.device)
+            if states.ndim == 2:
+                states = states[None]
+            save_fbx_with_joint_params(str(path), self, joint_parameters_from_skeleton_states(
+                self.skeleton, states), fps)
         else:
             raise ValueError(f"unsupported extension {ext!r}")
 

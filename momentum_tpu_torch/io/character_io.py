@@ -3,10 +3,9 @@
 Reference: momentum/io/character_io.h loadFullCharacter / saveCharacter —
 one entry point that picks the format from the extension, then composes the
 optional side-car files: a `.model`/`.cfg` parameter-transform definition
-(parametersPath) and a `.locators` JSON (locatorsPath). This part of the
-file layer reads and writes glTF (.glb/.gltf) and the legacy JSON, and
-writes OBJ and .mmo; FBX, USD, URDF and BVH come with ROADMAP M10 part 2 and
-raise NotImplementedError until then.
+(parametersPath) and a `.locators` JSON (locatorsPath). The reference
+supports glb/fbx/usd for characters; this adds the formats the rest of the
+package reads (urdf, bvh, legacy json, usda/usdc), and writes OBJ and .mmo.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ import dataclasses
 import os
 
 import numpy as np
+import torch
 
 from momentum_tpu_torch.device import resolve, to_host
 
@@ -22,7 +22,6 @@ __all__ = ["load_full_character", "save_character", "character_format"]
 
 _LOAD_EXTS = (".glb", ".gltf", ".fbx", ".usd", ".usda", ".usdc", ".urdf",
               ".bvh", ".json")
-_PART_2 = ("fbx", "usd", "urdf", "bvh")
 
 
 def character_format(path: str) -> str:
@@ -32,12 +31,6 @@ def character_format(path: str) -> str:
     return {".glb": "gltf", ".gltf": "gltf", ".fbx": "fbx", ".usd": "usd",
             ".usda": "usd", ".usdc": "usd", ".urdf": "urdf", ".bvh": "bvh",
             ".json": "json"}.get(ext, "unknown")
-
-
-def _part_2(fmt: str):
-    return NotImplementedError(
-        f"{fmt.upper()} files are not read or written by the port yet: they come with "
-        "ROADMAP M10 part 2")
 
 
 def load_full_character(character_path, parameters_path=None, locators_path=None,
@@ -52,12 +45,26 @@ def load_full_character(character_path, parameters_path=None, locators_path=None
         from momentum_tpu_torch.io.gltf import load_character_glb
 
         character, _, _ = load_character_glb(str(character_path), device=device)
+    elif fmt == "fbx":
+        from momentum_tpu_torch.io.fbx import load_fbx
+
+        character = load_fbx(str(character_path), device=device)
+    elif fmt == "usd":
+        from momentum_tpu_torch.io.usd import load_usd
+
+        character, _ = load_usd(str(character_path), device=device)
+    elif fmt == "urdf":
+        from momentum_tpu_torch.io.urdf import load_urdf
+
+        character = load_urdf(str(character_path), device=device)
+    elif fmt == "bvh":
+        from momentum_tpu_torch.io.bvh import load_bvh
+
+        character, _, _ = load_bvh(str(character_path), device=device)
     elif fmt == "json":
         from momentum_tpu_torch.io.legacy_json import load_legacy_json
 
         character = load_legacy_json(str(character_path), device=device)
-    elif fmt in _PART_2:
-        raise _part_2(fmt)
     else:
         raise ValueError(f"unsupported character format: {character_path} "
                          f"(expected one of {_LOAD_EXTS})")
@@ -77,15 +84,30 @@ def load_full_character(character_path, parameters_path=None, locators_path=None
 
 def save_character(path, character, motion=None, fps: float = 120.0) -> None:
     """Save a character (+ optional model-parameter motion) in the format
-    implied by the extension (character_io.h saveCharacter: glb; plus
-    obj/json/mmo from this package)."""
+    implied by the extension (character_io.h saveCharacter: glb/fbx/usd;
+    plus bvh/obj/json/mmo from this package)."""
     ext = os.path.splitext(str(path))[1].lower()
     if ext in (".glb", ".gltf"):
         from momentum_tpu_torch.io.gltf import save_character_glb
 
         save_character_glb(str(path), character, motion=motion, fps=fps)
-    elif ext in (".fbx", ".usd", ".usda", ".usdc", ".bvh"):
-        raise _part_2(character_format(path))
+    elif ext == ".fbx":
+        from momentum_tpu_torch.io.fbx_writer import save_fbx
+
+        save_fbx(str(path), character, motion=motion, fps=fps)
+    elif ext in (".usd", ".usda", ".usdc"):
+        from momentum_tpu_torch.io.usd import save_usd
+
+        save_usd(str(path), character, motion=motion, fps=fps)
+    elif ext == ".bvh":
+        from momentum_tpu_torch.io.bvh import save_bvh
+
+        pt = character.parameter_transform
+        if motion is not None:
+            jp = pt.apply(torch.as_tensor(motion, dtype=torch.float32).to(pt.transform.device))
+        else:
+            jp = np.zeros((1, character.skeleton.num_joint_parameters), np.float32)
+        save_bvh(str(path), character, jp, fps=fps)
     elif ext == ".obj":
         from momentum_tpu_torch.io.obj import save_obj
 

@@ -2250,16 +2250,62 @@ def io_reference_loads(directory: str, device="cuda") -> dict:
     return out
 
 
-def io_mismatches(got: dict, want: dict, computed_tol: float) -> list:
+IO2_REFERENCE_DIR = "tools/jax_reference_io2"  # python tools/jax_reference.py --configs io2
+IO2_FPS = 30.0  # the reference files' rate (the tool's IO_FPS)
+# the io2 tables computed rather than read, beside IO_COMPUTED_KEYS: the USD
+# joints' rest rotations and offsets (from_matrix of the rest transforms,
+# float32 on the host) and the BVH motion (Euler angles re-extracted from
+# rotation matrices in float32 on the host)
+IO2_COMPUTED = ("usda.pre_rotation", "usda.translation_offset", "usdc.pre_rotation",
+                "usdc.translation_offset", "cmu.pre_rotation", "cmu.translation_offset",
+                "bvh.motion")
+
+
+def io2_reference_loads(directory: str, device="cuda") -> dict:
+    """What the port's loaders give for each file of `directory` (written by
+    python tools/jax_reference.py --configs io2), loaded onto `device` (the
+    card unless the caller asks for the CPU), under the keys of
+    jax_reference_io2.npz. The USD files' skeleton states come from one
+    batched FK over their frames (K1 on the card)."""
+    import os
+
+    from momentum_tpu_torch import io as tio
+    from momentum_tpu_torch.device import to_host
+    from momentum_tpu_torch.io import usd
+
+    device = resolve(device, "io2_reference_loads")
+    path = lambda name: os.path.join(directory, name)  # noqa: E731
+    out = {}
+    got, motion, fps = tio.load_fbx_with_motion(path("fullbody.fbx"), fps=IO2_FPS, device=device)
+    out.update(character_tables(got, "fbx"))
+    out.update({"fbx.motion": to_host(motion), "fbx.fps": np.asarray(fps)})
+    for ext in ("usda", "usdc"):
+        got, motion = tio.load_usd(path(f"fullbody.{ext}"), device=device)
+        _, states, fps = usd.load_character_with_skel_states(path(f"fullbody.{ext}"),
+                                                             device=device)
+        out.update(character_tables(got, ext))
+        out.update({f"{ext}.motion": to_host(motion), f"{ext}.states": to_host(states),
+                    f"{ext}.fps": np.asarray(fps), f"{ext}.name": np.asarray(got.name)})
+    got, motion, fps = tio.load_bvh(path("fullbody.bvh"), device=device)
+    out.update(character_tables(got, "bvh"))
+    out.update({"bvh.motion": to_host(motion), "bvh.fps": np.asarray(fps)})
+    out.update(character_tables(tio.load_full_character(path("cmu.usda"), path("cmu.model"),
+                                                        device=device), "cmu"))
+    out.update(character_tables(tio.load_urdf(path("arm.urdf"), device=device), "urdf"))
+    return out
+
+
+def io_mismatches(got: dict, want: dict, computed_tol: float, computed=()) -> list:
     """The keys on which two io table dicts differ: missing on either side,
     a dtype kind or shape apart, or values not equal bit for bit (NaN equal
-    to NaN) — within `computed_tol` for IO_COMPUTED_KEYS."""
+    to NaN) — within `computed_tol` for IO_COMPUTED_KEYS and the keys in
+    `computed`."""
     bad = sorted(set(got) ^ set(want))
     for k in sorted(set(got) & set(want)):
         a, b = np.asarray(got[k]), np.asarray(want[k])
         if a.dtype.kind != b.dtype.kind or a.shape != b.shape:
             bad.append(k)
-        elif k.rsplit(".", 1)[-1] in IO_COMPUTED_KEYS:
+        elif k.rsplit(".", 1)[-1] in IO_COMPUTED_KEYS or k in computed:
             if not np.allclose(a, b, rtol=0.0, atol=computed_tol):
                 bad.append(k)
         elif not np.array_equal(a, b, equal_nan=a.dtype.kind == "f"):

@@ -1,13 +1,14 @@
 """Marker tracking: calibration, per-frame, batched and hierarchical
 tracking, the sequence refine, glove fusion, skinned-locator conversion and
-the array API of the marker pipeline."""
+the marker pipeline, from arrays or from files (`process_marker_file`, the
+process-markers CLI in tracking/process_markers_app.py)."""
 
 from momentum_tpu_torch.tracking.cmu import CMU_MARKER_MAP, create_cmu_character  # noqa: F401
 from momentum_tpu_torch.tracking.config import (  # noqa: F401
     BaseConfig, CalibrationConfig, RefineConfig, TrackingConfig)
 from momentum_tpu_torch.tracking.gap_fill import fill_marker_gaps  # noqa: F401
 from momentum_tpu_torch.tracking.process_markers import (  # noqa: F401
-    calibrate_markers, process_markers)
+    calibrate_markers, process_marker_file, process_markers, save_motion)
 from momentum_tpu_torch.tracking.tracker import (  # noqa: F401
     CameraKeypointData, MarkerSequence, TrackingResult, calibrate_locators, calibrate_model, get_locator_error,
     refine_motion, track_poses_batched, track_poses_for_frames, track_poses_hierarchical,
@@ -18,6 +19,8 @@ from momentum_tpu_torch.tracking.tracker_utils import (  # noqa: F401
     extract_id_and_locators_from_params, extract_locators_from_character,
     extract_markers_from_motion, extract_parameters, fill_identity, is_related_joint,
     locators_to_skinned_locators, remove_identity, skinned_locators_to_locators)
+from momentum_tpu_torch.tracking.app_utils import (  # noqa: F401
+    load_character, load_character_with_identity)
 from momentum_tpu_torch.tracking import glove_utils  # noqa: F401
 
 # pymomentum's marker_tracking spellings of the locator converters

@@ -70,6 +70,26 @@ def test_fk_kernel_on_a_loaded_rig(cuda_problem):
     torch.testing.assert_close(out, char.skeleton_states(x0[:64]), rtol=0, atol=2e-5)
 
 
+def test_fbx_load_inverse_bind_pose_through_k1(cuda_problem, tmp_path):
+    """An FBX of the skinned test rig loaded onto the card: the inverse bind
+    pose comes from FK through K1 (one launch in the load), equal to the
+    CPU load's (the plain version) and the written rig's at 2e-5."""
+    from momentum_tpu_torch.io import fbx, fbx_writer
+    from momentum_tpu_torch.testing import fixtures
+
+    char = fixtures.create_test_character(5, device="cuda")
+    fbx_writer.save_fbx_model(str(tmp_path / "rig.fbx"), char)
+    before = fk_ops.launches
+    loaded = fbx.load_fbx(str(tmp_path / "rig.fbx"))
+    assert fk_ops.launches >= before + 1
+    assert loaded.inverse_bind_pose.is_cuda and loaded.skin_weights.index.is_cuda
+    on_cpu = fbx.load_fbx(str(tmp_path / "rig.fbx"), device="cpu")
+    torch.testing.assert_close(loaded.inverse_bind_pose.cpu(), on_cpu.inverse_bind_pose,
+                               rtol=0, atol=2e-5)
+    torch.testing.assert_close(loaded.inverse_bind_pose,
+                               char.with_inverse_bind_pose().inverse_bind_pose, rtol=0, atol=2e-5)
+
+
 @pytest.mark.parametrize("batch", [1, 3, 4, 5, 32, 37, 2048])
 def test_fk_kernel_batch_sizes(cuda_problem, batch):
     """Four elements of 64 joint slots per block: ragged last blocks (1, 3,

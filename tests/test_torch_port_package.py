@@ -90,6 +90,10 @@ def test_port_imports_no_jax():
         "new |= {f'momentum_tpu_torch.io.{m}' for m in ('_physical', 'limits_json', 'locators',\n"
         "        'model_definition', 'legacy_json', 'gltf', 'gltf_builder', 'pose_prior',\n"
         "        'shape', 'markers', 'motion', 'obj', 'character_io')} | {'momentum_tpu_torch.io'}\n"
+        "new |= {f'momentum_tpu_torch.io.{m}' for m in ('bvh', 'urdf', 'fbx', 'fbx_writer',\n"
+        "        'fbx_builder', 'usdc_crate', 'usd')}\n"
+        "new |= {'momentum_tpu_torch.tracking.app_utils',\n"
+        "        'momentum_tpu_torch.tracking.process_markers_app'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "assert len(names) >= 30, names\n"
         "print('ok', len(names))\n")
@@ -321,7 +325,72 @@ def _io_loaders() -> dict:
 
     raw = tio.RawMarkerData(np.zeros((2, 3, 3), np.float32), np.zeros((2, 3), bool),
                             ["a", "b", "c"], 120.0)
+    from momentum_tpu_torch.io import fbx_writer, usd
+
+    def written(suffix, save):
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            save(str(pathlib.Path(tmp) / f"f{suffix}"))
+            return (pathlib.Path(tmp) / f"f{suffix}").read_bytes()
+
+    fbx_bytes = written(".fbx", lambda p: fbx_writer.save_fbx(p, rig, motion=motion))
+    usda_bytes = written(".usda", lambda p: usd.save_usd(p, rig, motion=motion))
+    bvh_bytes = written(".bvh", lambda p: tio.save_bvh(
+        p, rig, torch.zeros(2, rig.skeleton.num_joint_parameters)))
+    urdf = ('<robot name="r"><link name="a"/><link name="b"/><joint name="j" type="revolute">'
+            '<parent link="a"/><child link="b"/><axis xyz="0 0 1"/>'
+            '<limit lower="-1" upper="1"/></joint></robot>')
+
+    def identity_load(**kw):
+        from momentum_tpu_torch.tracking import app_utils
+
+        return _in_file(".fbx", fbx_bytes, lambda p: app_utils.load_character_with_identity(
+            p, **kw))
+
+    def cli(**kw):
+        import tempfile
+
+        from momentum_tpu_torch.tracking import process_markers_app
+
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = pathlib.Path(tmp)
+            (tmp / "c.glb").write_bytes(glb)
+            names = list(rig.locators.names)
+            tio.save_trc(str(tmp / "m.trc"), tio.RawMarkerData(
+                np.ones((2, len(names), 3), np.float32), np.zeros((2, len(names)), bool),
+                names, 30.0))
+            args = ["--markers", str(tmp / "m.trc"), "--character", str(tmp / "c.glb"),
+                    "--out", str(tmp / "o.mmo"), "--no-calibrate", "--max-iter", "1"]
+            if "device" in kw:
+                args += ["--device", str(kw["device"])]
+            process_markers_app.main(args)
+            return torch.as_tensor(tio.load_mmo(str(tmp / "o.mmo"))[0])
+
     return {
+        "load_fbx": lambda **kw: tio.load_fbx(fbx_bytes, **kw),
+        "load_fbx_with_motion": lambda **kw: tio.load_fbx_with_motion(fbx_bytes, **kw),
+        "Character.load_fbx_from_bytes": lambda **kw: Character.load_fbx_from_bytes(
+            fbx_bytes, **kw),
+        "Character.load_fbx_with_motion_from_bytes":
+            lambda **kw: Character.load_fbx_with_motion_from_bytes(fbx_bytes, **kw),
+        "load_usd": lambda **kw: _in_file(".usda", usda_bytes, lambda p: tio.load_usd(p, **kw)),
+        "load_usda": lambda **kw: _in_file(".usda", usda_bytes,
+                                           lambda p: tio.load_usda(p, **kw)),
+        "usd.load_character_from_bytes": lambda **kw: usd.load_character_from_bytes(
+            usda_bytes, **kw),
+        "usd.load_character_with_motion_from_bytes":
+            lambda **kw: usd.load_character_with_motion_from_bytes(usda_bytes, **kw),
+        "usd.load_character_with_skel_states_from_bytes":
+            lambda **kw: usd.load_character_with_skel_states_from_bytes(usda_bytes, **kw),
+        "load_urdf": lambda **kw: tio.load_urdf(urdf, **kw),
+        "Character.load_urdf": lambda **kw: _in_file(".urdf", urdf.encode(),
+                                                     lambda p: Character.load_urdf(p, **kw)),
+        "load_bvh": lambda **kw: _in_file(".bvh", bvh_bytes, lambda p: tio.load_bvh(p, **kw)),
+        "FbxBuilder.add_animated_mesh": lambda **kw: tio.FbxBuilder().add_animated_mesh(
+            rig.mesh, **kw)._entries[0]["character"],
+        "app_utils.load_character_with_identity": identity_load,
+        "process_markers_app.main": cli,
         "load_character_glb": lambda **kw: tio.load_character_glb(glb, **kw),
         "load_character_glb_with_skel_states":
             lambda **kw: gltf.load_character_glb_with_skel_states(glb, **kw),

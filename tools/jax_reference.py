@@ -99,7 +99,15 @@ momentum_tpu_torch/testing/workloads.py:
     clip as .trc and as real and integer .c3d (tools/c3d_writer.py); beside
     them jax_reference_io.npz, what JAX's loaders return for each file.
 
-    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k,diffik,variants,4x,4ad,skinned,glove,7p,sdf,utility,io]
+  * io2, the file layer's second part (--out-io2, default
+    tools/jax_reference_io2/): the full-body rig with config U's bodies and
+    8 frames of motion as binary .fbx, .usda, .usdc and .bvh, config 6's
+    CMU rig as .usda with its .model (USD carries no limits), and the arm
+    URDF of tests/test_io.py; beside them jax_reference_io2.npz, what JAX's
+    loaders return for each file (the USD files' skeleton states by FK
+    too).
+
+    python tools/jax_reference.py [--batch 256] [--configs 2,2b,4,5,5f,6s,catalog,6k,diffik,variants,4x,4ad,skinned,glove,7p,sdf,utility,io,io2]
         [--frames 1024] [--out-6s tools/jax_reference_6s.json]
         [--out-catalog tools/jax_reference_catalog.json] [--out-6k tools/jax_reference_6k.json]
         [--out-diffik tools/jax_reference_diffik.json] [--out-variants tools/jax_reference_variants.json]
@@ -108,7 +116,7 @@ momentum_tpu_torch/testing/workloads.py:
         [--out-glove tools/jax_reference_glove.json] [--out-7p tools/jax_reference_7p.json]
         [--sdf-batch 256] [--out-sdf tools/jax_reference_sdf.json]
         [--utility-batch 256] [--utility-seeds 1 2 3 4] [--out-utility tools/jax_reference_utility.json]
-        [--out-io tools/jax_reference_io]
+        [--out-io tools/jax_reference_io] [--out-io2 tools/jax_reference_io2]
 
 Runs the JAX package on the CPU only (no part of momentum_tpu_torch); prints
 one JSON line per figure.
@@ -1898,8 +1906,75 @@ def io_files(out_dir):
                 arrays=len(out))
 
 
+# ---- io2: the file layer's second part (FBX, USD, URDF, BVH) ----
+
+IO2_ARM_URDF = """<robot name="arm">
+  <link name="base"/>
+  <link name="upper"/>
+  <link name="lower"/>
+  <joint name="shoulder" type="revolute">
+    <parent link="base"/><child link="upper"/>
+    <origin xyz="0 0.5 0" rpy="0 0 0"/>
+    <axis xyz="0 0 1"/>
+    <limit lower="-1.57" upper="1.57"/>
+  </joint>
+  <joint name="elbow" type="revolute">
+    <parent link="upper"/><child link="lower"/>
+    <origin xyz="0 1 0" rpy="0 0 0"/>
+    <axis xyz="0 0 1"/>
+    <limit lower="-2.0" upper="0.1"/>
+  </joint>
+</robot>
+"""
+
+
+def io2_files(out_dir):
+    """Write the io2 reference files into out_dir and return what JAX's
+    loaders give for each (the arrays of jax_reference_io2.npz)."""
+    from momentum_tpu import io as jio
+    from momentum_tpu.io import usd as jusd
+    from momentum_tpu.tracking.cmu import create_cmu_character
+
+    os.makedirs(out_dir, exist_ok=True)
+    path = lambda name: os.path.join(out_dir, name)  # noqa: E731
+    char = io_character()
+    pt = char.parameter_transform
+    motion = io_draws(char.num_model_parameters, char.locators.num_locators,
+                      char.skeleton.num_joints)[0]
+    jio.save_fbx(path("fullbody.fbx"), char, motion=motion, fps=IO_FPS)
+    jio.save_usd(path("fullbody.usda"), char, motion=motion, fps=IO_FPS)
+    jio.save_usd(path("fullbody.usdc"), char, motion=motion, fps=IO_FPS)
+    jio.save_bvh(path("fullbody.bvh"), char, np.asarray(jax.vmap(pt.apply)(jnp.asarray(motion))),
+                 fps=IO_FPS)
+    cmu = create_cmu_character()
+    jio.save_usda(path("cmu.usda"), cmu)
+    with open(path("cmu.model"), "w") as f:
+        f.write(jio.write_model_definition(cmu.parameter_transform, cmu.skeleton, cmu.limits))
+    with open(path("arm.urdf"), "w") as f:
+        f.write(IO2_ARM_URDF)
+
+    out = {}
+    got, got_motion, fps = jio.load_fbx_with_motion(path("fullbody.fbx"), fps=IO_FPS)
+    out.update(io_tables(got, "fbx"))
+    out.update({"fbx.motion": np.asarray(got_motion), "fbx.fps": np.asarray(fps)})
+    for ext in ("usda", "usdc"):
+        got, got_motion = jio.load_usd(path(f"fullbody.{ext}"))
+        _, states, fps = jusd.load_character_with_skel_states(path(f"fullbody.{ext}"))
+        out.update(io_tables(got, ext))
+        out.update({f"{ext}.motion": np.asarray(got_motion), f"{ext}.states": np.asarray(states),
+                    f"{ext}.fps": np.asarray(fps), f"{ext}.name": np.asarray(got.name)})
+    got, got_motion, fps = jio.load_bvh(path("fullbody.bvh"))
+    out.update(io_tables(got, "bvh"))
+    out.update({"bvh.motion": np.asarray(got_motion), "bvh.fps": np.asarray(fps)})
+    out.update(io_tables(jio.load_full_character(path("cmu.usda"), path("cmu.model")), "cmu"))
+    out.update(io_tables(jio.load_urdf(path("arm.urdf")), "urdf"))
+    np.savez_compressed(path("jax_reference_io2.npz"), **out)
+    sizes = {f: os.path.getsize(path(f)) for f in sorted(os.listdir(out_dir))}
+    return dict(config="io2", files=sizes, total_bytes=sum(sizes.values()), arrays=len(out))
+
+
 CONFIGS = ("2", "2b", "4", "5", "5f", "6s", "catalog", "6k", "diffik", "variants", "4x",
-           "4ad", "skinned", "glove", "7p", "sdf", "utility", "io")
+           "4ad", "skinned", "glove", "7p", "sdf", "utility", "io", "io2")
 
 
 def main():
@@ -1953,6 +2028,10 @@ def main():
                     help="write the io reference files and jax_reference_io.npz into this "
                          "directory (chip_smoke.py and tests/test_torch_port_io.py read "
                          "tools/jax_reference_io/)")
+    ap.add_argument("--out-io2", default="tools/jax_reference_io2",
+                    help="write the io2 reference files and jax_reference_io2.npz into this "
+                         "directory (chip_smoke.py and tests/test_torch_port_io_usd.py read "
+                         "tools/jax_reference_io2/)")
     args = ap.parse_args()
     args.configs = [c for arg in args.configs for c in arg.split(",") if c]
     if not set(args.configs) <= set(CONFIGS):
@@ -2004,6 +2083,8 @@ def main():
         figures.append(fig)
     if "io" in args.configs:
         figures.append(io_files(args.out_io))
+    if "io2" in args.configs:
+        figures.append(io2_files(args.out_io2))
     for fig in figures:
         if fig.get("config") == "6s":
             motion = fig.pop("per_frame_motion")
