@@ -987,7 +987,8 @@ def _hold_psd_matrix(a, d, b, label):
     spike columns ~1e-3 of the rest, leaves the plain solve itself a
     residual of ~2e-3 in some columns (config 5, measured on one H100). The kernel,
     the library's cholesky_ex + cholesky_solve and the plain version timed
-    in turns; the bound."""
+    in turns; the bound. The device time sums the call's kernels: the
+    factor and, for k > 1, the substitution."""
     from momentum_tpu_torch.ops import psd
     from momentum_tpu_torch.testing.profile_workload import (
         fmt_ms, in_turns, kernel_device_ms, library_solve, solve_bound)
@@ -1004,9 +1005,11 @@ def _hold_psd_matrix(a, d, b, label):
     t = in_turns({"kernel": lambda: psd.damped_chol_solve(a, d, b),
                   "library": library_solve(a, d, b),
                   "plain": lambda: psd.damped_chol_solve_plain(a, d, b)})
-    dev_ms = kernel_device_ms(lambda: psd.damped_chol_solve(a, d, b), "damped_chol_solve_kernel")
+    kernels = psd.KERNELS[:1 if k == 1 else 2]
+    dev_ms = kernel_device_ms(lambda: psd.damped_chol_solve(a, d, b), kernels,
+                              per_call=len(kernels))
     b_psd = solve_bound(batch, n, k)
-    print(f"K2+K3 damped_chol_solve_kernel (B={batch}, n={n}, k={k}, {label}): max rel. "
+    print(f"K2+K3 {' + '.join(kernels)} (B={batch}, n={n}, k={k}, {label}): max rel. "
           f"residual kernel {res_k:.3e} / plain {res_p:.3e} (kernel's tol: {X_FWD_FACTOR:.0f}x "
           f"the plain's, at least {PSD_RELRES_TOL:.0e}); max|x - x_plain| "
           f"{err / float(x_plain.abs().max()):.3e} of max|x|; forward error "
@@ -4391,6 +4394,7 @@ def main():
     sh_counts, sh_numbers, sh_fk, sh_psd = phase_sharded(smi)
     lap("sharded")
 
+    from momentum_tpu_torch.ops import psd
     from momentum_tpu_torch.testing.workloads import build_render_clip
 
     rchar, motion, cam = build_render_clip(32, seed=SEED, device="cuda")
@@ -4447,10 +4451,11 @@ def main():
              io_B1024=io_fk,
              io2_launches={part: n["fk_global_kernel"] for part, n in io2_counts.items()},
              io2_B1024=io2_fk),
-        dict(name="damped_chol_solve_kernel", route="cuda",
+        dict(name="damped_chol_solve_kernel + damped_chol_subst_kernel", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/psd_pallas.py:53",
              also_replaces=["momentum_tpu/ops/psd_pallas.py:120"],
+             kernels=list(psd.KERNELS),
              launches=counts["damped_chol_solve_kernel"], **psd_numbers,
              full_stack_launches=fs_counts["damped_chol_solve_kernel"],
              config2_lm_launches=config2_counts["damped_chol_solve_kernel"],

@@ -1,12 +1,13 @@
-"""K2+K3: batched damped Cholesky solve — `damped_chol_solve_kernel`
+"""K2+K3: batched damped Cholesky solve — `damped_chol_solve_kernel`, and
+for k > 1 right-hand sides `damped_chol_subst_kernel` after it
 (csrc/psd.cu).
 
 One kernel replaces two TPU kernels of momentum_tpu/ops/psd_pallas.py:
 `_panel_kernel` (:53, K2: per-panel Cholesky and triangular inverse Linv)
 and `_subst_kernel` (:120, K3: blocked forward and back substitution with
 the Linv blocks). On the H100 one (n, n) system fits in one block's shared
-memory, so the block factors and substitutes without writing the factor to
-device memory.
+memory, so for a vector right-hand side the block factors and substitutes
+without writing the factor to device memory.
 
 Its bound is bytes: B·n²·4 read once, 61 µs at B = 2048, n = 157 (3.35
 TB/s), above the 39 µs of its B·n³/3 flops. What holds it back is latency:
@@ -20,8 +21,17 @@ the details.
 
 The kernel pads the system to a multiple of 32 rows in shared memory up to
 n = 224 (the full-body rig has n = 157); from n = 225 to MAX_N the same code
-keeps the matrix in a device workspace. A (B, n, k) right-hand side is
-factored once and substituted column by column (ROADMAP F7).
+keeps the matrix in a device workspace (ROADMAP F7).
+
+A (B, n, k) right-hand side with k > 1 (the SPIKE steps of the sequence
+paths: (32, 156) with k = 470 on config 5f) takes two kernels, launched by
+the same call: the factor kernel leaves each system's factor, stored
+symmetric, in a workspace, and `damped_chol_subst_kernel` substitutes
+blocks of 32 columns of one system each, as JAX's `_solve_panels`
+(psd_pallas.py:262-282) does: per panel a 32 × 32 product with Linv, then a
+right-looking register-tile product with L21 that reuses each factor entry
+across the block's columns. Its bound is B·(n³/3 + 2n²k) flops at 67
+TFLOP/s (`testing/profile_workload.py::solve_bound`).
 
 `damped_chol_solve_plain` is the plain PyTorch version:
 `torch.linalg.cholesky_ex` + `torch.cholesky_solve`, for any n, dtype and
@@ -40,11 +50,13 @@ import torch
 
 from momentum_tpu_torch.ops import build
 
-__all__ = ["damped_chol_solve", "damped_chol_solve_plain", "check_system", "kernel_takes",
-           "launches"]
+__all__ = ["KERNELS", "damped_chol_solve", "damped_chol_solve_plain", "check_system",
+           "kernel_takes", "launches"]
 
-# times damped_chol_solve_kernel was launched in this process
+# calls that launched K2+K3 in this process (one for the two kernels of k > 1)
 launches = 0
+# the kernels of one call: the first alone for k = 1, both in turn for k > 1
+KERNELS = ("damped_chol_solve_kernel", "damped_chol_subst_kernel")
 
 MAX_N = 4096  # csrc/psd.cu kMaxN: one block a system, whose time grows as n³
 
@@ -93,8 +105,9 @@ def kernel_takes(a: torch.Tensor, b: torch.Tensor) -> bool:
     batched n ≥ 64 with B a multiple of 32, a matrix right-hand side
     included (its system is factored by K2, :301-311). This kernel has
     neither the minimum n nor the lane layout that asks for whole groups of
-    32 systems, so it also takes what JAX leaves to XLA on the TPU; it
-    substitutes a matrix right-hand side itself."""
+    32 systems, so it also takes what JAX leaves to XLA on the TPU; a
+    matrix right-hand side goes to damped_chol_subst_kernel after the
+    factor."""
     return a.is_cuda and a.dtype == torch.float32
 
 
@@ -114,8 +127,9 @@ def damped_chol_solve(a: torch.Tensor, damp: torch.Tensor,
     damp (B, n), b (B, n) or (B, n, k) -> x of b's shape.
 
     CPU tensors take `damped_chol_solve_plain`. CUDA tensors launch
-    damped_chol_solve_kernel or raise: all three must be float32,
-    contiguous, on one device and without grad, with n ≤ MAX_N."""
+    damped_chol_solve_kernel (and, for k > 1, damped_chol_subst_kernel after
+    it) or raise: all three must be float32, contiguous, on one device and
+    without grad, with n ≤ MAX_N. One call counts one launch."""
     global launches
     if not a.is_cuda:
         return damped_chol_solve_plain(a, damp, b)

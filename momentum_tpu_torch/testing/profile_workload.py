@@ -181,11 +181,12 @@ def in_turns(fns: dict, rounds: int = 3, busy: bool = False) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def kernel_device_ms(fn, match: str, reps: int = 10,
+def kernel_device_ms(fn, match: str | tuple[str, ...], reps: int = 10,
                      per_call: int | None = 1) -> float | None:
-    """Device time per call of the kernels whose name contains `match`, from
-    torch.profiler over `reps` calls of fn after two warm-up calls: the
-    kernel's own time, without the host's launch overhead that CUDA events
+    """Device time per call of the kernels whose name contains `match` (or
+    any of the names of a tuple: the kernels one call launches, summed),
+    from torch.profiler over `reps` calls of fn after two warm-up calls: the
+    kernels' own time, without the host's launch overhead that CUDA events
     around back-to-back calls include when the kernel is short. fn launches
     `per_call` such kernels (None: an unknown number, and the total is
     divided by reps). The time per call is the mean over the launches the
@@ -197,6 +198,7 @@ def kernel_device_ms(fn, match: str, reps: int = 10,
     their CUDA-event times."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (match,) if isinstance(match, str) else tuple(match)
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -207,7 +209,7 @@ def kernel_device_ms(fn, match: str, reps: int = 10,
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        seen = [e for e in events if match in e.key]
+        seen = [e for e in events if any(name in e.key for name in names)]
         us = sum(e.self_device_time_total for e in seen)
         if us > 0:
             calls = reps if per_call is None else sum(e.count for e in seen) / per_call

@@ -216,6 +216,99 @@ def test_damped_solve_kernel_sequence_shape(cuda_problem):
     assert float((x - x_plain).abs().max() / x_plain.abs().max()) <= 1e-3
 
 
+KC = 32  # csrc/psd.cu kCols: right-hand-side columns a substitution block owns
+# chip_smoke.py's hold of a matrix right-hand side (_hold_psd_matrix)
+X_FWD_FACTOR, PSD_RELRES_TOL, PSD_X_TOL = 10.0, 1e-5, 1e-3
+
+
+def _matrix_rhs(batch, n, k, seed):
+    a, d, _ = _spd(n, batch, seed)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    return a, d, torch.randn(batch, n, k, generator=g).cuda()
+
+
+def _hold_matrix_rhs(a, d, b):
+    """One launch of K2+K3's matrix form, held as chip_smoke.py holds it:
+    the largest per-column relative residual and the forward error against
+    the float64 solve each within X_FWD_FACTOR of the plain float32 solve's,
+    at least PSD_RELRES_TOL and PSD_X_TOL."""
+    before = psd.launches
+    x = psd.damped_chol_solve(a, d, b)
+    assert psd.launches == before + 1 and x.shape == b.shape
+    x_plain = psd.damped_chol_solve_plain(a, d, b)
+    x64 = psd.damped_chol_solve_plain(a.double(), d.double(), b.double())
+    ad = (a + torch.diag_embed(d)).double()
+
+    def relres(sol):
+        r = torch.linalg.norm(ad @ sol.double() - b.double(), dim=-2)
+        return float((r / torch.linalg.norm(b.double(), dim=-2)).max())
+
+    def fwd(sol):
+        return float((sol.double() - x64).abs().max() / x64.abs().max())
+
+    assert relres(x) <= max(PSD_RELRES_TOL, X_FWD_FACTOR * relres(x_plain))
+    assert fwd(x) <= max(PSD_X_TOL, X_FWD_FACTOR * fwd(x_plain))
+
+
+@pytest.mark.parametrize("batch, n, k", [(32, 23, 70), (32, 156, 470), (16, 156, 782),
+                                         (10, 169, 508)])
+def test_matrix_rhs_at_the_spike_shapes(cuda_problem, batch, n, k):
+    """The factor and damped_chol_subst_kernel at the sequence paths' SPIKE
+    shapes (configs 5 and 5c, 5f, a rank of 5fs, G): one launch a call, held
+    by the smoke's rule."""
+    _hold_matrix_rhs(*_matrix_rhs(batch, n, k, seed=n + k))
+
+
+@pytest.mark.parametrize("k", [KC - 1, KC, KC + 1, 2 * KC + 1])
+def test_matrix_rhs_tile_edges(cuda_problem, k):
+    """Column tiles of KC: one ragged tile, one whole, a whole one and a
+    one-column tile, two whole and a one-column tile; n = 40, a ragged
+    last panel."""
+    _hold_matrix_rhs(*_matrix_rhs(8, 40, k, seed=k))
+
+
+@pytest.mark.parametrize("n", [225, 300, 1600])
+@pytest.mark.parametrize("k", [3, 100])
+def test_matrix_rhs_workspace_form(cuda_problem, n, k):
+    """Past n = 224 the factor stays in the workspace it was factored in
+    (rows of m + 1 floats, the substitution's scalar loads); past m = 1536
+    the substitution's tile is 8 columns wide."""
+    _hold_matrix_rhs(*_matrix_rhs(2 if n > 1000 else 4, n, k, seed=n * k))
+
+
+@pytest.mark.parametrize("n, pivot", [(157, 100), (300, 40)])
+def test_matrix_rhs_nan_on_failed_pivot(cuda_problem, n, pivot):
+    """ROADMAP F1 in the matrix form: a pivot that fails (the fourth panel at
+    n = 157, the second in the workspace form) gives all 40 columns (two
+    tiles) of that system NaN, and its neighbours' columns stay finite, in
+    kernel and plain version alike."""
+    a, d, b = _matrix_rhs(5, n, 40, seed=pivot)
+    a[3, pivot, pivot] = -1e6
+    for x in (psd.damped_chol_solve(a, d, b), psd.damped_chol_solve_plain(a, d, b)):
+        assert torch.isnan(x[3]).all()
+        assert torch.isfinite(x[[0, 1, 2, 4]]).all()
+
+
+def test_kernel_device_ms_sums_both_kernels_of_a_call(cuda_problem):
+    """A matrix right-hand side launches the factor and the substitution:
+    kernel_device_ms over psd.KERNELS, two a call, is the sum of the two
+    kernels' own times (within the profiler's spread), more than either; a
+    vector right-hand side launches the first alone."""
+    from momentum_tpu_torch.testing.profile_workload import kernel_device_ms
+
+    a, d, b = _matrix_rhs(32, 156, 470, seed=3)
+    call = lambda: psd.damped_chol_solve(a, d, b)  # noqa: E731
+    both = kernel_device_ms(call, psd.KERNELS, per_call=2)
+    factor, subst = (kernel_device_ms(call, name) for name in psd.KERNELS)
+    assert None not in (both, factor, subst)
+    assert both > max(factor, subst)
+    assert abs(both / (factor + subst) - 1) <= 0.2
+    vec = b[..., 0].contiguous()
+    alone = kernel_device_ms(lambda: psd.damped_chol_solve(a, d, vec), psd.KERNELS)
+    assert kernel_device_ms(lambda: psd.damped_chol_solve(a, d, vec), psd.KERNELS[1]) is None
+    assert alone is not None and alone > 0
+
+
 def test_kernel_device_ms_is_none_for_a_kernel_it_did_not_see(cuda_problem):
     """The profiler's time of K2+K3 is positive; for a name no launch has
     it is None (not measured), not an error that would end chip_smoke.py."""

@@ -8,8 +8,9 @@ raw x: reassociation alone moves x of an ill-conditioned system (ROADMAP
 F5). An indefinite system gives NaN in both packages (ROADMAP F1).
 
 `_kernel_model` rehearses damped_chol_solve_kernel's blocked arithmetic
-(csrc/psd.cu) on the CPU, so that its index arithmetic is pinned before the
-card runs it: nothing on the port's path calls it."""
+(csrc/psd.cu) on the CPU, and `_subst_model` damped_chol_subst_kernel's (the
+matrix right-hand side after the factor), so that their index arithmetic is
+pinned before the card runs them: nothing on the port's path calls them."""
 
 import numpy as np
 import pytest
@@ -158,20 +159,20 @@ def test_cpu_wrapper_takes_the_plain_path(rng):
 PANEL = 32  # csrc/psd.cu kPanel
 
 
-def _kernel_model(a, damp, b):
-    """damped_chol_solve_kernel's arithmetic in float32 torch, batched: the
-    system padded to m = ⌈n/32⌉·32 with identity rows, zero damping and zero
-    right-hand side; per 32-wide panel the diagonal block's factor (column by
-    column, pivots through rsqrt), its inverse Linv by forward substitution
-    row by row, L21 = A21·Linvᵀ and the trailing update; then the Linv
-    substitutions. A pivot that is not > 0 gives an all-NaN x (ROADMAP F1)."""
-    bsz, n = b.shape
+def _factor_model(a, damp):
+    """damped_chol_solve_kernel's factor in float32 torch, batched: the system
+    padded to m = ⌈n/32⌉·32 with identity rows and zero damping; per 32-wide
+    panel the diagonal block's factor (column by column, pivots through
+    rsqrt), its inverse Linv by forward substitution row by row,
+    L21 = A21·Linvᵀ and the trailing update. Returns the (B, m, m) factor as
+    the kernel leaves it (Linv on the diagonal blocks, zeros above their
+    diagonal, L21 below them; above them what the panels left) and the F1
+    flag: no pivot that is not > 0."""
+    bsz, n = damp.shape
     m = -(-n // PANEL) * PANEL
     A = torch.zeros(bsz, m, m)
     A[:, :n, :n] = a + torch.diag_embed(damp)
     A[:, range(n, m), range(n, m)] = 1.0
-    y = torch.zeros(bsz, m)
-    y[:, :n] = b
     ok = torch.ones(bsz, dtype=torch.bool)
     eye = torch.eye(PANEL)
     for r0 in range(0, m, PANEL):
@@ -194,6 +195,18 @@ def _kernel_model(a, damp, b):
         l21 = A[:, t0:, r0:t0] @ linv.transpose(-1, -2)
         A[:, t0:, r0:t0] = l21
         A[:, t0:, t0:] -= l21 @ l21.transpose(-1, -2)
+    return A, ok
+
+
+def _kernel_model(a, damp, b):
+    """damped_chol_solve_kernel's arithmetic for a vector right-hand side:
+    `_factor_model`, the right-hand side padded with zeros, then the Linv
+    substitutions. A pivot that is not > 0 gives an all-NaN x (ROADMAP F1)."""
+    bsz, n = b.shape
+    A, ok = _factor_model(a, damp)
+    m = A.shape[-1]
+    y = torch.zeros(bsz, m)
+    y[:, :n] = b
     for r0 in range(0, m, PANEL):  # y_k = Linv_k·(b_k − Σ_{j<k} L_kj y_j)
         t0 = r0 + PANEL
         y[:, r0:t0] = (A[:, r0:t0, r0:t0] @ y[:, r0:t0, None])[..., 0]
@@ -204,6 +217,52 @@ def _kernel_model(a, damp, b):
         y[:, :r0] -= (A[:, r0:t0, :r0].transpose(-1, -2) @ y[:, r0:t0, None])[..., 0]
     assert (y[:, n:][ok] == 0).all()  # the padded unknowns are exactly 0
     return torch.where(ok[:, None], y[:, :n], torch.nan)
+
+
+KC = 32  # csrc/psd.cu kCols: right-hand-side columns a substitution block owns
+
+
+def _symmetric_factor(A):
+    """The factor as damped_chol_solve_kernel<·, kFactorOnly> hands it on:
+    below and on the diagonal blocks as factored, above them its transpose."""
+    m = A.shape[-1]
+    panel = torch.arange(m) // PANEL
+    below = panel[:, None] >= panel[None, :]
+    return torch.where(below, A, A.transpose(-1, -2))
+
+
+def _subst_model(F, ok, b, kc=KC):
+    """damped_chol_subst_kernel's arithmetic in float32 torch: for each tile
+    of kc columns of b (B, n, k), the last one ragged, the (m, kc) tile with
+    zero padding; forward per panel Y = Linv·T[r0:t0] and the right-looking
+    update T[t0:] −= F[r0:t0, t0:]ᵀ·Y; back X = Linvᵀ·T[r0:t0] and
+    T[:r0] −= F[r0:t0, :r0]ᵀ·X. Both updates read the panel's rows of the
+    symmetric factor F. A system whose flag is down gets all-NaN columns
+    (ROADMAP F1)."""
+    bsz, n, k = b.shape
+    m = F.shape[-1]
+    x = torch.empty(bsz, n, k)
+    for c0 in range(0, k, kc):
+        cols = min(kc, k - c0)
+        T = torch.zeros(bsz, m, kc)
+        T[:, :n, :cols] = b[..., c0:c0 + cols]
+        for r0 in range(0, m, PANEL):  # L y = b
+            t0 = r0 + PANEL
+            T[:, r0:t0] = F[:, r0:t0, r0:t0] @ T[:, r0:t0]
+            T[:, t0:] -= F[:, r0:t0, t0:].transpose(-1, -2) @ T[:, r0:t0]
+        for r0 in range(m - PANEL, -1, -PANEL):  # Lᵀ x = y
+            t0 = r0 + PANEL
+            T[:, r0:t0] = F[:, r0:t0, r0:t0].transpose(-1, -2) @ T[:, r0:t0]
+            T[:, :r0] -= F[:, r0:t0, :r0].transpose(-1, -2) @ T[:, r0:t0]
+        assert (T[:, n:][ok] == 0).all() and (T[:, :, cols:][ok] == 0).all()
+        x[..., c0:c0 + cols] = T[:, :n, :cols]
+    return torch.where(ok[:, None, None], x, torch.nan)
+
+
+def _matrix_system(rng, b_sz, n, k):
+    a, damp, b = _system(rng, b_sz, n)
+    cols = rng.normal(size=(b_sz, n, k)).astype(np.float32)
+    return a, damp, cols
 
 
 @pytest.mark.parametrize("n", [157, 33, 1])
@@ -232,3 +291,43 @@ def test_kernel_model_nan_on_failed_pivot(rng, pivot):
     for x in (_kernel_model(a, damp, b), psd.damped_chol_solve_plain(a, damp, b)):
         assert torch.isnan(x[2]).all()
         assert torch.isfinite(x[[0, 1, 3]]).all()
+
+
+@pytest.mark.parametrize("b_sz, n, k", [(32, 157, 33), (32, 23, 70), (3, 33, 2)],
+                         ids=["n157_k33", "n23_k70", "n33_k2"])
+def test_subst_model_matches_pallas_and_plain(rng, b_sz, n, k):
+    """The matrix right-hand side's two kernels: at the rig's n with 33
+    columns (a second, one-column tile), config 5's SPIKE shape (three tiles,
+    the last ragged) and a ragged panel with two columns. Held against JAX's
+    psd_solve_pallas with a (B, n, k) right-hand side (K2 in interpret mode,
+    then _solve_panels) and against the plain version, by relative residual
+    per column and to 1e-4 of max|x|. JAX's panel kernel takes whole groups
+    of 32 systems: a smaller batch goes to it repeated to 32."""
+    a, damp, b = _matrix_system(rng, b_sz, n, k)
+    F, ok = _factor_model(torch.as_tensor(a), torch.as_tensor(damp))
+    assert ok.all()
+    x_m = _subst_model(_symmetric_factor(F), ok, torch.as_tensor(b)).numpy()
+    whole = [np.resize(v, (32,) + v.shape[1:]) for v in (a, damp, b)]
+    x_p = np.asarray(psd_solve_pallas(jnp.asarray(whole[0]), jnp.asarray(whole[2]),
+                                      damp_diag=jnp.asarray(whole[1]), interpret=True))[:b_sz]
+    x_t = psd.damped_chol_solve_plain(*(torch.as_tensor(v) for v in (a, damp, b))).numpy()
+    for x in (x_m, x_p, x_t):
+        assert x.shape == b.shape
+        for c in range(k):
+            assert np.max(_relres(a, damp, b[..., c], x[..., c])) <= RELRES_TOL
+    scale = np.max(np.abs(x_t))
+    np.testing.assert_allclose(x_m / scale, x_t / scale, atol=1e-4)
+    np.testing.assert_allclose(x_m / scale, x_p / scale, atol=1e-4)
+
+
+def test_subst_model_nan_on_failed_pivot(rng):
+    """ROADMAP F1 in the matrix form: a pivot that fails in the fourth panel
+    (row 100 of 157) gives every one of that system's 40 columns (two tiles)
+    NaN, and no other system's, as in the plain version."""
+    a, damp, b = (torch.as_tensor(v) for v in _matrix_system(rng, 4, 157, 40))
+    a[1, 100, 100] = -1e3
+    F, ok = _factor_model(a, damp)
+    assert ok.tolist() == [True, False, True, True]
+    for x in (_subst_model(_symmetric_factor(F), ok, b), psd.damped_chol_solve_plain(a, damp, b)):
+        assert torch.isnan(x[1]).all()
+        assert torch.isfinite(x[[0, 2, 3]]).all()
