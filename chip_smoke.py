@@ -225,6 +225,9 @@ SMALL_MESH_FACES = 120  # ≤ bin_capacity 128: the render takes K4a
 # the batch sizes the paths give K2+K3: IK 2048 and its compacted 128, the
 # full stack's refinement on 1024 (testing/workloads.py)
 PSD_BATCHES = (BATCH, 128, 1024)
+# (B, n, k) of K2+K3's factor-only form, then its substitution: config 5f's
+# SPIKE forward step and config G's step
+FACTOR_ONLY_SHAPES = ((32, 156, 470), (10, 169, 508))
 # benchmarks/bench_suite.py config 5 (the 16-joint test rig) and 5f (the
 # full-body rig) at F = 1024, GN 8, run by the JAX package on the CPU
 # (python tools/jax_reference.py --configs 5,5f): the final error; both run
@@ -553,11 +556,12 @@ def phase_psd(char, ef0, targets, x0):
     batch sizes the paths give it: against the plain version by relative
     residual and by x, timed in turns against the library's
     cholesky_ex + cholesky_solve; then ROADMAP F1 with pivots that fail in
-    the first panel, the third, and the ragged last one."""
+    the first panel, the second, the third, and the ragged last one; then the
+    factor-only form at the SPIKE shapes, through the substitution."""
     from momentum_tpu_torch.ops import psd
     from momentum_tpu_torch.solver import SkeletonSolverFunction
     from momentum_tpu_torch.testing.profile_workload import (
-        fmt_ms, in_turns, kernel_device_ms, library_solve, solve_bound)
+        factor_bound, fmt_ms, in_turns, kernel_device_ms, library_solve, solve_bound)
 
     fn = SkeletonSolverFunction(char, (dataclasses.replace(ef0, target=targets),))
     rows, j = fn.residual_and_jacobian(x0)
@@ -604,23 +608,64 @@ def phase_psd(char, ef0, targets, x0):
                               library_device_ms=lib_dev_ms)
 
     # ROADMAP F1: a system whose pivot fails comes back all-NaN from both
-    # versions, in the first 32-wide panel, the third, the ragged last one
-    # (row 150 of 157) or through a NaN; its neighbours are unaffected
-    bad = a_all[:6].clone()
-    bad[1, 5, 5] = bad[2, 70, 70] = bad[3, 150, 150] = -1e6
+    # versions, in the first 32-wide panel, the second (factored under the
+    # first's trailing update), the third, the ragged last one (row 150 of
+    # 157) or through a NaN; its neighbours are unaffected
+    bad = a_all[:7].clone()
+    bad[1, 5, 5] = bad[2, 70, 70] = bad[3, 150, 150] = bad[5, 40, 40] = -1e6
     bad[4, 100, 100] = float("nan")
-    want_nan = [False, True, True, True, True, False]
+    want_nan = [False, True, True, True, True, True, False]
     for name, solve in (("kernel", psd.damped_chol_solve),
                         ("plain", psd.damped_chol_solve_plain)):
-        xb = solve(bad, d_all[:6].contiguous(), b_all[:6].contiguous())
+        xb = solve(bad, d_all[:7].contiguous(), b_all[:7].contiguous())
         nan_rows = torch.isnan(xb).all(dim=-1).tolist()
         finite_rows = torch.isfinite(xb).all(dim=-1).tolist()
         if nan_rows != want_nan or finite_rows != [not w for w in want_nan]:
             raise AssertionError(f"F1: {name} solve of indefinite systems gave "
                                  f"nan rows {nan_rows}, finite rows {finite_rows}")
-    print("K2+K3 F1: systems failing in panels 1, 3 and the ragged last one, and a NaN, "
+    print("K2+K3 F1: systems failing in panels 1, 2, 3 and the ragged last one, and a NaN, "
           "are all-NaN in kernel and plain, their neighbours finite")
-    return numbers[BATCH], numbers
+
+    # The factor-only form at the SPIKE shapes (FACTOR_ONLY_SHAPES): n = 156
+    # the IK path's leading unknowns, n = 169 a damped random SPD system made
+    # from SEED, k random right-hand sides. Held by relative residual through
+    # the substitution; its factor kernel timed alone by the profiler beside
+    # the library's cholesky_ex (device time, every kernel of the call) and
+    # the plain factor (CUDA events).
+    factor_only = {}
+    g = torch.Generator().manual_seed(SEED)
+    for batch, n, k in FACTOR_ONLY_SHAPES:
+        if n <= a_all.shape[1]:
+            a = a_all[:batch, :n, :n].contiguous()
+            damp = d_all[:batch, :n].contiguous()
+        else:
+            j = torch.randn(batch, n + 20, n, generator=g).cuda()
+            a = (j.transpose(-1, -2) @ j).contiguous()
+            damp = (0.01 * a.diagonal(dim1=-2, dim2=-1) + 1e-5).contiguous()
+        b = torch.randn(batch, n, k, generator=g).cuda()
+        call = lambda: psd.damped_chol_solve(a, damp, b)  # noqa: E731
+        x = call()
+        x_plain = psd.damped_chol_solve_plain(a, damp, b)
+        res_k, res_p = _relres_cols(a, damp, b, x), _relres_cols(a, damp, b, x_plain)
+        err = float((x - x_plain).abs().max())
+        ad = a + torch.diag_embed(damp)
+        ms = kernel_device_ms(call, psd.KERNELS[0])
+        lib_ms = kernel_device_ms(lambda: torch.linalg.cholesky_ex(ad), "", per_call=None)
+        plain_ms = in_turns({"plain": lambda: torch.linalg.cholesky_ex(
+            a + torch.diag_embed(damp))})["plain"]
+        b_f = factor_bound(batch, n)
+        print(f"K2+K3 factor-only form (B={batch}, n={n}), then the substitution (k={k}): max "
+              f"rel. residual kernel {res_k:.3e} / plain {res_p:.3e} (kernel's tol: "
+              f"{X_FWD_FACTOR:.0f}x the plain's, at least {PSD_RELRES_TOL:.0e}); max|x - x_plain| "
+              f"{err / float(x_plain.abs().max()):.3e} of max|x|; the factor's device time "
+              f"{fmt_ms(ms)} ms, library cholesky_ex {fmt_ms(lib_ms)} ms, plain factor (events) "
+              f"{plain_ms:.4f} ms; bound {b_f['bound_ms']:.4f} ms ({b_f['bound_by']})")
+        if not res_k <= max(PSD_RELRES_TOL, X_FWD_FACTOR * res_p):
+            raise AssertionError(f"damped_chol_solve_kernel's factor-only form disagrees with "
+                                 f"the plain solve at (B, n, k) = {(batch, n, k)}")
+        factor_only[f"{batch}x{n}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b_f,
+                                           library_ms=lib_ms, k=k)
+    return numbers[BATCH], numbers, factor_only
 
 
 def phase_main_path(char, ef0, targets, x0, smi):
@@ -4339,7 +4384,7 @@ def main():
 
     char, ef0, targets, x0 = build_fullbody_ik_problem(BATCH, seed=SEED, device="cuda")
     fk_numbers, fk_by_batch = phase_fk(char, x0)
-    psd_numbers, psd_by_batch = phase_psd(char, ef0, targets, x0)
+    psd_numbers, psd_by_batch, psd_factor_only = phase_psd(char, ef0, targets, x0)
     counts = phase_main_path(char, ef0, targets, x0, smi)
     phase_small_reference()
     phase_f7()
@@ -4462,6 +4507,7 @@ def main():
              vertex_fit_launches=vertex_counts["damped_chol_solve_kernel"],
              by_batch={str(b): {k: v for k, v in nums.items() if k != "max_abs_err"}
                        for b, nums in psd_by_batch.items()},
+             factor_only=psd_factor_only,
              vertex_fit_256x165=vertex_numbers.pop("psd_256x165"),
              sequence_launches={c: n["damped_chol_solve_kernel"] for c, n in seq_counts.items()},
              **{"sequence_{}x{}_k{}".format(*nums["batch_n_k"]): nums

@@ -11,16 +11,18 @@ without writing the factor to device memory.
 
 Its bound is bytes: B·n²·4 read once, 61 µs at B = 2048, n = 157 (3.35
 TB/s), above the 39 µs of its B·n³/3 flops. What holds it back is latency:
-one system per block, two blocks per SM. The kernel therefore runs K2's
-algorithm in 32-wide panels. Warp 0 factors each diagonal block in registers
-and forms its inverse Linv. All warps then compute L21 = A21·Linvᵀ and the
-trailing update as 4 × 4 register-tile products. The substitutions are
-32-wide matrix-vector products with Linv. The matrix comes in by float4
-loads, eight in flight per thread. The note at the top of csrc/psd.cu has
-the details.
+one system per block. The kernel therefore runs K2's algorithm in 32-wide
+panels with lookahead. Warp 0 factors each diagonal block in registers and
+forms its inverse Linv, while the other warps finish the previous panel's
+trailing update. All warps compute L21 = A21·Linvᵀ and the trailing update
+as 4 × 4 register-tile products. The substitutions are 32-wide
+matrix-vector products with Linv. Shared memory holds only the lower block
+triangle, packed, so three systems of n ≤ 160 share an SM; it comes in by
+cp.async, and warp 0 factors the first diagonal block while the rest
+arrives. The note at the top of csrc/psd.cu has the details.
 
 The kernel pads the system to a multiple of 32 rows in shared memory up to
-n = 224 (the full-body rig has n = 157); from n = 225 to MAX_N the same code
+n = 288 (the full-body rig has n = 157); from n = 289 to MAX_N the same code
 keeps the matrix in a device workspace (ROADMAP F7).
 
 A (B, n, k) right-hand side with k > 1 (the SPIKE steps of the sequence
@@ -59,6 +61,8 @@ launches = 0
 KERNELS = ("damped_chol_solve_kernel", "damped_chol_subst_kernel")
 
 MAX_N = 4096  # csrc/psd.cu kMaxN: one block a system, whose time grows as n³
+MAX_SHARED_N = 288  # csrc/psd.cu kMaxSharedN: the packed triangle fits in shared memory
+PANEL = 32  # csrc/psd.cu kPanel
 
 
 def damped_chol_solve_plain(a: torch.Tensor, damp: torch.Tensor,
@@ -118,6 +122,11 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.damped_chol_solve_launch.restype = ctypes.c_int
+        lib.damped_chol_factor_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.damped_chol_factor_launch.restype = ctypes.c_int
     return lib
 
 
@@ -147,3 +156,34 @@ def damped_chol_solve(a: torch.Tensor, damp: torch.Tensor,
         raise RuntimeError(f"damped_chol_solve_kernel launch failed: CUDA error {rc}")
     launches += 1
     return x
+
+
+def damped_chol_factor(a: torch.Tensor, damp: torch.Tensor,
+                       b: torch.Tensor | None = None) -> tuple:
+    """The factor damped_chol_solve_kernel hands to damped_chol_subst_kernel,
+    for CUDA float32 systems a (B, n, n), damp (B, n) with n ≤ MAX_SHARED_N:
+    (F, ok), F (B, m, m) with m = ⌈n/32⌉·32, stored symmetric (Linv on the
+    diagonal blocks, zeros above their diagonal, L21 below them, its
+    transpose above), ok (B,) the F1 flags; F of a system whose flag is down
+    is not written. With b (B, n), the fused kernel factors and solves, and
+    hands its factor on beside x: (F, ok, x). For tests and measurements of
+    the factor; the solve is damped_chol_solve. One call counts one launch."""
+    global launches
+    batch, n, _ = check_system(a, damp, damp if b is None else b,
+                               "damped_chol_solve_kernel")
+    if not a.is_cuda or n > MAX_SHARED_N or (b is not None and b.ndim != 2):
+        raise ValueError(f"damped_chol_factor takes CUDA systems of n ≤ {MAX_SHARED_N} "
+                         f"and a (B, n) right-hand side")
+    m = -(-n // PANEL) * PANEL
+    fac = torch.zeros(batch, m, m, dtype=a.dtype, device=a.device)
+    ok = torch.zeros(batch, dtype=torch.int32, device=a.device)
+    x = None if b is None else torch.empty_like(b)
+    with torch.cuda.device(a.device):
+        rc = _lib().damped_chol_factor_launch(
+            a.data_ptr(), damp.data_ptr(), None if b is None else b.data_ptr(),
+            None if x is None else x.data_ptr(), fac.data_ptr(), ok.data_ptr(), batch, n,
+            int(b is not None), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"damped_chol_factor_launch failed: CUDA error {rc}")
+    launches += 1
+    return (fac, ok.bool()) if b is None else (fac, ok.bool(), x)

@@ -126,6 +126,12 @@ def solve_bound(batch: int, n: int, k: int = 1) -> dict:
     return bound(4 * batch * (n * n + n + 2 * n * k), batch * (n ** 3 / 3 + 2 * n * n * k))
 
 
+def factor_bound(batch: int, n: int) -> dict:
+    """bound() of B damped (n, n) Cholesky factors alone: a and damp read,
+    the (n, n) factor written; n³/3 flops a system."""
+    return bound(4 * batch * (2 * n * n + n), batch * n ** 3 / 3)
+
+
 def library_solve(a, damp, b):
     """The library's damped solve as a timed function: cholesky_ex +
     cholesky_solve on a + diag(damp) formed beforehand, for b (B, n) or

@@ -358,6 +358,97 @@ def test_damped_solve_kernel_matches_plain(cuda_problem, n):
     assert float((x - x_plain).abs().max() / x_plain.abs().max()) <= 1e-3
 
 
+@pytest.mark.parametrize("batch", [1, 2, 131, 133, 2048])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 156, 157, 169, 192, 224, 225, 300])
+def test_damped_solve_kernel_panel_edges_and_batches(cuda_problem, n, batch):
+    """The factor's panel edges: one panel and no lookahead (n ≤ 32), a
+    ragged last panel (33, 63, 157, 169), whole panels (64, 192, 224); the
+    paths' n (156, 157, 169); past the second form's shared memory (225)
+    and the packed triangle's (300, the workspace form); at one system, two,
+    and batches that end a round of blocks ragged (131, 133) or fill the card
+    (2048): against the plain version by relative residual and by x."""
+    a, damp, b = _spd(n, batch, seed=n + batch)
+    before = psd.launches
+    x = psd.damped_chol_solve(a, damp, b)
+    assert psd.launches == before + 1
+    ad = (a + torch.diag_embed(damp)).double()
+    res = torch.linalg.norm((ad @ x.double()[..., None])[..., 0] - b.double(), dim=-1)
+    assert float((res / torch.linalg.norm(b.double(), dim=-1)).max()) <= 1e-5
+    x_plain = psd.damped_chol_solve_plain(a, damp, b)
+    assert float((x - x_plain).abs().max() / x_plain.abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("n", [1, 33, 157, 169, 224, 288])
+def test_factor_only_form_hands_on_the_fused_forms_factor(cuda_problem, n):
+    """The factor-only form's workspace, as damped_chol_subst_kernel reads it,
+    is bit-equal to the factor the fused form builds (handed on beside its x
+    by damped_chol_factor_launch), whose x is the solve's; one system's
+    failed pivot (F1) leaves its flag down in both. The hand-on's format:
+    zeros above the diagonal of the diagonal blocks, the transpose of the
+    blocks below them above them."""
+    a, damp, b = _spd(n, 6, seed=n)
+    a[4, n // 2, n // 2] = -1e6
+    before = psd.launches
+    f_only, ok_only = psd.damped_chol_factor(a, damp)
+    f_fused, ok_fused, x_fused = psd.damped_chol_factor(a, damp, b)
+    assert psd.launches == before + 2
+    assert ok_only.tolist() == ok_fused.tolist() == [True, True, True, True, False, True]
+    assert torch.equal(f_only[ok_only], f_fused[ok_fused])
+    x = psd.damped_chol_solve(a, damp, b)
+    assert torch.equal(x_fused[ok_fused], x[ok_fused]) and torch.isnan(x_fused[4]).all()
+    m = f_only.shape[-1]
+    idx = torch.arange(m, device=a.device)
+    blk = idx // 32
+    factor = f_only[ok_only]
+    assert (factor[:, (blk[:, None] == blk[None, :]) & (idx[None, :] > idx[:, None])] == 0).all()
+    above = blk[:, None] < blk[None, :]
+    assert torch.equal(factor[:, above], factor.transpose(-1, -2)[:, above])
+    assert torch.isfinite(factor).all()
+
+
+_F1_CHILD = """
+import sys
+import torch
+from momentum_tpu_torch.ops import psd
+g = torch.Generator().manual_seed(7)
+bad = []
+for n, pivot in ((157, 5), (157, 40), (157, 150), (288, 260), (300, 40), (300, 290)):
+    j = torch.randn(5, n + 20, n, generator=g)
+    a = (j.transpose(-1, -2) @ j).cuda()
+    d = 0.01 * a.diagonal(dim1=-2, dim2=-1) + 1e-5
+    a[3, pivot, pivot] = -1e6
+    for k in (1, 40):
+        b = torch.randn(5, n, k, generator=g) if k > 1 else torch.randn(5, n, generator=g)
+        x = psd.damped_chol_solve(a, d, b.cuda())
+        torch.cuda.synchronize()
+        if not (bool(torch.isnan(x[3]).all()) and bool(torch.isfinite(x[[0, 1, 2, 4]]).all())):
+            bad.append((n, pivot, k))
+print("failed:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_failed_pivot_in_every_panel_under_a_timeout(cuda_problem):
+    """ROADMAP F1 where the factor's warps part: a pivot that fails in panel 0,
+    in panel 1 (which warp 0 factors under panel 0's trailing update) or in
+    the ragged last panel, at n = 157, 288 (the largest packed triangle) and
+    300 (the workspace form), with 1 and 40 right-hand sides: that system's x
+    all NaN, its neighbours' finite. In a child process under a timeout, so
+    that a barrier left waiting fails the test rather than hanging it."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join(p for p in (str(root), os.environ.get("PYTHONPATH"))
+                                          if p))
+    proc = subprocess.run([sys.executable, "-c", _F1_CHILD], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_damped_solve_kernel_nan_on_indefinite(cuda_problem):
     """ROADMAP F1: a pivot that is not > 0 gives an all-NaN x, as in the
     plain version; the other systems of the batch are unaffected."""

@@ -265,11 +265,13 @@ def _matrix_system(rng, b_sz, n, k):
     return a, damp, cols
 
 
-@pytest.mark.parametrize("n", [157, 33, 1])
+@pytest.mark.parametrize("n", [157, 33, 1, 32, 64, 169, 224])
 def test_kernel_model_matches_pallas_and_plain(rng, n):
-    """At the rig's n, a ragged last panel of one row, and one unknown: the
-    blocked arithmetic solves as well as JAX's panel kernels (interpret mode)
-    and the plain version."""
+    """At the rig's n, a ragged last panel of one row, one unknown, one panel
+    with no lookahead (32), two panels (64), six with a ragged last (169,
+    config G's) and the largest n of the second form's shared memory (224):
+    the blocked arithmetic solves as well as JAX's panel kernels (interpret
+    mode) and the plain version."""
     a, damp, b = _system(rng, 32, n)
     x_m = _kernel_model(*(torch.as_tensor(v) for v in (a, damp, b))).numpy()
     x_p = np.asarray(psd_solve_pallas(jnp.asarray(a), jnp.asarray(b),
@@ -281,11 +283,13 @@ def test_kernel_model_matches_pallas_and_plain(rng, n):
     np.testing.assert_allclose(x_m / scale, x_t / scale, atol=1e-4)
 
 
-@pytest.mark.parametrize("pivot", [70, 150])
+@pytest.mark.parametrize("pivot", [70, 150, 40])
 def test_kernel_model_nan_on_failed_pivot(rng, pivot):
     """ROADMAP F1 in the blocked order: a pivot that fails in the third panel
-    (row 70) or in the ragged last one (row 150 of 157) gives an all-NaN x
-    for that system alone, as in the plain version."""
+    (row 70), in the ragged last one (row 150 of 157) or in the second (row
+    40, which the kernel's lookahead factors under the first panel's trailing
+    update) gives an all-NaN x for that system alone, as in the plain
+    version."""
     a, damp, b = (torch.as_tensor(v) for v in _system(rng, 4, 157))
     a[2, pivot, pivot] = -1e3
     for x in (_kernel_model(a, damp, b), psd.damped_chol_solve_plain(a, damp, b)):
@@ -331,3 +335,153 @@ def test_subst_model_nan_on_failed_pivot(rng):
     for x in (_subst_model(_symmetric_factor(F), ok, b), psd.damped_chol_solve_plain(a, damp, b)):
         assert torch.isnan(x[1]).all()
         assert torch.isfinite(x[[0, 2, 3]]).all()
+
+
+# damped_chol_solve_kernel's shared-memory layout and the order in which its
+# warps share the factor's work (csrc/psd.cu), mirrored so that their index
+# arithmetic is pinned on the CPU.
+LDB = 36  # kLdb: floats a row of a packed 32 × 32 block
+BLOCK = PANEL * LDB  # kBlock
+MAX_SHARED_N = 288  # kMaxSharedN
+MAX_SMEM = 232448  # kMaxSmem: bytes of shared memory a block can have
+SM_SMEM = 233472  # bytes of shared memory an H100 SM has for its blocks
+WARPS = 8
+
+
+def _packed(i, j):
+    """Mat<true>::at: the float offset of entry (i, j) of the lower block
+    triangle (j < 32·⌊i/32⌋ + 32) in shared memory."""
+    bi = i // PANEL
+    return (bi * (bi + 1) // 2 + j // PANEL) * BLOCK + (i % PANEL) * LDB + j % PANEL
+
+
+def _smem_bytes(n, factor_only):
+    """smem_bytes: the packed triangle and, for the fused form, m floats of
+    right-hand side, up to MAX_SHARED_N."""
+    nb = -(-n // PANEL)
+    rhs = 0 if factor_only else nb * PANEL
+    return 4 * (nb * (nb + 1) // 2 * BLOCK + rhs if n <= MAX_SHARED_N else rhs)
+
+
+def _triangle_block(q):
+    """Block (r, c) of the q-th entry of a lower block triangle by rows, as the
+    kernel decodes it: r = ⌊(√(8q + 1) − 1)/2⌋ in float32."""
+    f = np.float32
+    r = int((np.sqrt(f(8) * f(q) + f(1), dtype=f) - f(1)) * f(0.5))
+    return r, q - r * (r + 1) // 2
+
+
+def _panel_units(nb, p):
+    """The units (I, J, half) of panel p's trailing update that each warp
+    takes: the next diagonal block's halves to warps 0 and 1, the other
+    blocks' halves round-robin to warps 2–7."""
+    units = {w: [] for w in range(WARPS)}
+    t = p + 1
+    units[0].append((t, t, 0))
+    units[1].append((t, t, 1))
+    rows = nb - 1 - p
+    for u in range(rows * (rows + 1) - 2):
+        r, c = _triangle_block(1 + (u >> 1))
+        units[2 + u % (WARPS - 2)].append((t + r, t + c, u & 1))
+    return units
+
+
+@pytest.mark.parametrize("nb", range(2, MAX_SHARED_N // PANEL + 1))
+def test_factor_units_cover_each_trailing_update_once(nb):
+    """For every panel of a system of nb panels (up to n = 288), the units the
+    warps take cover each half of each block of the trailing lower block
+    triangle once, and warps 2–7 take equal shares to one unit."""
+    for p in range(nb - 1):
+        units = _panel_units(nb, p)
+        taken = [u for w in range(WARPS) for u in units[w]]
+        want = [(i, j, h) for j in range(p + 1, nb) for i in range(j, nb) for h in (0, 1)]
+        assert sorted(taken) == sorted(want)
+        shares = [len(units[w]) for w in range(2, WARPS)]
+        assert max(shares) - min(shares) <= 1
+
+
+def test_triangle_decode_is_exact():
+    """The float32 square root decodes every entry of triangles up to the
+    workspace form's 128 block rows (the factor-only hand-on's blocks)."""
+    q = 0
+    for r in range(128):
+        for c in range(r + 1):
+            assert _triangle_block(q) == (r, c)
+            q += 1
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 157, 160, 169, 192, 224, 288])
+def test_packed_layout(n):
+    """The packed lower block triangle: every entry at its own offset inside
+    the blocks, each block row 16-byte aligned; three systems of n ≤ 160 fit
+    an SM's shared memory, and 288 is the largest n that fits a block's."""
+    m = -(-n // PANEL) * PANEL
+    nb = m // PANEL
+    offsets = [_packed(i, j) for i in range(m) for j in range((i // PANEL + 1) * PANEL)]
+    assert len(set(offsets)) == len(offsets)
+    assert min(offsets) >= 0 and max(offsets) < nb * (nb + 1) // 2 * BLOCK
+    assert all(_packed(i, j) % 4 == 0 for i in range(m) for j in range(0, i + 1, PANEL))
+    for factor_only in (False, True):
+        assert _smem_bytes(n, factor_only) <= MAX_SMEM
+    if n <= 160:
+        assert 3 * (_smem_bytes(n, False) + 1024 + 16) <= SM_SMEM
+    assert 4 * (10 * 11 // 2 * BLOCK) > MAX_SMEM  # m = 320 does not fit
+
+
+def _chunks_conflict_free(offsets):
+    """Whether one 16-byte shared-memory load by the 32 lanes at these float
+    offsets is served in one pass per phase of 8 lanes: within each phase,
+    distinct 16-byte chunks lie in distinct groups of 4 banks."""
+    for phase in range(4):
+        chunks = {o // 4 for o in offsets[8 * phase:8 * phase + 8]}
+        if len({c % 8 for c in chunks}) != len(chunks):
+            return False
+    return True
+
+
+def test_factor_tile_loads_are_conflict_free():
+    """The 16-byte loads of steps (a), (b) and (c) in the packed layout: (b)
+    lane (rt, ct) reads rows i0 + rt + 4q of A21 and r0 + ct + 8q of Linv,
+    (c) lane (rg, cg) rows i0 + rg + 8q and jc + cg + 4q of L21, (a) lane l
+    its row l of the diagonal block; at every k-quad and q, in every block
+    row of a system of n = 288."""
+    lanes = range(32)
+    for p in range(MAX_SHARED_N // PANEL):
+        r0 = PANEL * p
+        for i0 in range(r0 + PANEL, MAX_SHARED_N, 16):
+            for q in range(4):
+                for k in range(0, PANEL, 4):
+                    assert _chunks_conflict_free([_packed(i0 + l // 8 + 4 * q, r0 + k) for l in lanes])
+                    assert _chunks_conflict_free([_packed(r0 + l % 8 + 8 * q, r0 + k) for l in lanes])
+        for i0 in range(r0, MAX_SHARED_N, PANEL):
+            for jc in range(r0, i0 + 1, 16):
+                for q in range(4):
+                    for k in range(0, PANEL, 4):
+                        assert _chunks_conflict_free(
+                            [_packed(i0 + l // 4 + 8 * q, r0 + k) for l in lanes])
+                        assert _chunks_conflict_free(
+                            [_packed(jc + l % 4 + 4 * q, r0 + k) for l in lanes])
+        for t in range(0, PANEL, 4):
+            assert _chunks_conflict_free([_packed(r0 + l, r0 + t) for l in lanes])
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 32, 33, 40, 157, 169, 224, 288])
+def test_each_diagonal_entry_damped_once_by_its_copier(n):
+    """The load: row i goes to warp i mod 8 below row 32 and to warp
+    2 + (i − 32) mod 6 past it, column j to lane j mod 32; the damping of
+    (i, i) is added by the thread the kernel's predicates pick, which must be
+    the one that copied the entry, and by no other."""
+    n0 = min(n, PANEL)
+    copier = {i: ((i % WARPS) if i < PANEL else 2 + (i - PANEL) % (WARPS - 2), i % 32)
+              for i in range(n)}
+    adders = {}
+    for warp in range(WARPS):
+        for lane in range(32):
+            if lane & 7 == warp and lane < n0:  # after the first group is in
+                adders.setdefault(lane, []).append((warp, lane))
+            if warp >= 2:
+                for c in range(1, MAX_SHARED_N // PANEL):
+                    i = lane + PANEL * c
+                    if i < n and (i - PANEL) % (WARPS - 2) == warp - 2:
+                        adders.setdefault(i, []).append((warp, lane))
+    assert adders == {i: [copier[i]] for i in range(n)}

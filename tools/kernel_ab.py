@@ -19,11 +19,11 @@ so DIR = build/parent/momentum_tpu_torch/csrc. Their C interfaces:
     damped_chol_solve_launch(a, damp, b, x, batch, n, stream): K2+K3 before
         it took k right-hand sides and n past 224.
 
-DIR2 holds `psd.cu` of commit 9afd70a, the K2+K3 whose matrix right-hand
-side was substituted column by column in the factor's block, unpacked with
+DIR2 holds `psd.cu` of commit 26e885b, the K2+K3 whose factor ran warp 0's
+diagonal step while the other warps waited, unpacked with
 
     mkdir -p build/parent_psd
-    git archive 9afd70a momentum_tpu_torch/csrc | tar -x -C build/parent_psd
+    git archive 26e885b momentum_tpu_torch/csrc | tar -x -C build/parent_psd
 
 so DIR2 = build/parent_psd/momentum_tpu_torch/csrc. Its interface is
 today's damped_chol_solve_launch(a, damp, b, x, batch, n, k, stream).
@@ -41,14 +41,16 @@ What is timed:
   * K5b's previous kernel against its entry point now, with K5a's entry
     point and K2+K3's previous kernel beside them, on the full stack's
     normal equations at B = 2048 padded to n = 160;
-  * (parts "psd", with DIR2) K2+K3's matrix right-hand side at the SPIKE
-    shapes of the sequence paths (PSD_SHAPES), on random SPD systems of those
-    shapes (the kernels' time does not depend on the values): 9afd70a's form,
-    today's, the probes of PSD_PROBES built from today's csrc/psd.cu (the
-    sweep that chose its KC and register budget), the library's cholesky_ex +
-    cholesky_solve and the plain version; today's split into its factor and
-    substitution kernels by the profiler; the forward error of each against
-    the float64 solve. At k = 1, (2048, 157): x bit-identical to 9afd70a's.
+  * (parts "psd", with DIR2) K2+K3 at the shapes of the paths, on random SPD
+    systems of those shapes (the kernels' time does not depend on the
+    values): vector right-hand sides (FUSED_SHAPES) and the SPIKE steps'
+    matrix ones (PSD_SHAPES); 26e885b's form, today's, the probes of
+    PSD_PROBES built from today's csrc/psd.cu (each undoes one design step
+    of the factor), the library's cholesky_ex + cholesky_solve and the plain
+    version; for matrix right-hand sides also the factor kernel alone by the
+    profiler, each form's in turns, beside the library's cholesky_ex and the
+    factor's bound; whether x is bit-identical to 26e885b's, and the forward
+    error of each against the float64 solve.
 Every time is the device time per launch: CUDA events around 10 launches
 queued behind a sleep kernel (profile_workload.event_ms, busy), the median of
 ROUNDS rounds with the forms in turns. The current forms are called through
@@ -65,7 +67,6 @@ import pathlib
 import statistics
 import subprocess
 import sys
-import time
 
 import torch
 
@@ -73,7 +74,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from momentum_tpu_torch.ops import build, raster  # noqa: E402
 from momentum_tpu_torch.testing.profile_workload import (  # noqa: E402
-    card_name_and_power_limit, in_turns, kernel_device_ms, library_solve, solve_bound)
+    card_name_and_power_limit, factor_bound, fmt_ms, in_turns, kernel_device_ms, library_solve,
+    solve_bound)
 
 ROUNDS = 3
 SMALL_MESH_FACES = 120  # the small-mesh render of chip_smoke.py
@@ -121,23 +123,35 @@ PROBES = {
     ],
     "walk compiled out": [("for (int s = 0; s < m; ++s) {", "for (int s = 0; s < m * 0; ++s) {")],
 }
-def _build_previous(src: pathlib.Path, tag: str) -> ctypes.CDLL:
-    """nvcc `src` into build/ab/ with the package's flags; the loaded library."""
+
+
+def _build_all(sources: dict) -> dict:
+    """nvcc each {name: source path} into build/ab/ with the package's flags,
+    all at once; the loaded libraries by name. Prints ptxas's registers and
+    spills of each."""
     out_dir = build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / f"lib{tag}.so"
-    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    regs = [ln.split(":")[-1].strip() for ln in (proc.stdout + proc.stderr).splitlines()
-            if "registers" in ln]
-    print(f"built {tag}: " + " | ".join(regs))
-    return ctypes.CDLL(str(lib))
+    libs = {name: out_dir / ("lib" + "".join(c for c in name if c.isalnum()) + ".so")
+            for name in sources}
+    procs = {name: subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(libs[name]),
+                                     str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+             for name, src in sources.items()}
+    for name, proc in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {sources[name]}:\n{out}")
+        print(f"built {name}: " + " | ".join(ln.split(":")[-1].strip() for ln in out.splitlines()
+                                             if "registers" in ln or "spill" in ln))
+    return {name: ctypes.CDLL(str(lib)) for name, lib in libs.items()}
 
 
-def _build_probe(tag: str, edits, source: str = "raster.cu") -> ctypes.CDLL:
-    """csrc/<source> with `edits` applied, built by _build_previous."""
+def _build_previous(src: pathlib.Path, tag: str) -> ctypes.CDLL:
+    return _build_all({tag: src})[tag]
+
+
+def _probe_source(tag: str, edits, source: str = "raster.cu") -> pathlib.Path:
+    """csrc/<source> with `edits` applied, written to build/ab/<tag>.cu."""
     src = (build.CSRC / source).read_text()
     for old, new in edits:
         if src.count(old) != 1:
@@ -147,7 +161,11 @@ def _build_probe(tag: str, edits, source: str = "raster.cu") -> ctypes.CDLL:
     out_dir.mkdir(parents=True, exist_ok=True)
     path = out_dir / f"{tag}.cu"
     path.write_text(src)
-    return _build_previous(path, tag)
+    return path
+
+
+def _build_probe(tag: str, edits, source: str = "raster.cu") -> ctypes.CDLL:
+    return _build_previous(_probe_source(tag, edits, source), tag)
 
 
 def _outputs(planes, n_attr, w, h):
@@ -293,33 +311,70 @@ def chol_ab(previous: pathlib.Path, card: str):
         f"bit-identical: {same_k23} [{card}]")
 
 
-# (B, n, k) of K2+K3's matrix right-hand sides on the paths: config 5f's SPIKE
-# forward step and its other steps, a rank's widest step in config 5fs,
-# config G's step, config 5's (and 5c's) forward step
+# (B, n) of K2+K3's vector right-hand sides on the paths: config 6s's
+# per-frame step, the IK path's second round, config 6s's batched step,
+# config 4b's, config U4's, the full stack's B = 1024 and the B = 2048 paths
+FUSED_SHAPES = ((1, 73), (128, 157), (343, 73), (256, 165), (2048, 115), (1024, 157),
+                (2048, 157))
+# (B, n, k) of its matrix right-hand sides: config 5f's SPIKE forward step
+# and its other steps, a rank's widest step in config 5fs, config G's step,
+# config 5's forward step
 PSD_SHAPES = ((32, 156, 470), (32, 156, 314), (16, 156, 782), (10, 169, 508), (32, 23, 70))
-# today's csrc/psd.cu with edits: the substitution's column tile KC and the
-# register budget of its blocks (the sweep that chose them); its walk over the
-# panels, or the updates in it, compiled out (wrong x: time only); its
-# workspace from the device's default memory pool instead of its own
+# The factor's design steps, each undone by an edit of today's csrc/psd.cu:
+# the rank-1 updates fed by shuffles instead of row kk's 16-byte broadcasts;
+# the inverse started after the whole factor instead of 4 columns behind it;
+# no lookahead (the next diagonal block's (a) after all of (c)); the load
+# finished before (a) of panel 0; the register budgets: the fused form at two
+# blocks an SM (128 registers a thread) instead of three (80), the
+# factor-only form at three instead of two.
+_NEXT_A = ("      if (warp == 0) {\n"
+           "        bar_sync(2, 64);\n"
+           "        diag_factor(A.at(t0, t0), A.rs(), lane, &ok);  // (a) of the next panel, under (c)\n"
+           "      } else {\n"
+           "        bar_arrive(2, 64);\n"
+           "        diag_inverse(A.at(t0, t0), A.rs(), lane);\n"
+           "      }\n")
+_A0 = ("  if (warp == 0) diag_factor(A.at(0, 0), A.rs(), lane, &ok);  // (a) of panel 0\n"
+       "  else if (warp == 1) diag_inverse(A.at(0, 0), A.rs(), lane);\n"
+       "  else {\n")
 PSD_PROBES = {
-    "KC = 64": [("constexpr int kCols = 32;", "constexpr int kCols = 64;")],
-    "4 blocks an SM": [("constexpr int kSubstBlocksPerSm = 2;",
-                        "constexpr int kSubstBlocksPerSm = 4;")],
-    "walk compiled out": [("for (int r0 = 0; r0 < m; r0 += kPanel) {  // L y = b; the back",
-                           "for (int r0 = 0; r0 < 0; r0 += kPanel) {  // L y = b; the back"),
-                          ("for (int r0 = m - kPanel; r0 >= 0; r0 -= kPanel)  // Lᵀ x = y",
-                           "for (int r0 = m - kPanel; r0 >= m; r0 -= kPanel)  // Lᵀ x = y")],
-    "updates compiled out": [("i0 < hi; i0 += kWarps * kChunk) {",
-                              "i0 < lo; i0 += kWarps * kChunk) {")],
-    "default pool": [("cudaMallocFromPoolAsync(\n"
-                      "      (void**)&work, floats * sizeof(float) + (k > 1 ? batch * sizeof(int) "
-                      ": 0), pool, s);",
-                      "cudaMallocAsync(\n"
-                      "      (void**)&work, floats * sizeof(float) + (k > 1 ? batch * sizeof(int) "
-                      ": 0), s);")],
+    "factor by shuffles": [(
+        "    __syncwarp();  // column kk of L in row kk\n"
+        "#pragma unroll\n"
+        "    for (int g = (kk + 1) / 4 * 4; g < kPanel; g += 4) {\n"
+        "      const float4 l = ld4(D + kk * rs + g);\n"
+        "      const float lv[4] = {l.x, l.y, l.z, l.w};\n"
+        "#pragma unroll\n"
+        "      for (int e = 0; e < 4; ++e)\n"
+        "        if (g + e > kk && lane >= g + e) rv[g + e] -= lik * lv[e];\n"
+        "    }\n",
+        "#pragma unroll\n"
+        "    for (int jj = kk + 1; jj < kPanel; ++jj) {\n"
+        "      const float ljk = __shfl_sync(kAll, lik, jj);\n"
+        "      if (lane >= jj) rv[jj] -= lik * ljk;\n"
+        "    }\n")],
+    "inverse after the factor": [("constexpr int kInverseLag = 4;",
+                                  "constexpr int kInverseLag = 32;")],
+    "no lookahead": [
+        (_NEXT_A, "      if (warp == 0) bar_sync(2, 64);\n      else bar_arrive(2, 64);\n"),
+        ("    __syncthreads();  // (c) done\n",
+         "    __syncthreads();\n"
+         "    if (warp == 0) diag_factor(A.at(t0, t0), A.rs(), lane, &ok);\n"
+         "    else if (warp == 1) diag_inverse(A.at(t0, t0), A.rs(), lane);\n"
+         "    __syncthreads();  // (c) done\n")],
+    "load, then (a) of panel 0": [
+        (_A0, "  if (warp >= 2) {\n"),
+        ("  }\n  __syncthreads();\n\n  // The panels.",
+         "  }\n  __syncthreads();\n"
+         "  if (warp == 0) diag_factor(A.at(0, 0), A.rs(), lane, &ok);\n"
+         "  else if (warp == 1) diag_inverse(A.at(0, 0), A.rs(), lane);\n"
+         "  __syncthreads();\n\n  // The panels.")],
+    "fused at 2 blocks an SM": [("constexpr int kFusedBlocksPerSm = 3;",
+                                 "constexpr int kFusedBlocksPerSm = 2;")],
+    "factor-only at 3 blocks an SM": [("constexpr int kFactorOnlyBlocksPerSm = 2;",
+                                       "constexpr int kFactorOnlyBlocksPerSm = 3;")],
 }
-TIME_ONLY = {"walk compiled out", "updates compiled out"}
-SYNCED_CALLS = 20  # calls, each followed by a synchronize, of the pool comparison
+FACTOR = "damped_chol_solve_kernel"  # the factor's kernel, in both forms
 
 
 def _spd_systems(batch, n, k, seed=0):
@@ -350,67 +405,65 @@ def _psd_raw(lib, a, d, b, tag):
     return run
 
 
+def _factor_in_turns(forms: dict) -> dict:
+    """The profiler's device time of each form's factor kernel (the first of
+    a matrix call's two), median of ROUNDS rounds with the forms in turns."""
+    times = {name: [] for name in forms}
+    for _ in range(ROUNDS):
+        for name, fn in forms.items():
+            times[name].append(kernel_device_ms(fn, FACTOR))
+    return {name: None if None in t else statistics.median(t) for name, t in times.items()}
+
+
 def psd_ab(previous: pathlib.Path, card: str):
     from momentum_tpu_torch.ops import psd
 
-    prev = _build_previous(previous / "psd.cu", "psd_9afd70a")
-    probes = {name: _build_probe("psd_probe_" + "".join(c for c in name if c.isalnum()), edits,
-                                 "psd.cu") for name, edits in PSD_PROBES.items()}
+    sources = {"26e885b": previous / "psd.cu"}
+    for name, edits in PSD_PROBES.items():
+        sources[name] = _probe_source("psd_probe_" + "".join(c for c in name if c.isalnum()),
+                                      edits, "psd.cu")
+    libs = _build_all(sources)
+    prev = libs.pop("26e885b")
     psd.damped_chol_solve(*_spd_systems(2, 40, 3))  # build today's form
     log = pathlib.Path(str(build._library_path("psd")) + ".log").read_text()
     print("built psd (today's): " + " | ".join(
-        ln.split(":")[-1].strip() for ln in log.splitlines() if "registers" in ln))
-    for batch, n, k in PSD_SHAPES:
+        ln.split(":")[-1].strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln))
+    same_all = True
+    for batch, n, *rest in FUSED_SHAPES + PSD_SHAPES:
+        k = rest[0] if rest else 1
         a, d, b = _spd_systems(batch, n, k)
-        forms = {"previous (9afd70a)": _psd_raw(prev, a, d, b, "9afd70a's psd.cu"),
+        forms = {"26e885b": _psd_raw(prev, a, d, b, "26e885b's psd.cu"),
                  "now": lambda: psd.damped_chol_solve(a, d, b),
-                 **{f"probe {name}": _psd_raw(lib, a, d, b, name) for name, lib in probes.items()},
+                 **{f"probe {name}": _psd_raw(lib, a, d, b, name) for name, lib in libs.items()},
                  "library": library_solve(a, d, b),
                  "plain": lambda: psd.damped_chol_solve_plain(a, d, b)}
+        same = torch.equal(forms["26e885b"](), forms["now"]())
+        same_all &= same
         x64 = psd.damped_chol_solve_plain(a.double(), d.double(), b.double())
         fwd = {name: float((fn().double() - x64).abs().max() / x64.abs().max())
-               for name, fn in forms.items() if name.removeprefix("probe ") not in TIME_ONLY}
+               for name, fn in forms.items()}
         t = in_turns(forms, ROUNDS, busy=True)
-        split = {kern: kernel_device_ms(forms["now"], kern) for kern in psd.KERNELS}
-        both = kernel_device_ms(forms["now"], psd.KERNELS, per_call=2)
         bnd = solve_bound(batch, n, k)
-        print(f"K2+K3 (B={batch}, n={n}, k={k}): " + ", ".join(
+        line = (f"K2+K3 (B={batch}, n={n}, k={k}): " + ", ".join(
             f"{name} {ms:.4f} ms" for name, ms in t.items())
-            + "; now by the profiler: " + " + ".join(
-                f"{kern} {'not measured' if ms is None else f'{ms:.4f}'}"
-                for kern, ms in split.items())
-            + f" = {'not measured' if both is None else f'{both:.4f}'} ms; bound "
-            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), {bnd['bound_ms'] / t['now']:.1%} of "
-            f"it; previous / now {t['previous (9afd70a)'] / t['now']:.2f}x; forward error "
-            + ", ".join(f"{name} {e:.2e}" for name, e in fwd.items()) + f" [{card}]")
-    # as a path calls it: the host synchronizes between calls, and the
-    # default pool gives its memory back at each synchronization
-    a, d, b = _spd_systems(*PSD_SHAPES[0])
-    forms = {"now": lambda: psd.damped_chol_solve(a, d, b),
-             "probe default pool": _psd_raw(probes["default pool"], a, d, b, "default pool")}
-    walls = {name: [] for name in forms}
-    for _ in range(ROUNDS):
-        for name, fn in forms.items():
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(SYNCED_CALLS):
-                fn()
-                torch.cuda.synchronize()
-            walls[name].append((time.perf_counter() - t0) / SYNCED_CALLS * 1e3)
-    print("K2+K3 (B={}, n={}, k={}) called as a path calls it, each call followed by a "
-          "synchronize: ".format(*PSD_SHAPES[0]) + ", ".join(
-              f"{name} {statistics.median(w):.4f} ms a call" for name, w in walls.items())
-          + f" (host clock, median of {ROUNDS} rounds of {SYNCED_CALLS}) [{card}]")
-    a, d, b = _spd_systems(2048, 157, 1)
-    forms = {"previous (9afd70a)": _psd_raw(prev, a, d, b, "9afd70a's psd.cu"),
-             "now": lambda: psd.damped_chol_solve(a, d, b)}
-    same = torch.equal(forms["previous (9afd70a)"](), forms["now"]())
-    t = in_turns(forms, ROUNDS, busy=True)
-    print("K2+K3 (B=2048, n=157, k=1): " + ", ".join(f"{name} {ms:.4f} ms" for name, ms in t.items())
-          + f"; x bit-identical to 9afd70a's: {same} [{card}]")
-    if not same:
-        raise SystemExit("K2+K3 at k = 1 is not bit-identical to 9afd70a's")
+            + f"; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+            f"{bnd['bound_ms'] / t['now']:.1%} of it; 26e885b / now "
+            f"{t['26e885b'] / t['now']:.3f}x; x bit-identical to 26e885b's: {same}; forward "
+            "error " + ", ".join(f"{name} {e:.2e}" for name, e in fwd.items()))
+        if k > 1:
+            ad = a + torch.diag_embed(d)
+            factors = _factor_in_turns(
+                {name: fn for name, fn in forms.items() if name not in ("library", "plain")})
+            # the library's factor is all of its call: every kernel counts
+            factors["library cholesky_ex"] = kernel_device_ms(
+                lambda: torch.linalg.cholesky_ex(ad), "", per_call=None)
+            fb = factor_bound(batch, n)
+            line += ("; the factor alone by the profiler: " + ", ".join(
+                f"{name} {fmt_ms(ms)} ms" for name, ms in factors.items())
+                + f"; its bound {fb['bound_ms']:.4f} ms ({fb['bound_by']})")
+        print(line + f" [{card}]", flush=True)
+    if not same_all:
+        raise SystemExit("K2+K3 is not bit-identical to 26e885b's")
 
 
 def main():
@@ -418,7 +471,7 @@ def main():
     ap.add_argument("--previous", type=pathlib.Path,
                     help="directory holding b61b2af's raster.cu, psd.cu and chol.cu")
     ap.add_argument("--previous-psd", type=pathlib.Path,
-                    help="directory holding 9afd70a's psd.cu")
+                    help="directory holding 26e885b's psd.cu")
     ap.add_argument("--parts", default="raster,chol,psd",
                     help="comma-separated A/Bs to run: raster, chol, psd")
     args = ap.parse_args()
