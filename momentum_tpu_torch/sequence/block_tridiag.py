@@ -16,7 +16,11 @@ Every SPD solve goes through math/linalg.py::psd_solve: CUDA float32
 systems launch damped_chol_solve_kernel (K2+K3) with their matrix
 right-hand sides, float64 and CPU tensors take the plain Cholesky. The
 SPIKE interface system is a general LU (torch.linalg.solve_ex), outside any
-kernel in JAX too. The JAX scans are Python loops over tensors.
+kernel in JAX too. The JAX scans are Python loops over tensors; each loop
+lies inside one span (utils/profiling.py): `sequence.spike_local` (the
+chunks' systems and their batched Thomas scans), `sequence.spike_interface`
+(the interface LU and each chunk's rows), `sequence.schur` (the arrowhead
+step), `sequence.thomas` (a scan outside SPIKE) and `sequence.superblocks`.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from momentum_tpu_torch.math.linalg import psd_solve
+from momentum_tpu_torch.utils.profiling import profile_scope, spanned
 
 __all__ = ["block_tridiag_solve", "block_tridiag_solve_thomas",
            "block_tridiag_solve_partitioned", "banded_to_tridiag", "schur_arrowhead_solve"]
@@ -49,6 +54,7 @@ def block_tridiag_solve(diag: torch.Tensor, upper: torch.Tensor,
     return block_tridiag_solve_thomas(diag, upper, rhs)
 
 
+@spanned("sequence.thomas")
 def block_tridiag_solve_thomas(diag: torch.Tensor, upper: torch.Tensor,
                                rhs: torch.Tensor) -> torch.Tensor:
     """Block Thomas: forward Schur elimination, then back substitution,
@@ -128,8 +134,9 @@ def block_tridiag_solve_partitioned(diag: torch.Tensor, upper: torch.Tensor,
     kp = int(partitions)
     if kp <= 1 or f < 2 * kp:
         return block_tridiag_solve_thomas(diag, upper, rhs)
-    dd, uu, big = _spike_local_systems(diag, upper, rhs, kp)
-    sol = _block_tridiag_solve_thomas_batched(dd, uu, big)
+    with profile_scope("sequence.spike_local"):
+        dd, uu, big = _spike_local_systems(diag, upper, rhs, kp)
+        sol = _block_tridiag_solve_thomas_batched(dd, uu, big)
     return _spike_interface_solve(sol, rhs.shape[-1])[:f]
 
 
@@ -155,6 +162,7 @@ def _spike_local_systems(diag, upper, rhs, kp):
     return diag.reshape(kp, m, p, p), uu_full[:, :m - 1], big
 
 
+@spanned("sequence.spike_interface")
 def _spike_interface_solve(sol, k):
     """x (K·M, p, k) from the local solutions sol (K, M, p, k + 2p) =
     [g | V | W]: the interface system over z_s = [x_{s,first}; x_{s,last}]
@@ -184,6 +192,7 @@ def _spike_interface_solve(sol, k):
     return x.reshape(kp * m, p, k)
 
 
+@spanned("sequence.superblocks")
 def banded_to_tridiag(diag: torch.Tensor, offs: list):
     """Aggregate a half-bandwidth-q block-banded SPD system into a
     block-tridiagonal system of (q·p)-sized superblocks.
@@ -220,6 +229,7 @@ def banded_to_tridiag(diag: torch.Tensor, offs: list):
     return sup_diag, sup_upper
 
 
+@spanned("sequence.schur")
 def schur_arrowhead_solve(diag: torch.Tensor, upper: torch.Tensor, u_coupling: torch.Tensor,
                           u_block: torch.Tensor, rhs_f: torch.Tensor, rhs_u: torch.Tensor):
     """Solve [[T, U], [Uᵀ, S]] [x_f; x_u] = [b_f; b_u] with T block-tridiagonal:

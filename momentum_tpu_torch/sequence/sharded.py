@@ -33,7 +33,12 @@ Per GN iteration:
 The loop stops on `done`, computed from the all-reduced energy, which is
 the same on every rank, so every rank issues the same collectives. As in
 JAX, the sharded solve takes neither the line search nor the float64
-normal equations.
+normal equations. Spans (utils/profiling.py): `sharded.solve`,
+`sharded.iteration`, and a `.sync` span on each of the solver's host syncs:
+the test "done" (`sharded.sync`) and the tables and values copied from the
+host (`sharded.index.sync`, `sharded.init.sync`, `sharded.result.sync`).
+The collectives' own copies (parallel/collectives.py, through the host on
+gloo) are not marked.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from momentum_tpu_torch.sequence.solver import (
     SequenceSolveResult, make_frame_jacobian, window_jacobian)
 from momentum_tpu_torch.sequence.solver_function import SequenceSolverFunction
 from momentum_tpu_torch.solver.gauss_newton import SolverOptions, _converged
+from momentum_tpu_torch.utils.profiling import host_sync, profile_scope, spanned
 
 __all__ = ["solve_sequence_sharded"]
 
@@ -80,7 +86,7 @@ def _take_frames(modules: tuple, f_real: int, index: torch.Tensor) -> tuple:
     def take(t):
         if (isinstance(t, torch.Tensor) and t.is_floating_point() and t.ndim >= 1
                 and t.shape[0] == f_real):
-            return t.index_select(0, index.to(t.device))
+            return t.index_select(0, host_sync("sharded.index", index.to, t.device))
         return t
 
     return tuple(dataclasses.replace(ef, **{f.name: take(getattr(ef, f.name))
@@ -306,6 +312,7 @@ def _sharded_error(shard: _Shard, pf_local: torch.Tensor, u: torch.Tensor) -> to
     return C.all_reduce_sum(total, shard.group)
 
 
+@spanned("sharded.solve")
 def solve_sequence_sharded(fn: SequenceSolverFunction, pf0: torch.Tensor, u0: torch.Tensor,
                            group=None,
                            options: SolverOptions = SolverOptions()) -> SequenceSolveResult:
@@ -327,23 +334,26 @@ def solve_sequence_sharded(fn: SequenceSolverFunction, pf0: torch.Tensor, u0: to
     # this rank's frames; the padding repeats the last real frame's tables
     # and starts at zero parameters, as JAX's
     index = torch.clamp(torch.arange(start, start + l_frames), max=f_real - 1)
-    real = (start + torch.arange(l_frames) < f_real).to(dev)
+    real = host_sync("sharded.index", (start + torch.arange(l_frames) < f_real).to, dev)
     fn_local = dataclasses.replace(
         fn, per_frame_errors=_take_frames(fn.per_frame_errors, f_real, index),
         num_frames=l_frames)
     shard = _Shard(fn_local, start, f_real, q, group)
-    pf = torch.where(real[:, None], pf0.index_select(0, index.to(dev)), 0.0)
+    pf = torch.where(real[:, None],
+                     pf0.index_select(0, host_sync("sharded.index", index.to, dev)), 0.0)
     u = u0
 
-    last_err = torch.tensor(torch.finfo(torch.float32).max, dtype=pf0.dtype, device=dev)
+    last_err = host_sync("sharded.init", torch.tensor, torch.finfo(torch.float32).max,
+                         dtype=pf0.dtype, device=dev)
     it, done = 0, False
     while it < opts.max_iterations and not done:
-        d_pf, d_u = _sharded_step(shard, pf, u, opts)
-        err = _sharded_error(shard, pf, u)
-        done = bool((it + 1 >= opts.min_iterations)
-                    & _converged(last_err, err, opts.threshold))
-        pf, u, last_err = pf - d_pf, u - d_u, err
-        it += 1
+        with profile_scope("sharded.iteration"):
+            d_pf, d_u = _sharded_step(shard, pf, u, opts)
+            err = _sharded_error(shard, pf, u)
+            done = host_sync("sharded", bool, (it + 1 >= opts.min_iterations)
+                             & _converged(last_err, err, opts.threshold))
+            pf, u, last_err = pf - d_pf, u - d_u, err
+            it += 1
     per_frame, = C.all_gather([pf], group)
     return SequenceSolveResult(per_frame.flatten(0, 1)[:f_real], u, last_err, it,
-                               torch.tensor(done, device=dev))
+                               host_sync("sharded.result", torch.tensor, done, device=dev))

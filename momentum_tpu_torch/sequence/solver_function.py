@@ -26,6 +26,7 @@ import torch
 from momentum_tpu_torch.character.character import Character
 from momentum_tpu_torch.errors.base import EvalContext
 from momentum_tpu_torch.solver.skeleton_solver_function import SkeletonSolverFunction
+from momentum_tpu_torch.utils.profiling import host_sync
 
 __all__ = ["SequenceSolverFunction", "stack_frames", "broadcast_frames"]
 
@@ -84,14 +85,17 @@ class SequenceSolverFunction:
         return len(self.universal_index)
 
     def _index(self, name: str, device) -> torch.Tensor:
-        return torch.as_tensor(getattr(self, name), dtype=torch.int64, device=device)
+        # a copy from the host, which waits for the card's queue to drain
+        return host_sync("sequence.index", torch.as_tensor, getattr(self, name),
+                         dtype=torch.int64, device=device)
 
     def join(self, pf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """(..., n_pf), (n_u,) → (..., P) full model parameters. A gather
         of [pf | u], so forward-mode AD and vmap pass through it."""
         order = np.argsort(np.asarray(self.per_frame_index + self.universal_index, np.int64))
         both = torch.cat([pf, u.expand(pf.shape[:-1] + u.shape[-1:])], dim=-1)
-        return both.index_select(-1, torch.as_tensor(order, device=pf.device))
+        return both.index_select(
+            -1, host_sync("sequence.index", torch.as_tensor, order, device=pf.device))
 
     def split(self, thetas: torch.Tensor):
         """(F, P) → (pf (F, n_pf), u (n_u,) from frame 0)."""
@@ -138,7 +142,7 @@ class SequenceSolverFunction:
         every window (ROADMAP F24)."""
         f = self.num_frames
         idx = (torch.arange(f - window + 1)[:, None] + torch.arange(window)[None, :])
-        idx = idx.to(ctxs.model_params.device)
+        idx = host_sync("sequence.index", idx.to, ctxs.model_params.device)
 
         def windows(name, t):
             if t is None or (name == "rest_vertices" and t.ndim == 2):

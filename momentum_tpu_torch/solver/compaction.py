@@ -7,6 +7,10 @@ remaining `r_refine` iterations run only on the worst `capacity` elements
 refinement resumes each element's LM damping (SolveResult.lambda_final →
 lambda0), so a refined element follows the same iterates it would in a
 (k_full + r_refine)-iteration solve.
+
+Spans (utils/profiling.py): `compaction.solve` around a call, and inside it
+`compaction.select` (the top-k and the gathers), `compaction.refine` (the
+second stage) and `compaction.scatter` (the writes back).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Callable
 import torch
 
 from momentum_tpu_torch.solver.gauss_newton import SolveResult
+from momentum_tpu_torch.utils.profiling import profile_scope, spanned
 
 __all__ = ["gather_batch", "scatter_batch", "solve_compacted"]
 
@@ -57,6 +62,7 @@ def scatter_batch(tree, sub, idx: torch.Tensor, capacity: int):
     return _map(s, tree, sub)
 
 
+@spanned("compaction.solve")
 def solve_compacted(solve_fn: Callable, inputs, x0: torch.Tensor, capacity: int,
                     k_full: int, r_refine: int) -> SolveResult:
     """Full batch for `k_full` iterations, then `r_refine` more on the
@@ -72,17 +78,22 @@ def solve_compacted(solve_fn: Callable, inputs, x0: torch.Tensor, capacity: int,
         return res1
     if capacity > batch:
         raise ValueError(f"capacity {capacity} exceeds batch {batch}")
-    key = torch.nan_to_num(res1.error, nan=_BIG, posinf=_BIG)
-    _, idx = torch.topk(key, capacity)
-    lam = None if res1.lambda_final is None else res1.lambda_final[idx]
-    res2 = solve_fn(gather_batch(inputs, idx, batch), res1.params[idx], r_refine, lam)
-    lam_out = None
-    if res1.lambda_final is not None:
-        lam_out = res1.lambda_final.index_copy(
-            0, idx, lam if res2.lambda_final is None else res2.lambda_final)
-    return SolveResult(
-        params=res1.params.index_copy(0, idx, res2.params),
-        error=res1.error.index_copy(0, idx, res2.error),
-        iterations=res1.iterations + res2.iterations,
-        converged=res1.converged.index_copy(0, idx, res2.converged),
-        lambda_final=lam_out)
+    with profile_scope("compaction.select"):
+        key = torch.nan_to_num(res1.error, nan=_BIG, posinf=_BIG)
+        _, idx = torch.topk(key, capacity)
+        lam = None if res1.lambda_final is None else res1.lambda_final[idx]
+        sub = gather_batch(inputs, idx, batch), res1.params[idx]
+    with profile_scope("compaction.refine"):
+        res2 = solve_fn(*sub, r_refine, lam)
+    del sub  # the gathered batch is not held through the scatter
+    with profile_scope("compaction.scatter"):
+        lam_out = None
+        if res1.lambda_final is not None:
+            lam_out = res1.lambda_final.index_copy(
+                0, idx, lam if res2.lambda_final is None else res2.lambda_final)
+        return SolveResult(
+            params=res1.params.index_copy(0, idx, res2.params),
+            error=res1.error.index_copy(0, idx, res2.error),
+            iterations=res1.iterations + res2.iterations,
+            converged=res1.converged.index_copy(0, idx, res2.converged),
+            lambda_final=lam_out)

@@ -29,7 +29,10 @@ iteration's energy and parameters (solver.h:72-92).
 
 The loops run eagerly: the test "any element still running" reads one bool
 from the device each iteration (a host sync; the JAX package's `cond` ran on
-the device), and `verbose` prints the mean energy there.
+the device), and `verbose` prints the mean energy there. Each such read is
+a `<solver>.sync` span (utils/profiling.py::host_sync); each solve, loop
+turn, linearization (`lm.jacobian`, in every solver that asks for one), LM
+step and trial energy is a span too, free while no profiler records.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from momentum_tpu_torch.math.linalg import damped_psd_solve
+from momentum_tpu_torch.utils.profiling import host_sync, profile_scope, spanned
 
 __all__ = ["SolverOptions", "SolveResult", "solve_gauss_newton",
            "solve_gauss_newton_cg", "solve_levenberg_marquardt",
@@ -125,6 +129,7 @@ def ad_jacobian(residual_fn: Callable, x: torch.Tensor, chunk_size: Optional[int
     return rows[0], jt.movedim(0, -2)
 
 
+@spanned("lm.jacobian")
 def _jacobian(residual_fn: Callable, x: torch.Tensor, jacobian_fn: Optional[Callable]):
     """(rows, Jᵀ) with Jᵀ (..., P, R): from the analytic provider when one
     is given, else by forward mode (`ad_jacobian`)."""
@@ -157,6 +162,7 @@ def _result(x, err, it, done, hist, lam=None) -> SolveResult:
                        None if hist is None else hist[1], lam)
 
 
+@spanned("gn.line_search")
 def _line_search(error_fn: Callable, x: torch.Tensor, delta: torch.Tensor,
                  err0: torch.Tensor, steps: int) -> torch.Tensor:
     """Per-element step length: the largest α in {1, 1/2, 1/4, ...} (up to
@@ -172,7 +178,7 @@ def _line_search(error_fn: Callable, x: torch.Tensor, delta: torch.Tensor,
         good = (e < err0) & ~found
         best = torch.where(good, alpha, best)
         found = found | good
-        if bool(found.all()):
+        if host_sync("gn.line_search", bool, found.all()):
             break
         alpha = alpha * 0.5
     return torch.where(found, best, torch.ones_like(best))
@@ -194,6 +200,7 @@ def _qr_step(jt: torch.Tensor, rows: torch.Tensor, damp_diag: torch.Tensor,
     return torch.linalg.solve_triangular(r, qtr, upper=True)[..., 0] * mask
 
 
+@spanned("cg.solve")
 def _cg(matvec: Callable, b: torch.Tensor, iters: int, tol: float) -> torch.Tensor:
     """Batched conjugate gradients on an SPD `matvec` from x = 0, b (..., P):
     every element runs its own CG, an element whose residual fell to
@@ -207,7 +214,7 @@ def _cg(matvec: Callable, b: torch.Tensor, iters: int, tol: float) -> torch.Tens
     rs0 = rs
     for _ in range(iters):
         active = rs > (tol * tol) * rs0
-        if not bool(active.any()):
+        if not host_sync("cg", bool, active.any()):
             break
         ap = matvec(pvec)
         pap = torch.sum(pvec * ap, dim=-1)
@@ -221,6 +228,7 @@ def _cg(matvec: Callable, b: torch.Tensor, iters: int, tol: float) -> torch.Tens
     return x
 
 
+@spanned("gn_cg.solve")
 def solve_gauss_newton_cg(
     residual_fn: Callable,
     error_fn: Callable,
@@ -245,32 +253,36 @@ def solve_gauss_newton_cg(
     done = torch.zeros(err_shape, dtype=torch.bool, device=x0.device)
     hist = _history(opts, x0)
     it = 0
-    while it < opts.max_iterations and not bool(done.all()):
-        rows, vjp_fn = torch.func.vjp(residual_fn, x)
-        x_lin = x
+    while it < opts.max_iterations and not host_sync("gn_cg", bool, done.all()):
+        with profile_scope("gn_cg.iteration"):
+            rows, vjp_fn = torch.func.vjp(residual_fn, x)
+            x_lin = x
 
-        def matvec(v):
-            jv = torch.func.jvp(residual_fn, (x_lin,), (v * mask,))[1]
-            return vjp_fn(jv)[0] * mask + damp * v
+            def matvec(v):
+                jv = torch.func.jvp(residual_fn, (x_lin,), (v * mask,))[1]
+                return vjp_fn(jv)[0] * mask + damp * v
 
-        jtr = vjp_fn(rows)[0]
-        delta = _cg(matvec, jtr * mask, opts.cg_iterations, opts.cg_tol) * mask
-        err = torch.sum(rows * rows, dim=-1) if opts.energy_from_residual else error_fn(x)
-        if opts.verbose:
-            print(f"GN-CG iter {it}: error {float(err.mean())}")
-        if opts.do_line_search:
-            delta = _line_search(error_fn, x, delta, err, opts.line_search_steps)[..., None] * delta
-        x_new = x - delta
-        newly_done = (it + 1 >= opts.min_iterations) & _converged(last_err, err, opts.threshold)
-        x = torch.where(done[..., None], x, x_new)
-        last_err = torch.where(done, last_err, err)
-        if hist is not None:
-            hist[0][it], hist[1][it] = err, x
-        it += 1
-        done = done | newly_done
+            jtr = vjp_fn(rows)[0]
+            delta = _cg(matvec, jtr * mask, opts.cg_iterations, opts.cg_tol) * mask
+            err = torch.sum(rows * rows, dim=-1) if opts.energy_from_residual else error_fn(x)
+            if opts.verbose:
+                print(f"GN-CG iter {it}: error {host_sync('gn_cg', float, err.mean())}")
+            if opts.do_line_search:
+                delta = _line_search(error_fn, x, delta, err,
+                                     opts.line_search_steps)[..., None] * delta
+            x_new = x - delta
+            newly_done = ((it + 1 >= opts.min_iterations)
+                          & _converged(last_err, err, opts.threshold))
+            x = torch.where(done[..., None], x, x_new)
+            last_err = torch.where(done, last_err, err)
+            if hist is not None:
+                hist[0][it], hist[1][it] = err, x
+            it += 1
+            done = done | newly_done
     return _result(x, last_err, it, done, hist)
 
 
+@spanned("gn.solve")
 def solve_gauss_newton(
     residual_fn: Callable,
     error_fn: Callable,
@@ -300,39 +312,44 @@ def solve_gauss_newton(
     done = torch.zeros(err_shape, dtype=torch.bool, device=x0.device)
     hist = _history(opts, x0)
     it = 0
-    while it < opts.max_iterations and not bool(done.all()):
-        if normal_fn is not None:
-            jtj, jtr, sq = normal_fn(x)
-            if enabled_mask is not None:
-                jtj = jtj * (mask[:, None] * mask[None, :])
-                jtr = jtr * mask
-            delta = damped_psd_solve(jtj, damp, jtr) * mask
-            err = sq if opts.energy_from_residual else error_fn(x)
-        else:
-            rows, jt = _jacobian(residual_fn, x, jacobian_fn)
-            jt = jt * mask[:, None]
-            if opts.linear_solver == "qr":
-                delta = _qr_step(jt, rows, damp, mask)
-            else:
-                jtj = jt @ jt.transpose(-1, -2)
-                jtr = (jt @ rows[..., None])[..., 0]
+    while it < opts.max_iterations and not host_sync("gn", bool, done.all()):
+        with profile_scope("gn.iteration"):
+            if normal_fn is not None:
+                jtj, jtr, sq = normal_fn(x)
+                if enabled_mask is not None:
+                    jtj = jtj * (mask[:, None] * mask[None, :])
+                    jtr = jtr * mask
                 delta = damped_psd_solve(jtj, damp, jtr) * mask
-            err = torch.sum(rows * rows, dim=-1) if opts.energy_from_residual else error_fn(x)
-        if opts.verbose:
-            print(f"GN iter {it}: error {float(err.mean())}")
-        if opts.do_line_search:
-            delta = _line_search(error_fn, x, delta, err, opts.line_search_steps)[..., None] * delta
-        x_new = x - delta
-        newly_done = (it + 1 >= opts.min_iterations) & _converged(last_err, err, opts.threshold)
-        x = torch.where(done[..., None], x, x_new)
-        last_err = torch.where(done, last_err, err)
-        if hist is not None:
-            hist[0][it], hist[1][it] = err, x
-        it += 1
-        done = done | newly_done
+                err = sq if opts.energy_from_residual else error_fn(x)
+            else:
+                rows, jt = _jacobian(residual_fn, x, jacobian_fn)
+                jt = jt * mask[:, None]
+                if opts.linear_solver == "qr":
+                    delta = _qr_step(jt, rows, damp, mask)
+                else:
+                    jtj = jt @ jt.transpose(-1, -2)
+                    jtr = (jt @ rows[..., None])[..., 0]
+                    delta = damped_psd_solve(jtj, damp, jtr) * mask
+                err = (torch.sum(rows * rows, dim=-1) if opts.energy_from_residual
+                       else error_fn(x))
+            if opts.verbose:
+                print(f"GN iter {it}: error {host_sync('gn', float, err.mean())}")
+            if opts.do_line_search:
+                delta = _line_search(error_fn, x, delta, err,
+                                     opts.line_search_steps)[..., None] * delta
+            x_new = x - delta
+            newly_done = ((it + 1 >= opts.min_iterations)
+                          & _converged(last_err, err, opts.threshold))
+            x = torch.where(done[..., None], x, x_new)
+            last_err = torch.where(done, last_err, err)
+            if hist is not None:
+                hist[0][it], hist[1][it] = err, x
+            it += 1
+            done = done | newly_done
     return _result(x, last_err, it, done, hist)
 
 
+@spanned("gd.solve")
 def solve_gradient_descent(
     residual_fn: Callable,
     error_fn: Callable,
@@ -355,24 +372,28 @@ def solve_gradient_descent(
                           device=x0.device)
     done = torch.zeros(err_shape, dtype=torch.bool, device=x0.device)
     it = 0
-    while it < opts.max_iterations and not bool(done.all()):
-        if normal_fn is not None:
-            _, jtr, sq = normal_fn(x)
-            grad = 2.0 * jtr * mask
-            err = sq if opts.energy_from_residual else error_fn(x)
-        else:
-            rows, jt = _jacobian(residual_fn, x, jacobian_fn)
-            grad = 2.0 * ((jt * mask[:, None]) @ rows[..., None])[..., 0]
-            err = torch.sum(rows * rows, dim=-1) if opts.energy_from_residual else error_fn(x)
-        x_new = x - learning_rate * grad
-        newly_done = (it + 1 >= opts.min_iterations) & _converged(last_err, err, opts.threshold)
-        x = torch.where(done[..., None], x, x_new)
-        last_err = torch.where(done, last_err, err)
-        it += 1
-        done = done | newly_done
+    while it < opts.max_iterations and not host_sync("gd", bool, done.all()):
+        with profile_scope("gd.iteration"):
+            if normal_fn is not None:
+                _, jtr, sq = normal_fn(x)
+                grad = 2.0 * jtr * mask
+                err = sq if opts.energy_from_residual else error_fn(x)
+            else:
+                rows, jt = _jacobian(residual_fn, x, jacobian_fn)
+                grad = 2.0 * ((jt * mask[:, None]) @ rows[..., None])[..., 0]
+                err = (torch.sum(rows * rows, dim=-1) if opts.energy_from_residual
+                       else error_fn(x))
+            x_new = x - learning_rate * grad
+            newly_done = ((it + 1 >= opts.min_iterations)
+                          & _converged(last_err, err, opts.threshold))
+            x = torch.where(done[..., None], x, x_new)
+            last_err = torch.where(done, last_err, err)
+            it += 1
+            done = done | newly_done
     return SolveResult(params=x, error=last_err, iterations=it, converged=done)
 
 
+@spanned("lm.solve")
 def solve_levenberg_marquardt(
     residual_fn: Callable,
     error_fn: Callable,
@@ -400,6 +421,7 @@ def solve_levenberg_marquardt(
     mask = _mask(x0, enabled_mask)
     err_shape = x0.shape[:-1]
 
+    @spanned("lm.energy")
     def energy(x):
         if opts.energy_from_residual and normal_fn is None:
             r = residual_fn(x)
@@ -411,6 +433,7 @@ def solve_levenberg_marquardt(
         return (lam[..., None] * torch.clamp(diag, min=1e-12) + opts.regularization
                 + (1.0 - mask))
 
+    @spanned("lm.step")
     def step(x, lam):
         """x minus one damped step from the normal equations at x."""
         jtj, jtr, _ = normal_fn(x)
@@ -420,6 +443,7 @@ def solve_levenberg_marquardt(
         damp = damping(jtj.diagonal(dim1=-2, dim2=-1), lam)
         return x - damped_psd_solve(jtj, damp, jtr) * mask
 
+    @spanned("lm.step")
     def step_from(x, rows, jt, lam):
         """x minus one damped step from the rows and Jᵀ at x."""
         jt = jt * mask[:, None]
@@ -430,9 +454,11 @@ def solve_levenberg_marquardt(
         jtr = (jt @ rows[..., None])[..., 0]
         return x - damped_psd_solve(jtj, damp, jtr) * mask
 
+    # λ from the options is a copy from the host, which drains the card's queue
     lam = torch.broadcast_to(
-        torch.as_tensor(opts.lambda_init if lambda0 is None else lambda0,
-                        dtype=x0.dtype, device=x0.device), err_shape).clone()
+        host_sync("lm.init", torch.as_tensor, opts.lambda_init, dtype=x0.dtype,
+                  device=x0.device) if lambda0 is None
+        else torch.as_tensor(lambda0, dtype=x0.dtype, device=x0.device), err_shape).clone()
     fused = opts.energy_from_residual and opts.carry_jacobian and normal_fn is None
     x = x0
     if fused:
@@ -443,36 +469,38 @@ def solve_levenberg_marquardt(
     done = torch.zeros(err_shape, dtype=torch.bool, device=x0.device)
     hist = _history(opts, x0)
     it = 0
-    while it < opts.max_iterations and not bool(done.all()):
-        if fused:
-            x_trial = step_from(x, rows, jt, lam)
-            rows_t, jt_t = _jacobian(residual_fn, x_trial, jacobian_fn)
-            err_trial = torch.sum(rows_t * rows_t, dim=-1)
-        elif normal_fn is not None:
-            x_trial = step(x, lam)
-            err_trial = energy(x_trial)
-        else:
-            x_trial = step_from(x, *_jacobian(residual_fn, x, jacobian_fn), lam)
-            err_trial = energy(x_trial)
-        accept = err_trial < err
-        if fused:
-            rows = torch.where(accept[..., None], rows_t, rows)
-            jt = torch.where(accept[..., None, None], jt_t, jt)
-        x_new = torch.where(accept[..., None], x_trial, x)
-        err_new = torch.where(accept, err_trial, err)
-        lam_new = torch.clamp(
-            torch.where(accept, lam * opts.lambda_down, lam * opts.lambda_up),
-            opts.lambda_min, opts.lambda_max)
-        if opts.verbose and not fused:
-            print(f"LM iter {it}: error {float(err_new.mean())} (accepted "
-                  f"{float(accept.to(x0.dtype).mean())})")
-        conv = accept & _converged(err, err_trial, opts.threshold)
-        newly_done = (it + 1 >= opts.min_iterations) & conv
-        x = torch.where(done[..., None], x, x_new)
-        err = torch.where(done, err, err_new)
-        lam = torch.where(done, lam, lam_new)
-        if hist is not None:
-            hist[0][it], hist[1][it] = err, x
-        it += 1
-        done = done | newly_done
+    while it < opts.max_iterations and not host_sync("lm", bool, done.all()):
+        with profile_scope("lm.iteration"):
+            if fused:
+                x_trial = step_from(x, rows, jt, lam)
+                rows_t, jt_t = _jacobian(residual_fn, x_trial, jacobian_fn)
+                with profile_scope("lm.energy"):
+                    err_trial = torch.sum(rows_t * rows_t, dim=-1)
+            elif normal_fn is not None:
+                x_trial = step(x, lam)
+                err_trial = energy(x_trial)
+            else:
+                x_trial = step_from(x, *_jacobian(residual_fn, x, jacobian_fn), lam)
+                err_trial = energy(x_trial)
+            accept = err_trial < err
+            if fused:
+                rows = torch.where(accept[..., None], rows_t, rows)
+                jt = torch.where(accept[..., None, None], jt_t, jt)
+            x_new = torch.where(accept[..., None], x_trial, x)
+            err_new = torch.where(accept, err_trial, err)
+            lam_new = torch.clamp(
+                torch.where(accept, lam * opts.lambda_down, lam * opts.lambda_up),
+                opts.lambda_min, opts.lambda_max)
+            if opts.verbose and not fused:
+                print(f"LM iter {it}: error {host_sync('lm', float, err_new.mean())} "
+                      f"(accepted {host_sync('lm', float, accept.to(x0.dtype).mean())})")
+            conv = accept & _converged(err, err_trial, opts.threshold)
+            newly_done = (it + 1 >= opts.min_iterations) & conv
+            x = torch.where(done[..., None], x, x_new)
+            err = torch.where(done, err, err_new)
+            lam = torch.where(done, lam, lam_new)
+            if hist is not None:
+                hist[0][it], hist[1][it] = err, x
+            it += 1
+            done = done | newly_done
     return _result(x, err, it, done, hist, lam)

@@ -1637,3 +1637,73 @@ def test_sharded_sequence_on_the_card():
         assert g["finite"] and g["iterations"] == ref.iterations
         assert g["launches"][0] > 0 and g["launches"][1] > 0
         assert abs(g["error"] / float(ref.error) - 1) <= 1e-3
+
+
+def _syncs_and_sync_spans(call):
+    """(the synchronizing calls that sync debug mode reports in call(), the
+    `.sync` spans it emits) under a profiler of the host."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    warned = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+    spans = sum(e.name().endswith(".sync") for e in prof.profiler.kineto_results.events())
+    return warned, spans
+
+
+def test_every_host_sync_is_a_sync_span(cuda_problem):
+    """One small IK call (LM 5 + 6 on the worst 16 of 256) and one small take
+    (128 frames through SPIKE, the full-body rig): each synchronizing call
+    the card reports lies in a `.sync` span, one span a sync."""
+    from momentum_tpu_torch.solver import SolverOptions
+
+    char, ef0, targets, x0 = cuda_problem
+    solve = workloads.make_solve_batch(char, ef0, 256)
+    prob = workloads.build_sequence_problem(128, fullbody=True, device="cuda")
+    take = workloads.make_sequence_solve(prob.fn, SolverOptions(max_iterations=3))
+    for call in (lambda: solve(targets, x0), lambda: take(prob.pf0, prob.u0)):
+        call()  # builds the kernels and warms the allocator
+        torch.cuda.synchronize()
+        warned, spans = _syncs_and_sync_spans(call)
+        assert warned == spans > 0
+
+
+@pytest.mark.parametrize("kind", ["gn", "gn_line_search", "gn_cg", "gd", "lm_fused"])
+def test_every_host_sync_of_the_other_solvers_is_a_sync_span(cuda_problem, kind):
+    """GN (by Cholesky, with its line search, matrix-free by CG), gradient
+    descent and LM carrying its Jacobian, on 256 frames of the full-body
+    rig: one `.sync` span a synchronizing call."""
+    from momentum_tpu_torch.solver import SkeletonSolverFunction, SolverOptions
+    from momentum_tpu_torch.solver.gauss_newton import (
+        solve_gauss_newton, solve_gradient_descent, solve_levenberg_marquardt)
+
+    char, ef0, targets, x0 = cuda_problem
+    fn = SkeletonSolverFunction(char, (dataclasses.replace(ef0, target=targets),))
+    opts = SolverOptions(max_iterations=3, energy_from_residual=True)
+    jac = {"jacobian_fn": fn.residual_and_jacobian}
+    calls = {
+        "gn": lambda: solve_gauss_newton(fn.residual, fn.error, x0, options=opts, **jac),
+        "gn_line_search": lambda: solve_gauss_newton(
+            fn.residual, fn.error, x0, options=dataclasses.replace(
+                opts, do_line_search=True, line_search_steps=3, energy_from_residual=False),
+            **jac),
+        "gn_cg": lambda: solve_gauss_newton(
+            fn.residual, fn.error, x0,
+            options=dataclasses.replace(opts, linear_solver="cg", cg_iterations=8)),
+        "gd": lambda: solve_gradient_descent(fn.residual, fn.error, x0, options=opts, **jac),
+        "lm_fused": lambda: solve_levenberg_marquardt(
+            fn.residual, fn.error, x0, options=dataclasses.replace(opts, carry_jacobian=True),
+            **jac),
+    }
+    calls[kind]()
+    torch.cuda.synchronize()
+    warned, spans = _syncs_and_sync_spans(calls[kind])
+    assert warned == spans > 0
