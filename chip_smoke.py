@@ -7,7 +7,9 @@ then drives the port's paths through those kernels and checks their output:
     at B = 2048 and at the clip's B = 32) and K2+K3 (damped Cholesky in
     32-wide panels), the latter held against its plain version and timed
     against cholesky_ex + cholesky_solve at the paths' batch sizes 2048, 128
-    and 1024;
+    and 1024, and K6 (the position rows' model-space Jacobian), held
+    against its plain version at the IK cell's B = 65536 on the CMU rig and
+    at B = 2048 on the full-body rig (column-tiled);
   * the shadowed render of a posed 32-frame clip at 640×480, 2×2
     supersampled (benchmarks/bench_suite.py config 7): K1, and K4b (binned
     plane rasterizer) for the camera and shadow-map passes of every frame,
@@ -469,6 +471,11 @@ IO2_CLI_OPTIONS = ("--calib-frames", "10", "--major-iter", "2", "--max-iter",
 IO2_WORKER_TIMEOUT = 600.0
 IO2_STATES_TOL = FK_TOL  # both ends by FK in float32 (K1 and plain agree to FK_TOL)
 
+# phase_jacobian, K6: of max|J|; the kernel sums the same float32 factors
+# as the plain form in another order (the tree walk, [t]×R before PT)
+JAC_TOL = 1e-5
+JAC_F64_ROWS = 256  # elements held against the plain form in float64
+
 
 def phase_device():
     if not torch.cuda.is_available():
@@ -491,7 +498,7 @@ def phase_build():
 
     from momentum_tpu_torch.ops import build
 
-    names = ("fk", "psd", "raster")
+    names = ("fk", "psd", "raster", "jacobian")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
         list(pool.map(build.build, names))
@@ -668,8 +675,82 @@ def phase_psd(char, ef0, targets, x0):
     return numbers[BATCH], numbers, factor_only
 
 
+def phase_jacobian():
+    """K6 against its plain version (the merged PyTorch form) at the IK
+    cell's shape, B = 65536 on the CMU rig (C = 41, nJ = 23, P = 73, one
+    column tile), and at B = 2048 on the full-body rig (C = 80, nJ = 51,
+    P = 157, column-tiled), each under the L2 loss (a (C,) row scale):
+    max|kernel − plain| against JAC_TOL of max|J|, the kernel's time (CUDA
+    events in turns with the plain version, and the profiler's device time),
+    the plain version's and the bound. The forms' errors against float64
+    are printed on the first JAC_F64_ROWS elements."""
+    from momentum_tpu_torch.ops import jacobian as jac_ops
+    from momentum_tpu_torch.solver.analytic_jacobian import JacobianContext
+    from momentum_tpu_torch.testing.fixtures import create_fullbody_character
+    from momentum_tpu_torch.testing.profile_workload import (
+        bound, fmt_ms, in_turns, kernel_device_ms)
+    from momentum_tpu_torch.testing.workloads import point_jacobian_inputs
+    from portbench.rig import load_rig, port_character
+
+    numbers = {}
+    for label, char, batch in (
+            ("cmu41", port_character(load_rig("portbench/rigs/cmu41.json"), "cuda"), 65536),
+            ("fullbody", create_fullbody_character(device="cuda"), BATCH)):
+        args = point_jacobian_inputs(char, batch, seed=SEED)
+        jc, world, parents, pt_mat, scale = args
+        nj, c, p = jc.anc_mask.shape[0], parents.shape[0], pt_mat.shape[1]
+        before = jac_ops.launches
+        out = jac_ops.point_jacobian_model(*args[:4], scale=scale)
+        if jac_ops.launches != before + 1:
+            raise AssertionError(f"K6 at {label}: {jac_ops.launches - before} launches")
+        ref = jac_ops.point_jacobian_model_plain(*args[:4], scale=scale)
+        err = float((out - ref).abs().max()) / float(ref.abs().max())
+        del ref
+        k = JAC_F64_ROWS
+        jc64 = JacobianContext(jc.anc_mask.double(), jc.joint_pos[:k].double(),
+                               jc.trans_axis[:k].double(), jc.rot_axis[:k].double())
+        ref64 = jac_ops.point_jacobian_model_plain(jc64, world[:k].double(), parents,
+                                                   pt_mat.double(), scale=scale.double())
+        plain32 = jac_ops.point_jacobian_model_plain(
+            JacobianContext(jc.anc_mask, jc.joint_pos[:k], jc.trans_axis[:k], jc.rot_axis[:k]),
+            world[:k], parents, pt_mat, scale=scale)
+        scale64 = float(ref64.abs().max())
+        err64 = {name: float((j.double() - ref64).abs().max()) / scale64
+                 for name, j in (("kernel", out[:k]), ("plain", plain32))}
+        del out, ref64, plain32
+        t = in_turns({"kernel": lambda: jac_ops.point_jacobian_model(*args[:4], scale=scale),
+                      "plain": lambda: jac_ops.point_jacobian_model_plain(*args[:4],
+                                                                          scale=scale)})
+        dev_ms = kernel_device_ms(lambda: jac_ops.point_jacobian_model(*args[:4], scale=scale),
+                                  jac_ops.KERNEL)
+        # J written once; axes (18 floats a joint), positions (3), points (3
+        # a constraint), scales, the transform, the mask and the parents
+        # read once. Per element 60 flops a (joint, column) pair (the
+        # factors, their walk down the tree) and 7 an entry of J.
+        nbytes = 4 * (batch * 3 * c * p + batch * nj * 21 + batch * c * 3 + scale.numel()
+                      + pt_mat.numel() + nj * nj + c)
+        b_k6 = bound(nbytes, batch * (60 * nj * p + 21 * c * p))
+        tile = jac_ops.point_jacobian_tile(nj, c, p)
+        print(f"K6 point_jacobian_kernel (B={batch}, C={c}, nJ={nj}, P={p}, {label}, "
+              f"column tile {tile}): max|kernel - plain| {err:.3e} of max|J| (tol "
+              f"{JAC_TOL:.0e}); against float64 on {k} elements: kernel {err64['kernel']:.3e}, "
+              f"plain {err64['plain']:.3e}; in turns: kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms; device time {fmt_ms(dev_ms)} ms; bound "
+              f"{b_k6['bound_ms']:.4f} ms ({b_k6['bound_by']}), "
+              f"{b_k6['bound_ms'] / t['kernel']:.1%} of it")
+        if not err <= JAC_TOL:
+            raise AssertionError(f"point_jacobian_kernel disagrees with the plain form at "
+                                 f"{label}: {err}")
+        numbers[f"{batch}x{c}x{nj}x{p}"] = dict(
+            max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"], device_ms=dev_ms,
+            **b_k6, library_ms=None, column_tile=tile, f64_err=err64)
+        del args, jc, world
+        torch.cuda.empty_cache()
+    return numbers
+
+
 def phase_main_path(char, ef0, targets, x0, smi):
-    from momentum_tpu_torch.ops import fk as fk_ops, psd
+    from momentum_tpu_torch.ops import fk as fk_ops, jacobian as jac_ops, psd
     from momentum_tpu_torch.testing.workloads import make_solve_batch
 
     solve = make_solve_batch(char, ef0, BATCH)
@@ -677,12 +758,14 @@ def phase_main_path(char, ef0, targets, x0, smi):
     torch.cuda.synchronize()
     fk_ops.launches = 0
     psd.launches = 0
+    jac_ops.launches = 0
     t0 = time.perf_counter()
     res = solve(targets, x0)
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     counts = {"fk_global_kernel": fk_ops.launches,
-              "damped_chol_solve_kernel": psd.launches}
+              "damped_chol_solve_kernel": psd.launches,
+              "point_jacobian_kernel": jac_ops.launches}
     for _ in range(2):
         t0 = time.perf_counter()
         solve(targets, x0)
@@ -863,17 +946,25 @@ def phase_full_stack(char, efs, targets, q, x0, smi):
     return counts
 
 
-def _counts():
-    from momentum_tpu_torch.ops import fk as fk_ops, psd
+# K6's launches by the path that ran them, as `_counts(path)` read them
+K6_LAUNCHES = {}
 
+
+def _counts(path=None):
+    """K1's and K2+K3's launches since `_reset_counts`; K6's (which most
+    paths never launch) go into K6_LAUNCHES under `path`."""
+    from momentum_tpu_torch.ops import fk as fk_ops, jacobian as jac_ops, psd
+
+    if path is not None:
+        K6_LAUNCHES[path] = jac_ops.launches
     return {"fk_global_kernel": fk_ops.launches, "damped_chol_solve_kernel": psd.launches}
 
 
 def _reset_counts():
-    from momentum_tpu_torch.ops import fk as fk_ops, psd
+    from momentum_tpu_torch.ops import fk as fk_ops, jacobian as jac_ops, psd
 
     torch.cuda.synchronize()
-    fk_ops.launches = psd.launches = 0
+    fk_ops.launches = psd.launches = jac_ops.launches = 0
 
 
 def phase_config2_lm(smi):
@@ -893,7 +984,7 @@ def phase_config2_lm(smi):
     res = solve_fullstack_frame(char, efs, x0)
     energy = float(res.error)
     frame_ms = (time.perf_counter() - t0) * 1e3
-    frame_counts = counts = _counts()
+    frame_counts = counts = _counts("config2_lm")
     if res.params.shape != x0.shape or not bool(torch.isfinite(res.params).all()):
         raise AssertionError("config 2 frame: parameters of the wrong shape or not finite")
     print(f"config 2 frame (full stack, LM {res.iterations} iterations, one system of n = "
@@ -912,7 +1003,7 @@ def phase_config2_lm(smi):
         excess = (err - ref.error).cpu().numpy()
         lm_ms = (time.perf_counter() - t0) * 1e3
         if batch == BATCH:
-            counts = {k: n + frame_counts[k] for k, n in _counts().items()}
+            counts = {k: n + frame_counts[k] for k, n in _counts("config2_lm 2b").items()}
         conv, med = float(np.mean(excess < 1e-5)), float(np.median(excess))
         want = CONFIG2B_CONV_JAX_CPU[batch]
         print(f"config 2b (B={batch}, full stack GN 2 + 1 against the {ref.iterations}-iteration "
@@ -954,12 +1045,12 @@ def phase_vertex_fit(smi):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if len(walls) == 1:
-            counts_4b = _counts()
+            counts_4b = _counts("vertex_fit 4b")
     _reset_counts()
     frame = solve_vertex_fit_frame(prob.char, prob.ef0, prob.targets_frame,
                                    torch.zeros_like(prob.gt_frame))
     frame_energy = float(frame.error)
-    counts_frame = _counts()
+    counts_frame = _counts("vertex_fit frame")
     counts = {k: counts_4b[k] + counts_frame[k] for k in counts_4b}
     sq = ((res.params - prob.gt) ** 2).sum(-1).cpu().numpy()
     divergent = int((~np.isfinite(sq)).sum())
@@ -1126,7 +1217,7 @@ def phase_sequence(smi):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             if len(walls) == 1:
-                counts[name] = _counts()
+                counts[name] = _counts(f"sequence {name}")
                 peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         wall = statistics.median(walls)
         one = make_sequence_solve(fn, SolverOptions(max_iterations=1))
@@ -1329,7 +1420,7 @@ def phase_tracking(smi):
         out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts[name] = _counts()
+        counts[name] = _counts(f"tracking {name}")
         char, motion = char_of(out)
         d = w.clip_marker_errors_mm(char, markers, motion, rows)
         med, p90 = float(np.median(d)), float(np.percentile(d, 90))
@@ -1480,7 +1571,7 @@ def phase_catalog(smi):
     torch.cuda.reset_peak_memory_stats()
     res = w.solve_catalog(problem)
     torch.cuda.synchronize()
-    counts = _counts()
+    counts = _counts("catalog")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     walls = []
     for _ in range(3):  # warm
@@ -1564,7 +1655,7 @@ def phase_keypoints(smi):
         out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts[name] = _counts()
+        counts[name] = _counts(f"keypoints {name}")
         d = w.clip_marker_errors_mm(rig, markers, out.motion)
         px = w.clip_reprojection_errors_px(rig, keypoints, out.motion)
         got = dict(median_mm=float(np.median(d)), p90_mm=float(np.percentile(d, 90)),
@@ -1685,13 +1776,13 @@ def phase_diff_ik(smi):
         e1.record()
         torch.cuda.synchronize()
         if i == 0:
-            fwd_counts = _counts()
+            fwd_counts = _counts("diff_ik fwd")
             _reset_counts()
         loss(theta).backward()
         e2.record()
         torch.cuda.synchronize()
         if i == 0:
-            bwd_counts = _counts()
+            bwd_counts = _counts("diff_ik bwd")
         fwd_ms.append(e0.elapsed_time(e1))
         bwd_ms.append(e1.elapsed_time(e2))
     fwd, bwd = statistics.median(fwd_ms), statistics.median(bwd_ms)
@@ -1809,7 +1900,7 @@ def phase_solver_variants(prob, smi):
         _, res = w.solve_variant(prob, name)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts[name] = _counts()
+        counts[name] = _counts(f"solver_variants {name}")
         e = fn.error(res.params).cpu().double().numpy()
         med, ref = float(np.median(e[:DIFFIK_HELD])), want[name]["median_energy"]
         divergent = int((~np.isfinite(e)).sum())
@@ -1899,7 +1990,7 @@ def phase_vertex_extra(smi):
     res = w.make_vertex_extra_solve(prob)(prob.fit.x0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _counts()
+    counts = _counts("vertex_extra")
     fn = SkeletonSolverFunction(prob.fit.char, w.vertex_extra_modules(
         prob, prob.fit.targets, prob.distance.target, prob.camera.target))
     ctx = fn.context(res.params)
@@ -1975,7 +2066,7 @@ def phase_skinned_locators(smi):
     res = w.solve_catalog(prob)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    counts = _counts()
+    counts = _counts("skinned_locators")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     t0 = time.perf_counter()
     w.solve_catalog(prob)
@@ -2076,7 +2167,7 @@ def phase_glove(smi):
     seq = w.track_glove_sequence(clip)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts["sequence"] = _counts()
+    counts["sequence"] = _counts("glove sequence")
     print(f"config G sequence (F={frames}, P={clip.char.num_model_parameters}, "
           f"{clip.char.num_joints} joints, 2 gloves of 7 fingers): {frames / wall:.1f} frames/s "
           f"(wall {wall:.2f} s) on {smi}; kernel launches {counts['sequence']}")
@@ -2092,7 +2183,7 @@ def phase_glove(smi):
     pf = w.track_glove_per_frame(head)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts["per_frame"] = _counts()
+    counts["per_frame"] = _counts("glove per_frame")
     print(f"config G per-frame (the first {n_head} frames, LM 15 each): {n_head / wall:.2f} "
           f"frames/s (wall {wall:.2f} s) on {smi}; kernel launches {counts['per_frame']}")
     figs = dict(median_energy=float(np.median(pf.errors.cpu().numpy())),
@@ -2177,7 +2268,7 @@ def phase_vertex_ad(smi):
             walls[name].append(time.perf_counter() - t0)
             if name == "ad":
                 if i == 0:
-                    counts = _counts()
+                    counts = _counts("vertex_ad")
                 res = out
     wall = {k: statistics.median(v) for k, v in walls.items()}
     sq = ((res.params - prob.gt) ** 2).sum(-1).cpu().numpy()
@@ -2351,7 +2442,7 @@ def phase_sdf_collision(smi):
     torch.cuda.reset_peak_memory_stats()
     res = w.solve_catalog(problem)
     torch.cuda.synchronize()
-    counts = _counts()
+    counts = _counts("sdf_collision")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     walls = []
     for _ in range(3):  # warm
@@ -2407,7 +2498,7 @@ def phase_sdf_collision(smi):
     _reset_counts()
     res_j = w.solve_catalog(joint)
     torch.cuda.synchronize()
-    joint_counts = _counts()
+    joint_counts = _counts("sdf_collision joint")
     t0 = time.perf_counter()
     w.solve_catalog(joint)
     torch.cuda.synchronize()
@@ -2471,7 +2562,7 @@ def phase_sdf_sequence(smi):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if len(walls) == 1:
-            counts = _counts()
+            counts = _counts("sdf_sequence")
     wall = statistics.median(walls)
     err = float(res.error)
     print(f"config 5c (F={SEQUENCE_FRAMES}, config 5 with SdfCollisionSequence on "
@@ -2536,7 +2627,7 @@ def phase_character_utilities(smi):
     _reset_counts()
     moved = w.retarget(prob, prob.truth)
     torch.cuda.synchronize()
-    counts["U1"] = _counts()
+    counts["U1"] = _counts("character_utilities U1")
     wall = _walls(lambda: w.retarget(prob, prob.truth))
     fig = w.retarget_figures(prob, prob.truth, moved)
     head = prob.truth[:UTILITY_HELD]
@@ -2564,7 +2655,7 @@ def phase_character_utilities(smi):
     _reset_counts()
     jp_back, fig = w.inverse_fk_figures(prob, prob.truth)
     torch.cuda.synchronize()
-    counts["U2"] = _counts()
+    counts["U2"] = _counts("character_utilities U2")
     states = compat.model_parameters_to_skeleton_state(prob.char, prob.truth)
     wall = _walls(lambda: compat.skeleton_state_to_joint_parameters(prob.char, states))
     jp_err = float(np.abs(jp_back[:UTILITY_HELD].cpu().numpy() - jax_jp).max())
@@ -2604,7 +2695,7 @@ def phase_character_utilities(smi):
         torch.cuda.reset_peak_memory_stats()
         res = w.solve_catalog(sub)
         torch.cuda.synchronize()
-        counts[stage] = _counts()
+        counts[stage] = _counts(f"character_utilities {stage}")
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         wall = _walls(lambda: w.solve_catalog(sub))
         more = w.solve_catalog(sub, x0=res.params, iterations=w.CATALOG_MORE)
@@ -3428,7 +3519,7 @@ def _sharded_rank(rank, world):
     solve()  # warm-up
     _reset_counts()
     res, wall = synced_wall(solve)
-    counts["5fs"] = _counts()
+    counts["5fs"] = _counts("sharded_rank 5fs")
     walls = [wall] + [synced_wall(solve)[1] for _ in range(2)]
     out["5fs"] = dict(per_frame=res.per_frame.cpu(), universal=res.universal.cpu(),
                       error=float(res.error), iterations=res.iterations,
@@ -3478,7 +3569,7 @@ def _sharded_rank(rank, world):
     res = S.solve_sequence_sharded(fn, acc.pf0, acc.u0, options=SolverOptions(
         max_iterations=n_it, min_iterations=n_it))
     torch.cuda.synchronize()
-    counts["window3"] = _counts()
+    counts["window3"] = _counts("sharded_rank window3")
     out["window3"] = dict(error=float(res.error), iterations=res.iterations,
                           finite=bool(torch.isfinite(res.per_frame).all()))
     del acc, fn
@@ -3489,7 +3580,7 @@ def _sharded_rank(rank, world):
     _reset_counts()
     res, wall = synced_wall(lambda: solve_ik_sharded(
         ik_fn, x0, options=SolverOptions(**SHARDED_IK_OPTIONS)))
-    counts["iks"] = _counts()
+    counts["iks"] = _counts("sharded_rank iks")
     out["iks"] = dict(params=res.params.cpu(), error=res.error.cpu(), wall=wall)
     del char, ef0, targets, x0, ik_fn
 
@@ -3502,7 +3593,7 @@ def _sharded_rank(rank, world):
     _reset_counts()
     res, wall = synced_wall(lambda: track_poses_sharded(clip.char, markers, config=cfg,
                                                         initial=clip.seed_params))
-    counts["tracking"] = _counts()
+    counts["tracking"] = _counts("sharded_rank tracking")
     out["tracking"] = dict(motion=res.motion.cpu(), errors=res.errors.cpu(), wall=wall)
     out["counts"] = counts
     return out
@@ -3846,7 +3937,7 @@ def phase_io(smi, tracking_numbers):
     # is 120.001831 and drifts off the keys (ROADMAP F27)
     (_, got_states, _), load_s = _timed(lambda: Character.load_gltf_with_skel_states(
         path("states.glb"), fps=120.0, device="cuda"), IO_REPEATS)
-    counts["state_load"] = {k: n // IO_REPEATS for k, n in _counts().items()}
+    counts["state_load"] = {k: n // IO_REPEATS for k, n in _counts("io state_load").items()}
     err = float((got_states - states).abs().max())
     print(f"config IO skeleton-state load (F = {IO_FRAMES}, nJ = {char.num_joints}): "
           f"{IO_FRAMES / load_s:.0f} frames/s (median of {IO_REPEATS}, "
@@ -3866,7 +3957,7 @@ def phase_io(smi, tracking_numbers):
         solve(targets, x0)  # warm-up
         _reset_counts()
         res, wall = _timed(lambda: solve(targets, x0))
-        counts[f"ik_{name}"] = _counts()
+        counts[f"ik_{name}"] = _counts(f"io ik_{name}")
         e = res.error.cpu().numpy()
         runs[name] = dict(conv=float(np.mean(e < 1e-5)), median=float(np.nanmedian(e)),
                           solves_per_s=BATCH / wall, params=res.params)
@@ -3900,7 +3991,7 @@ def phase_io(smi, tracking_numbers):
     jax_identity = torch.as_tensor(jax_cpu["identity"], device="cuda")
     _reset_counts()
     hier, wall = _timed(lambda: w.track_clip_hierarchical(rig, take, jax_identity))
-    counts["tracking"] = _counts()
+    counts["tracking"] = _counts("io tracking")
     d = w.clip_marker_errors_mm(rig, take, hier.motion)
     med, p90 = float(np.median(d)), float(np.percentile(d, 90))
     ref = tracking_numbers["hierarchical"]
@@ -4249,7 +4340,7 @@ def phase_io2(smi):
             _reset_counts()
             got_s, load_s = _timed(load)
             k = f"state_load_{ext[1:]}"
-            counts[k] = _counts()
+            counts[k] = _counts(f"io2 {k}")
             err_t = float((got_s[..., :3] - states[..., :3]).abs().max())
             err_r = float((got_s[..., 3:] - states[..., 3:]).abs().max())
             print(f"config IO2 skeleton states through {ext} (F = {IO_FRAMES}): save "
@@ -4275,7 +4366,7 @@ def phase_io2(smi):
             path("take.trc"), path("take.fbx"), tracking, calibration,
             character_path=path("cmu.usda"), model_path=path("cmu.model"),
             identity_path=path("identity.json"), calibrate=True, device="cuda"))
-        counts["pipeline"] = _counts()
+        counts["pipeline"] = _counts("io2 pipeline")
         rig, identity = app_utils.load_character_with_identity(
             path("cmu.usda"), path("cmu.model"), path("identity.json"), device="cuda")
         d = w.clip_marker_errors_mm(rig, markers, result.motion)
@@ -4386,6 +4477,7 @@ def main():
     fk_numbers, fk_by_batch = phase_fk(char, x0)
     psd_numbers, psd_by_batch, psd_factor_only = phase_psd(char, ef0, targets, x0)
     counts = phase_main_path(char, ef0, targets, x0, smi)
+    jac_numbers = phase_jacobian()
     phase_small_reference()
     phase_f7()
     phase_f8(char, x0)
@@ -4546,6 +4638,12 @@ def main():
              io2_launches={part: n["damped_chol_solve_kernel"]
                            for part, n in io2_counts.items()},
              **{"io2_{}x{}".format(*io2_psd["batch_n_k"][:2]): io2_psd}),
+        dict(name="point_jacobian_kernel", route="cuda",
+             source="momentum_tpu_torch/csrc/jacobian.cu", replaces=None,
+             path="the position rows' model-space Jacobian (PositionErrorFunction."
+                  "jacobian_model): the IK cell's shape and the full-body rig's",
+             launches=counts["point_jacobian_kernel"], by_shape=jac_numbers,
+             path_launches={k: n for k, n in K6_LAUNCHES.items() if n}),
         dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:55",
@@ -4591,6 +4689,9 @@ def main():
                       "configSC": sc_numbers, "config5c": c5_numbers,
                       "configU": u_numbers, "config5fs": sh_numbers, "configIO": io_numbers,
                       "configIO2": io2_numbers}))
+    print(f"K6 launches by path (the rest launched none): "
+          f"{ {k: n for k, n in K6_LAUNCHES.items() if n} }; none: "
+          f"{sorted(k for k, n in K6_LAUNCHES.items() if not n)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

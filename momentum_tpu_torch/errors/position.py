@@ -74,17 +74,17 @@ class PositionErrorFunction(VectorErrorFunction):
         return rows, j.reshape(j.shape[:-3] + (rows.shape[-1], j.shape[-1])), None
 
     def jacobian_model(self, character, ctx: EvalContext, jc, pt_mat):
-        """Rows (..., 3C) and d(rows)/d(model params) (..., 3C, P) through
-        the merged-factor contraction
+        """Rows (..., 3C) and d(rows)/d(model params) (..., 3C, P): K6
+        (ops/jacobian.py) where its `kernel_takes` says so, else the
+        merged-factor contraction
         (analytic_jacobian.fused_point_jacobian_model_merged)."""
-        from momentum_tpu_torch.solver.analytic_jacobian import (
-            fused_point_jacobian_model_merged)
+        from momentum_tpu_torch.ops.jacobian import point_jacobian_model
 
         parents = self._parents(ctx)
         world = self._world(ctx, parents)
         f = world - self.target
         scale = self._row_scale(self.cweight, torch.sum(f * f, dim=-1))
-        j = fused_point_jacobian_model_merged(jc, world, parents, pt_mat, scale=scale)
+        j = point_jacobian_model(jc, world, parents, pt_mat, scale=scale)
         rows = (scale[..., None] * f).reshape(f.shape[:-2] + (-1,))
         return rows, j.reshape(j.shape[:-3] + (rows.shape[-1], pt_mat.shape[1]))
 

@@ -10,4 +10,5 @@ launches, so a run can show that it went through the kernel.
                                                      csrc/raster.cu
     chol.chol_solve       K5a (psd's damped_chol_solve_kernel)  csrc/psd.cu
     chol.chol_solve_blocked  K5b (psd's damped_chol_solve_kernel)  csrc/psd.cu
+    jacobian.point_jacobian_model  K6 point_jacobian_kernel  csrc/jacobian.cu
 """

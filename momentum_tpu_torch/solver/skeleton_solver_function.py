@@ -120,7 +120,9 @@ class SkeletonSolverFunction:
             r, jt = ad_jacobian(ad_residual, ctx.model_params, self._tangent_chunk(ad_efs, ctx))
             rows.append(r)
             jacs.append(jt.transpose(-1, -2))
-        return torch.cat(rows, dim=-1), torch.cat(jacs, dim=-2)
+        # a single block is returned as it is: a copy of J would be the size of J
+        return (rows[0] if len(rows) == 1 else torch.cat(rows, dim=-1),
+                jacs[0] if len(jacs) == 1 else torch.cat(jacs, dim=-2))
 
     def _tangent_chunk(self, ad_efs, ctx: EvalContext):
         """How many tangents the forward-mode modules `ad_efs` take at once:

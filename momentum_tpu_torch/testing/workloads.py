@@ -82,7 +82,8 @@ import torch
 
 from momentum_tpu_torch.device import resolve
 
-__all__ = ["build_fullbody_ik_problem", "make_solve_stage", "make_solve_batch",
+__all__ = ["build_fullbody_ik_problem", "point_jacobian_inputs", "make_solve_stage",
+           "make_solve_batch",
            "DEFAULT_REFINE", "DEFAULT_BATCH", "build_fullstack_problem",
            "make_fullstack_solve", "FULLSTACK_REFINE", "fullstack_modules",
            "fullstack_lm_optimum",
@@ -144,6 +145,34 @@ def build_fullbody_ik_problem(batch: int, seed: int = 0, noise: float = 0.05,
     if return_states:
         return char, ef0, targets, x0, states
     return char, ef0, targets, x0
+
+
+def point_jacobian_inputs(char, batch: int, seed: int = 0, loss=None):
+    """The position rows' Jacobian context on `char`'s locators at `batch`
+    poses drawn uniform in ±0.3 from `seed`, their targets the locators at
+    other such poses, on the character's device: (jc, world points (B, C,
+    3), parents (C,), pt_mat, row scale (C,) under the default L2 loss, or
+    (B, C) under `loss`, a GeneralizedLoss), the arguments of K6
+    (ops/jacobian.py) and of its plain version."""
+    from momentum_tpu_torch.errors import PositionErrorFunction
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+    from momentum_tpu_torch.solver.analytic_jacobian import make_jacobian_context
+
+    device = char.parameter_transform.transform.device
+    rng = np.random.default_rng(seed)
+    x, truth = (torch.as_tensor(rng.uniform(-0.3, 0.3, (batch, char.num_model_parameters))
+                                .astype(np.float32), device=device) for _ in range(2))
+    ef = PositionErrorFunction.create(
+        char.locators.parent.cpu().numpy(), char.locators.offset.cpu().numpy(),
+        np.zeros((char.locators.num_locators, 3)), loss=loss, device=device)
+    ef = dataclasses.replace(ef, target=char.locators.world_positions(char.skeleton_states(truth)))
+    ctx = SkeletonSolverFunction(char, (ef,)).context(x)
+    parents = ef._parents(ctx)
+    world = ef._world(ctx, parents)
+    f = world - ef.target
+    scale = ef._row_scale(ef.cweight, torch.sum(f * f, dim=-1))
+    return (make_jacobian_context(char, ctx), world, parents,
+            char.parameter_transform.transform, scale)
 
 
 def make_solve_stage(char, ef0, *, regularization: float = 1e-5,

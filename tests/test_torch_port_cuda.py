@@ -1707,3 +1707,190 @@ def test_every_host_sync_of_the_other_solvers_is_a_sync_span(cuda_problem, kind)
     torch.cuda.synchronize()
     warned, spans = _syncs_and_sync_spans(calls[kind])
     assert warned == spans > 0
+
+
+def _k6_rig(name):
+    """The CMU rig of the IK cell (portbench/rigs/cmu41.json) or the repo's
+    full-body rig, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from momentum_tpu_torch.testing import fixtures
+    from portbench.rig import load_rig, port_character
+
+    if name == "cmu41":
+        return port_character(load_rig("portbench/rigs/cmu41.json"), "cuda")
+    return fixtures.create_fullbody_character(device="cuda")
+
+
+K6_TOL = 1e-5  # of max|J|: the plain form's float32 factors, summed in another order
+
+
+@pytest.mark.parametrize("rig,tiled", [("cmu41", False), ("fullbody", True)])
+@pytest.mark.parametrize("loss", [None, (1.0, 2.0)], ids=["scale_C", "scale_BC"])
+def test_point_jacobian_kernel_matches_plain(rig, tiled, loss):
+    """K6 at B = 4096 against the merged PyTorch form: the CMU rig (C = 41,
+    nJ = 23, P = 73) in one column tile, the full-body rig (C = 80,
+    nJ = 51, P = 157) column-tiled; the L2 loss's (C,) row scale and a
+    robust loss's (B, C) one. One launch a call."""
+    from momentum_tpu_torch.math.generalized_loss import GeneralizedLoss
+    from momentum_tpu_torch.ops import jacobian as jac_ops
+
+    char = _k6_rig(rig)
+    jc, world, parents, pt_mat, scale = workloads.point_jacobian_inputs(
+        char, 4096, seed=5, loss=None if loss is None else GeneralizedLoss(*loss))
+    assert scale.shape == ((parents.shape[0],) if loss is None else (4096, parents.shape[0]))
+    nj, c, p = jc.anc_mask.shape[0], parents.shape[0], pt_mat.shape[1]
+    assert (jac_ops.point_jacobian_tile(nj, c, p) < p) == tiled
+    before = jac_ops.launches
+    out = jac_ops.point_jacobian_model(jc, world, parents, pt_mat, scale=scale)
+    assert jac_ops.launches == before + 1
+    ref = jac_ops.point_jacobian_model_plain(jc, world, parents, pt_mat, scale=scale)
+    assert out.shape == ref.shape == (4096, c, 3, p)
+    torch.testing.assert_close(out, ref, rtol=0, atol=K6_TOL * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("shapes", ["batch_2x3", "scale_broadcast", "points_broadcast",
+                                    "single"])
+def test_point_jacobian_kernel_leading_dims(shapes):
+    """Leading dims that broadcast, as the plain form takes them: a (2, 3)
+    batch; a (3, C) scale against it; points shared by one context's poses
+    (the context (2, 3), the points (1, 3)); a single element without a
+    batch dim."""
+    from momentum_tpu_torch.ops import jacobian as jac_ops
+    from momentum_tpu_torch.solver.analytic_jacobian import JacobianContext
+
+    char = _k6_rig("cmu41")
+    jc, world, parents, pt_mat, _ = workloads.point_jacobian_inputs(char, 6, seed=9)
+    c = parents.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(3)
+    scale = torch.rand(6, c, generator=g).cuda()
+
+    def batched(t, lead):
+        return t.reshape(lead + t.shape[1:])
+
+    lead = (2, 3)
+    ctx = JacobianContext(jc.anc_mask, *(batched(t, lead) for t in
+                                         (jc.joint_pos, jc.trans_axis, jc.rot_axis)))
+    pts, sc = batched(world, lead), batched(scale, lead)
+    if shapes == "scale_broadcast":
+        sc = sc[0]  # (3, C)
+    elif shapes == "points_broadcast":
+        pts = pts[:1]  # (1, 3, C, 3)
+    elif shapes == "single":
+        ctx = JacobianContext(jc.anc_mask, jc.joint_pos[0], jc.trans_axis[0], jc.rot_axis[0])
+        pts, sc = world[0], scale[0]
+    before = jac_ops.launches
+    out = jac_ops.point_jacobian_model(ctx, pts, parents, pt_mat, scale=sc)
+    assert jac_ops.launches == before + 1
+    ref = jac_ops.point_jacobian_model_plain(ctx, pts, parents, pt_mat, scale=sc)
+    assert out.shape == ref.shape
+    torch.testing.assert_close(out, ref, rtol=0, atol=K6_TOL * float(ref.abs().max()))
+
+
+def test_position_jacobian_model_launches_k6_alone(monkeypatch):
+    """On a CUDA float32 input PositionErrorFunction.jacobian_model launches
+    K6 once a call and never the plain form; the solver function returns
+    K6's J as it is; parameters that require grad launch K6 too, and the
+    J carries the plain form's gradient."""
+    from momentum_tpu_torch.errors import PositionErrorFunction
+    from momentum_tpu_torch.ops import jacobian as jac_ops
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+    from momentum_tpu_torch.solver.analytic_jacobian import make_jacobian_context
+
+    char = _k6_rig("cmu41")
+    x = 0.1 * torch.randn(64, char.num_model_parameters, device="cuda")
+    ef = PositionErrorFunction.create(
+        char.locators.parent.cpu().numpy(), char.locators.offset.cpu().numpy(),
+        np.zeros((char.locators.num_locators, 3)), device="cuda")
+    fn = SkeletonSolverFunction(char, (ef,))
+    ctx = fn.context(x)
+    jc = make_jacobian_context(char, ctx)
+    pt_mat = char.parameter_transform.transform
+    plain = jac_ops.point_jacobian_model_plain
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the plain form ran on a CUDA float32 input")
+
+    monkeypatch.setattr(jac_ops, "point_jacobian_model_plain", refused)
+    before = jac_ops.launches
+    rows, j = ef.jacobian_model(char, ctx, jc, pt_mat)
+    assert jac_ops.launches == before + 1
+    rows_fn, j_fn = fn.residual_and_jacobian(x)
+    assert jac_ops.launches == before + 2
+    torch.testing.assert_close(j_fn, j, rtol=0, atol=0)
+    torch.testing.assert_close(rows_fn, rows, rtol=0, atol=0)
+    xg = x.clone().requires_grad_()
+    _, j_grad = fn.residual_and_jacobian(xg)
+    assert jac_ops.launches == before + 3 and j_grad.requires_grad
+    torch.testing.assert_close(j_grad.detach(), j, rtol=0,
+                               atol=K6_TOL * float(j.abs().max()))
+    monkeypatch.setattr(jac_ops, "point_jacobian_model_plain", plain)
+    w = torch.randn_like(j)
+    (got,) = torch.autograd.grad((j_grad * w).sum(), xg)
+    monkeypatch.setattr(jac_ops, "kernel_takes", lambda *args: False)
+    xp = x.clone().requires_grad_()
+    _, j_plain = fn.residual_and_jacobian(xp)
+    (want,) = torch.autograd.grad((j_plain * w).sum(), xp)
+    assert jac_ops.launches == before + 3
+    torch.testing.assert_close(got, want, rtol=0, atol=K6_TOL * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("case", ["backward", "jvp", "vmap_element", "vmap_transform"])
+def test_point_jacobian_kernel_derivatives(case):
+    """K6 under autograd and torch.func on the CMU rig at B = 256: the
+    forward launches the kernel (once, or once a slice of a vmapped
+    transform), and the gradient, the forward-mode tangent and the vmapped
+    J are the plain form's."""
+    from momentum_tpu_torch.ops import jacobian as jac_ops
+
+    char = _k6_rig("cmu41")
+    jc, world, parents, pt_mat, scale = workloads.point_jacobian_inputs(char, 256, seed=7)
+    g = torch.Generator(device="cpu").manual_seed(13)
+
+    def randn(shape):
+        return torch.randn(shape, generator=g).cuda()
+
+    def through(plain):
+        def jac(pos, pts, sc, pt):
+            c = dataclasses.replace(jc, joint_pos=pos)
+            if plain:
+                return jac_ops.point_jacobian_model_plain(c, pts, parents, pt, scale=sc)
+            return jac_ops.point_jacobian_model(c, pts, parents, pt, scale=sc)
+        return jac
+
+    def close(a, b):
+        torch.testing.assert_close(a, b, rtol=0, atol=K6_TOL * float(b.abs().max()))
+
+    args = (jc.joint_pos, world, scale, pt_mat)
+    before = jac_ops.launches
+    if case == "backward":
+        w = randn(world.shape + (pt_mat.shape[1],))
+        outs, grads = [], []
+        for plain in (False, True):
+            leaves = [a.detach().clone().requires_grad_() for a in args]
+            outs.append(through(plain)(*leaves))
+            grads.append(torch.autograd.grad((outs[-1] * w).sum(), leaves))
+        launched = 1
+        close(outs[0].detach(), outs[1].detach())
+        for a, b in zip(*grads):
+            close(a, b)
+    elif case == "jvp":
+        tangents = tuple(randn(a.shape) for a in args)
+        got = torch.func.jvp(through(False), args, tangents)
+        want = torch.func.jvp(through(True), args, tangents)
+        launched = 1
+        close(got[0], want[0])
+        close(got[1], want[1])
+    else:
+        v = 3
+        if case == "vmap_element":
+            pos = jc.joint_pos + 0.01 * randn((v,) + jc.joint_pos.shape)
+            vargs, dims, launched = (pos, world, scale, pt_mat), (0, None, None, None), 1
+        else:
+            pt = pt_mat * torch.rand((v, 1, 1), generator=g).cuda()
+            vargs, dims, launched = (jc.joint_pos, world, scale, pt), (None, None, None, 0), v
+        got = torch.func.vmap(through(False), in_dims=dims)(*vargs)
+        want = torch.stack([through(True)(*(a if d is None else a[k]
+                                            for a, d in zip(vargs, dims))) for k in range(v)])
+        close(got, want)
+    assert jac_ops.launches == before + launched

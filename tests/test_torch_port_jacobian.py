@@ -130,3 +130,109 @@ def test_create_matches_jax_tables(problem):
     for k in ("parent", "offset", "target", "cweight", "weight"):
         np.testing.assert_array_equal(getattr(ef_t, k).numpy(), np.asarray(getattr(ef_j, k)))
     assert ef_t.num_rows() == ef_j.num_rows() == 300
+
+
+@pytest.mark.parametrize("case", ["float32", "float64", "requires_grad", "jacobian_model",
+                                  "one_block", "two_blocks", "backward", "jvp",
+                                  "vmap_element", "vmap_transform"])
+def test_point_jacobian_takes_the_plain_form_on_the_cpu(problem, monkeypatch, case):
+    """K6's rule (ops/jacobian.py::kernel_takes) on CPU tensors: float32,
+    float64 and inputs that require grad take the plain merged form, with
+    its values and its gradient, and launch nothing; the position module's
+    jacobian_model gives the merged form's values; the solver function hands
+    a single module's rows and J on as they are (no copy), and concatenates
+    several. The rules of `_PointJacobian` (whose forward is the plain form
+    here) give the plain form's reverse-mode gradient, forward-mode tangent
+    and vmapped values: a vmap over the per-element inputs (folded into the
+    leading batch) and over the transform (a call a slice)."""
+    from momentum_tpu_torch.ops import jacobian as jac_ops
+    from momentum_tpu_torch.solver.analytic_jacobian import (
+        fused_point_jacobian_model_merged, make_jacobian_context)
+
+    _, char_t, x, _, _ = problem
+    _, ef_t = _error_functions(problem)
+    fn = TFn(char_t, (ef_t,))
+    x_t = torch.as_tensor(x)
+    ctx = fn.context(x_t)
+    jc = make_jacobian_context(char_t, ctx)
+    pt_mat = char_t.parameter_transform.transform
+    parents = ef_t._parents(ctx)
+    world = ef_t._world(ctx, parents)
+    f = world - ef_t.target
+    scale = ef_t._row_scale(ef_t.cweight, torch.sum(f * f, dim=-1))
+    before = jac_ops.launches
+    if case in ("float32", "float64", "requires_grad"):
+        if case == "float64":
+            jc = dataclasses.replace(jc, **{k: getattr(jc, k).double() for k in
+                                            ("anc_mask", "joint_pos", "trans_axis", "rot_axis")})
+            world, pt_mat, scale = world.double(), pt_mat.double(), scale.double()
+        if case == "requires_grad":
+            world = world.detach().requires_grad_()
+        assert not jac_ops.kernel_takes(jc, world, pt_mat, scale)
+        j = jac_ops.point_jacobian_model(jc, world, parents, pt_mat, scale=scale)
+        ref = fused_point_jacobian_model_merged(jc, world, parents, pt_mat, scale=scale)
+        assert j.dtype == world.dtype and torch.equal(j, ref)
+        if case == "requires_grad":
+            assert j.requires_grad
+            (g,) = torch.autograd.grad(j.sum(), world)
+            assert torch.isfinite(g).all() and g.abs().sum() > 0
+    elif case in ("backward", "jvp", "vmap_element", "vmap_transform"):
+        def through(plain):
+            def jac(pos, pts, sc, pt):
+                c = dataclasses.replace(jc, joint_pos=pos)
+                if plain:
+                    return fused_point_jacobian_model_merged(c, pts, parents, pt, scale=sc)
+                return jac_ops.point_jacobian_model(c, pts, parents, pt, scale=sc)
+            return jac
+
+        args = (jc.joint_pos, world, scale, pt_mat)
+        g = torch.Generator().manual_seed(11)
+        if case == "backward":
+            w = torch.randn(world.shape + (pt_mat.shape[1],), generator=g)
+            grads = []
+            for plain in (False, True):
+                leaves = [a.detach().clone().requires_grad_() for a in args]
+                grads.append(torch.autograd.grad((through(plain)(*leaves) * w).sum(), leaves))
+            for a, b in zip(*grads):
+                assert torch.equal(a, b) and b.abs().sum() > 0
+        elif case == "jvp":
+            tangents = tuple(torch.randn(a.shape, generator=g) for a in args)
+            got, want = (torch.func.jvp(through(plain), args, tangents) for plain in (False, True))
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        else:
+            v = 3
+            if case == "vmap_element":
+                pos = jc.joint_pos + 0.01 * torch.randn((v,) + jc.joint_pos.shape, generator=g)
+                sc = scale * torch.rand((v, 1), generator=g)
+                vargs, dims = (pos, world, sc, pt_mat), (0, None, 0, None)
+            else:
+                vargs = (jc.joint_pos, world, scale, pt_mat * torch.rand((v, 1, 1), generator=g))
+                dims = (None, None, None, 0)
+            got = torch.func.vmap(through(False), in_dims=dims)(*vargs)
+            want = torch.stack([through(True)(*(a if d is None else a[k]
+                                                for a, d in zip(vargs, dims)))
+                                for k in range(v)])
+            assert torch.equal(got, want)
+    elif case == "jacobian_model":
+        rows, j = ef_t.jacobian_model(char_t, ctx, jc, pt_mat)
+        ref = fused_point_jacobian_model_merged(jc, world, parents, pt_mat, scale=scale)
+        assert torch.equal(j, ref.reshape(j.shape))
+        assert torch.equal(rows, (scale[..., None] * f).reshape(rows.shape))
+    else:
+        made = []
+        module_form = TPos.jacobian_model
+
+        def recorded(self, *args):
+            made.append(module_form(self, *args))
+            return made[-1]
+
+        monkeypatch.setattr(TPos, "jacobian_model", recorded)
+        efs = (ef_t,) if case == "one_block" else (
+            ef_t, dataclasses.replace(ef_t, weight=ef_t.weight * 2))
+        rows, j = fn._rows_and_jacobian(ctx, efs)
+        if case == "one_block":
+            assert rows is made[0][0] and j is made[0][1]
+        else:
+            assert torch.equal(rows, torch.cat([r for r, _ in made], dim=-1))
+            assert torch.equal(j, torch.cat([m for _, m in made], dim=-2))
+    assert jac_ops.launches == before
