@@ -9,7 +9,10 @@ then drives the port's paths through those kernels and checks their output:
     against cholesky_ex + cholesky_solve at the paths' batch sizes 2048, 128
     and 1024, and K6 (the position rows' model-space Jacobian), held
     against its plain version at the IK cell's B = 65536 on the CMU rig and
-    at B = 2048 on the full-body rig (column-tiled);
+    at B = 2048 on the full-body rig (column-tiled), and K6's projection
+    form (camera projection rows' model-space Jacobian), held against its
+    plain version at the multi-view cell's B = 16384 (31 cameras) and at
+    config 6k's shape, its launches counted on one call of the cell's path;
   * the shadowed render of a posed 32-frame clip at 640×480, 2×2
     supersampled (benchmarks/bench_suite.py config 7): K1, and K4b (binned
     plane rasterizer) for the camera and shadow-map passes of every frame,
@@ -476,6 +479,17 @@ IO2_STATES_TOL = FK_TOL  # both ends by FK in float32 (K1 and plain agree to FK_
 JAC_TOL = 1e-5
 JAC_F64_ROWS = 256  # elements held against the plain form in float64
 
+# phase_projection_jacobian, K6's projection form: of max|J|; the same
+# float32 chain as the plain form in another order (p_eye by R·p + t, the
+# derivative's products), as K6
+PROJ_TOL = 2e-6
+# the plain form's (B, K, C, 2, P) intermediates at the cell's B would not
+# fit whole: held in blocks of PROJ_BLOCK elements, timed in blocks of
+# PROJ_TIME_BLOCK
+PROJ_BLOCK = 1024
+PROJ_TIME_BLOCK = 4096
+PROJ_CELL = "mv31.b16384"
+
 
 def phase_device():
     if not torch.cuda.is_available():
@@ -747,6 +761,110 @@ def phase_jacobian():
         del args, jc, world
         torch.cuda.empty_cache()
     return numbers
+
+
+def _projection_plain_blocks(args, block):
+    """The plain projection form of `args` (projection_jacobian_inputs'
+    tuple), `block` elements at a time: (slice, J) pairs, one at a time."""
+    from momentum_tpu_torch.ops import jacobian as jac_ops
+
+    jc, world, parents, pt, rot, trans, params, scale = args
+    for i in range(0, world.shape[0], block):
+        sl = slice(i, i + block)
+        part = dataclasses.replace(jc, joint_pos=jc.joint_pos[sl], trans_axis=jc.trans_axis[sl],
+                                   rot_axis=jc.rot_axis[sl])
+        yield sl, jac_ops.projection_jacobian_model_plain(part, world[sl], parents, pt, rot,
+                                                          trans, params, scale[sl])
+
+
+def phase_projection_jacobian():
+    """K6's projection form (projection_jacobian_model over
+    projection_jacobian_kernel) against its plain form at the multi-view
+    cell's shape, B = 16384 on the CMU rig (C = 41 points, K = 31 cameras,
+    nJ = 23, P = 73: J 12.2 GB), and at config 6k's (B = 343, K = 3 analytic
+    cameras), on testing/workloads.py's cameras and scales: max|kernel −
+    plain| against PROJ_TOL of max|J|, the plain form in blocks of
+    PROJ_BLOCK elements; the kernel's time (CUDA events in turns with the
+    plain form, that in blocks of PROJ_TIME_BLOCK, and the profiler's device
+    time), the plain form's and the bound (portbench/projection_work.py).
+    Then the cell's own path: one call of PROJ_CELL's driver
+    (solve_compacted on the 31 cameras' modules, as the benchmark runs it)
+    after its warm-up, the form's launches counted from zero just before
+    it: one an LM iteration of each stage, and no K6 launch."""
+    from momentum_tpu_torch.ops import jacobian as jac_ops
+    from momentum_tpu_torch.testing.profile_workload import (
+        bound, fmt_ms, in_turns, kernel_device_ms)
+    from momentum_tpu_torch.testing.workloads import projection_jacobian_inputs
+    from portbench import run as bench_run
+    from portbench.projection_work import projection_jacobian_work
+    from portbench.rig import load_rig, port_character
+
+    char = port_character(load_rig("portbench/rigs/cmu41.json"), "cuda")
+    numbers = {}
+    for label, batch, cameras in (("the cell's", 16384, 31), ("config 6k's", 343, 3)):
+        args = projection_jacobian_inputs(char, batch, cameras, seed=SEED)
+        jc, world, parents, pt = args[:4]
+        nj, c, p = jc.anc_mask.shape[0], parents.shape[0], pt.shape[1]
+        before = jac_ops.projection_launches
+        out = jac_ops.projection_jacobian_model(*args)
+        if jac_ops.projection_launches != before + 1:
+            raise AssertionError(f"projection form at {label} shape: "
+                                 f"{jac_ops.projection_launches - before} launches")
+        worst = top = 0.0
+        for sl, ref in _projection_plain_blocks(args, PROJ_BLOCK):
+            worst = max(worst, float((out[sl] - ref).abs().max()))
+            top = max(top, float(ref.abs().max()))
+        err = worst / top
+        del out
+        torch.cuda.empty_cache()
+
+        def plain():
+            for _ in _projection_plain_blocks(args, PROJ_TIME_BLOCK):
+                pass
+
+        t = in_turns({"kernel": lambda: jac_ops.projection_jacobian_model(*args),
+                      "plain": plain})
+        dev_ms = kernel_device_ms(lambda: jac_ops.projection_jacobian_model(*args),
+                                  jac_ops.PROJECTION_KERNEL)
+        b = bound(*projection_jacobian_work(batch, cameras, c, nj, p))
+        tile = jac_ops.projection_jacobian_tile(nj, c, cameras, p)
+        print(f"K6 projection_jacobian_kernel (B={batch}, C={c}, K={cameras}, nJ={nj}, P={p}, "
+              f"{label} shape, column tile {tile}): max|kernel - plain| {err:.3e} of max|J| "
+              f"(tol {PROJ_TOL:.0e}); in turns: kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms (blocks of {min(batch, PROJ_TIME_BLOCK)}); device time "
+              f"{fmt_ms(dev_ms)} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+              f"{b['bound_ms'] / t['kernel']:.1%} of it")
+        if not err <= PROJ_TOL:
+            raise AssertionError(f"projection_jacobian_kernel disagrees with the plain form at "
+                                 f"{label} shape: {err}")
+        numbers[f"{batch}x{c}x{cameras}x{nj}x{p}"] = dict(
+            max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"], device_ms=dev_ms, **b,
+            library_ms=None, column_tile=tile)
+        del args, jc, world
+        torch.cuda.empty_cache()
+
+    _, config, traffic = bench_run.resolve_cell(bench_run.load_benchmark(), PROJ_CELL)
+    driver = bench_run.load_module(bench_run.ROOT / "portbench" / "drivers"
+                                   / f"{config['kind']}.py")
+    with bench_run.matmul_tf32(False):
+        cell = driver.build(config, traffic, SEED, torch.device("cuda"))
+        cell.warm()
+        torch.cuda.synchronize()
+        jac_ops.projection_launches = 0
+        k6 = jac_ops.launches
+        cell.call(0)
+        torch.cuda.synchronize()
+    launched, stages = jac_ops.projection_launches, list(cell.work["stages"])
+    iterations = sum(iters for _, iters in stages)
+    print(f"{PROJ_CELL} path, one call: {launched} projection form launches, stages (batch, "
+          f"LM iterations) {stages}, {jac_ops.launches - k6} K6 launches")
+    if launched != iterations or jac_ops.launches != k6:
+        raise AssertionError(f"{PROJ_CELL}: {launched} projection launches for {iterations} "
+                             f"LM iterations, {jac_ops.launches - k6} K6 launches")
+    cell.release()
+    del cell
+    torch.cuda.empty_cache()
+    return numbers, {PROJ_CELL: launched}
 
 
 def phase_main_path(char, ef0, targets, x0, smi):
@@ -4478,6 +4596,7 @@ def main():
     psd_numbers, psd_by_batch, psd_factor_only = phase_psd(char, ef0, targets, x0)
     counts = phase_main_path(char, ef0, targets, x0, smi)
     jac_numbers = phase_jacobian()
+    proj_numbers, proj_launches = phase_projection_jacobian()
     phase_small_reference()
     phase_f7()
     phase_f8(char, x0)
@@ -4644,6 +4763,11 @@ def main():
                   "jacobian_model): the IK cell's shape and the full-body rig's",
              launches=counts["point_jacobian_kernel"], by_shape=jac_numbers,
              path_launches={k: n for k, n in K6_LAUNCHES.items() if n}),
+        dict(name="projection_jacobian_kernel", route="cuda",
+             source="momentum_tpu_torch/csrc/jacobian.cu", replaces=None,
+             path="the camera projection rows' model-space Jacobian (CameraProjectionError"
+                  "Function.group_jacobian_model): the multi-view cell's shape and config 6k's",
+             launches=proj_launches, by_shape=proj_numbers),
         dict(name="damped_chol_solve_kernel (K5a entry point chol_solve)", route="cuda",
              source="momentum_tpu_torch/csrc/psd.cu",
              replaces="momentum_tpu/ops/chol_pallas.py:55",

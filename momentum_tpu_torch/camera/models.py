@@ -14,6 +14,21 @@ looks forward and +Y points down.
   * unproject inverts the distortion by a fixed 10-step Newton solve
     (camera.h:72-78), each step's 2×2 Jacobian by two forward-mode JVPs.
 
+`project_jacobian(p_eye)` gives the projection's derivative in the
+eye-space point, d(u, v)/d p_eye (..., 2, 3), in closed form for pinhole and
+OpenCV intrinsics (`has_analytic_jacobian`); with (x', y') = (x, y)/z and
+the distortion's 2×2 Jacobian [[a, b], [c, d]] = d(x'', y'')/d(x', y'),
+
+    du/dp = fx/z·[a, b, −(a·x' + b·y')],  dv/dp = fy/z·[c, d, −(c·x' + d·y')]
+
+the OpenCV one, with g = d radial/d r² = (num' − radial·den')/den,
+    a = radial + 2x'²g + 2p1y' + 6p2x',  b = c = 2x'y'g + 2p1x' + 2p2y',
+    d = radial + 2y'²g + 6p1y' + 2p2x'.
+The fisheye model has none (its rows go by forward mode).
+`stack_opencv_parameters` writes a camera's intrinsics as the 12 numbers
+(fx, fy, cx, cy, k1..k6, p1, p2) of the OpenCV model, a pinhole's with zero
+distortion, which the model computes to the same bits.
+
 The intrinsics are float32 tensors on the camera's device, so they may be
 solver variables (camera_intrinsics_parameters.h): `project_intrinsics_jacobian`
 differentiates the projection in them by forward mode. `Camera.frame` and
@@ -30,12 +45,81 @@ import torch
 from momentum_tpu_torch.device import resolve
 from momentum_tpu_torch.math import quaternion as quat, skel_state as ss
 
-__all__ = ["PinholeIntrinsics", "OpenCVIntrinsics", "OpenCVFisheyeIntrinsics", "Camera"]
+__all__ = ["PinholeIntrinsics", "OpenCVIntrinsics", "OpenCVFisheyeIntrinsics", "Camera",
+           "opencv_distort", "opencv_distort_jacobian", "project_opencv", "project_opencv_jacobian",
+           "stack_opencv_parameters"]
 
 
 def _tensors(device, **values):
     return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
             for k, v in values.items()}
+
+
+def opencv_distort(xp, yp, k, p):
+    """OpenCV's rational radial and tangential distortion of normalized
+    (x', y'): k the six radial coefficients and p (p1, p2), each a tensor
+    that broadcasts against xp."""
+    r2 = xp * xp + yp * yp
+    radial = ((1.0 + r2 * (k[0] + r2 * (k[1] + r2 * k[2])))
+              / (1.0 + r2 * (k[3] + r2 * (k[4] + r2 * k[5]))))
+    p1, p2 = p[0], p[1]
+    xpp = xp * radial + 2.0 * p1 * xp * yp + p2 * (r2 + 2.0 * xp * xp)
+    ypp = yp * radial + p1 * (r2 + 2.0 * yp * yp) + 2.0 * p2 * xp * yp
+    return xpp, ypp
+
+
+def opencv_distort_jacobian(xp, yp, k, p):
+    """(a, b, c, d) = d(x'', y'')/d(x', y') of `opencv_distort`, row-major."""
+    r2 = xp * xp + yp * yp
+    num = 1.0 + r2 * (k[0] + r2 * (k[1] + r2 * k[2]))
+    den = 1.0 + r2 * (k[3] + r2 * (k[4] + r2 * k[5]))
+    radial = num / den
+    d_num = k[0] + r2 * (2.0 * k[1] + 3.0 * r2 * k[2])
+    d_den = k[3] + r2 * (2.0 * k[4] + 3.0 * r2 * k[5])
+    g = (d_num - radial * d_den) / den
+    p1, p2 = p[0], p[1]
+    cross = 2.0 * xp * yp * g + 2.0 * p1 * xp + 2.0 * p2 * yp
+    a = radial + 2.0 * xp * xp * g + 2.0 * p1 * yp + 6.0 * p2 * xp
+    d = radial + 2.0 * yp * yp * g + 6.0 * p1 * yp + 2.0 * p2 * xp
+    return a, cross, cross, d
+
+
+def _perspective(p_eye):
+    """(x', y', 1/z, z) of eye-space points, z = 0 read as 1, as `project` divides."""
+    z = p_eye[..., 2]
+    safe_z = torch.where(torch.abs(z) > 1e-12, z, torch.ones_like(z))
+    return p_eye[..., 0] / safe_z, p_eye[..., 1] / safe_z, 1.0 / safe_z, z
+
+
+def _chain_perspective(fx, fy, xp, yp, inv_z, a, b, c, d):
+    """d(u, v)/d p_eye (..., 2, 3) from the distortion's Jacobian [[a, b], [c, d]]."""
+    du = torch.stack([a, b, -(a * xp + b * yp)], dim=-1) * (fx * inv_z)[..., None]
+    dv = torch.stack([c, d, -(c * xp + d * yp)], dim=-1) * (fy * inv_z)[..., None]
+    return torch.stack([du, dv], dim=-2)
+
+
+def project_opencv(p_eye, params):
+    """(uv (..., 2), z (...,)) of eye-space points through OpenCV intrinsics
+    given as `stack_opencv_parameters`' 12 numbers, `params` (..., 12)
+    broadcasting against p_eye's leading dims: `project`'s arithmetic."""
+    xp, yp, _, z = _perspective(p_eye)
+    q = params.unbind(-1)
+    xpp, ypp = opencv_distort(xp, yp, q[4:10], q[10:12])
+    return torch.stack([q[0] * xpp + q[2], q[1] * ypp + q[3]], dim=-1), z
+
+
+def project_opencv_jacobian(p_eye, params):
+    """d(u, v)/d p_eye (..., 2, 3) of `project_opencv`."""
+    xp, yp, inv_z, _ = _perspective(p_eye)
+    q = params.unbind(-1)
+    return _chain_perspective(q[0], q[1], xp, yp, inv_z,
+                              *opencv_distort_jacobian(xp, yp, q[4:10], q[10:12]))
+
+
+def stack_opencv_parameters(intrinsics) -> torch.Tensor:
+    """(K, 12): each pinhole or OpenCV intrinsics of the sequence as
+    (fx, fy, cx, cy, k1..k6, p1, p2), a pinhole's distortion zero."""
+    return torch.stack([intr.opencv_parameters() for intr in intrinsics])
 
 
 class _IntrinsicsBase:
@@ -47,9 +131,24 @@ class _IntrinsicsBase:
 
     _scalar_params = ("fx", "fy", "cx", "cy")
     _vector_params = ()  # (field, length) pairs, in the parameter vector's order
+    # whether `project_jacobian` has a closed form (`_distort_jacobian`)
+    has_analytic_jacobian = False
 
     def _distort(self, xp, yp):
         return xp, yp
+
+    def _distort_jacobian(self, xp, yp):
+        raise NotImplementedError(f"{type(self).__name__} has no analytic projection Jacobian")
+
+    def opencv_parameters(self) -> torch.Tensor:
+        """(12,) (fx, fy, cx, cy, k1..k6, p1, p2): the model as OpenCV's, a
+        pinhole's distortion zero."""
+        if not self.has_analytic_jacobian:
+            raise ValueError(f"{type(self).__name__} has no OpenCV form")
+        fields = [getattr(self, f).reshape(1) for f in ("fx", "fy", "cx", "cy")]
+        dist = ([self.k.reshape(6), self.p.reshape(-1)[:2]] if hasattr(self, "k")
+                else [fields[0].new_zeros(8)])
+        return torch.cat(fields + dist)
 
     def parameter_names(self):
         names = list(self._scalar_params)
@@ -134,6 +233,16 @@ class _IntrinsicsBase:
         xpp, ypp = self._distort(p_eye[..., 0] / safe_z, p_eye[..., 1] / safe_z)
         return torch.stack([self.fx * xpp + self.cx, self.fy * ypp + self.cy, z], dim=-1), z > 0
 
+    def project_jacobian(self, p_eye: torch.Tensor):
+        """(uvz (..., 3), valid (...,), d(u, v)/d p_eye (..., 2, 3)): `project`
+        and its derivative in the eye-space point, in closed form (the
+        models with `has_analytic_jacobian`)."""
+        xp, yp, inv_z, z = _perspective(p_eye)
+        xpp, ypp = self._distort(xp, yp)
+        uvz = torch.stack([self.fx * xpp + self.cx, self.fy * ypp + self.cy, z], dim=-1)
+        return uvz, z > 0, _chain_perspective(self.fx, self.fy, xp, yp, inv_z,
+                                              *self._distort_jacobian(xp, yp))
+
     def unproject(self, uvz: torch.Tensor, iterations: int = 10) -> torch.Tensor:
         """Eye-space points of pixels (u, v) at depth z (camera.h:72-78):
         `iterations` Newton steps on the distortion from the undistorted
@@ -171,6 +280,12 @@ class PinholeIntrinsics(_IntrinsicsBase):
     image_width: int = 0  # 0 = unknown; resize, crop and `Camera.frame` need the size
     image_height: int = 0
 
+    has_analytic_jacobian = True
+
+    def _distort_jacobian(self, xp, yp):
+        one, zero = torch.ones_like(xp), torch.zeros_like(xp)
+        return one, zero, zero, one
+
     @classmethod
     def create(cls, fx, fy, cx, cy, image_size=(0, 0), device="cuda") -> "PinholeIntrinsics":
         device = resolve(device, "PinholeIntrinsics.create")
@@ -193,16 +308,13 @@ class OpenCVIntrinsics(_IntrinsicsBase):
     image_height: int = 0
 
     _vector_params = (("k", 6), ("p", 4))
+    has_analytic_jacobian = True
 
     def _distort(self, xp, yp):
-        r2 = xp * xp + yp * yp
-        k = self.k
-        radial = ((1.0 + r2 * (k[0] + r2 * (k[1] + r2 * k[2])))
-                  / (1.0 + r2 * (k[3] + r2 * (k[4] + r2 * k[5]))))
-        p1, p2 = self.p[0], self.p[1]
-        xpp = xp * radial + 2.0 * p1 * xp * yp + p2 * (r2 + 2.0 * xp * xp)
-        ypp = yp * radial + p1 * (r2 + 2.0 * yp * yp) + 2.0 * p2 * xp * yp
-        return xpp, ypp
+        return opencv_distort(xp, yp, self.k, self.p)
+
+    def _distort_jacobian(self, xp, yp):
+        return opencv_distort_jacobian(xp, yp, self.k, self.p)
 
     @classmethod
     def create(cls, fx, fy, cx, cy, k=(0.0,) * 6, p=(0.0, 0.0), image_size=(0, 0),
@@ -270,6 +382,13 @@ class Camera:
 
     def project(self, p_world: torch.Tensor):
         return self.intrinsics.project(self.world_to_eye(p_world))
+
+    def project_jacobian(self, p_world: torch.Tensor):
+        """(uvz, valid, d(u, v)/d p_world (..., 2, 3)): the intrinsics'
+        `project_jacobian` at the eye-space point, composed with
+        eye_from_world's rotation (times its scale)."""
+        uvz, valid, jac = self.intrinsics.project_jacobian(self.world_to_eye(p_world))
+        return uvz, valid, jac @ ss.to_matrix(self.eye_from_world)[:3, :3]
 
     def unproject(self, uvz: torch.Tensor, iterations: int = 10) -> torch.Tensor:
         """World points of pixels (u, v) at eye-space depth z."""

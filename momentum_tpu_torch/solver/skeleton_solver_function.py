@@ -4,7 +4,8 @@ pass when a module needs the posed mesh, shared by all error functions; rows
 concatenated in order.
 
 The Jacobian of the modules with an analytic one is chained through the
-parameter transform; the others' (the AD modules: body.py's, Plane) comes
+parameter transform (camera projections over the same points in one launch
+for all their cameras); the others' (the AD modules: body.py's, Plane) comes
 by forward mode through the same context (JAX's linearize plus vmapped
 JVP, momentum_tpu/solver/skeleton_solver_function.py:167-182), row-aligned
 after the analytic modules' rows.
@@ -30,6 +31,24 @@ __all__ = ["SkeletonSolverFunction"]
 # elements × V × 8 × 12 floats); past this many floats the tangents go
 # through in chunks (config SL at B = 2048 would need ~75 GB in one)
 AD_MESH_FLOATS = 2 ** 30
+
+
+def _module_groups(modules) -> list:
+    """The modules in order, those with the same `jacobian_group` key
+    (camera projections over the same points: one pass, one launch for all
+    cameras) gathered into one list at the place of the first, in their
+    order."""
+    groups, at = [], {}
+    for ef in modules:
+        key = ef.jacobian_group() if hasattr(ef, "jacobian_group") else None
+        if key is None:
+            groups.append([ef])
+        elif key in at:
+            groups[at[key]].append(ef)
+        else:
+            at[key] = len(groups)
+            groups.append([ef])
+    return groups
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -70,9 +89,12 @@ class SkeletonSolverFunction:
                            skel_states=states, **mesh)
 
     def residual(self, model_params: torch.Tensor) -> torch.Tensor:
+        """The modules' rows concatenated, a group of modules that share a
+        `jacobian_group` key at the place of its first."""
         ctx = self.context(model_params)
-        return torch.cat([ef.residual(self.character, ctx)
-                          for ef in self.error_functions], dim=-1)
+        return torch.cat([g[0].residual(self.character, ctx) if len(g) == 1
+                          else type(g[0]).group_residual(g, self.character, ctx)
+                          for g in _module_groups(self.error_functions)], dim=-1)
 
     def error(self, model_params: torch.Tensor) -> torch.Tensor:
         """Exact robust energy Σ_ef weight·Σ w·ρ(‖f‖²)
@@ -142,8 +164,12 @@ class SkeletonSolverFunction:
         fused = [ef for ef in error_functions
                  if self.prefer_fused and hasattr(ef, "jacobian_model")]
         blockwise = [ef for ef in error_functions if not any(ef is f for f in fused)]
-        for ef in fused:
-            r, j = ef.jacobian_model(self.character, ctx, jc, pt_mat)
+        for group in _module_groups(fused):
+            if len(group) == 1:
+                r, j = group[0].jacobian_model(self.character, ctx, jc, pt_mat)
+            else:
+                r, j = type(group[0]).group_jacobian_model(group, self.character, ctx, jc,
+                                                           pt_mat)
             rows.append(r)
             jacs.append(j)
         if blockwise:

@@ -175,6 +175,43 @@ def point_jacobian_inputs(char, batch: int, seed: int = 0, loss=None):
             char.parameter_transform.transform, scale)
 
 
+def projection_jacobian_inputs(char, batch: int, cameras: int, seed: int = 0):
+    """The arguments of K6's projection form (ops/jacobian.py::
+    projection_jacobian_model) on `char`'s locators at `batch` poses drawn
+    uniform in ±0.3 from `seed`: (jc, world points (B, C, 3), parents (C,),
+    pt_mat, rotations (K, 3, 3), translations (K, 3), OpenCV intrinsics
+    (K, 12), row scales (B, K, C)). The K cameras stand on a ring three
+    spreads of the points from their centroid, looking at it, with random
+    focal lengths, principal points and all eight distortion coefficients;
+    the scales are U(0.5, 1.5), a tenth of them zero (no weight, or behind
+    the near clip)."""
+    from momentum_tpu_torch.camera.models import (
+        Camera, OpenCVIntrinsics, stack_opencv_parameters)
+    from momentum_tpu_torch.math import skel_state as ss
+
+    jc, world, parents, pt_mat, _ = point_jacobian_inputs(char, batch, seed)
+    device = world.device
+    rng = np.random.default_rng(seed + 1)
+    centre = world.reshape(-1, 3).mean(0).cpu().numpy().astype(np.float64)
+    spread = float(world.reshape(-1, 3).std(0).norm())
+    cams = []
+    for k in range(cameras):
+        az = 2 * np.pi * k / cameras + rng.uniform(-0.2, 0.2)
+        pos = centre + 3 * spread * np.array([np.cos(az), np.sin(az), rng.uniform(-0.3, 0.3)])
+        intr = OpenCVIntrinsics.create(
+            *rng.uniform(900, 1500, 2), *rng.uniform(500, 900, 2),
+            k=rng.uniform(-0.05, 0.05, 6) + np.array([-0.2, 0.1, 0.0, 0.0, 0.0, 0.0]),
+            p=rng.uniform(-1e-3, 1e-3, 2), device=device)
+        cams.append(Camera.create(intr).look_at(pos, centre, (0.0, 0.0, 1.0)))
+    eye = torch.stack([c.eye_from_world for c in cams])
+    rot = ss.to_matrix(eye)[..., :3, :3]
+    g = torch.Generator(device="cpu").manual_seed(seed + 2)
+    scale = 0.5 + torch.rand(batch, cameras, parents.shape[0], generator=g)
+    scale = torch.where(torch.rand(scale.shape, generator=g) < 0.1, 0.0, scale)
+    return (jc, world, parents, pt_mat, rot, eye[:, :3].contiguous(),
+            stack_opencv_parameters([c.intrinsics for c in cams]), scale.to(device))
+
+
 def make_solve_stage(char, ef0, *, regularization: float = 1e-5,
                      lambda_init: float = 0.01, lambda_down: float = 0.1):
     """The compaction-compatible LM stage `(targets, x0, iters, lam0) ->

@@ -177,10 +177,14 @@ def _keypoint_error_template(character: Character, ckd: CameraKeypointData, conf
 
 
 def _keypoint_templates(character: Character, camera_keypoints, config) -> tuple:
-    """One (ef0, per_frame) per camera, none when projection_weight is 0."""
+    """One (ef0, per_frame) per camera, none when projection_weight is 0.
+    The cameras' modules share one locator table, so the solver forms the
+    analytic Jacobians of those it can in one launch (its Jacobian groups)."""
     if not camera_keypoints or getattr(config, "projection_weight", 0.0) <= 0:
         return ()
-    return tuple(_keypoint_error_template(character, ckd, config) for ckd in camera_keypoints)
+    ef0, per_frame = _keypoint_error_template(character, camera_keypoints[0], config)
+    return tuple((dataclasses.replace(ef0, camera=ckd.camera), per_frame)
+                 for ckd in camera_keypoints)
 
 
 def _keypoint_modules(character: Character, camera_keypoints, config) -> tuple:

@@ -1894,3 +1894,111 @@ def test_point_jacobian_kernel_derivatives(case):
                                             for a, d in zip(vargs, dims))) for k in range(v)])
         close(got, want)
     assert jac_ops.launches == before + launched
+
+
+# K6's projection form against its plain form, of max|J|: the same float32
+# chain in another order (p_eye by R·p + t, the derivative's products), as K6
+PROJECTION_TOL = 2e-6
+
+
+def _projection_close(out, args, block=1024):
+    """out against the plain form, `block` elements at a time (the plain
+    form's (B, K, C, 2, P) intermediates at B = 16384 would not fit)."""
+    from momentum_tpu_torch.ops import jacobian as jac_ops
+
+    jc, world, parents, pt, rot, trans, params, scale = args
+    worst = top = 0.0
+    for i in range(0, world.shape[0], block):
+        sl = slice(i, i + block)
+        part = dataclasses.replace(jc, joint_pos=jc.joint_pos[sl], trans_axis=jc.trans_axis[sl],
+                                   rot_axis=jc.rot_axis[sl])
+        ref = jac_ops.projection_jacobian_model_plain(part, world[sl], parents, pt, rot, trans,
+                                                      params, scale[sl])
+        worst = max(worst, float((out[sl] - ref).abs().max()))
+        top = max(top, float(ref.abs().max()))
+    assert worst <= PROJECTION_TOL * top, (worst, top)
+
+
+@pytest.mark.parametrize("rig,batch,cameras,tiled", [
+    ("cmu41", 256, 31, False), ("cmu41", 256, 1, False), ("fullbody", 256, 5, True),
+    ("cmu41", 16384, 31, False)], ids=["k31", "k1", "tiled", "cell_b16384"])
+def test_projection_jacobian_kernel_matches_plain(rig, batch, cameras, tiled):
+    """K6's projection form: K cameras' pixel rows of the rig's locators at
+    (B = 256, C = 41, K = 31, P = 73), at K = 1, on the full-body rig
+    (C = 80, P = 157) in several column tiles, and at the multi-view cell's
+    B = 16384 (J 12.2 GB) against the plain form in blocks. One launch a
+    call; the scales' zeros give rows of zeros."""
+    from momentum_tpu_torch.ops import jacobian as jac_ops
+
+    char = _k6_rig(rig)
+    args = workloads.projection_jacobian_inputs(char, batch, cameras, seed=batch + cameras)
+    jc, world, parents, pt, rot, trans, params, scale = args
+    nj, c, p = jc.anc_mask.shape[0], parents.shape[0], pt.shape[1]
+    assert (jac_ops.projection_jacobian_tile(nj, c, cameras, p) < p) == tiled
+    before = jac_ops.projection_launches
+    out = jac_ops.projection_jacobian_model(*args)
+    assert jac_ops.projection_launches == before + 1
+    assert out.shape == (batch, 2 * cameras * c, p)
+    zero = (scale == 0).reshape(batch, cameras * c)
+    assert bool((out.reshape(batch, cameras * c, 2, p)[zero] == 0).all())
+    _projection_close(out, args)
+
+
+def test_projection_modules_take_one_launch_an_evaluation(monkeypatch):
+    """31 cameras' modules over one locator table, as the multi-view cell
+    and the tracker build them: one launch of the projection form and no K6
+    an evaluation of the solver function, the rows the modules' own in
+    their order and J the plain form's."""
+    from momentum_tpu_torch.camera import Camera, OpenCVIntrinsics, PinholeIntrinsics
+    from momentum_tpu_torch.errors import CameraProjectionErrorFunction
+    from momentum_tpu_torch.ops import jacobian as jac_ops
+    from momentum_tpu_torch.solver import SkeletonSolverFunction
+
+    char = _k6_rig("cmu41")
+    loc = char.locators
+    n = loc.num_locators
+    cams = []
+    for k in range(31):
+        az = 2 * np.pi * k / 31
+        intr = (PinholeIntrinsics.create(1400.0, 1400.0, 960.0, 540.0, device="cuda") if k % 4 == 0
+                else OpenCVIntrinsics.create(1400.0, 1400.0, 960.0, 540.0,
+                                             k=(-0.2, 0.1, 0.01, 0.0, 0.0, 0.0),
+                                             p=(5e-4, -5e-4), device="cuda"))
+        cams.append(Camera.create(intr).look_at((2.75 * np.cos(az), 2.75 * np.sin(az), 1.8),
+                                                (0.0, 0.0, 1.0), (0.0, 0.0, 1.0)))
+    g = torch.Generator(device="cpu").manual_seed(31)
+    x = (0.2 * torch.randn(512, char.num_model_parameters, generator=g)).cuda()
+    x[:, 2] += 0.9
+    first = CameraProjectionErrorFunction.create(cams[0], loc.parent.cpu().numpy(),
+                                                 loc.offset.cpu().numpy(), np.zeros((n, 2)),
+                                                 device="cuda")
+    mods = tuple(dataclasses.replace(
+        first, camera=c, target=(960 + 300 * torch.randn(512, n, 2, generator=g)).cuda(),
+        cweight=(torch.rand(512, n, generator=g) > 0.1).float().cuda()) for c in cams)
+    fn = SkeletonSolverFunction(char, mods)
+    before, k6 = jac_ops.projection_launches, jac_ops.launches
+    rows, j = fn.residual_and_jacobian(x)
+    assert jac_ops.projection_launches == before + 1 and jac_ops.launches == k6
+    ctx = fn.context(x)
+    torch.testing.assert_close(rows, torch.cat([m.residual(char, ctx) for m in mods], -1),
+                               rtol=0, atol=1e-3)
+    torch.testing.assert_close(rows, fn.residual(x), rtol=0, atol=0)
+    monkeypatch.setattr(jac_ops, "kernel_takes", lambda *args: False)
+    _, j_plain = fn.residual_and_jacobian(x)
+    assert jac_ops.projection_launches == before + 1
+    torch.testing.assert_close(j, j_plain, rtol=0,
+                               atol=PROJECTION_TOL * float(j_plain.abs().max()))
+
+
+def test_config_6k_keypoint_solves_match_jax_cpu():
+    """Config 6k (config 6s's clip with four cameras' keypoints: pinhole, two
+    OpenCV, fisheye) through chip_smoke's keypoint phase: the batched stage
+    and the smoothed refine, whose analytic cameras now take the projection
+    Jacobian, within chip_smoke's tolerances of JAX CPU's marker and
+    reprojection errors (tools/jax_reference_6k.json)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+
+    counts, numbers, _ = chip_smoke.phase_keypoints(torch.cuda.get_device_name())
+    assert set(numbers) >= {"batched", "refine"}
